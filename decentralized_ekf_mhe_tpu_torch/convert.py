@@ -1,0 +1,118 @@
+"""Carry constants, state and inputs across from the JAX reference.
+
+The estimator has no weights; what the two implementations must share is
+constants, state and inputs. ``from_jax_numpy`` takes one of the reference's
+NamedTuples whose leaves the CALLER has already turned into numpy arrays
+(``jax.tree.map(np.asarray, obj)``) and returns this package's counterpart on
+the requested device and dtype. Fields are matched by name, so this module
+imports nothing of the reference and nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.ops import assembly, bezier, ekf_lanes, estimator, mhe, mhe_lanes
+
+
+def _tensor(a, dtype, device):
+    """numpy leaf -> tensor; floats take ``dtype``, ints int32, bools bool."""
+    a = np.array(a)  # own, writable copy
+    if a.dtype.kind == "f":
+        return torch.as_tensor(a).to(dtype=dtype, device=device)
+    if a.dtype.kind in "iu":
+        return torch.as_tensor(a.astype(np.int32)).to(device)
+    if a.dtype.kind == "b":
+        return torch.as_tensor(a).to(device)
+    raise TypeError(f"cannot convert leaf of dtype {a.dtype}")
+
+
+def _is_empty(v):
+    return v is None or (isinstance(v, tuple) and len(v) == 0)
+
+
+def _fields(obj, cls, dtype, device, skip=()):
+    return {f: _tensor(getattr(obj, f), dtype, device)
+            for f in cls._fields if f not in skip}
+
+
+def _bezier(obj, dtype, device):
+    if np.ndim(obj.count) != 0:
+        raise NotImplementedError(
+            "per-instance Bezier schedules are not ported yet: ROADMAP.md, "
+            "'per-instance VO'")
+    return bezier.BezierCarry(**_fields(obj, bezier.BezierCarry, dtype, device))
+
+
+def _mhe_consts(obj, dtype, device):
+    if not _is_empty(obj.x_lb) or not _is_empty(obj.x_ub) or obj.admm is not None:
+        raise NotImplementedError(
+            "constrained MHE constants are not ported yet: ROADMAP.md, "
+            "'constrained ADMM'")
+    nc = assembly.NoiseConsts(
+        **_fields(obj.nc, assembly.NoiseConsts, dtype, device))
+    return mhe.MHEConsts(
+        nc=nc,
+        A_meas=_tensor(obj.A_meas, dtype, device),
+        P_cam=_tensor(obj.P_cam, dtype, device),
+        Q_vo_p=_tensor(obj.Q_vo_p, dtype, device),
+        N=int(obj.N), dim_state=int(obj.dim_state), dim_meas=int(obj.dim_meas),
+        dt=float(obj.dt), leg_odom_type=int(obj.leg_odom_type),
+        num_legs=int(obj.num_legs), use_pallas=bool(obj.use_pallas),
+    )
+
+
+def _mhe_state(obj, dtype, device):
+    if not _is_empty(obj.z_adm) or not _is_empty(obj.y_adm):
+        raise NotImplementedError(
+            "ADMM warm-start state is not ported yet: ROADMAP.md, "
+            "'constrained ADMM'")
+    skip = ("T", "bez", "z_adm", "y_adm")
+    return mhe_lanes.MHEStateL(
+        T=int(obj.T), bez=_bezier(obj.bez, dtype, device),
+        **_fields(obj, mhe_lanes.MHEStateL, dtype, device, skip=skip))
+
+
+def _ekf_consts(obj, dtype, device):
+    return ekf_lanes.EKFConstsL(
+        dt=float(obj.dt),
+        C_gyro=np.asarray(obj.C_gyro, np.float64),
+        C_accel=np.asarray(obj.C_accel, np.float64),
+        C_vo=np.asarray(obj.C_vo, np.float64),
+        gravity=np.asarray(obj.gravity, np.float64),
+        quirk_W=bool(obj.quirk_W),
+    )
+
+
+def _ekf_state(obj, dtype, device):
+    return ekf_lanes.EKFStateL(
+        t=int(obj.t),
+        **_fields(obj, ekf_lanes.EKFStateL, dtype, device, skip=("t",)))
+
+
+_CONVERTERS = {
+    "MHEConsts": _mhe_consts,
+    "EKFConstsL": _ekf_consts,
+    "MHEStateL": _mhe_state,
+    "EKFStateL": _ekf_state,
+    "BezierCarry": _bezier,
+    "TickData": lambda o, dt, dev: estimator.TickData(
+        **_fields(o, estimator.TickData, dt, dev)),
+    "VOData": lambda o, dt, dev: estimator.VOData(
+        **_fields(o, estimator.VOData, dt, dev)),
+    "EKFBlocks": lambda o, dt, dev: estimator.EKFBlocks(
+        **_fields(o, estimator.EKFBlocks, dt, dev)),
+}
+
+
+def from_jax_numpy(obj, device, dtype):
+    """Convert one of the reference's NamedTuples (numpy leaves) to this
+    package's counterpart: MHEConsts, EKFConstsL, MHEStateL, EKFStateL,
+    BezierCarry, TickData, VOData or EKFBlocks, chosen by the class name.
+    Float leaves are cast to ``dtype``; integers become int32, booleans stay
+    bool; scalar counters (``T``, ``t``) become Python ints."""
+    name = type(obj).__name__
+    if name not in _CONVERTERS:
+        raise TypeError(f"from_jax_numpy: no counterpart for {name}")
+    return _CONVERTERS[name](obj, dtype, torch.device(device))

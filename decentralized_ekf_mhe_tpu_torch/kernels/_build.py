@@ -1,0 +1,127 @@
+"""Builds the CUDA sources of ``csrc/`` with nvcc and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so a
+build takes seconds) and becomes its own shared library
+``build/<hash>/lib<name>.so``, where ``<hash>`` covers every file under
+``csrc/`` and the compiler flags. All sources are compiled in parallel, one
+nvcc process each, at first use; nothing is built when the package is
+imported. A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+SOURCES = ("tridiag", "ekf", "mhe")
+
+_c_int, _c_void_p = ctypes.c_int, ctypes.c_void_p
+_ARGTYPES = {
+    "tridiag": ("dem_tridiag_solve",
+                [_c_int, _c_int] + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
+    "ekf": ("dem_ekf_stage",
+            [_c_int, _c_void_p, _c_void_p] + [_c_int] * 8 + [_c_void_p]),
+    "mhe": ("dem_mhe_tick",
+            [_c_int] * 5 + [_c_void_p, _c_int, _c_void_p] + [_c_int] * 5
+            + [_c_void_p]),
+}
+
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of this package are built from "
+            "source at first use and need the CUDA toolkit")
+    return exe
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode())
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> str:
+    """Compile every source that is not built yet; returns the build dir."""
+    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    os.makedirs(out_dir, exist_ok=True)
+    todo = [n for n in SOURCES
+            if not os.path.exists(os.path.join(out_dir, f"lib{n}.so"))]
+    if not todo:
+        return out_dir
+    nvcc = _nvcc()
+    procs = []
+    for n in todo:
+        tmp = os.path.join(out_dir, f"lib{n}.so.{os.getpid()}.tmp")
+        cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + [
+            "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        procs.append((n, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for n, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{out}")
+            continue
+        if verbose and out:
+            print(out)
+        os.replace(tmp, os.path.join(out_dir, f"lib{n}.so"))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out_dir
+
+
+def load(name: str):
+    """The C entry point of ``csrc/<name>.cu`` with its argtypes set."""
+    if name not in _libs:
+        out_dir = build()
+        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+        fn_name, argtypes = _ARGTYPES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = fn
+    return _libs[name]
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise on the launcher's return value (cudaGetLastError, or -1 for a
+    shape the build does not instantiate)."""
+    if err == -1:
+        raise NotImplementedError(
+            f"{what}: this shape is not instantiated in the CUDA build "
+            "(only Go1: s=9, m=12, L=4, leg_odom_type=0); see ROADMAP.md, "
+            "'Cassie/PogoX shapes'")
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed, cudaError {err}")
+
+
+def require_lanes(name: str, t, shape, dtype, device) -> None:
+    """Wrapper-side operand check: device, dtype, shape and contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

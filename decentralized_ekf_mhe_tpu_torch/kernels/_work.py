@@ -1,0 +1,378 @@
+"""Operation and byte counts of the three kernels, from shapes and schedule.
+
+Used to state each kernel's bound (the least time the card could take for the
+same work): the bytes that must move — every input read once, every output
+written once — and the floating-point operations the function needs.
+
+The counting rule for operations. The algorithm is the one of ``csrc/*.cu``
+(equally of ``ops/mhe_lanes.py`` and ``ops/ekf_lanes.py``), but only work on
+structurally non-trivial operands counts:
+
+* every matrix carries a pattern of structural zeros (``Z``), exact ±1 entries
+  (``U``) and general values (``G``). A product counts one multiply per pair
+  of ``G`` factors and one add per term of a sum beyond the first; a factor
+  that is ``Z`` contributes nothing and a factor that is ``U`` is a copy.
+  So the 0/1 selectors ``A_meas`` and ``P_cam`` cost no multiply, and the
+  block-diagonal and block-triangular matrices (``A_dyn``, ``Q_dyn``,
+  ``Q_meas``, the 6×6 and 9×9 covariance blocks of the assembly) cost only
+  their blocks. The 3×3 noise matrices are general (dense) constants;
+* gravity is ``(0, 0, g)`` by construction, so only its third component
+  multiplies;
+* a product of constants only (``Q_accel_bias / dt²``, the Bezier polynomial
+  coefficients of one VO event) is counted once per tick or event, not per use;
+* a window slot that the warm-up masks to identity (tick ``t < N-1``) costs
+  nothing, and camera terms count only in slots whose camera flag is set —
+  both follow from the shared schedule, which ``mhe_schedule`` and
+  ``ekf_schedule`` walk on the host. The stance covariance of a leg counts
+  only for (tick, leg, instance) triples in stance;
+* a Gauss-Jordan inverse of a dense n×n matrix is n(n+1)(2n−1) operations
+  (n+1 divides and (n−1)(n+1) multiply-subtracts per elimination step), of an
+  identity none.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+Z, U, G = 0, 1, 2
+
+
+# ---- structural patterns ---------------------------------------------------
+
+def _full(r, c, v=G):
+    return np.full((r, c), v, np.int8)
+
+
+def _eye(n):
+    return np.where(np.eye(n, dtype=bool), U, Z).astype(np.int8)
+
+
+def _put(dst, i, j, blk):
+    dst[i:i + blk.shape[0], j:j + blk.shape[1]] = blk
+    return dst
+
+
+def _mm(a, b):
+    """(pattern, operations) of the product a @ b."""
+    nz = (a[:, :, None] != Z) & (b[None, :, :] != Z)
+    mul = (a[:, :, None] == G) & (b[None, :, :] == G)
+    terms = nz.sum(1)
+    ops = int(mul.sum() + np.maximum(terms - 1, 0).sum())
+    unit = (nz & ~((a[:, :, None] == G) | (b[None, :, :] == G))).sum(1)
+    out = np.where(terms == 0, Z, np.where((terms == 1) & (unit == 1), U, G))
+    return out.astype(np.int8), ops
+
+
+def _add(a, b):
+    """(pattern, operations) of a ± b: one add where both are non-zero."""
+    both = (a != Z) & (b != Z)
+    out = np.where(both, G, np.maximum(a, b))
+    return out.astype(np.int8), int(both.sum())
+
+
+def _gj(a):
+    n = a.shape[0]
+    if np.array_equal(a, _eye(n)):
+        return a, 0
+    return _full(n, n), n * (n + 1) * (2 * n - 1)
+
+
+_INV3 = 41       # 9 cofactors (2 multiplies, 1 subtract), determinant 5, 9 divides
+_NORMALIZE = 12  # 4 multiplies, 3 adds, a square root, 4 divides
+
+
+# ---- tridiag_solve ----------------------------------------------------------
+
+def tridiag(N, s, B, itemsize, n_states=None):
+    """(bytes, operations) of one block-tridiagonal solve whose last
+    ``n_states`` slots (default: all N) are real and the others the warm-up's
+    identity blocks with zero coupling and right-hand side."""
+    n_states = N if n_states is None else n_states
+    D, Um, v = _full(s, s), _full(s, s), _full(s, 1)
+    ops = _gj(D)[1] + _mm(D, v)[1]                       # first real slot, last x
+    fwd = (_mm(D, Um)[1] + _mm(Um.T, D)[1] + s * s + 2 * _mm(D, v)[1] + s
+           + _gj(D)[1])
+    bwd = 2 * _mm(D, v)[1] + s
+    ops += (n_states - 1) * (fwd + bwd)
+    nbytes = itemsize * B * (N * s * s + (N - 1) * s * s + 2 * N * s)
+    return nbytes, B * ops
+
+
+# ---- ekf_stage --------------------------------------------------------------
+
+def _ekf_ops(quirk_W):
+    """Operations of (predict + accel_correct, vo_correct) for one instance."""
+    P, q = _full(4, 4), _full(4, 1)
+    F = np.where(np.eye(4, dtype=bool), U, G).astype(np.int8)
+    W = _full(4, 3)
+    if quirk_W:
+        W[3, 1:] = Z
+    FP, o1 = _mm(F, P)
+    _, o2 = _mm(FP, F.T)
+    WC, o3 = _mm(W, _full(3, 3))
+    WCW, o4 = _mm(WC, W.T)
+    predict = (3 + _mm(F, q)[1] + _NORMALIZE + int((W != Z).sum())
+               + o1 + o2 + o3 + o4 + _add(_full(4, 4), WCW)[1])
+    H = _full(3, 4)
+    HP, a1 = _mm(H, P)
+    _, a2 = _mm(HP, H.T)
+    PHt, a3 = _mm(P, H.T)
+    K, a4 = _mm(PHt, _full(3, 3))
+    _, a5 = _mm(K, _full(3, 1))
+    KH, a6 = _mm(K, H)
+    _, a7 = _mm(KH, P)
+    # third row of R(q) (13) times g, the four distinct ±2g·q entries of H,
+    # (|a|/g)², S += rel²·C_accel, inv3, innovation, q += dq, I − KH
+    accel = (_NORMALIZE + 13 + 3 + 4 + 6 + a1 + a2 + 18 + _INV3 + a3 + a4 + 3
+             + a5 + 4 + _NORMALIZE + a6 + 4 + a7)
+    vo = (16 + _gj(P)[1] + _mm(P, P)[1] + 4 + _mm(P, q)[1] + 4 + _NORMALIZE
+          + 4 + _mm(P, P)[1])
+    return predict + accel, vo
+
+
+def ekf_schedule(valid, vo_active, vo_sb, R, t0=0):
+    """Walk the shared schedule on the host: returns (number of valid
+    substeps, number of replayed substeps, number of VO corrections).
+    ``valid``/``vo_active``/``vo_sb`` are nested (T,S) lists."""
+    t, n_valid, n_replayed, n_vo = t0, 0, 0, 0
+    for vrow, arow, srow in zip(valid, vo_active, vo_sb):
+        for v, a, sb in zip(vrow, arow, srow):
+            if not v:
+                continue
+            n_valid += 1
+            if a and 1 <= sb <= t and sb < R:
+                n_replayed += sb - 1
+                n_vo += 1 if sb > 1 else 0
+            t += 1
+    return n_valid, n_replayed, n_vo
+
+
+def ekf(T, B, R, n_valid, n_replayed, n_vo, per_lane_vo_q, itemsize,
+        quirk_W=True):
+    """(bytes, operations) of one EKF-stage call over T ticks."""
+    step, vo = _ekf_ops(quirk_W)
+    ops = B * ((n_valid + n_replayed) * step + n_vo * vo)
+    state = 4 + 16 + R * (3 + 3 + 4 + 16)
+    nbytes = itemsize * B * (n_valid * 6 + 2 * state + T * 4
+                             + (n_vo * 4 if per_lane_vo_q else 0))
+    return nbytes, ops
+
+
+# ---- mhe_tick ---------------------------------------------------------------
+
+def mhe_schedule(active, tick_pre, tick_now, N, bez_count=0):
+    """Walk the shared VO schedule of one ``replay_ticks`` call that starts at
+    tick 1 from the init window (no camera terms set). Per tick returns
+    ``(n_states, cam, marg_cam, vo)``: the number of real window slots, the
+    camera flag of each of the N slots of the solve (oldest first), the flag of
+    the slot being marginalized (None when t < N), and for a tick with a VO
+    pair ``(nodes, written)`` — Bezier nodes evaluated and slots written —
+    else None."""
+    cam = set()          # absolute ticks whose interval carries a camera term
+    out = []
+    for i, (a, pre, now) in enumerate(zip(active, tick_pre, tick_now)):
+        t = i + 1
+        vo = None
+        if a:
+            bez_count += 1
+            w0 = t - min(N, t)
+            start = max(w0, pre)
+            nodes = written = 0
+            if now > w0 and bez_count >= 4:
+                ks = [k for k in range(N)
+                      if k <= now - start - 1 and 0 <= start + k - t + N <= N - 2]
+                cam.update(start + k for k in ks)
+                written = len(ks)
+                nodes = (ks[-1] - ks[0] + 2) if ks else 0
+            vo = (nodes, written)
+        marg_cam = ((t - N) in cam) if t >= N else None
+        n_states = min(t + 1, N)
+        first = N - n_states
+        flags = tuple(first <= j <= N - 2 and (t - N + 1 + j) in cam
+                      for j in range(N))
+        out.append((n_states, flags, marg_cam, vo))
+    return out
+
+
+class _Go1Patterns:
+    """Patterns of the per-slot matrices for leg_odom_type 0."""
+
+    def __init__(self, s, m, L):
+        assert s == 9 and m == 3 * L, "only the leg_odom_type 0 layout is counted"
+        R3, I3 = _full(3, 3), _eye(3)
+        dI = np.where(np.eye(3, dtype=bool), G, Z).astype(np.int8)
+        self.A = np.zeros((s, s), np.int8)
+        for k in range(3):
+            _put(self.A, 3 * k, 3 * k, I3)
+        _put(self.A, 0, 3, dI)
+        _put(self.A, 0, 6, R3)
+        _put(self.A, 3, 6, R3)
+        self.Qd = np.zeros((s, s), np.int8)
+        _put(self.Qd, 0, 0, _full(6, 6))
+        _put(self.Qd, 6, 6, R3)
+        self.b = np.zeros((s, 1), np.int8)
+        self.b[:6] = G
+        self.H = np.zeros((m, s), np.int8)
+        for leg in range(L):
+            _put(self.H, 3 * leg, 3, I3)
+        self.Pc = np.zeros((3, s), np.int8)
+        _put(self.Pc, 0, 0, I3)
+        self.Qm = np.zeros((m, m), np.int8)
+        for leg in range(L):
+            _put(self.Qm, 3 * leg, 3 * leg, R3)
+        self.s, self.m, self.L = s, m, L
+        # cached per-slot terms: H^T R H, H^T R y, A^T Qd, A^T Qd A, A^T Qd b
+        HtR, o1 = _mm(self.H.T, self.Qm)
+        self.HtRH, o2 = _mm(HtR, self.H)
+        self.HtRy, o3 = _mm(HtR, _full(m, 1))
+        self.meas_ops = o1 + o2 + o3
+        self.AtQd, o4 = _mm(self.A.T, self.Qd)
+        self.AtQdA, o5 = _mm(self.AtQd, self.A)
+        self.AtQdb, o6 = _mm(self.AtQd, self.b)
+        self.dyn_ops = o4 + o5 + o6
+        PtQc, _ = _mm(self.Pc.T, R3)
+        self.PtQc = PtQc
+        self.PtQcP, _ = _mm(PtQc, self.Pc)
+        self.PtQc_c, self.cam_vec_ops = _mm(PtQc, _full(3, 1))
+
+
+def _assembly_ops(p):
+    """Operations of one tick's assembly for one instance, the stance
+    covariances apart: (per tick, per stance leg)."""
+    R3 = _full(3, 3)
+    # build_dynamics: dt·R, dt²/2·R, the two products with accel_s, then
+    # C_pv = G C G^T by block and its 6x6 inverse
+    Gm = np.zeros((6, 6), np.int8)
+    _put(Gm, 0, 0, R3), _put(Gm, 0, 3, R3), _put(Gm, 3, 3, R3)
+    Cc = np.zeros((6, 6), np.int8)
+    _put(Cc, 0, 0, R3), _put(Cc, 3, 3, R3)
+    GC, o1 = _mm(Gm, Cc)
+    Cpv, o2 = _mm(GC, Gm.T)
+    dyn = 18 + 6 + o1 + o2 + _gj(Cpv)[1]
+    qcam = 2 * _mm(R3, R3)[1]                      # R Q_vo_p R^T
+    # cache update of the slot that just got its dynamics
+    upd = (p.dyn_ops + _add(p.HtRH, p.AtQdA)[1] + _add(p.HtRy, p.AtQdb)[1])
+    # build_measurement, per leg: y = -(R J dq) - R (w x p)
+    v3 = _full(3, 1)
+    y_leg = _mm(R3, R3)[1] + 2 * _mm(R3, v3)[1] + 9 + 3
+    skew = np.where(np.eye(3, dtype=bool), Z, G).astype(np.int8)
+    wJ, s1 = _mm(skew, R3)
+    Gl = np.concatenate([R3, wJ, skew], axis=1)
+    Cb = np.zeros((9, 9), np.int8)
+    for k in range(3):
+        _put(Cb, 3 * k, 3 * k, R3)
+    GCl, s2 = _mm(Gl, Cb)
+    _, s3 = _mm(GCl, Gl.T)
+    stance = s1 + s2 + s3 + 2 * _mm(R3, R3)[1] + _INV3
+    fresh = p.meas_ops                               # cache of the newest slot
+    prev = _mm(R3, v3)[1] + 3                        # accel_s = R a + g
+    return dyn + qcam + upd + p.L * y_leg + fresh + prev, stance
+
+
+class _Tally:
+    """Pattern arithmetic that adds up its operations in ``ops``."""
+
+    def __init__(self):
+        self.ops = 0
+
+    def _take(self, res):
+        self.ops += res[1]
+        return res[0]
+
+    def mm(self, a, b):
+        return self._take(_mm(a, b))
+
+    def add(self, a, b):
+        return self._take(_add(a, b))
+
+    def gj(self, a):
+        return self._take(_gj(a))
+
+
+def _marg_ops(p, cam):
+    """Operations of one arrival-cost marginalization for one instance."""
+    s = p.s
+    k = _Tally()
+    k.ops = p.dyn_ops + p.meas_ops + (p.cam_vec_ops if cam else 0)
+    app = p.PtQcP if cam else np.zeros_like(p.PtQcP)
+    cvec = p.PtQc_c if cam else np.zeros_like(p.PtQc_c)
+    Qdb = k.mm(p.Qd, p.b)
+    Sm = k.add(k.add(k.add(_full(s, s), p.AtQdA), p.HtRH), app)
+    C01 = k.add(p.AtQd, app)
+    D1 = k.add(p.Qd, app)
+    l0 = k.add(k.add(k.add(_full(s, 1), p.AtQdb), p.HtRy), cvec)
+    l1 = k.add(Qdb, cvec)
+    Sinv = k.gj(Sm)
+    k.add(D1, k.mm(C01.T, k.mm(Sinv, C01)))          # new M_p
+    k.add(l1, k.mm(C01.T, k.mm(Sinv, l0)))           # new n_p
+    return k.ops
+
+
+def _solve_ops(p, N, n_states, cam):
+    """Operations of the masked normal equations and the streaming forward
+    block-Thomas sweep of one tick for one instance."""
+    s = p.s
+    first = N - n_states
+    zero, zvec = np.zeros((s, s), np.int8), np.zeros((s, 1), np.int8)
+    Sinv, yv, U_prev = _eye(s), zvec, zero
+    prev_QdPP, prev_rin = zero, zvec
+    k = _Tally()
+    for j in range(first, N):
+        iv = j <= N - 2
+        PtQcP = p.PtQcP if cam[j] else zero
+        cvec = p.PtQc_c if cam[j] else zvec
+        k.ops += p.cam_vec_ops if cam[j] else 0
+        Qd = p.Qd if iv else zero
+        Qd_b = k.mm(Qd, p.b)
+        # the cached slot terms: measurement only for the newest slot
+        D = _add(p.HtRH, p.AtQdA)[0] if iv else p.HtRH
+        r = _add(p.HtRy, p.AtQdb)[0] if iv else p.HtRy
+        D = k.add(k.add(D, PtQcP), prev_QdPP)
+        r = k.add(k.add(r, cvec), prev_rin)
+        if j == first:                                # arrival cost M_p, n_p
+            D = k.add(D, _full(s, s))
+            r = k.add(r, _full(s, 1))
+        prev_QdPP = k.add(Qd, PtQcP)
+        prev_rin = k.add(Qd_b, cvec)
+        Uj = k.add(p.AtQd, PtQcP) if iv else zero
+        D = k.add(D, k.mm(U_prev.T, k.mm(Sinv, U_prev)))
+        yv = k.add(r, k.mm(U_prev.T, k.mm(Sinv, yv)))
+        Sinv = k.gj(D)
+        U_prev = Uj
+    k.mm(Sinv, yv)
+    return k.ops
+
+
+# per VO event: p_accum += inc, t_now; with Bezier increments also the
+# interval and its reciprocal steps (5) and the cubic's coefficients (13 per
+# axis); per node u, u², u³ and a three-term Horner sum per axis; per written
+# slot one difference per axis
+_VO_EVENT, _VO_SETUP, _VO_NODE, _VO_WRITE = 4, 5 + 39, 4 + 18, 3
+
+
+def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize):
+    """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
+    starting at tick 1. ``schedule`` comes from ``mhe_schedule``;
+    ``n_stance`` is the number of (tick, leg, instance) triples in stance."""
+    p = _Go1Patterns(s, m, L)
+    per_tick, stance = _assembly_ops(p)
+    marg = {c: _marg_ops(p, c) for c in (False, True)}
+    solve = {}
+    ops = 0
+    for n_states, cam, marg_cam, vo in schedule:
+        key = (n_states, cam)
+        if key not in solve:
+            solve[key] = _solve_ops(p, N, n_states, cam)
+        ops += per_tick + solve[key]
+        if marg_cam is not None:
+            ops += marg[marg_cam]
+        if vo is not None:
+            nodes, written = vo
+            ops += _VO_EVENT + (_VO_SETUP + nodes * _VO_NODE
+                                + written * _VO_WRITE if nodes else 0)
+    Tn = len(schedule)
+    per_tick_in = 9 + 3 + 3 + L * 3 + L * 9 + L * 3 + L + 3
+    state = (N * (m + m * m + 3 * s * s + 2 * s + 3 + 9 + 1 + s * s)
+             + s * s + s + 12 + 3 + 9 + 3 + L)
+    nbytes = itemsize * B * (Tn * (per_tick_in + s) + 2 * state)
+    return nbytes, B * ops + n_stance * stance

@@ -1,0 +1,135 @@
+"""Orientation-EKF stage: hand-written CUDA kernel + plain version.
+
+Replaces the reference's TPU kernel ``pallas/ekf_kernel.py`` (``replay`` →
+``_chunk_call`` → ``_make_kernel``) with ``csrc/ekf.cu``: the whole 500 Hz
+stage — history-ring push, delayed-VO rewind + replay with the 4×4 VO
+correction at the first replayed step, gyro predict, (‖a‖/g)²-scaled accel
+correct — as ONE launch over all the ticks handed to it, one CUDA thread per
+instance. The TPU wrapper's time chunking existed for on-chip memory
+residency and compile size and does not carry over; neither does the
+128-instance tile (any B works, the ragged edge is masked in the kernel).
+
+Where the state lives: q and P in registers for the whole call; the history
+rings in global memory (instance-minor, coalesced, slot shared by the warp).
+What bounds it on an H100: operations (about 1k per substep against 6
+streamed inputs, ``kernels/_work.py``); at B≈1k the serial chain of one
+instance on 32 warps sets the time. Nothing is done about occupancy yet.
+
+``replay`` keeps the carry-in/carry-out contract: state in, final state out,
+so a log split over two calls equals one call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.kernels import _build
+from decentralized_ekf_mhe_tpu_torch.ops.ekf import GRAVITY
+from decentralized_ekf_mhe_tpu_torch.ops.ekf_lanes import EKFStateL
+from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
+
+BLOCK = 32
+launches = 0     # incremented where the CUDA kernel is launched, nowhere else
+
+
+def replay_plain(ec, ekf_st, eb):
+    """Plain PyTorch version: ``estimator.scan_ekf_blocks`` (a Python loop
+    over ``ekf_lanes.substep_block``). Returns (q_seq (T,4,B), final_state)."""
+    from decentralized_ekf_mhe_tpu_torch.ops import estimator
+
+    final, q_seq = estimator.scan_ekf_blocks(ekf_st, eb, ec)
+    return q_seq, final
+
+
+def _pack_consts(ec) -> np.ndarray:
+    return np.concatenate([
+        [float(ec.dt)],
+        np.asarray(ec.C_gyro, np.float64).ravel(),
+        np.asarray(ec.C_accel, np.float64).ravel(),
+        np.asarray(ec.C_vo, np.float64).ravel(),
+        np.asarray(ec.gravity, np.float64).ravel(),
+        [GRAVITY * GRAVITY],
+    ]).astype(np.float64)
+
+
+def replay(ec, ekf_st: EKFStateL, eb, device="cuda"):
+    """Full EKF stage over the blocks handed in.
+
+    Args:
+      ec: ekf_lanes.EKFConstsL.
+      ekf_st: ekf_lanes.EKFStateL (lanes layout, any B).
+      eb: estimator.EKFBlocks with lanes gyro/accel (T,S,3,B), SHARED
+        valid/vo_active/vo_steps_back (T,S), vo_q shared (T,S,4) or per-lane
+        (T,S,4,B).
+    Returns (q_seq (T,4,B), final_state); the input state is not modified.
+    CPU tensors (``device="cpu"``) take the plain version; CUDA tensors
+    launch the kernel or raise.
+    """
+    device = resolve_device(device)
+    if eb.gyro.ndim != 4:
+        raise ValueError(f"gyro: expected (T,S,3,B), got {tuple(eb.gyro.shape)}")
+    if eb.vo_active.ndim != 2:
+        raise NotImplementedError(
+            "per-lane VO timing is not ported yet: ROADMAP.md, "
+            "'per-instance VO'")
+    T, S, _, B = eb.gyro.shape
+    R = ekf_st.gyro_hist.shape[0]
+    dtype = ekf_st.q.dtype
+    dev = ekf_st.q.device
+    if dev.type != device.type:
+        raise ValueError(f"state on {dev}, expected {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype} not supported")
+    per_lane_vo_q = eb.vo_q.ndim == 4
+    _build.require_lanes("gyro", eb.gyro, (T, S, 3, B), dtype, dev)
+    _build.require_lanes("accel", eb.accel, (T, S, 3, B), dtype, dev)
+    _build.require_lanes("vo_q", eb.vo_q,
+                         (T, S, 4, B) if per_lane_vo_q else (T, S, 4), dtype, dev)
+    for name, a in (("valid", eb.valid), ("vo_active", eb.vo_active),
+                    ("vo_steps_back", eb.vo_steps_back)):
+        if tuple(a.shape) != (T, S) or a.device != dev:
+            raise ValueError(f"{name}: expected shared (T,S)={T, S} on {dev}")
+    if dev.type == "cpu":
+        return replay_plain(ec, ekf_st, eb)
+    return _launch(ec, ekf_st, eb)
+
+
+def _launch(ec, ekf_st: EKFStateL, eb):
+    """Copy the state, launch ``dem_ekf_stage`` on the current stream over
+    all T ticks, count the launch."""
+    global launches
+    T, S, _, B = eb.gyro.shape
+    R = ekf_st.gyro_hist.shape[0]
+    dtype, dev = ekf_st.q.dtype, ekf_st.q.device
+    per_lane_vo_q = eb.vo_q.ndim == 4
+    state = [ekf_st.q, ekf_st.P, ekf_st.gyro_hist, ekf_st.accel_hist,
+             ekf_st.q_hist, ekf_st.P_hist]
+    shapes = [(4, B), (4, 4, B), (R, 3, B), (R, 3, B), (R, 4, B), (R, 4, 4, B)]
+    for a, sh in zip(state, shapes):
+        _build.require_lanes("ekf state", a, sh, dtype, dev)
+    # the kernel updates the state in place: work on copies
+    state = [a.clone() for a in state]
+    valid = eb.valid.to(torch.int32).contiguous()
+    vo_active = eb.vo_active.to(torch.int32).contiguous()
+    vo_sb = eb.vo_steps_back.to(torch.int32).contiguous()
+    q_seq = torch.empty((T, 4, B), dtype=dtype, device=dev)
+
+    fn = _build.load("ekf")
+    tensors = [eb.gyro, eb.accel, valid, vo_active, vo_sb, eb.vo_q] + state + [q_seq]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    consts = _pack_consts(ec)
+    with torch.cuda.device(dev):
+        err = fn(int(dtype == torch.float64), ptrs, consts.ctypes.data,
+                 int(bool(ec.quirk_W)), T, S, R, B, int(ekf_st.t),
+                 int(per_lane_vo_q), BLOCK,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "ekf_stage")
+    launches += 1
+    # the substep counter advances by the number of valid substeps
+    t_final = int(ekf_st.t) + int(valid.sum().item())
+    final = EKFStateL(q=state[0], P=state[1], t=t_final, gyro_hist=state[2],
+                      accel_hist=state[3], q_hist=state[4], P_hist=state[5])
+    return q_seq, final

@@ -1,0 +1,320 @@
+"""The MHE replay loop: hand-written CUDA kernel + plain version.
+
+Replaces the reference's TPU mega-kernel ``pallas/mhe_replay_kernel.py``
+(``replay`` → ``_replay_chunk`` → ``_make_kernel`` in its shared-clock,
+unconstrained, Gauss-Jordan form) with ``csrc/mhe.cu``: one CUDA thread per
+instance loops over the ticks handed to it, each tick being VO ingestion +
+Bezier carry, arrival-cost marginalization, ring shift + assembly of the two
+changed slots, the incremental ``Dslot/Ub/routb`` cache update, and the
+masked normal equations with a streaming forward block-Thomas sweep.
+
+Design on an H100 (details in ``csrc/mhe.cu``): parallelism is the instance
+axis only; time is a loop inside ONE launch per ``replay_ticks`` call (the
+TPU wrapper's chunking and its 128-instance tiles do not carry over — any B
+works, the ragged edge is masked in the kernel); the ~10.3k scalars of window
+state per instance stay in global memory in the instance-minor layout
+(coalesced; L2-resident at B=1024 in float32), addressed by the physical ring
+slot. What bounds it: operations, and in practice the serial dependency chain
+of one instance with B/32 warps in flight and the s×s temporaries spilling to
+local memory. Nothing is done about occupancy yet.
+
+Not ported (each raises ``NotImplementedError``): per-instance VO clocks,
+the box-ADMM constrained tail, the Cholesky tail, the ablation switches, and
+shapes other than Go1's (s=9, m=12, L=4, leg_odom_type=0). ROADMAP.md lists
+them.
+
+State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
+order together with the tick counter ``t`` (newest tick in the window), so a
+log split over two ``replay_ticks`` calls equals one call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.kernels import _build
+from decentralized_ekf_mhe_tpu_torch.ops import bezier, lanes, mhe_lanes
+from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
+
+BLOCK = 32
+launches = 0     # incremented where the CUDA kernel is launched, nowhere else
+
+# positions of the ring-indexed tensors (leading axis N) in KernelState.arrays
+_RING = (0, 1, 2, 3, 4, 5, 6, 7, 15, 16, 17)
+
+
+class KernelConsts(NamedTuple):
+    """Host (numpy) constants handed to the kernel by value."""
+
+    N: int
+    s: int
+    m: int
+    L: int
+    lot: int              # leg_odom_type
+    dt: float
+    A_meas: np.ndarray    # (m,s)
+    P_cam: np.ndarray     # (3,s)
+    Q_vo_p: np.ndarray    # (3,3)
+    C_p: np.ndarray
+    C_accel: np.ndarray
+    Q_accel_bias: np.ndarray
+    C_enc_pos: np.ndarray
+    C_enc_vel: np.ndarray
+    C_gyro: np.ndarray
+    Q_foot_swing: np.ndarray
+    gravity: np.ndarray   # (3,)
+
+
+def consts_from_mhe(c) -> KernelConsts:
+    """Extract the numpy constants the kernel needs from ops.mhe.MHEConsts
+    (one small device-to-host copy per call when the consts live on CUDA)."""
+    nc = c.nc
+    f = lambda a: a.detach().to("cpu", torch.float64).numpy()
+    return KernelConsts(
+        N=int(c.N), s=int(c.dim_state), m=int(c.dim_meas),
+        L=int(c.num_legs), lot=int(c.leg_odom_type), dt=float(c.dt),
+        A_meas=f(c.A_meas), P_cam=f(c.P_cam), Q_vo_p=f(c.Q_vo_p),
+        C_p=f(nc.C_p), C_accel=f(nc.C_accel),
+        Q_accel_bias=f(nc.Q_accel_bias), C_enc_pos=f(nc.C_enc_pos),
+        C_enc_vel=f(nc.C_enc_vel), C_gyro=f(nc.C_gyro),
+        Q_foot_swing=f(nc.Q_foot_swing),
+        gravity=f(nc.gravity),
+    )
+
+
+def _pack_consts(kc: KernelConsts) -> np.ndarray:
+    return np.concatenate([
+        [kc.dt], kc.A_meas.ravel(), kc.P_cam.ravel(), kc.Q_vo_p.ravel(),
+        kc.C_p.ravel(), kc.C_accel.ravel(), kc.Q_accel_bias.ravel(),
+        kc.C_enc_pos.ravel(), kc.C_enc_vel.ravel(), kc.C_gyro.ravel(),
+        kc.Q_foot_swing.ravel(), kc.gravity.ravel(),
+    ]).astype(np.float64)
+
+
+class KernelState(NamedTuple):
+    """Window state as the kernel holds it between calls."""
+
+    arrays: tuple             # the 18 tensors of state_shapes(), physical ring order
+    bez_times: torch.Tensor   # (4,) shared Bezier waypoint times
+    bez_count: torch.Tensor   # (1,) int32
+    t: int                    # newest tick in the window
+
+
+def state_shapes(N, s, m, L):
+    """Per-instance shapes of ``KernelState.arrays`` (the instance axis B is
+    appended): y_meas, Q_meas, A_dyn, b_dyn, Q_dyn, b_cam, Q_cam, cam_act,
+    M_p, n_p, bez_pts, p_accum, prev_R, prev_accel_s, prev_contact, and the
+    incremental assembly caches Dslot, Ub, routb."""
+    return [
+        (N, m), (N, m, m), (N, s, s), (N, s), (N, s, s), (N, 3),
+        (N, 3, 3), (N,), (s, s), (s,), (4, 3), (3,), (3, 3), (3,), (L,),
+        (N, s, s), (N, s, s), (N, s),
+    ]
+
+
+def _state_to_arrays(st: mhe_lanes.MHEStateL, c):
+    """MHEStateL -> the 18 kernel tensors in LOGICAL slot order, including
+    the incremental assembly caches, computed from whatever state is handed
+    in (so resumed states work too):
+        Dslot[p] = HᵀR_p H + A_pᵀQd_p A_p;  Ub[p] = −A_pᵀQd_p;
+        routb[p] = HᵀR_p y_p + A_pᵀQd_p b_p
+    """
+    pts = torch.movedim(st.bez.pts, 0, -1)          # (B,4,3) -> (4,3,B)
+    p_accum = torch.movedim(st.bez.p_accum, 0, -1)  # (B,3) -> (3,B)
+    H = c.A_meas.to(st.y_meas.dtype)
+    HtR = lanes.cmm_t(H, st.Q_meas)              # (N,s,m,B)
+    AtQd = lanes.mm_tn(st.A_dyn, st.Q_dyn)       # (N,s,s,B)
+    Dslot = lanes.mmc(HtR, H) + lanes.mm(AtQd, st.A_dyn)
+    Ub = -AtQd
+    routb = lanes.mv(HtR, st.y_meas) + lanes.mv(AtQd, st.b_dyn)
+    return (
+        st.y_meas, st.Q_meas, st.A_dyn, st.b_dyn, st.Q_dyn, st.b_cam,
+        st.Q_cam, st.cam_active.to(st.y_meas.dtype), st.M_p, st.n_p,
+        pts, p_accum, st.prev_R, st.prev_accel_s, st.prev_contact,
+        Dslot, Ub, routb,
+    )
+
+
+def kernel_state_from_mhe(st: mhe_lanes.MHEStateL, c) -> KernelState:
+    """Logical window -> physical ring order: logical slot l of the window
+    whose newest tick is T sits at physical slot (T % N + l) % N."""
+    base = int(st.T) % c.N
+    arrays = list(_state_to_arrays(st, c))
+    for k in _RING:
+        arrays[k] = torch.roll(arrays[k], base, dims=0)
+    arrays = tuple(a.contiguous() for a in arrays)
+    dtype = st.y_meas.dtype
+    return KernelState(
+        arrays=arrays,
+        bez_times=st.bez.times.to(dtype).contiguous(),
+        bez_count=st.bez.count.reshape(1).to(torch.int32),
+        t=int(st.T),
+    )
+
+
+def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
+    """Inverse of ``kernel_state_from_mhe`` (the caches are dropped)."""
+    base = ks.t % c.N
+    a = list(ks.arrays)
+    for k in _RING:
+        a[k] = torch.roll(a[k], -base, dims=0)
+    return mhe_lanes.MHEStateL(
+        y_meas=a[0], Q_meas=a[1], A_dyn=a[2], b_dyn=a[3], Q_dyn=a[4],
+        b_cam=a[5], Q_cam=a[6], cam_active=a[7] != 0, M_p=a[8], n_p=a[9],
+        T=ks.t,
+        bez=bezier.BezierCarry(
+            pts=torch.movedim(a[10], -1, 0), times=ks.bez_times,
+            count=ks.bez_count.reshape(()), p_accum=torch.movedim(a[11], -1, 0)),
+        prev_R=a[12], prev_accel_s=a[13], prev_contact=a[14],
+    )
+
+
+def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
+    """Plain PyTorch version of ``replay_ticks``: a Python loop over
+    ``mhe_lanes.step`` on the logical (shift-by-roll) window."""
+    st = mhe_state_from_kernel(ks, c)
+    Tn = data_l.accel_b.shape[0]
+    active = vo.active.tolist()
+    tick_pre = vo.tick_pre.tolist()
+    tick_now = vo.tick_now.tolist()
+    xs = []
+    for i in range(Tn):
+        st, (x_T, _) = mhe_lanes.step(
+            c, st, data_l.R_sb[i], data_l.accel_b[i], data_l.omega_b[i],
+            data_l.p_foot[i], data_l.J_foot[i], data_l.dq[i],
+            data_l.contact[i], active[i], None, tick_pre[i], tick_now[i],
+            None, vo_inc=vo_inc[i])
+        xs.append(x_T)
+    s, B = c.dim_state, data_l.accel_b.shape[-1]
+    x = (torch.stack(xs, dim=0) if xs else
+         torch.zeros((0, s, B), dtype=data_l.accel_b.dtype,
+                     device=data_l.accel_b.device))
+    return x, kernel_state_from_mhe(st, c)
+
+
+def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
+    """Advance the window over the ticks handed in.
+
+    Args:
+      c: ops.mhe.MHEConsts (unconstrained).
+      ks: KernelState whose newest tick is ``ks.t``; the first tick of
+        ``data_l`` is tick ``ks.t + 1``.
+      data_l: estimator.TickData in lanes layout (Tn, ..., B), contiguous.
+      vo: estimator.VOData for the same ticks (shared schedule; ``dp_body``
+        is not read here).
+      vo_inc: (Tn,3,B) world-frame VO increments
+        (``estimator.vo_world_increments``), zero on inactive ticks.
+    Returns (x (Tn,s,B), new KernelState); ``ks`` is not modified. CPU
+    tensors (``device="cpu"``) take the plain version; CUDA tensors launch
+    the kernel or raise.
+    """
+    device = resolve_device(device)
+    if c.x_lb is not None:
+        raise NotImplementedError(
+            "the box-ADMM constrained tick is not ported yet: ROADMAP.md, "
+            "'constrained ADMM'")
+    if vo.active.ndim != 1:
+        raise NotImplementedError(
+            "per-instance VO clocks are not ported yet: ROADMAP.md, "
+            "'per-instance VO'")
+    N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
+    if N < 2:
+        raise ValueError("the window needs N >= 2")
+    Tn = data_l.accel_b.shape[0]
+    B = data_l.accel_b.shape[-1]
+    dtype = ks.arrays[0].dtype
+    dev = ks.arrays[0].device
+    if dev.type != device.type:
+        raise ValueError(f"state on {dev}, expected {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype} not supported")
+    inputs = [
+        ("R_sb", data_l.R_sb, (Tn, 3, 3, B)),
+        ("accel_b", data_l.accel_b, (Tn, 3, B)),
+        ("omega_b", data_l.omega_b, (Tn, 3, B)),
+        ("p_foot", data_l.p_foot, (Tn, L, 3, B)),
+        ("J_foot", data_l.J_foot, (Tn, L, 3, 3, B)),
+        ("dq", data_l.dq, (Tn, L, 3, B)),
+        ("contact", data_l.contact, (Tn, L, B)),
+        ("vo_inc", vo_inc, (Tn, 3, B)),
+    ]
+    for name, a, sh in inputs:
+        _build.require_lanes(name, a, sh, dtype, dev)
+    for a, sh in zip(ks.arrays, state_shapes(N, s, m, L)):
+        _build.require_lanes("window state", a, sh + (B,), dtype, dev)
+    for name, a in (("vo.active", vo.active), ("vo.tick_pre", vo.tick_pre),
+                    ("vo.tick_now", vo.tick_now)):
+        if tuple(a.shape) != (Tn,) or a.device != dev:
+            raise ValueError(f"{name}: expected shared (T,)=({Tn},) on {dev}")
+    if dev.type == "cpu":
+        return replay_ticks_plain(c, ks, data_l, vo, vo_inc)
+    return _launch(c, ks, [a for _, a, _ in inputs], vo)
+
+
+def _launch(c, ks: KernelState, inputs, vo):
+    """Copy the window state, launch ``dem_mhe_tick`` on the current stream
+    over all Tn ticks, count the launch. ``inputs`` are the eight per-tick
+    tensors in the kernel's order (R, accel, omega, p_foot, J_foot, dq,
+    contact, vo_inc)."""
+    global launches
+    N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
+    Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
+    dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
+    kc = consts_from_mhe(c)
+    # the kernel updates the window in place: work on copies
+    state = [a.clone() for a in ks.arrays]
+    x = torch.empty((Tn, s, B), dtype=dtype, device=dev)
+    bez_times_out = torch.empty((4,), dtype=dtype, device=dev)
+    bez_count_out = torch.empty((1,), dtype=torch.int32, device=dev)
+    meta = [vo.active.to(torch.int32).contiguous(),
+            vo.tick_pre.to(torch.int32).contiguous(),
+            vo.tick_now.to(torch.int32).contiguous()]
+    tensors = (meta + [ks.bez_times.to(dtype).contiguous(),
+                       ks.bez_count.to(torch.int32).contiguous()]
+               + list(inputs) + state
+               + [x, bez_times_out, bez_count_out])
+    fn = _build.load("mhe")
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    consts = _pack_consts(kc)
+    with torch.cuda.device(dev):
+        err = fn(int(dtype == torch.float64), s, m, L, kc.lot, ptrs,
+                 len(tensors), consts.ctypes.data, N, B, Tn, ks.t + 1, BLOCK,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "mhe_tick")
+    launches += 1
+    return x, KernelState(arrays=tuple(state), bez_times=bez_times_out,
+                          bez_count=bez_count_out, t=ks.t + Tn)
+
+
+def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
+    """Full-log fleet MHE replay.
+
+    Args:
+      c: ops.mhe.MHEConsts.
+      data_l: estimator.TickData in LANES layout (T, ..., B) on ``device``.
+      vo: estimator.VOData — the shared fleet schedule (active (T,), dp_body
+        (T,3) or per-lane (T,3,B) content).
+    Returns x_seq (T, s, B) — newest-state estimate per tick. Tick 0 is the
+    init-window solve (through ``tridiag_kernel.solve_lanes`` when
+    ``c.use_pallas``), as in ``estimator.run_mhe_lanes``; ticks 1.. run in
+    ``replay_ticks``.
+    """
+    from decentralized_ekf_mhe_tpu_torch.ops import estimator
+
+    device = resolve_device(device)
+    N = c.N
+    d0 = estimator.TickData(*(a[0] for a in data_l))
+    st0 = mhe_lanes.init(c, d0.R_sb, d0.accel_b, d0.omega_b, d0.p_foot,
+                         d0.J_foot, d0.dq, d0.contact, dtype=dtype,
+                         device=device)
+    x0 = mhe_lanes.solve_window(c, st0)[N - 1]            # (s,B)
+    vo_inc = estimator.vo_world_increments(data_l.R_sb, vo)
+    rest = estimator.TickData(*(a[1:] for a in data_l))
+    vo_rest = estimator.VOData(*(a[1:] for a in vo))
+    x, _ = replay_ticks(c, kernel_state_from_mhe(st0, c), rest, vo_rest,
+                        vo_inc[1:], device=device)
+    return torch.cat([x0[None], x], dim=0)

@@ -1,0 +1,82 @@
+"""Batched block-tridiagonal solve: hand-written CUDA kernel + plain version.
+
+Replaces the reference's TPU kernel ``pallas/tridiag_kernel.py``
+(``solve_lanes`` → ``_kernel``) with ``csrc/tridiag.cu``: one CUDA thread per
+instance runs the forward block-Thomas sweep with a pivot-free Gauss-Jordan
+inverse per slot and the backward sweep, on operands in the instance-minor
+lanes layout, so a warp's loads are coalesced. The TPU kernel's lane-tile
+padding does not carry over: the ragged edge is masked in the kernel.
+
+What bounds it on an H100: bytes (about 5k floating-point operations per
+slot against 2·s² + 2·s values moved, ``kernels/_work.py``) — and, below a
+few tens of thousands of instances, the serial dependency chain of one
+instance, because B instances fill only B/32 warps. The design does nothing about that yet (several threads
+per instance and shared-memory staging are later work); it is the simple
+version that is right.
+
+On the main path this kernel runs once per replay: the tick-0 init solve of
+``mhe_replay_kernel.replay``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.kernels import _build
+from decentralized_ekf_mhe_tpu_torch.ops import lanes
+from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
+
+BLOCK = 32       # threads per block: one warp, so a small fleet spreads over SMs
+launches = 0     # incremented where the CUDA kernel is launched, nowhere else
+
+
+def solve_lanes_plain(D, U, r):
+    """Plain PyTorch version: ``ops.lanes.thomas_solve``."""
+    return lanes.thomas_solve(D, U, r)
+
+
+def solve_lanes(D, U, r, device="cuda"):
+    """Solve with instance-on-lanes operands.
+
+    Args:
+      D: (N, s, s, B) diagonal blocks (already warmup-masked).
+      U: (N-1, s, s, B) couplings.
+      r: (N, s, B) right-hand side.
+    Returns x: (N, s, B). CPU tensors (``device="cpu"``) take the plain
+    version; CUDA tensors launch the kernel or raise.
+    """
+    device = resolve_device(device)
+    if D.ndim != 4:
+        raise ValueError(f"D: expected (N,s,s,B), got {tuple(D.shape)}")
+    N, s, _, B = D.shape
+    if D.device.type != device.type:
+        raise ValueError(f"D: on {D.device}, expected {device}")
+    if D.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"D: dtype {D.dtype} not supported")
+    dev = D.device
+    _build.require_lanes("D", D, (N, s, s, B), D.dtype, dev)
+    _build.require_lanes("U", U, (N - 1, s, s, B), D.dtype, dev)
+    _build.require_lanes("r", r, (N, s, B), D.dtype, dev)
+    if dev.type == "cpu":
+        return solve_lanes_plain(D, U, r)
+    return _launch(D, U, r)
+
+
+def _launch(D, U, r):
+    """Allocate output and scratch, launch ``dem_tridiag_solve`` on the
+    current stream, count the launch."""
+    global launches
+    N, s, _, B = D.shape
+    dev = D.device
+    fn = _build.load("tridiag")
+    x = torch.empty((N, s, B), dtype=D.dtype, device=dev)
+    Sinv_ws = torch.empty((N, s, s, B), dtype=D.dtype, device=dev)
+    y_ws = torch.empty((N, s, B), dtype=D.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(int(D.dtype == torch.float64), s, D.data_ptr(), U.data_ptr(),
+                 r.data_ptr(), x.data_ptr(), Sinv_ws.data_ptr(),
+                 y_ws.data_ptr(), N, B, BLOCK,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "tridiag_solve")
+    launches += 1
+    return x

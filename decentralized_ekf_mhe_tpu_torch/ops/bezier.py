@@ -1,0 +1,99 @@
+"""Cubic-Bezier VO interpolation carry (shared-schedule form).
+
+The reference turns sparse ~30 Hz VO frames into per-tick equality-constraint
+increments by fitting a cubic Bezier over the last 4 accumulated VO waypoints
+and sampling it at the estimator rate (Bezier_simple.cpp:12-82, driven from
+DecentralEst.cpp:915-933). The waypoint list is a fixed (B,4,3) buffer and
+interpolation emits a fixed-length masked node array.
+
+Waypoint *times* (4,) and the *count* (0-d int32) are shared by the whole
+fleet — one camera clock. Per-instance schedules (times (B,4), count (B,))
+are not ported yet: ROADMAP.md, "per-instance VO".
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
+
+
+class BezierCarry(NamedTuple):
+    pts: torch.Tensor      # (...,4,3) control points, oldest..newest
+    times: torch.Tensor    # (4,) shared waypoint times
+    count: torch.Tensor    # 0-d int32: points ever added
+    p_accum: torch.Tensor  # (...,3) accumulated world-frame VO path
+
+
+def init(dtype=torch.float32, batch=(), per_instance_schedule=False,
+         device="cuda") -> BezierCarry:
+    if per_instance_schedule:
+        raise NotImplementedError(
+            "per-instance Bezier schedules are not ported yet: ROADMAP.md, "
+            "'per-instance VO'")
+    device = resolve_device(device)
+    return BezierCarry(
+        pts=torch.zeros(tuple(batch) + (4, 3), dtype=dtype, device=device),
+        times=torch.zeros((4,), dtype=dtype, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        p_accum=torch.zeros(tuple(batch) + (3,), dtype=dtype, device=device),
+    )
+
+
+def add_way_point(c: BezierCarry, p: torch.Tensor, t_end) -> BezierCarry:
+    """Push (p, t); keep the last 4 (Bezier_simple.cpp:12-27). Returns a new
+    carry; the old tensors are not modified."""
+    count = int(c.count)
+    pts, times = c.pts, c.times
+    if count >= 4:
+        pts = torch.roll(pts, -1, dims=-2)
+        times = torch.roll(times, -1, dims=-1)
+        write = 3
+    else:
+        pts = pts.clone()
+        times = times.clone()
+        write = max(count, 0)
+    pts[..., write, :] = p
+    times[write] = torch.as_tensor(t_end, dtype=times.dtype, device=times.device)
+    return BezierCarry(pts=pts, times=times, count=c.count + 1,
+                       p_accum=c.p_accum)
+
+
+def _bezier(u, P0, P1, P2, P3):
+    """Cubic blend (Bezier_simple.cpp:73-82); u (n,) broadcasts over nodes,
+    P* are (...,3) -> result (...,n,3)."""
+    u = u[..., :, None]
+    P0, P1, P2, P3 = (P[..., None, :] for P in (P0, P1, P2, P3))
+    return (
+        u**3 * (-P0 + 3 * P1 - 3 * P2 + P3)
+        + u**2 * (3 * P0 - 6 * P1 + 3 * P2)
+        + u * (-3 * P0 + 3 * P1)
+        + P0
+    )
+
+
+def interpolate_increments(c: BezierCarry, t_start, num, dt, max_nodes: int):
+    """Sample ``num`` nodes from t_start at spacing dt; returns per-node
+    increments (diffs (...,max_nodes,3)), nodes, and a validity mask.
+
+    diffs[0] = node_0 − 0 (node_pre seeded to zero, Bezier_simple.cpp:70) —
+    the consumer skips it exactly as UpdateVOConstraints does
+    (DecentralEst.cpp:993-999 uses _distances[i+1]).
+    """
+    dtype, dev = c.times.dtype, c.times.device
+    t_interval = c.times[3] - c.times[0]
+    u0 = (torch.as_tensor(t_start, dtype=dtype, device=dev) - c.times[0]) / t_interval
+    du = dt / t_interval
+    i = torch.arange(max_nodes, dtype=dtype, device=dev)
+    u = u0 + du * i
+    nodes = _bezier(
+        u, c.pts[..., 0, :], c.pts[..., 1, :], c.pts[..., 2, :], c.pts[..., 3, :]
+    )
+    node_prev = torch.cat(
+        [torch.zeros_like(nodes[..., :1, :]), nodes[..., :-1, :]], dim=-2
+    )
+    diffs = nodes - node_prev
+    mask = i < torch.as_tensor(num, dtype=dtype, device=dev)
+    return diffs, nodes, mask

@@ -1,0 +1,273 @@
+"""Estimation replays: run the decentralized EKF → MHE pipeline over a log.
+
+Counterpart of the reference ``ops/estimator.py``. The reference scans each
+stage with ``lax.scan``; here the plain versions are Python loops over the
+eager lanes functions (thousands of small launches — fine on the CPU and as
+the kernels' reference at small sizes, not a production path), and the
+production path replaces each loop with one hand-written CUDA kernel
+(``kernels/ekf_kernel.py``, ``kernels/mhe_replay_kernel.py``).
+
+Ported: ``TickData``, ``VOData``, ``EKFBlocks`` and their ``*_from_log``
+packers, ``scan_ekf_blocks``, ``run_mhe_lanes`` (shared camera clock) and
+``run_pipeline_lanes``. The KF baseline (``run_kf``), the standard-layout MHE
+(``run_mhe``) and ``ekf_orientation_sequence`` are listed in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.config import EstimatorParams
+from decentralized_ekf_mhe_tpu_torch.ops import kf
+from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
+
+
+class TickData(NamedTuple):
+    """Per-MHE-tick aligned inputs (leading axis = time)."""
+
+    accel_b: torch.Tensor   # (T,3)      | lanes (T,3,B)
+    omega_b: torch.Tensor   # (T,3)      | (T,3,B)
+    R_sb: torch.Tensor      # (T,3,3)    | (T,3,3,B) orientation input
+    p_foot: torch.Tensor    # (T,L,3)    | (T,L,3,B)
+    J_foot: torch.Tensor    # (T,L,3,3)  | (T,L,3,3,B)
+    dq: torch.Tensor        # (T,L,3)    | (T,L,3,B)
+    contact: torch.Tensor   # (T,L)      | (T,L,B)
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.asarray(a)).to(dtype=dtype, device=device)
+
+
+def tickdata_from_log(log, R_sb=None, dtype=torch.float64,
+                      device="cuda") -> TickData:
+    """Pack a SynthLog / replay log into TickData (time-leading)."""
+    device = resolve_device(device)
+    R = log.R_sb_gt if R_sb is None else R_sb
+    return TickData(
+        accel_b=_t(log.accel_b, dtype, device),
+        omega_b=_t(log.omega_b, dtype, device),
+        R_sb=_t(R, dtype, device),
+        p_foot=_t(log.p_foot, dtype, device),
+        J_foot=_t(log.J_foot, dtype, device),
+        dq=_t(log.dq, dtype, device),
+        contact=_t(log.contact, dtype, device),
+    )
+
+
+class VOData(NamedTuple):
+    """Per-tick VO event stream (time-leading), from the alignment pass."""
+
+    active: torch.Tensor    # (T,) bool
+    dp_body: torch.Tensor   # (T,3) shared or (T,3,B) per-lane content
+    tick_pre: torch.Tensor  # (T,) int32
+    tick_now: torch.Tensor  # (T,) int32
+
+
+def vodata_from_log(log, dtype=torch.float64, device="cuda") -> VOData:
+    device = resolve_device(device)
+    return VOData(
+        active=_t(log.vo_active, torch.bool, device),
+        dp_body=_t(log.vo_dp_body, dtype, device),
+        tick_pre=_t(log.vo_tick_pre, torch.int32, device),
+        tick_now=_t(log.vo_tick_now, torch.int32, device),
+    )
+
+
+def _empty_vo(T_total, dtype, device) -> VOData:
+    return VOData(
+        active=torch.zeros(T_total, dtype=torch.bool, device=device),
+        dp_body=torch.zeros((T_total, 3), dtype=dtype, device=device),
+        tick_pre=torch.zeros(T_total, dtype=torch.int32, device=device),
+        tick_now=torch.zeros(T_total, dtype=torch.int32, device=device),
+    )
+
+
+def vo_world_increments(R_seq, vo: VOData):
+    """World-frame VO increments R_seq[tick_pre] @ dp, zeroed on inactive
+    ticks: (T,3,B). ``vo.dp_body`` is shared (T,3) or per-lane (T,3,B). One
+    gather over the whole log (the R_vo_sb_pre lookup of
+    DecentralEst.cpp:915) instead of a history ring."""
+    from decentralized_ekf_mhe_tpu_torch.ops import lanes
+
+    T_total, B = R_seq.shape[0], R_seq.shape[-1]
+    if vo.active.ndim != 1:
+        raise NotImplementedError(
+            "per-instance VO schedules are not ported yet: ROADMAP.md, "
+            "'per-instance VO'")
+    dtype = R_seq.dtype
+    dp = vo.dp_body.to(dtype)
+    R_pre = R_seq[vo.tick_pre.long()]                       # (T,3,3,B)
+    dp_l = (dp[:, :, None] if dp.ndim == 2 else dp).expand(T_total, 3, B)
+    return lanes.mv(R_pre, dp_l) * vo.active.to(dtype)[:, None, None]
+
+
+def run_mhe_lanes(
+    params: EstimatorParams,
+    data: TickData,
+    vo: Optional[VOData] = None,
+    lever_arm=kf.DEFAULT_LEVER_ARM,
+    dtype=torch.float32,
+    consts=None,
+    device="cuda",
+):
+    """Fleet MHE replay in instance-on-lanes layout: init at tick 0, then one
+    ``mhe_lanes.step`` per tick (a Python loop; the plain version of the
+    ``mhe_tick`` kernel).
+
+    ``data`` fields are lanes-layout time-leading and on ``device``: accel_b
+    (T,3,B), R_sb (T,3,3,B), p_foot (T,L,3,B), ... ``vo`` is the shared fleet
+    VO schedule (active (T,), dp_body (T,3) or (T,3,B), ticks (T,)).
+    Returns (x_seq (T,B,s), v_b_seq (T,B,3)) in standard layout.
+    """
+    from decentralized_ekf_mhe_tpu_torch.ops import lanes, mhe, mhe_lanes
+
+    device = resolve_device(device)
+    c = consts if consts is not None else mhe.make_consts(
+        params, dtype, device=device)
+    T_total = data.accel_b.shape[0]
+    B = data.accel_b.shape[-1]
+    if vo is None:
+        vo = _empty_vo(T_total, dtype, device)
+    vo_inc = vo_world_increments(data.R_sb, vo)
+    active = vo.active.tolist()
+    tick_pre = vo.tick_pre.tolist()
+    tick_now = vo.tick_now.tolist()
+    lever_l = torch.tensor(lever_arm, dtype=dtype, device=device)[:, None].expand(3, B)
+
+    def body_vel(x_T, R_sb, omega_b):
+        return lanes.mv(R_sb, x_T[3:6] + lanes.cross(omega_b, lever_l))
+
+    d0 = TickData(*(a[0] for a in data))
+    st = mhe_lanes.init(c, d0.R_sb, d0.accel_b, d0.omega_b, d0.p_foot,
+                        d0.J_foot, d0.dq, d0.contact, dtype=dtype,
+                        device=device)
+    x0 = mhe_lanes.solve_window(c, st)[c.N - 1]
+    xs = [x0]
+    vs = [body_vel(x0, d0.R_sb, d0.omega_b)]
+    for t in range(1, T_total):
+        d = TickData(*(a[t] for a in data))
+        st, (x_T, _) = mhe_lanes.step(
+            c, st, d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq,
+            d.contact, active[t], None, tick_pre[t], tick_now[t], None,
+            vo_inc=vo_inc[t],
+        )
+        xs.append(x_T)
+        vs.append(body_vel(x_T, d.R_sb, d.omega_b))
+    x_seq = torch.stack(xs, dim=0)   # (T,s,B)
+    v_seq = torch.stack(vs, dim=0)
+    return torch.movedim(x_seq, -1, 1), torch.movedim(v_seq, -1, 1)
+
+
+class EKFBlocks(NamedTuple):
+    """EKF-rate inputs regrouped per MHE tick (the 500/200 Hz sub-stepping):
+    tick k owns EKF substeps bounds[k]..bounds[k+1]-1, padded to S_max slots
+    with ``valid`` masking the padding. vo_* carry the delayed VO quaternion
+    events at EKF resolution (shared across a fleet — one camera log)."""
+
+    gyro: torch.Tensor           # (T,S,3) or lanes (T,S,3,B)
+    accel: torch.Tensor          # (T,S,3) or lanes (T,S,3,B)
+    valid: torch.Tensor          # (T,S) bool, shared
+    vo_active: torch.Tensor      # (T,S) bool, shared
+    vo_q: torch.Tensor           # (T,S,4) shared or (T,S,4,B) per-lane
+    vo_steps_back: torch.Tensor  # (T,S) int32, shared
+
+
+def ekfblocks_from_log(log, dtype=torch.float64, device="cuda") -> EKFBlocks:
+    """Pack a log's EKF-rate streams into per-MHE-tick padded blocks."""
+    device = resolve_device(device)
+    substeps = np.asarray(log.ekf_substeps, np.int64)
+    T = substeps.shape[0]
+    S = int(substeps.max()) if T else 0
+    bounds = np.concatenate([[0], np.cumsum(substeps)])
+
+    def blk(src, shape_tail, fill=0):
+        out = np.full((T, S) + shape_tail, fill, dtype=np.asarray(src).dtype)
+        for k in range(T):
+            n = substeps[k]
+            out[k, :n] = np.asarray(src)[bounds[k]:bounds[k] + n]
+        return out
+
+    valid = np.zeros((T, S), bool)
+    for k in range(T):
+        valid[k, : substeps[k]] = True
+    return EKFBlocks(
+        gyro=_t(blk(log.ekf_gyro, (3,)), dtype, device),
+        accel=_t(blk(log.ekf_accel, (3,)), dtype, device),
+        valid=_t(valid, torch.bool, device),
+        vo_active=_t(blk(np.asarray(log.ekf_vo_active, bool), ()),
+                     torch.bool, device),
+        vo_q=_t(blk(log.ekf_vo_q, (4,)), dtype, device),
+        vo_steps_back=_t(blk(np.asarray(log.ekf_vo_steps_back, np.int64), ()),
+                         torch.int32, device),
+    )
+
+
+def scan_ekf_blocks(ekf_st, ekf_blocks: EKFBlocks, ec):
+    """Run the per-tick EKF substep blocks over the whole log (a Python loop;
+    the plain version of the ``ekf_stage`` kernel). The shared metadata is
+    copied to the host once, so the loop reads no device scalar.
+    Returns (final_state, q_seq (T,4,B))."""
+    from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes
+
+    if ekf_blocks.vo_active.ndim != 2:
+        raise NotImplementedError(
+            "per-lane VO timing is not ported yet: ROADMAP.md, "
+            "'per-instance VO'")
+    T = ekf_blocks.gyro.shape[0]
+    valid = ekf_blocks.valid.tolist()
+    vo_active = ekf_blocks.vo_active.tolist()
+    vo_sb = ekf_blocks.vo_steps_back.tolist()
+    qs = []
+    st = ekf_st
+    for k in range(T):
+        st = ekf_lanes.substep_block(
+            st, ekf_blocks.gyro[k], ekf_blocks.accel[k], valid[k],
+            vo_active[k], ekf_blocks.vo_q[k], vo_sb[k], ec)
+        qs.append(st.q)
+    dtype, dev = ekf_st.q.dtype, ekf_st.q.device
+    q_seq = (torch.stack(qs, dim=0) if qs
+             else torch.zeros((0,) + tuple(ekf_st.q.shape), dtype=dtype, device=dev))
+    return st, q_seq
+
+
+def run_pipeline_lanes(
+    params: EstimatorParams,
+    ekf_params,
+    data: TickData,
+    ekf_blocks: EKFBlocks,
+    vo: Optional[VOData] = None,
+    lever_arm=kf.DEFAULT_LEVER_ARM,
+    dtype=torch.float32,
+    consts=None,
+    ekf_ring_len: int = 16,
+    device="cuda",
+):
+    """Staged EKF(500 Hz) → MHE(200 Hz) fleet replay in lanes layout, eager:
+    stage 1 runs every tick's EKF substeps producing the fused orientation
+    sequence; stage 2 is the lanes MHE replay consuming it. The reference
+    dataflow is strictly orien_ekf → imu/filter → est_sub with no feedback,
+    so staging is an exact reordering. ``data.R_sb`` is IGNORED — orientation
+    comes from the EKF.
+
+    ``data`` fields are lanes-layout time-leading (T,...,B); ``ekf_blocks``
+    gyro/accel are lanes (T,S,3,B). Returns (x_seq (T,B,s), v_b (T,B,3),
+    q_seq (T,4,B) fused quaternions).
+    """
+    from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes, mhe
+
+    device = resolve_device(device)
+    c = consts if consts is not None else mhe.make_consts(
+        params, dtype, device=device)
+    ec = ekf_lanes.make_consts(ekf_params, dtype)
+    B = data.accel_b.shape[-1]
+    ekf_st = ekf_lanes.init_state(ekf_params, B, ring_len=ekf_ring_len,
+                                  dtype=dtype, device=device)
+    _, q_seq = scan_ekf_blocks(ekf_st, ekf_blocks, ec)      # (T,4,B)
+    R_seq = ekf_lanes.to_rot(q_seq)                         # (T,3,3,B)
+    x_seq, v_seq = run_mhe_lanes(
+        params, data._replace(R_sb=R_seq), vo=vo, lever_arm=lever_arm,
+        dtype=dtype, consts=c, device=device)
+    return x_seq, v_seq, q_seq
