@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from decentralized_ekf_mhe_tpu_torch.ops import assembly, bezier, ekf_lanes, estimator, mhe, mhe_lanes
+from decentralized_ekf_mhe_tpu_torch.ops import admm, assembly, bezier, ekf_lanes, estimator, mhe, mhe_lanes
 
 
 def _tensor(a, dtype, device):
@@ -45,11 +45,18 @@ def _bezier(obj, dtype, device):
     return bezier.BezierCarry(**_fields(obj, bezier.BezierCarry, dtype, device))
 
 
+def _admm_settings(obj):
+    """The reference's ADMMSettings -> this package's, field by field."""
+    if obj is None:
+        return None
+    defaults = admm.ADMMSettings._field_defaults
+    return admm.ADMMSettings(
+        **{f: type(defaults[f])(np.asarray(getattr(obj, f)).item())
+           for f in admm.ADMMSettings._fields})
+
+
 def _mhe_consts(obj, dtype, device):
-    if not _is_empty(obj.x_lb) or not _is_empty(obj.x_ub) or obj.admm is not None:
-        raise NotImplementedError(
-            "constrained MHE constants are not ported yet: ROADMAP.md, "
-            "'constrained ADMM'")
+    bound = lambda v: None if _is_empty(v) else _tensor(v, dtype, device)
     nc = assembly.NoiseConsts(
         **_fields(obj.nc, assembly.NoiseConsts, dtype, device))
     return mhe.MHEConsts(
@@ -59,18 +66,18 @@ def _mhe_consts(obj, dtype, device):
         Q_vo_p=_tensor(obj.Q_vo_p, dtype, device),
         N=int(obj.N), dim_state=int(obj.dim_state), dim_meas=int(obj.dim_meas),
         dt=float(obj.dt), leg_odom_type=int(obj.leg_odom_type),
-        num_legs=int(obj.num_legs), use_pallas=bool(obj.use_pallas),
+        num_legs=int(obj.num_legs),
+        x_lb=bound(obj.x_lb), x_ub=bound(obj.x_ub),
+        admm=_admm_settings(obj.admm), use_pallas=bool(obj.use_pallas),
     )
 
 
 def _mhe_state(obj, dtype, device):
-    if not _is_empty(obj.z_adm) or not _is_empty(obj.y_adm):
-        raise NotImplementedError(
-            "ADMM warm-start state is not ported yet: ROADMAP.md, "
-            "'constrained ADMM'")
     skip = ("T", "bez", "z_adm", "y_adm")
+    warm = lambda v: () if _is_empty(v) else _tensor(v, dtype, device)
     return mhe_lanes.MHEStateL(
         T=int(obj.T), bez=_bezier(obj.bez, dtype, device),
+        z_adm=warm(obj.z_adm), y_adm=warm(obj.y_adm),
         **_fields(obj, mhe_lanes.MHEStateL, dtype, device, skip=skip))
 
 

@@ -34,6 +34,20 @@
 // operations per tick and instance, kernels/_work.py, against ~100 values that
 // must be read), in practice the serial dependency chain. The dense loops here
 // do not exploit the zero pattern of A_meas, P_cam, A_dyn and Q_dyn.
+//
+// The constrained variant (template parameter CON; the TPU kernel with
+// admm_ks set, mhe_replay_kernel.py:660-666, 722-731, 787-800). With state box
+// constraints the window solve is the box-ADMM of admm.cuh, which needs the
+// WHOLE masked system at once, not slot by slot. So the assembly loop writes
+// D_j, U_j, r_j to per-launch scratch in global memory (same instance-minor
+// layout; the wrapper allocates it) where the unconstrained variant runs its
+// Thomas step, and admm_box_solve then works on that scratch. The warm-start
+// iterates z, y are two more ring-indexed state tensors: the fresh slot copies
+// the previous newest iterate before the solve, and the solve updates them in
+// place through the ring. Per tick it also writes the iterations each instance
+// ran. The unconstrained instantiation compiles to what it was: every
+// constrained statement sits behind `if constexpr (CON)`.
+#include "admm.cuh"
 #include "smallmat.cuh"
 
 namespace dem {
@@ -94,6 +108,25 @@ struct MhePtrs {
   T* x;              // (Tn,s,B)
   T* bez_times_out;  // (4,)
   int* bez_count_out; // (1,)
+};
+
+// Operands of the constrained variant beyond MhePtrs.
+template <typename T>
+struct MheBox {
+  const T* lb;   // (s,B) per-lane lower bounds
+  const T* ub;   // (s,B)
+  T* z_adm;      // (N,s,B) ADMM warm start, ring-indexed state
+  T* y_adm;      // (N,s,B)
+  int* iters;    // (Tn,B) out: ADMM iterations run per tick and instance
+  // per-launch scratch: the masked window system, the x iterate, the
+  // factorization chain, the forward-sweep vectors
+  T* Dw;         // (N,s,s,B)
+  T* Uw;         // (N-1,s,s,B)
+  T* rw;         // (N,s,B)
+  T* xw;         // (N,s,B)
+  T* Sinv;       // (N,s,s,B)
+  T* ys;         // (N,s,B)
+  AdmmSettings<T> admm;
 };
 
 template <typename T>
@@ -226,12 +259,20 @@ DEM_HD void build_measurement(const MheConsts<T, S, M>& c, const T* R, const T* 
   }
 }
 
-template <typename T, int S, int M, int L>
-DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c, int N,
-                     int B, int Tn, int t0, int b) {
+template <typename T, int S, int M, int L, bool CON>
+DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c,
+                     const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
   constexpr int SS = S * S;
   constexpr int MM = M * M;
   const T dt = c.dt;
+  T lb[S], ub[S];
+  AdmmPtrs<T> w;
+  if constexpr (CON) {
+    load<S>(lb, q->lb, 0, B, b);
+    load<S>(ub, q->ub, 0, B, b);
+    w.D = q->Dw; w.U = q->Uw; w.r = q->rw; w.x = q->xw;
+    w.z = q->z_adm; w.y = q->y_adm; w.Sinv = q->Sinv; w.ys = q->ys;
+  }
 
   // private copy of the fleet-global Bezier schedule
   T bt[4];
@@ -430,6 +471,15 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c, int N,
       store<3>(p.prev_acc, 0, B, b, acc_s);
       store<L>(p.prev_ct, 0, B, b, ct);
     }
+    if constexpr (CON) {
+      // warm-start shift: the fresh slot (new logical N-1 = physical pN1)
+      // reuses the previous newest iterate (old logical N-1 = physical pN2)
+      T v[S];
+      load<S>(v, q->z_adm, (size_t)pN2 * S, B, b);
+      store<S>(q->z_adm, (size_t)pN1 * S, B, b, v);
+      load<S>(v, q->y_adm, (size_t)pN2 * S, B, b);
+      store<S>(q->y_adm, (size_t)pN1 * S, B, b, v);
+    }
 
     // ---- masked normal equations + streaming forward block-Thomas ---------
     const int n_states = (t + 1 < N) ? t + 1 : N;
@@ -494,7 +544,12 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c, int N,
       DEM_UNROLL
       for (int k = 0; k < SS; ++k) U_j[k] = u_on ? (U_j[k] - PtQcP[k]) : T(0);
 
-      if (j == 0) {
+      if constexpr (CON) {
+        // collect the masked system for the whole-window ADMM below
+        store<SS>(q->Dw, (size_t)j * SS, B, b, D_j);
+        store<S>(q->rw, (size_t)j * S, B, b, r_j);
+        if (j < N - 1) store<SS>(q->Uw, (size_t)j * SS, B, b, U_j);
+      } else if (j == 0) {
         gj_inv<S>(D_j, Sinv);
         DEM_UNROLL
         for (int k = 0; k < S; ++k) yv[k] = r_j[k];
@@ -510,11 +565,21 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c, int N,
         for (int k = 0; k < S; ++k) yv[k] = r_j[k] - t2[k];
         gj_inv<S>(D_j, Sinv);
       }
-      DEM_UNROLL
-      for (int k = 0; k < SS; ++k) U_prev[k] = U_j[k];
+      if constexpr (!CON) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) U_prev[k] = U_j[k];
+      }
     }
     T xT[S];
-    matvec<S, S>(Sinv, yv, xT);   // logical N-1 = newest state
+    if constexpr (CON) {
+      // whole-window box-ADMM, warm-started from and written back to the
+      // z/y ring (logical slot j at physical (base_new + j) % N)
+      q->iters[(size_t)i * B + b] =
+          admm_box_solve<T, S>(w, q->admm, lb, ub, base_new, N, B, b);
+      load<S>(xT, q->xw, (size_t)(N - 1) * S, B, b);
+    } else {
+      matvec<S, S>(Sinv, yv, xT);   // logical N-1 = newest state
+    }
     store<S>(p.x, (size_t)i * S, B, b, xT);
   }
 
@@ -529,16 +594,28 @@ __global__ void mhe_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, int N, int B,
                            int Tn, int t0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  mhe_body<T, S, M, L>(p, c, N, B, Tn, t0, b);
+  mhe_body<T, S, M, L, false>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+template <typename T, int S, int M, int L>
+__global__ void mhe_box_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, MheBox<T> q,
+                               int N, int B, int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, true>(p, c, &q, N, B, Tn, t0, b);
 }
 
 constexpr int MHE_NPTRS = 34;
+constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 11;
 
 // ptrs: the 34 pointers of MhePtrs in declaration order.
 // consts (double): dt, H[m*s], Pc[3*s], then Q_vo_p, C_p, C_accel,
 // Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro, Q_foot_swing (9 each), gravity[3].
+// box_ptrs (constrained variant, else null): lb, ub, z_adm, y_adm, iters, then
+// the scratch Dw, Uw, rw, xw, Sinv, ys; ints/reals as admm_settings reads them.
 template <typename T, int S, int M, int L>
-int mhe_launch(void* const* ptrs, const double* consts, int N, int B, int Tn,
+int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
+               const int* ints, const double* reals, int N, int B, int Tn,
                int t0, int block, void* stream) {
   MhePtrs<T> p;
   int q = 0;
@@ -588,7 +665,25 @@ int mhe_launch(void* const* ptrs, const double* consts, int N, int B, int Tn,
     for (int i = 0; i < 9; ++i) nine[a][i] = (T)consts[k++];
   for (int i = 0; i < 3; ++i) c.gravity[i] = (T)consts[k++];
   const int grid = (B + block - 1) / block;
-  mhe_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+  if (box_ptrs == nullptr) {
+    mhe_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+    return (int)cudaGetLastError();
+  }
+  MheBox<T> bx;
+  q = 0;
+  bx.lb = (const T*)box_ptrs[q++];
+  bx.ub = (const T*)box_ptrs[q++];
+  bx.z_adm = (T*)box_ptrs[q++];
+  bx.y_adm = (T*)box_ptrs[q++];
+  bx.iters = (int*)box_ptrs[q++];
+  bx.Dw = (T*)box_ptrs[q++];
+  bx.Uw = (T*)box_ptrs[q++];
+  bx.rw = (T*)box_ptrs[q++];
+  bx.xw = (T*)box_ptrs[q++];
+  bx.Sinv = (T*)box_ptrs[q++];
+  bx.ys = (T*)box_ptrs[q++];
+  bx.admm = admm_settings<T>(ints, reals);
+  mhe_box_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
   return (int)cudaGetLastError();
 }
 
@@ -603,6 +698,24 @@ extern "C" int dem_mhe_tick(int is_double, int S, int M, int L, int lot,
   if (S != 9 || M != 12 || L != 4 || lot != 0 || nptrs != dem::MHE_NPTRS || N < 2)
     return -1;
   if (is_double)
-    return dem::mhe_launch<double, 9, 12, 4>(ptrs, consts, N, B, Tn, t0, block, stream);
-  return dem::mhe_launch<float, 9, 12, 4>(ptrs, consts, N, B, Tn, t0, block, stream);
+    return dem::mhe_launch<double, 9, 12, 4>(ptrs, consts, nullptr, nullptr, nullptr,
+                                             N, B, Tn, t0, block, stream);
+  return dem::mhe_launch<float, 9, 12, 4>(ptrs, consts, nullptr, nullptr, nullptr,
+                                          N, B, Tn, t0, block, stream);
+}
+
+// The constrained variant: ptrs are the 34 pointers of MhePtrs followed by the
+// 11 of MheBox (mhe_launch lists them); ints/reals are the ADMM settings.
+extern "C" int dem_mhe_tick_box(int is_double, int S, int M, int L, int lot,
+                                void* const* ptrs, int nptrs, const double* consts,
+                                const int* ints, const double* reals, int N, int B,
+                                int Tn, int t0, int block, void* stream) {
+  if (S != 9 || M != 12 || L != 4 || lot != 0 || nptrs != dem::MHE_BOX_NPTRS || N < 2)
+    return -1;
+  void* const* box = ptrs + dem::MHE_NPTRS;
+  if (is_double)
+    return dem::mhe_launch<double, 9, 12, 4>(ptrs, consts, box, ints, reals, N, B,
+                                             Tn, t0, block, stream);
+  return dem::mhe_launch<float, 9, 12, 4>(ptrs, consts, box, ints, reals, N, B, Tn,
+                                          t0, block, stream);
 }

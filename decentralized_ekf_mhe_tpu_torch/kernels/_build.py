@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-SOURCES = ("tridiag", "ekf", "mhe")
+SOURCES = ("tridiag", "ekf", "mhe", "admm")
 
 _c_int, _c_void_p = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
@@ -36,7 +36,15 @@ _ARGTYPES = {
     "mhe": ("dem_mhe_tick",
             [_c_int] * 5 + [_c_void_p, _c_int, _c_void_p] + [_c_int] * 5
             + [_c_void_p]),
+    "admm": ("dem_admm_solve",
+             [_c_int, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p]
+             + [_c_int] * 3 + [_c_void_p]),
+    # second entry point of csrc/mhe.cu: the box-constrained tick
+    "mhe_box": ("dem_mhe_tick_box",
+                [_c_int] * 5 + [_c_void_p, _c_int] + [_c_void_p] * 3
+                + [_c_int] * 5 + [_c_void_p]),
 }
+_LIB_OF = {"mhe_box": "mhe"}     # entry points that share another's library
 
 _libs: dict = {}
 
@@ -60,11 +68,14 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> str:
-    """Compile every source that is not built yet; returns the build dir."""
-    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+def build(verbose: bool = False, extra_flags=(), sources=SOURCES) -> str:
+    """Compile every source of ``sources`` that is not built yet; returns the
+    build dir. ``extra_flags`` are further nvcc flags; such a variant gets a
+    build dir of its own."""
+    flags = NVCC_FLAGS + list(extra_flags)
+    out_dir = os.path.join(BUILD_ROOT, _source_hash() + "".join(extra_flags))
     os.makedirs(out_dir, exist_ok=True)
-    todo = [n for n in SOURCES
+    todo = [n for n in sources
             if not os.path.exists(os.path.join(out_dir, f"lib{n}.so"))]
     if not todo:
         return out_dir
@@ -72,7 +83,7 @@ def build(verbose: bool = False) -> str:
     procs = []
     for n in todo:
         tmp = os.path.join(out_dir, f"lib{n}.so.{os.getpid()}.tmp")
-        cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + [
+        cmd = [nvcc] + flags + (["-Xptxas", "-v"] if verbose else []) + [
             "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
         procs.append((n, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -90,17 +101,50 @@ def build(verbose: bool = False) -> str:
     return out_dir
 
 
-def load(name: str):
-    """The C entry point of ``csrc/<name>.cu`` with its argtypes set."""
-    if name not in _libs:
-        out_dir = build()
-        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+def load(name: str, extra_flags=()):
+    """The C entry point ``name`` (a source of ``csrc/``, or a further entry
+    point of one, ``_LIB_OF``) with its argtypes set. The wrappers load the
+    standard build; ``extra_flags`` gives the entry point of a variant build
+    (see ``build``) to a caller that compares two builds."""
+    key = name if not extra_flags else (name,) + tuple(extra_flags)
+    if key not in _libs:
+        src = _LIB_OF.get(name, name)
+        out_dir = (build(extra_flags=extra_flags, sources=(src,))
+                   if extra_flags else build())
+        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{src}.so"))
         fn_name, argtypes = _ARGTYPES[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return _libs[name]
+        _libs[key] = fn
+    return _libs[key]
+
+
+class KernelTimer:
+    """CUDA events around a wrapper's kernel call alone, so its time can be
+    told apart from the wrapper's copies and allocations. Off by default;
+    while ``on``, every launch adds one event pair."""
+
+    def __init__(self):
+        self.on = False
+        self._events = []
+
+    def record(self, stream):
+        """Record an event on ``stream`` if the timer is on (called right
+        before and right after the kernel call)."""
+        if self.on:
+            import torch
+
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            self._events.append(ev)
+
+    def ms(self):
+        """Device times of the launches recorded so far, then forget them."""
+        ev, self._events = self._events, []
+        if ev:
+            ev[-1].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(ev[::2], ev[1::2])]
 
 
 def check_launch(err: int, what: str) -> None:

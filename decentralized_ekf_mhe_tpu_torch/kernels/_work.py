@@ -1,4 +1,5 @@
-"""Operation and byte counts of the three kernels, from shapes and schedule.
+"""Operation and byte counts of the kernels, from shapes, schedule and the
+iterations the box-ADMM actually ran.
 
 Used to state each kernel's bound (the least time the card could take for the
 same work): the bytes that must move — every input read once, every output
@@ -27,7 +28,13 @@ structurally non-trivial operands counts:
   only for (tick, leg, instance) triples in stance;
 * a Gauss-Jordan inverse of a dense n×n matrix is n(n+1)(2n−1) operations
   (n+1 divides and (n−1)(n+1) multiply-subtracts per elimination step), of an
-  identity none.
+  identity none;
+* the box-ADMM (``admm_solve`` and the constrained ``mhe_tick``) counts what
+  each instance ran: its iterations, the factorizations and residual checks
+  that go with them (a converged instance stops), and the polish. The
+  assembled window blocks are dense. Scratch traffic — the system, the
+  factorization chain and the iterates that the kernels keep in global memory
+  — is not counted in the bytes: inputs read once, outputs written once.
 """
 
 from __future__ import annotations
@@ -96,6 +103,52 @@ def tridiag(N, s, B, itemsize, n_states=None):
     ops += (n_states - 1) * (fwd + bwd)
     nbytes = itemsize * B * (N * s * s + (N - 1) * s * s + 2 * N * s)
     return nbytes, B * ops
+
+
+# ---- box-ADMM (admm_solve, and inside the constrained mhe_tick) --------------
+
+_ADMM_RHS, _ADMM_UPDATE, _ADMM_RESID, _ADMM_RHO, _ADMM_ACTIVE = 5, 12, 10, 10, 10
+# per element: rhs = r + sigma x + rho z - y; the x/z/y update (two relaxations,
+# y/rho, the clip's two compares, the dual step); the epoch end's differences,
+# absolute values and seven running maxima; per epoch end the tolerance tests
+# and the rho rule; per element of the polish the two compares, the penalty and
+# the pinned target
+
+
+def admm_ops(s, n_states, iters, E, adaptive, check, polish):
+    """Operations of box-ADMM solves on windows with ``n_states`` real slots
+    (the others are the warm-up's identity blocks and cost nothing), summed
+    over the instances whose iteration counts ``iters`` (any shape) lists."""
+    iters = np.asarray(iters, np.int64).ravel()
+    D, Um, v = _full(s, s), _full(s, s), _full(s, 1)
+    mv = _mm(D, v)[1]
+    link = n_states - 1
+    factor = (n_states * (s + _gj(D)[1])
+              + link * (_mm(D, Um)[1] + _mm(Um.T, D)[1] + s * s))
+    iterate = (n_states * (s * (_ADMM_RHS + _ADMM_UPDATE) + mv)
+               + link * (3 * mv + 2 * s))
+    check_ops = (n_states * (mv + s * _ADMM_RESID) + link * 2 * (mv + s)
+                 + _ADMM_RHO)
+    E = max(1, int(E))
+    n_full = iters // E
+    n_factor = (-(-iters // E)) if adaptive else np.minimum(iters, 1)
+    ops = int((n_factor * factor + iters * iterate).sum())
+    if check or adaptive:
+        ops += int((n_full * check_ops).sum())
+    if polish:
+        sweep = tridiag(n_states, s, 1, 1)[1]
+        ops += iters.size * (sweep + n_states * (s * _ADMM_ACTIVE + s - 1))
+    return ops
+
+
+def admm(N, s, B, itemsize, iters, E, adaptive, check, polish, n_states=None):
+    """(bytes, operations) of one ``admm_solve`` call: D, U, r, the z/y warm
+    starts and the per-lane bounds in; x, z, y and the iteration counts out.
+    ``iters`` (B,) is what the call returned."""
+    n_states = N if n_states is None else n_states
+    nbytes = (itemsize * B * (N * s * s + (N - 1) * s * s + 6 * N * s + 2 * s)
+              + 4 * B)
+    return nbytes, admm_ops(s, n_states, iters, E, adaptive, check, polish)
 
 
 # ---- ekf_stage --------------------------------------------------------------
@@ -308,9 +361,9 @@ def _marg_ops(p, cam):
     return k.ops
 
 
-def _solve_ops(p, N, n_states, cam):
-    """Operations of the masked normal equations and the streaming forward
-    block-Thomas sweep of one tick for one instance."""
+def _solve_ops(p, N, n_states, cam, sweep=True):
+    """Operations of the masked normal equations and (``sweep``) the streaming
+    forward block-Thomas sweep of one tick for one instance."""
     s = p.s
     first = N - n_states
     zero, zvec = np.zeros((s, s), np.int8), np.zeros((s, 1), np.int8)
@@ -335,11 +388,14 @@ def _solve_ops(p, N, n_states, cam):
         prev_QdPP = k.add(Qd, PtQcP)
         prev_rin = k.add(Qd_b, cvec)
         Uj = k.add(p.AtQd, PtQcP) if iv else zero
+        if not sweep:
+            continue
         D = k.add(D, k.mm(U_prev.T, k.mm(Sinv, U_prev)))
         yv = k.add(r, k.mm(U_prev.T, k.mm(Sinv, yv)))
         Sinv = k.gj(D)
         U_prev = Uj
-    k.mm(Sinv, yv)
+    if sweep:
+        k.mm(Sinv, yv)
     return k.ops
 
 
@@ -350,20 +406,27 @@ def _solve_ops(p, N, n_states, cam):
 _VO_EVENT, _VO_SETUP, _VO_NODE, _VO_WRITE = 4, 5 + 39, 4 + 18, 3
 
 
-def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize):
+def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None):
     """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
     starting at tick 1. ``schedule`` comes from ``mhe_schedule``;
-    ``n_stance`` is the number of (tick, leg, instance) triples in stance."""
+    ``n_stance`` is the number of (tick, leg, instance) triples in stance.
+    For the constrained variant ``box`` is ``(iters, E, adaptive, check,
+    polish)`` with ``iters`` the (Tn, B) ADMM iterations that were run: the
+    Thomas sweep gives way to one box-ADMM per tick and instance, and the z/y
+    warm starts, the bounds and the iteration counts join the bytes."""
     p = _Go1Patterns(s, m, L)
     per_tick, stance = _assembly_ops(p)
     marg = {c: _marg_ops(p, c) for c in (False, True)}
     solve = {}
     ops = 0
-    for n_states, cam, marg_cam, vo in schedule:
+    box_ops = 0
+    for i, (n_states, cam, marg_cam, vo) in enumerate(schedule):
         key = (n_states, cam)
         if key not in solve:
-            solve[key] = _solve_ops(p, N, n_states, cam)
+            solve[key] = _solve_ops(p, N, n_states, cam, sweep=box is None)
         ops += per_tick + solve[key]
+        if box is not None:
+            box_ops += admm_ops(s, n_states, np.asarray(box[0][i]), *box[1:])
         if marg_cam is not None:
             ops += marg[marg_cam]
         if vo is not None:
@@ -375,4 +438,6 @@ def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize):
     state = (N * (m + m * m + 3 * s * s + 2 * s + 3 + 9 + 1 + s * s)
              + s * s + s + 12 + 3 + 9 + 3 + L)
     nbytes = itemsize * B * (Tn * (per_tick_in + s) + 2 * state)
-    return nbytes, B * ops + n_stance * stance
+    if box is not None:
+        nbytes += itemsize * B * (4 * N * s + 2 * s) + 4 * Tn * B
+    return nbytes, B * ops + n_stance * stance + box_ops

@@ -18,10 +18,18 @@ slot. What bounds it: operations, and in practice the serial dependency chain
 of one instance with B/32 warps in flight and the s×s temporaries spilling to
 local memory. Nothing is done about occupancy yet.
 
+With state box constraints in the consts (``c.x_lb``) the constrained variant
+of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
+loop writes the whole masked window system to per-launch scratch in global
+memory instead of streaming the Thomas sweep, the box-ADMM device function of
+``csrc/admm.cuh`` solves it, and the warm-start iterates ``z_adm``/``y_adm``
+ride two more ring-indexed state tensors. The scratch (about 5.3k scalars per
+instance) is allocated by the wrapper and is not part of ``KernelState``. The
+ADMM iterations each instance ran per tick come back as ``KernelState.iters``.
+
 Not ported (each raises ``NotImplementedError``): per-instance VO clocks,
-the box-ADMM constrained tail, the Cholesky tail, the ablation switches, and
-shapes other than Go1's (s=9, m=12, L=4, leg_odom_type=0). ROADMAP.md lists
-them.
+the Cholesky tail, the ablation switches, and shapes other than Go1's (s=9,
+m=12, L=4, leg_odom_type=0). ROADMAP.md lists them.
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -36,15 +44,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from decentralized_ekf_mhe_tpu_torch.kernels import _build
-from decentralized_ekf_mhe_tpu_torch.ops import bezier, lanes, mhe_lanes
+from decentralized_ekf_mhe_tpu_torch.kernels import _build, admm_kernel
+from decentralized_ekf_mhe_tpu_torch.kernels.admm_kernel import ADMMCoreStatic
+from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 BLOCK = 32
-launches = 0     # incremented where the CUDA kernel is launched, nowhere else
+# incremented where a CUDA kernel is launched, nowhere else: the unconstrained
+# kernel (dem_mhe_tick) and the constrained one (dem_mhe_tick_box)
+launches = 0
+launches_box = 0
 
-# positions of the ring-indexed tensors (leading axis N) in KernelState.arrays
+# times the kernel call alone, apart from the wrapper's state copy
+timer = _build.KernelTimer()
+
+# positions of the ring-indexed tensors (leading axis N) in KernelState.arrays;
+# the constrained state appends z_adm, y_adm at 18, 19
 _RING = (0, 1, 2, 3, 4, 5, 6, 7, 15, 16, 17)
+_RING_BOX = _RING + (18, 19)
 
 
 class KernelConsts(NamedTuple):
@@ -98,26 +115,33 @@ def _pack_consts(kc: KernelConsts) -> np.ndarray:
 class KernelState(NamedTuple):
     """Window state as the kernel holds it between calls."""
 
-    arrays: tuple             # the 18 tensors of state_shapes(), physical ring order
+    arrays: tuple             # the 18 (constrained: 20) tensors of state_shapes(), physical ring order
     bez_times: torch.Tensor   # (4,) shared Bezier waypoint times
     bez_count: torch.Tensor   # (1,) int32
     t: int                    # newest tick in the window
+    # (Tn,B) int32 ADMM iterations per tick and instance of the call that
+    # produced this state; None for an unconstrained or a fresh state
+    iters: torch.Tensor | None = None
 
 
-def state_shapes(N, s, m, L):
+def state_shapes(N, s, m, L, constrained=False):
     """Per-instance shapes of ``KernelState.arrays`` (the instance axis B is
     appended): y_meas, Q_meas, A_dyn, b_dyn, Q_dyn, b_cam, Q_cam, cam_act,
-    M_p, n_p, bez_pts, p_accum, prev_R, prev_accel_s, prev_contact, and the
-    incremental assembly caches Dslot, Ub, routb."""
-    return [
+    M_p, n_p, bez_pts, p_accum, prev_R, prev_accel_s, prev_contact, the
+    incremental assembly caches Dslot, Ub, routb and, when constrained, the
+    ADMM warm starts z_adm, y_adm."""
+    shapes = [
         (N, m), (N, m, m), (N, s, s), (N, s), (N, s, s), (N, 3),
         (N, 3, 3), (N,), (s, s), (s,), (4, 3), (3,), (3, 3), (3,), (L,),
         (N, s, s), (N, s, s), (N, s),
     ]
+    if constrained:
+        shapes += [(N, s), (N, s)]
+    return shapes
 
 
 def _state_to_arrays(st: mhe_lanes.MHEStateL, c):
-    """MHEStateL -> the 18 kernel tensors in LOGICAL slot order, including
+    """MHEStateL -> the 18 (constrained: 20) kernel tensors in LOGICAL slot order, including
     the incremental assembly caches, computed from whatever state is handed
     in (so resumed states work too):
         Dslot[p] = HᵀR_p H + A_pᵀQd_p A_p;  Ub[p] = −A_pᵀQd_p;
@@ -131,12 +155,15 @@ def _state_to_arrays(st: mhe_lanes.MHEStateL, c):
     Dslot = lanes.mmc(HtR, H) + lanes.mm(AtQd, st.A_dyn)
     Ub = -AtQd
     routb = lanes.mv(HtR, st.y_meas) + lanes.mv(AtQd, st.b_dyn)
-    return (
+    base = (
         st.y_meas, st.Q_meas, st.A_dyn, st.b_dyn, st.Q_dyn, st.b_cam,
         st.Q_cam, st.cam_active.to(st.y_meas.dtype), st.M_p, st.n_p,
         pts, p_accum, st.prev_R, st.prev_accel_s, st.prev_contact,
         Dslot, Ub, routb,
     )
+    if c.x_lb is not None:
+        return base + (st.z_adm, st.y_adm)
+    return base
 
 
 def kernel_state_from_mhe(st: mhe_lanes.MHEStateL, c) -> KernelState:
@@ -144,7 +171,7 @@ def kernel_state_from_mhe(st: mhe_lanes.MHEStateL, c) -> KernelState:
     whose newest tick is T sits at physical slot (T % N + l) % N."""
     base = int(st.T) % c.N
     arrays = list(_state_to_arrays(st, c))
-    for k in _RING:
+    for k in (_RING_BOX if c.x_lb is not None else _RING):
         arrays[k] = torch.roll(arrays[k], base, dims=0)
     arrays = tuple(a.contiguous() for a in arrays)
     dtype = st.y_meas.dtype
@@ -160,7 +187,8 @@ def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
     """Inverse of ``kernel_state_from_mhe`` (the caches are dropped)."""
     base = ks.t % c.N
     a = list(ks.arrays)
-    for k in _RING:
+    constrained = len(a) == 20
+    for k in (_RING_BOX if constrained else _RING):
         a[k] = torch.roll(a[k], -base, dims=0)
     return mhe_lanes.MHEStateL(
         y_meas=a[0], Q_meas=a[1], A_dyn=a[2], b_dyn=a[3], Q_dyn=a[4],
@@ -170,6 +198,8 @@ def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
             pts=torch.movedim(a[10], -1, 0), times=ks.bez_times,
             count=ks.bez_count.reshape(()), p_accum=torch.movedim(a[11], -1, 0)),
         prev_R=a[12], prev_accel_s=a[13], prev_contact=a[14],
+        z_adm=a[18] if constrained else (),
+        y_adm=a[19] if constrained else (),
     )
 
 
@@ -181,26 +211,33 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
     active = vo.active.tolist()
     tick_pre = vo.tick_pre.tolist()
     tick_now = vo.tick_now.tolist()
-    xs = []
+    xs, its = [], []
     for i in range(Tn):
-        st, (x_T, _) = mhe_lanes.step(
+        st, (x_T, _, it) = mhe_lanes.step(
             c, st, data_l.R_sb[i], data_l.accel_b[i], data_l.omega_b[i],
             data_l.p_foot[i], data_l.J_foot[i], data_l.dq[i],
             data_l.contact[i], active[i], None, tick_pre[i], tick_now[i],
             None, vo_inc=vo_inc[i])
         xs.append(x_T)
+        its.append(it)
     s, B = c.dim_state, data_l.accel_b.shape[-1]
+    dev = data_l.accel_b.device
     x = (torch.stack(xs, dim=0) if xs else
-         torch.zeros((0, s, B), dtype=data_l.accel_b.dtype,
-                     device=data_l.accel_b.device))
-    return x, kernel_state_from_mhe(st, c)
+         torch.zeros((0, s, B), dtype=data_l.accel_b.dtype, device=dev))
+    iters = None
+    if c.x_lb is not None:
+        iters = (torch.stack(its) if its else
+                 torch.zeros((0, B), dtype=torch.int32, device=dev))
+    return x, kernel_state_from_mhe(st, c)._replace(iters=iters)
 
 
 def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
     """Advance the window over the ticks handed in.
 
     Args:
-      c: ops.mhe.MHEConsts (unconstrained).
+      c: ops.mhe.MHEConsts; with ``c.x_lb`` set ((s,) shared or (s,B)
+        per-lane box) the constrained variant runs and ``ks`` carries the
+        z/y warm-start rings.
       ks: KernelState whose newest tick is ``ks.t``; the first tick of
         ``data_l`` is tick ``ks.t + 1``.
       data_l: estimator.TickData in lanes layout (Tn, ..., B), contiguous.
@@ -208,15 +245,13 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
         is not read here).
       vo_inc: (Tn,3,B) world-frame VO increments
         (``estimator.vo_world_increments``), zero on inactive ticks.
-    Returns (x (Tn,s,B), new KernelState); ``ks`` is not modified. CPU
+    Returns (x (Tn,s,B), new KernelState); ``ks`` is not modified. On
+    constrained consts the new state's ``iters`` holds the (Tn,B) ADMM
+    iterations this call ran per tick and instance. CPU
     tensors (``device="cpu"``) take the plain version; CUDA tensors launch
     the kernel or raise.
     """
     device = resolve_device(device)
-    if c.x_lb is not None:
-        raise NotImplementedError(
-            "the box-ADMM constrained tick is not ported yet: ROADMAP.md, "
-            "'constrained ADMM'")
     if vo.active.ndim != 1:
         raise NotImplementedError(
             "per-instance VO clocks are not ported yet: ROADMAP.md, "
@@ -244,23 +279,32 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
     ]
     for name, a, sh in inputs:
         _build.require_lanes(name, a, sh, dtype, dev)
-    for a, sh in zip(ks.arrays, state_shapes(N, s, m, L)):
+    constrained = c.x_lb is not None
+    shapes = state_shapes(N, s, m, L, constrained)
+    if len(ks.arrays) != len(shapes):
+        raise ValueError(
+            f"window state: {len(ks.arrays)} tensors, expected {len(shapes)} "
+            f"for {'constrained' if constrained else 'unconstrained'} consts")
+    for a, sh in zip(ks.arrays, shapes):
         _build.require_lanes("window state", a, sh + (B,), dtype, dev)
+    bounds = (admm.broadcast_bounds(c.x_lb, c.x_ub, s, B, dtype, dev)
+              if constrained else None)
     for name, a in (("vo.active", vo.active), ("vo.tick_pre", vo.tick_pre),
                     ("vo.tick_now", vo.tick_now)):
         if tuple(a.shape) != (Tn,) or a.device != dev:
             raise ValueError(f"{name}: expected shared (T,)=({Tn},) on {dev}")
     if dev.type == "cpu":
         return replay_ticks_plain(c, ks, data_l, vo, vo_inc)
-    return _launch(c, ks, [a for _, a, _ in inputs], vo)
+    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds)
 
 
-def _launch(c, ks: KernelState, inputs, vo):
-    """Copy the window state, launch ``dem_mhe_tick`` on the current stream
-    over all Tn ticks, count the launch. ``inputs`` are the eight per-tick
-    tensors in the kernel's order (R, accel, omega, p_foot, J_foot, dq,
-    contact, vo_inc)."""
-    global launches
+def _launch(c, ks: KernelState, inputs, vo, bounds=None):
+    """Copy the window state, launch ``dem_mhe_tick`` (with ``bounds``, the
+    (lb, ub) pair of (s,B) tensors: ``dem_mhe_tick_box``) on the current
+    stream over all Tn ticks, count the launch. ``inputs`` are the eight
+    per-tick tensors in the kernel's order (R, accel, omega, p_foot, J_foot,
+    dq, contact, vo_inc)."""
+    global launches, launches_box
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
@@ -275,19 +319,39 @@ def _launch(c, ks: KernelState, inputs, vo):
             vo.tick_now.to(torch.int32).contiguous()]
     tensors = (meta + [ks.bez_times.to(dtype).contiguous(),
                        ks.bez_count.to(torch.int32).contiguous()]
-               + list(inputs) + state
+               + list(inputs) + state[:18]
                + [x, bez_times_out, bez_count_out])
-    fn = _build.load("mhe")
+    iters = None
+    if bounds is not None:
+        iters = torch.empty((Tn, B), dtype=torch.int32, device=dev)
+        ws = lambda *sh: torch.empty(sh + (B,), dtype=dtype, device=dev)
+        # lb, ub, z_adm, y_adm, iters, then the per-launch scratch: the masked
+        # system Dw, Uw, rw, the x iterate, the factorization chain, ys
+        tensors += list(bounds) + state[18:] + [
+            iters, ws(N, s, s), ws(N - 1, s, s), ws(N, s), ws(N, s),
+            ws(N, s, s), ws(N, s)]
+        ints, reals = ADMMCoreStatic.from_settings(c.admm, N, s).pack()
+        extra = (ints.ctypes.data, reals.ctypes.data)
+    else:
+        extra = ()
+    fn = _build.load("mhe" if bounds is None else "mhe_box")
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     consts = _pack_consts(kc)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream()
+        timer.record(stream)
         err = fn(int(dtype == torch.float64), s, m, L, kc.lot, ptrs,
-                 len(tensors), consts.ctypes.data, N, B, Tn, ks.t + 1, BLOCK,
-                 torch.cuda.current_stream().cuda_stream)
+                 len(tensors), consts.ctypes.data, *extra, N, B, Tn, ks.t + 1,
+                 BLOCK, stream.cuda_stream)
+        timer.record(stream)
     _build.check_launch(err, "mhe_tick")
-    launches += 1
+    if bounds is None:
+        launches += 1
+    else:
+        launches_box += 1
+        admm_kernel.launches_core += 1
     return x, KernelState(arrays=tuple(state), bez_times=bez_times_out,
-                          bez_count=bez_count_out, t=ks.t + Tn)
+                          bez_count=bez_count_out, t=ks.t + Tn, iters=iters)
 
 
 def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
@@ -299,9 +363,11 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
       vo: estimator.VOData — the shared fleet schedule (active (T,), dp_body
         (T,3) or per-lane (T,3,B) content).
     Returns x_seq (T, s, B) — newest-state estimate per tick. Tick 0 is the
-    init-window solve (through ``tridiag_kernel.solve_lanes`` when
-    ``c.use_pallas``), as in ``estimator.run_mhe_lanes``; ticks 1.. run in
-    ``replay_ticks``.
+    init-window solve (with ``c.use_pallas`` through
+    ``tridiag_kernel.solve_lanes`` or, for constrained consts,
+    ``admm_kernel.solve_box_lanes``), as in ``estimator.run_mhe_lanes``; only
+    its x is kept, so tick 1 warm-starts the ADMM from zeros. Ticks 1.. run
+    in ``replay_ticks``.
     """
     from decentralized_ekf_mhe_tpu_torch.ops import estimator
 

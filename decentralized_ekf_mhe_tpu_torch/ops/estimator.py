@@ -149,7 +149,7 @@ def run_mhe_lanes(
     vs = [body_vel(x0, d0.R_sb, d0.omega_b)]
     for t in range(1, T_total):
         d = TickData(*(a[t] for a in data))
-        st, (x_T, _) = mhe_lanes.step(
+        st, (x_T, _, _) = mhe_lanes.step(
             c, st, d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq,
             d.contact, active[t], None, tick_pre[t], tick_now[t], None,
             vo_inc=vo_inc[t],

@@ -30,33 +30,40 @@ class MHEConsts(NamedTuple):
     dt: float
     leg_odom_type: int
     num_legs: int
-    # state box constraints: always None in this port so far (the box-ADMM
-    # path is not ported; make_consts raises when bounds are passed)
-    x_lb: object = None
+    # state box constraints. None ⇒ unconstrained (exact tridiagonal solve);
+    # set ⇒ the OSQP-semantics ADMM path (ops/admm.py) with the given budget
+    x_lb: object = None       # (s,) or (s,B) tensor, or None
     x_ub: object = None
-    admm: object = None
-    # route the window solve through the hand-written block-tridiagonal
-    # kernel (kernels/tridiag_kernel.py) — the field keeps the reference's
-    # name so call sites read the same on both sides
+    admm: object = None       # admm.ADMMSettings or None
+    # route the window solve through the hand-written kernels
+    # (kernels/tridiag_kernel.py, or kernels/admm_kernel.py when constrained)
+    # — the field keeps the reference's name so call sites read the same on
+    # both sides
     use_pallas: bool = False
 
 
 def make_consts(p: EstimatorParams, dtype=torch.float32,
                 x_lb=None, x_ub=None, admm_iters=None,
                 use_pallas: bool = False, device="cuda") -> MHEConsts:
-    """Build static MHE constants on ``device``. State box constraints
-    (``x_lb``/``x_ub``) select the OSQP-semantics ADMM solve in the reference;
-    that path is not ported yet."""
-    if x_lb is not None or x_ub is not None or admm_iters is not None:
-        raise NotImplementedError(
-            "state box constraints (ADMM window solve) are not ported yet: "
-            "ROADMAP.md, 'constrained ADMM'")
+    """Build static MHE constants on ``device``. Passing x_lb/x_ub ((s,)
+    shared or (s,B) per-lane arrays; ±inf for unconstrained dims; a missing
+    side is filled with ∓inf) switches the window solve to the ADMM path with
+    the OSQP settings of ``p.osqp`` and a fixed iteration budget
+    ``admm_iters`` (default min(maxQPIter, 200))."""
+    from decentralized_ekf_mhe_tpu_torch.ops import admm as admm_lib
+
     device = resolve_device(device)
     s = p.dim_state
     P = np.zeros((3, s))
     P[:, :3] = np.eye(3)
-    f = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
-        dtype=dtype, device=device)
+    constrained = x_lb is not None or x_ub is not None
+
+    def f(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dtype=dtype, device=device)
+        return torch.as_tensor(np.asarray(a, np.float64)).to(
+            dtype=dtype, device=device)
+
     return MHEConsts(
         nc=assembly.make_noise_consts(p, dtype, device=device),
         A_meas=assembly.a_meas(p, dtype, device=device),
@@ -68,6 +75,12 @@ def make_consts(p: EstimatorParams, dtype=torch.float32,
         dt=p.dt,
         leg_odom_type=p.leg_odom_type,
         num_legs=p.num_legs,
+        x_lb=f(x_lb if x_lb is not None else np.full(s, -np.inf))
+        if constrained else None,
+        x_ub=f(x_ub if x_ub is not None else np.full(s, np.inf))
+        if constrained else None,
+        admm=admm_lib.ADMMSettings.from_osqp(p.osqp, admm_iters)
+        if constrained else None,
         use_pallas=use_pallas,
     )
 

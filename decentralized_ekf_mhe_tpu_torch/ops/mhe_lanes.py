@@ -6,9 +6,11 @@ window tensor keeps the instance batch B on the trailing axis. This eager
 module is what ``estimator.run_mhe_lanes`` loops over, and is therefore the
 plain version of the ``mhe_tick`` CUDA kernel (kernels/mhe_replay_kernel.py).
 
-Ported: the unconstrained QP with the fleet's shared VO schedule. The
-per-instance VO twin (``_apply_vo_per_instance``/``step_per_instance_vo``)
-and the box-constrained ADMM solve are listed in ROADMAP.md.
+Ported: the fleet's shared VO schedule, with the exact unconstrained window
+solve or, when the consts carry state box constraints, the OSQP-semantics
+box-ADMM warm-started from the ``z_adm``/``y_adm`` carry. The per-instance VO
+twin (``_apply_vo_per_instance``/``step_per_instance_vo``) is listed in
+ROADMAP.md.
 
 All functions are pure: they return new tensors and leave their inputs
 untouched.
@@ -45,9 +47,11 @@ class MHEStateL(NamedTuple):
     prev_R: torch.Tensor        # (3,3,B)
     prev_accel_s: torch.Tensor  # (3,B)
     prev_contact: torch.Tensor  # (L,B)
-    # ADMM warm starts of the constrained path: always empty here
-    z_adm: object = ()
-    y_adm: object = ()
+    # ADMM warm-start carry of the constrained path: last tick's iterates per
+    # window slot, shifted with the window (OSQP setWarmStart(true),
+    # DecentralEst.cpp:204). Empty tuples on unconstrained configs.
+    z_adm: object = ()        # (N,s,B)
+    y_adm: object = ()        # (N,s,B)
 
 
 def init(
@@ -95,6 +99,8 @@ def init(
         prev_R=R_sb,
         prev_accel_s=assembly_lanes.spatial_accel(R_sb, accel_b, c.nc),
         prev_contact=contact,
+        z_adm=z((N, s)) if c.x_lb is not None else (),
+        y_adm=z((N, s)) if c.x_lb is not None else (),
     )
 
 
@@ -228,21 +234,53 @@ def _masked_system(c: MHEConsts, st: MHEStateL):
 
 
 def solve_window(c: MHEConsts, st: MHEStateL) -> torch.Tensor:
-    """Solve the current window exactly; returns (N, s, B) (zeros on dead
-    slots). With ``c.use_pallas`` the block-tridiagonal kernel wrapper takes
-    the system (it launches the CUDA kernel for CUDA tensors and uses the
-    plain sweep for CPU tensors); otherwise the plain sweep runs."""
+    """Solve the current window; returns (N, s, B) (zeros on dead slots).
+
+    Unconstrained consts solve exactly: with ``c.use_pallas`` the
+    block-tridiagonal kernel wrapper takes the system (it launches the CUDA
+    kernel for CUDA tensors and uses the plain sweep for CPU tensors);
+    otherwise the plain sweep runs. With state box constraints
+    (``c.x_lb``/``c.x_ub``) the box-ADMM runs, warm-started from
+    ``st.z_adm``/``st.y_adm``."""
     D, U, r = _masked_system(c, st)
     if c.x_lb is not None:
-        raise NotImplementedError(
-            "constrained window solve is not ported yet: ROADMAP.md, "
-            "'constrained ADMM'")
+        return _solve_constrained(c, D, U, r, st.z_adm, st.y_adm).x
     if c.use_pallas:
         from decentralized_ekf_mhe_tpu_torch.kernels import tridiag_kernel as tk
 
         return tk.solve_lanes(D.contiguous(), U.contiguous(), r.contiguous(),
                               device=D.device)
     return lanes.thomas_solve(D, U, r)
+
+
+def _solve_constrained(c: MHEConsts, D, U, r, z0, y0):
+    """Dispatch the lanes box-ADMM: the ``admm_solve`` kernel wrapper when
+    ``c.use_pallas`` (CUDA kernel for CUDA tensors, plain version for CPU
+    tensors), the plain solver otherwise. Identical semantics."""
+    if c.use_pallas:
+        from decentralized_ekf_mhe_tpu_torch.kernels import admm_kernel as ak
+
+        return ak.solve_box_lanes(
+            D.contiguous(), U.contiguous(), r.contiguous(), c.x_lb, c.x_ub,
+            c.admm, z0=z0.contiguous(), y0=y0.contiguous(), device=D.device)
+    from decentralized_ekf_mhe_tpu_torch.ops import admm as admm_lib
+
+    return admm_lib.solve_box_tridiag_lanes(
+        D, U, r, c.x_lb, c.x_ub, c.admm, z0=z0, y0=y0)
+
+
+def _solve_window_admm(c: MHEConsts, st: MHEStateL):
+    """Constrained solve of the current window, warm-started from the state:
+    the whole ``ops.admm.ADMMResult``."""
+    D, U, r = _masked_system(c, st)
+    return _solve_constrained(c, D, U, r, st.z_adm, st.y_adm)
+
+
+def solve_window_with_duals(c: MHEConsts, st: MHEStateL):
+    """Constrained solve returning the ADMM iterates for the next tick's warm
+    start: (x, z, y), each (N, s, B)."""
+    res = _solve_window_admm(c, st)
+    return res.x, res.z, res.y
 
 
 def _shift_set(arr, new_vals: dict):
@@ -269,7 +307,9 @@ def step(
     vo_active is false). A caller that already holds the world-frame
     increment R_pre·dp passes it as ``vo_inc`` (3,B) and may leave
     ``vo_dp``/``vo_R_pre`` as None.
-    Returns (new_state, (x_T (s,B), x_window (N,s,B)))."""
+    Returns (new_state, (x_T (s,B), x_window (N,s,B), iters)); ``iters`` is
+    the (B,) int32 ADMM iterations this tick's solve ran on constrained
+    consts, None otherwise."""
     if bool(vo_active):
         if vo_inc is None:
             B = st.prev_accel_s.shape[-1]
@@ -321,8 +361,20 @@ def _tick_tail(c: MHEConsts, st: MHEStateL, R_sb, accel_b, omega_b, p_foot,
         prev_R=R_sb,
         prev_accel_s=assembly_lanes.spatial_accel(R_sb, accel_b, c.nc),
         prev_contact=contact,
+        # warm-start iterates travel with their window slots; the fresh slot
+        # N−1 reuses the previous newest iterate
+        z_adm=_shift_set(st.z_adm, {N - 1: st.z_adm[N - 1]})
+        if c.x_lb is not None else st.z_adm,
+        y_adm=_shift_set(st.y_adm, {N - 1: st.y_adm[N - 1]})
+        if c.x_lb is not None else st.y_adm,
     )
 
-    x_window = solve_window(c, st)
+    iters = None
+    if c.x_lb is not None:
+        res = _solve_window_admm(c, st)
+        x_window, iters = res.x, res.iters
+        st = st._replace(z_adm=res.z, y_adm=res.y)
+    else:
+        x_window = solve_window(c, st)
     x_T = x_window[N - 1]
-    return st, (x_T, x_window)
+    return st, (x_T, x_window, iters)

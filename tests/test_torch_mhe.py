@@ -201,10 +201,11 @@ def test_init_and_step_state_by_state():
         d, e = jd(t), td(t)
         jst, (jx, jxw) = jstep(jst, d, vo.active[t], vo.dp_body[t], vo.tick_pre[t],
                                vo.tick_now[t], data_l.R_sb[vo.tick_pre[t]])
-        tst, (tx, txw) = mhe_lanes.step(
+        tst, (tx, txw, it) = mhe_lanes.step(
             tc, tst, e.R_sb, e.accel_b, e.omega_b, e.p_foot, e.J_foot, e.dq,
             e.contact, bool(tvo.active[t]), tvo.dp_body[t], int(tvo.tick_pre[t]),
             int(tvo.tick_now[t]), tdata_l.R_sb[int(tvo.tick_pre[t])])
+        assert it is None
         _assert_state(tst, jst, TOL)
         np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
         np.testing.assert_allclose(txw.numpy(), np.asarray(jxw), **TOL)
@@ -319,8 +320,6 @@ def test_tridiag_plain_matches_pallas_interpret(full_window):
 def test_unported_branches_raise():
     p = _params(6, EstimatorParams)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mhe.make_consts(p, F64, x_lb=np.zeros(9), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         bezier.init(F64, batch=(2,), per_instance_schedule=True, device="cpu")
     p1 = EstimatorParams(num_legs=2, leg_odom_type=1, rate=200, N=6)
     c1 = mhe.make_consts(p1, F64, device="cpu")
@@ -347,3 +346,195 @@ def test_wrappers_reject_bad_operands():
         tridiag_kernel.solve_lanes(D.transpose(1, 2), U, r, device="cpu")
     with pytest.raises(ValueError):
         tridiag_kernel.solve_lanes(D.to(torch.int32), U, r, device="cpu")
+
+
+# ---- the state-constrained path (box-ADMM window solve) ---------------------
+
+
+def _box_params(N, cls, tol=1e-8):
+    p = cls(num_legs=4, leg_odom_type=0, rate=200, N=N, foot_swing_std=[1e7] * 3)
+    p.osqp.abs_tol = tol
+    p.osqp.relative_tol = tol
+    return p
+
+
+def _vel_box(vb, Bn=None):
+    """±vb on the velocity states 3:6; vb a float ((s,) bounds) or a (B,)
+    array ((s,B) per-lane bounds)."""
+    shape = (9,) if Bn is None else (9, Bn)
+    lb, ub = np.full(shape, -np.inf), np.full(shape, np.inf)
+    lb[3:6], ub[3:6] = -vb, vb
+    return lb, ub
+
+
+def _box_fleet(T, B_, seed, N, vb, iters, Bn=None, use_pallas=False):
+    data_l, vo, _, tdata_l, tvo, _ = _fleet(T, B_, seed, N)
+    lb, ub = _vel_box(vb, Bn)
+    # the JAX side keeps use_pallas off: its ADMM kernel has no CPU path
+    # outside interpret mode (the mega-kernel is asked for interpret mode)
+    jc = jmhe.make_consts(_box_params(N, JParams), DT, x_lb=lb, x_ub=ub,
+                          admm_iters=iters)
+    tc = mhe.make_consts(_box_params(N, EstimatorParams), F64, x_lb=lb, x_ub=ub,
+                         admm_iters=iters, use_pallas=use_pallas, device="cpu")
+    return data_l, vo, jc, tdata_l, tvo, tc
+
+
+@pytest.mark.parametrize("bounds", ["shared", "per_lane", "upper_only", "tensor"])
+def test_make_consts_with_bounds_matches_jax_and_convert(bounds):
+    N, Bn = 7, 5
+    if bounds == "upper_only":
+        kw = dict(x_ub=np.arange(9.0))
+    else:
+        lb, ub = _vel_box(0.3 if bounds != "per_lane" else np.linspace(0.2, 0.4, Bn),
+                          Bn if bounds == "per_lane" else None)
+        kw = dict(x_lb=lb, x_ub=ub)
+    jc = jmhe.make_consts(_box_params(N, JParams), DT, admm_iters=20, **kw)
+    if bounds == "tensor":
+        kw = {k: torch.as_tensor(v) for k, v in kw.items()}
+    tc = mhe.make_consts(_box_params(N, EstimatorParams), F64, admm_iters=20,
+                         device="cpu", **kw)
+    cc = convert.from_jax_numpy(_np(jc), "cpu", F64)
+    for other in (tc, cc):
+        assert other.x_lb.dtype == F64 and other.x_lb.device.type == "cpu"
+        assert np.array_equal(other.x_lb.numpy(), np.asarray(jc.x_lb))
+        assert np.array_equal(other.x_ub.numpy(), np.asarray(jc.x_ub))
+        assert tuple(other.admm) == tuple(jc.admm) and other.admm.iters == 20
+        assert type(other.admm.iters) is int and type(other.admm.adaptive_rho) is bool
+    free = mhe.make_consts(_box_params(N, EstimatorParams), F64, device="cpu")
+    assert free.x_lb is None and free.x_ub is None and free.admm is None
+    c32 = mhe.make_consts(_box_params(N, EstimatorParams), torch.float32,
+                          device="cpu", **kw)
+    assert c32.x_ub.dtype == torch.float32 and c32.admm.iters == 200
+
+
+def test_constrained_init_and_step_state_by_state():
+    """Every tick's window state incl. the z/y warm-start carry, the estimate
+    and the whole-window solution vs JAX, with the box binding."""
+    N, T, Bs, vb = 5, 16, 4, 0.08
+    data_l, vo, jc, tdata_l, tvo, tc = _box_fleet(T, Bs, 9, N, vb, 30)
+    jd = lambda t: jax.tree.map(lambda a: a[t], data_l)
+    td = lambda t: estimator.TickData(*(a[t] for a in tdata_l))
+    d, e = jd(0), td(0)
+    jst = jml.init(jc, d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq,
+                   d.contact, dtype=DT)
+    tst = mhe_lanes.init(tc, e.R_sb, e.accel_b, e.omega_b, e.p_foot, e.J_foot,
+                         e.dq, e.contact, dtype=F64, device="cpu")
+    assert tst.z_adm.shape == tst.y_adm.shape == (N, 9, Bs) and not tst.z_adm.any()
+    np.testing.assert_allclose(mhe_lanes.solve_window(tc, tst).numpy(),
+                               np.asarray(jml.solve_window(jc, jst)), **TOL)
+    jstep = jax.jit(lambda st, d, a, dp, tp_, tn, Rp: jml.step(
+        jc, st, d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq,
+        d.contact, a, dp, tp_, tn, Rp))
+    vmax, iters = 0.0, []
+    for t in range(1, T):
+        d, e = jd(t), td(t)
+        jst, (jx, jxw) = jstep(jst, d, vo.active[t], vo.dp_body[t], vo.tick_pre[t],
+                               vo.tick_now[t], data_l.R_sb[vo.tick_pre[t]])
+        tst, (tx, txw, it) = mhe_lanes.step(
+            tc, tst, e.R_sb, e.accel_b, e.omega_b, e.p_foot, e.J_foot, e.dq,
+            e.contact, bool(tvo.active[t]), tvo.dp_body[t], int(tvo.tick_pre[t]),
+            int(tvo.tick_now[t]), tdata_l.R_sb[int(tvo.tick_pre[t])])
+        iters.append(it)
+        _assert_state(tst, jst, TOL)
+        for f in ("z_adm", "y_adm"):
+            ref = np.asarray(getattr(jst, f))
+            np.testing.assert_allclose(getattr(tst, f).numpy(), ref, rtol=1e-8,
+                                       atol=1e-8 * max(1.0, float(np.abs(ref).max())),
+                                       err_msg=f)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+        np.testing.assert_allclose(txw.numpy(), np.asarray(jxw), **TOL)
+        vmax = max(vmax, float(tx[3:6].abs().max()))
+    assert vb - 1e-6 <= vmax <= vb + 1e-6
+    assert len(iters) == T - 1 and iters[0].shape == (Bs,) and int(iters[-1].max()) <= 30
+    xw, zw, yw = mhe_lanes.solve_window_with_duals(tc, tst)
+    jxw, jzw, jyw = jml.solve_window_with_duals(jc, jst)
+    np.testing.assert_allclose(xw.numpy(), np.asarray(jxw), **TOL)
+    np.testing.assert_allclose(zw.numpy(), np.asarray(jzw), **TOL)
+
+
+@pytest.mark.parametrize("bounds", ["shared", "per_lane"])
+def test_constrained_replay_matches_pallas_interpret_and_lanes(bounds):
+    """The constrained replay (plain on the CPU; tick 0 through the
+    admm_solve wrapper) == the constrained Pallas mega-kernel in interpret
+    mode across a chunk boundary == the eager lanes loop, with the box
+    binding."""
+    N, T = 6, 24
+    vb = 0.08 if bounds == "shared" else np.linspace(0.05, 0.12, B)
+    data_l, vo, jc, tdata_l, tvo, tc = _box_fleet(
+        T, B, 9, N, vb, 40, Bn=None if bounds == "shared" else B, use_pallas=True)
+    jx = jmrk.replay(jc, data_l, vo, dtype=DT, chunk=7, interpret=True)
+    before = mrk.launches, mrk.launches_box
+    tx = mrk.replay(tc, tdata_l, tvo, dtype=F64, device="cpu")
+    assert (mrk.launches, mrk.launches_box) == before          # CPU: no launch
+    assert tx.shape == (T, 9, B)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+    ex, _ = estimator.run_mhe_lanes(_box_params(N, EstimatorParams), tdata_l, vo=tvo,
+                                    dtype=F64, consts=tc._replace(use_pallas=False),
+                                    device="cpu")
+    np.testing.assert_allclose(torch.movedim(ex, 1, -1).numpy(), tx.numpy(), **TOL)
+    v = tx[:, 3:6].abs().amax(dim=(0, 1)).numpy()
+    assert (v <= vb + 1e-6).all() and (v >= vb - 1e-6).any()
+
+
+def test_constrained_replay_ticks_split_log_and_state_round_trip():
+    """The constrained KernelState carries z/y in ring order: 20 tensors, a
+    round trip keeps them, and a split log equals one call."""
+    N, T, Bs = 5, 19, 4
+    _, _, _, tdata_l, tvo, tc = _box_fleet(T, Bs, 9, N, 0.08, 20)
+    d0 = estimator.TickData(*(a[0] for a in tdata_l))
+    st0 = mhe_lanes.init(tc, d0.R_sb, d0.accel_b, d0.omega_b, d0.p_foot,
+                         d0.J_foot, d0.dq, d0.contact, dtype=F64, device="cpu")
+    vo_inc = estimator.vo_world_increments(tdata_l.R_sb, tvo)
+    ks0 = mrk.kernel_state_from_mhe(st0, tc)
+    shapes = mrk.state_shapes(N, 9, 12, 4, constrained=True)
+    assert len(ks0.arrays) == len(shapes) == 20
+    assert [tuple(a.shape[:-1]) for a in ks0.arrays] == shapes
+
+    def seg(sl):
+        return (estimator.TickData(*(a[sl].contiguous() for a in tdata_l)),
+                estimator.VOData(*(a[sl] for a in tvo)), vo_inc[sl].contiguous())
+
+    x_all, ks_all = mrk.replay_ticks(tc, ks0, *seg(slice(1, None)), device="cpu")
+    xA, ksA = mrk.replay_ticks(tc, ks0, *seg(slice(1, 8)), device="cpu")
+    assert ks0.iters is None and ksA.iters.shape == (7, Bs) and ksA.iters.dtype == torch.int32
+    assert torch.equal(ksA.iters, ks_all.iters[:7])
+    xB, ksB = mrk.replay_ticks(tc, ksA, *seg(slice(8, None)), device="cpu")
+    assert ksA.t == 7 and ksB.t == ks_all.t == T - 1 and ksA.t % N != 0
+    np.testing.assert_allclose(torch.cat([xA, xB]).numpy(), x_all.numpy(), **TIGHT)
+    for a, b in zip(ksB.arrays, ks_all.arrays):
+        np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                   rtol=1e-9, atol=1e-9 * max(1.0, float(b.abs().max())))
+    # ring <-> logical order keeps the warm starts with their window slots
+    stA = mrk.mhe_state_from_kernel(ksA, tc)
+    assert torch.equal(torch.roll(stA.z_adm, ksA.t % N, dims=0), ksA.arrays[18])
+    assert ks_all.arrays[19].abs().max() > 0          # the box was active
+    back = mrk.kernel_state_from_mhe(stA, tc)
+    assert all(torch.equal(a, b) for a, b in zip(back.arrays[:15] + back.arrays[18:],
+                                                 ksA.arrays[:15] + ksA.arrays[18:]))
+    # consts and state must agree on whether there is a box
+    free = mhe.make_consts(_box_params(N, EstimatorParams), F64, device="cpu")
+    with pytest.raises(ValueError, match="20 tensors"):
+        mrk.replay_ticks(free, ksA, *seg(slice(8, None)), device="cpu")
+    with pytest.raises(ValueError):
+        mrk.replay_ticks(tc._replace(x_lb=torch.zeros(9, Bs + 1, dtype=F64)), ksA,
+                         *seg(slice(8, None)), device="cpu")
+
+
+def test_tight_box_is_violated_by_what_the_budget_leaves():
+    """At a tight box the default budget leaves the bound violated, and the
+    polish pins only the dims whose iterate already sits on the bound: the
+    port exceeds the box by exactly what the JAX package exceeds it by."""
+    N, T, Bs, vb = 6, 30, 8, 0.05
+    data_l, vo, jc, tdata_l, tvo, tc = _box_fleet(T, Bs, 7, N, vb, None)
+    default = EstimatorParams().osqp
+    jc = jc._replace(admm=jc.admm._replace(abs_tol=default.abs_tol, rel_tol=default.relative_tol))
+    tc = tc._replace(admm=tc.admm._replace(abs_tol=default.abs_tol, rel_tol=default.relative_tol))
+    assert tc.admm.iters == 200 and tc.admm.abs_tol == 1e-3
+    jx, _ = jest.run_mhe_lanes(_box_params(N, JParams), data_l, vo=vo, dtype=DT, consts=jc)
+    tx, _ = estimator.run_mhe_lanes(_box_params(N, EstimatorParams), tdata_l, vo=tvo,
+                                    dtype=F64, consts=tc, device="cpu")
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+    j_excess = float(np.abs(np.asarray(jx)[..., 3:6]).max()) - vb
+    t_excess = float(tx[..., 3:6].abs().max()) - vb
+    assert abs(t_excess - j_excess) < 1e-8
+    assert t_excess > 1e-3, "the tight box was expected to be exceeded"

@@ -26,9 +26,9 @@ from decentralized_ekf_mhe_tpu_torch import convert
 from decentralized_ekf_mhe_tpu_torch.config import EKFParams, EstimatorParams
 from decentralized_ekf_mhe_tpu_torch.io import synth
 from decentralized_ekf_mhe_tpu_torch.kernels import _build, _work
-from decentralized_ekf_mhe_tpu_torch.kernels import ekf_kernel, tridiag_kernel
+from decentralized_ekf_mhe_tpu_torch.kernels import admm_kernel, ekf_kernel, tridiag_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
-from decentralized_ekf_mhe_tpu_torch.ops import bezier, ekf_lanes, estimator, mhe, mhe_lanes
+from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, ekf_lanes, estimator, mhe, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.parallel import batch
 from decentralized_ekf_mhe_tpu_torch.utils import precision
 
@@ -194,7 +194,8 @@ def test_perturbations_are_seeded_and_scaled():
 
 
 @pytest.mark.parametrize("name", ["TickData", "VOData", "EKFBlocks", "EKFStateL",
-                                  "EKFConstsL", "MHEStateL", "MHEConsts", "BezierCarry"])
+                                  "EKFConstsL", "MHEStateL", "MHEConsts", "BezierCarry",
+                                  "MHEStateL-box", "MHEConsts-box", "MHEConsts-lanebox"])
 def test_convert_round_trip(name):
     """from_jax_numpy gives the port's NamedTuple with every leaf equal to the
     JAX side's (floats cast to the requested dtype)."""
@@ -206,6 +207,12 @@ def test_convert_round_trip(name):
     _, data_b, eb, vo = _jax_fleet(8, 3, 5, vo_noise=1.0)
     data_l = jbatch.tickdata_to_lanes(data_b)
     jc = jmhe.make_consts(JParams(num_legs=4, leg_odom_type=0, rate=200, N=4), DT)
+    if name.endswith("box"):
+        hi = np.full((9, 3) if name.endswith("lanebox") else 9, np.inf)
+        hi[3:6] = 0.3
+        jc = jmhe.make_consts(JParams(num_legs=4, leg_odom_type=0, rate=200, N=4), DT,
+                              x_lb=-hi, x_ub=hi, admm_iters=20, use_pallas=True)
+    box, name = name.endswith("box"), name.split("-")[0]
     d0 = jax.tree.map(lambda a: a[0], data_l)
     objs = {
         "TickData": data_l, "VOData": vo, "EKFBlocks": eb,
@@ -238,7 +245,8 @@ def test_convert_round_trip(name):
                     assert np.array_equal(t.numpy(), j), path
             elif isinstance(t, tuple) and hasattr(t, "_fields"):
                 for f in t._fields:
-                    if f in ("x_lb", "x_ub", "admm", "z_adm", "y_adm"):
+                    if f in ("x_lb", "x_ub", "admm", "z_adm", "y_adm") and not box:
+                        assert getattr(t, f) in (None, ()), path + "." + f
                         continue
                     check(getattr(t, f), getattr(j, f), path + "." + f)
             elif isinstance(t, np.ndarray):
@@ -247,6 +255,11 @@ def test_convert_round_trip(name):
                 assert t == np.asarray(j).item() if np.ndim(j) == 0 else t == j, path
 
         check(out, src, name)
+        if box and name == "MHEConsts":
+            assert type(out.admm) is admm.ADMMSettings and out.admm.iters == 20
+            assert out.use_pallas and torch.isinf(out.x_lb[0]).all()
+        if box and name == "MHEStateL":
+            assert out.z_adm.shape == out.y_adm.shape == (4, 9, 3)
     with pytest.raises(TypeError):
         convert.from_jax_numpy((1, 2), "cpu", F64)
 
@@ -283,6 +296,13 @@ def _entry_points():
             torch.eye(9, dtype=F64)[None, :, :, None].repeat(3, 1, 1, 2),
             z(2, 9, 9, 2), z(3, 9, 2), **k),
         "ekf_kernel.replay": lambda **k: ekf_kernel.replay(ec, est, eb_l, **k),
+        "admm_kernel.solve_box_lanes": lambda **k: admm_kernel.solve_box_lanes(
+            torch.eye(9, dtype=F64)[None, :, :, None].repeat(3, 1, 1, 2),
+            z(2, 9, 9, 2), torch.ones(3, 9, 2, dtype=F64), -0.5 * np.ones(9),
+            0.5 * np.ones(9), admm.ADMMSettings(iters=3), **k),
+        "mhe_replay_kernel.replay (box)": lambda **k: mrk.replay(
+            mhe.make_consts(p, F64, x_ub=np.full(9, 0.3), admm_iters=3,
+                            use_pallas=True, device="cpu"), data_l, vo, dtype=F64, **k),
         "mhe_replay_kernel.replay": lambda **k: mrk.replay(c, data_l, vo, dtype=F64, **k),
         "mhe_replay_kernel.replay_ticks": lambda **k: mrk.replay_ticks(
             c, ks0, rest, vo_rest, vo_inc, **k),
@@ -322,12 +342,15 @@ def test_cpu_path_never_builds_or_launches(monkeypatch):
 
     monkeypatch.setattr(_build, "load", boom)
     monkeypatch.setattr(_build, "build", boom)
-    before = tridiag_kernel.launches, ekf_kernel.launches, mrk.launches
+    counts = lambda: (tridiag_kernel.launches, ekf_kernel.launches, mrk.launches,
+                      mrk.launches_box, admm_kernel.launches)
+    before = counts()
     eps = _entry_points()
     for name in ("tridiag_kernel.solve_lanes", "ekf_kernel.replay",
-                 "mhe_replay_kernel.replay", "mhe_replay_kernel.replay_ticks"):
+                 "mhe_replay_kernel.replay", "mhe_replay_kernel.replay_ticks",
+                 "admm_kernel.solve_box_lanes", "mhe_replay_kernel.replay (box)"):
         eps[name](device="cpu")
-    assert (tridiag_kernel.launches, ekf_kernel.launches, mrk.launches) == before
+    assert counts() == before
 
 
 def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):
@@ -434,3 +457,125 @@ def test_port_imports_no_jax():
     for name in _build.SOURCES:
         with open(os.path.join(PORT, "csrc", f"{name}.cu")) as f:
             assert _build._ARGTYPES[name][0] in f.read()
+
+
+def _box(vb, B=None):
+    shape = (9,) if B is None else (9, B)
+    lb, ub = np.full(shape, -np.inf), np.full(shape, np.inf)
+    lb[3:6], ub[3:6] = -vb, vb
+    return lb, ub
+
+
+def _box_params(cls, N=6):
+    p = cls(num_legs=4, leg_odom_type=0, rate=200, N=N, foot_swing_std=[1e7] * 3)
+    p.osqp.abs_tol = 1e-8
+    p.osqp.relative_tol = 1e-8
+    return p
+
+
+@pytest.mark.parametrize("use_megakernel", [False, True])
+def test_constrained_pipeline_matches_jax(use_megakernel):
+    """The constrained production pipeline (EKF stage -> constrained MHE ticks,
+    tick 0 through the admm_solve wrapper) vs the JAX scanned constrained
+    pipeline at float64, with the box binding. x and v to 1e-8/1e-9."""
+    from decentralized_ekf_mhe_tpu.ops import mhe as jmhe
+
+    T, B, vb = 20, 16, 0.08
+    log = jsynth.generate(jsynth.SynthConfig(T=T, seed=17))
+    data = jest.tickdata_from_log(log, dtype=DT)
+    vo = jest.vodata_from_log(log, dtype=DT)
+    jp = _box_params(JParams)
+    data_b = jbatch.to_time_leading(
+        jbatch.perturb_log_batch(data, B, jax.random.PRNGKey(0), jp, dtype=DT))
+    eb = jbatch.perturb_ekf_blocks(
+        jest.ekfblocks_from_log(log, dtype=DT), B, jax.random.PRNGKey(1), jp, dtype=DT)
+    lb, ub = _box(vb)
+    jc = jmhe.make_consts(jp, DT, x_lb=lb, x_ub=ub, admm_iters=30)
+    jx, jv, jq = jbatch.make_pipeline_fleet_runner(
+        jp, JEKFParams(), DT, use_pallas=False, ekf_ring_len=16, consts=jc)(data_b, eb, vo)
+    tdata, teb, tvo = _convert(data_b, eb, vo)
+    tp = _box_params(EstimatorParams)
+    tc = mhe.make_consts(tp, F64, x_lb=lb, x_ub=ub, admm_iters=30, use_pallas=True,
+                         device="cpu")
+    tx, tv, tq = batch.make_pipeline_fleet_runner(
+        tp, EKFParams(), F64, ekf_ring_len=16, use_megakernel=use_megakernel,
+        consts=tc, device="cpu")(tdata, teb, tvo)
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-8, atol=1e-9)
+    vmax = float(tx[..., 3:6].abs().max())
+    assert vb - 1e-6 <= vmax <= vb + 1e-6
+
+
+def test_constrained_lanes_runner_per_lane_sweep_matches_jax():
+    """Per-lane (s,B) bounds through the lanes fleet runner: every lane keeps
+    its own box, and the result equals the JAX runner's."""
+    from decentralized_ekf_mhe_tpu.ops import mhe as jmhe
+
+    T, B = 16, 8
+    _, data_b, _, vo = _jax_fleet(T, B, 13)
+    bnds = np.linspace(0.05, 0.12, B)
+    lb, ub = _box(bnds, B)
+    jp, tp = _box_params(JParams, 5), _box_params(EstimatorParams, 5)
+    jc = jmhe.make_consts(jp, DT, x_lb=lb, x_ub=ub, admm_iters=40)
+    jx, jv = jbatch.make_lanes_fleet_runner(jp, DT, use_pallas=False, consts=jc)(data_b, vo)
+    tdata, tvo = _convert(data_b, vo)
+    tc = mhe.make_consts(tp, F64, x_lb=lb, x_ub=ub, admm_iters=40, use_pallas=True,
+                         device="cpu")
+    for use_megakernel in (False, True):
+        tx, tv = batch.make_lanes_fleet_runner(
+            tp, F64, use_megakernel=use_megakernel, consts=tc, device="cpu")(tdata, tvo)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-8, atol=1e-9)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-8, atol=1e-9)
+    per_lane = tx[..., 3:6].abs().amax(dim=(0, 2)).numpy()
+    assert (per_lane <= bnds + 1e-6).all() and (per_lane >= bnds - 1e-6).any()
+
+
+def test_runner_rejects_bounds_of_another_fleet_or_device():
+    """(s,B) bounds with the wrong B, or on another device than the fleet,
+    raise a ValueError from both runners before any kernel sees them."""
+    T, B = 6, 4
+    _, data_b, eb, vo = _jax_fleet(T, B, 3)
+    tdata, teb, tvo = _convert(data_b, eb, vo)
+    p = _box_params(EstimatorParams, 4)
+    good = mhe.make_consts(p, F64, x_ub=np.full((9, B), 0.3), admm_iters=5,
+                           use_pallas=True, device="cpu")
+    wrong_B = good._replace(x_lb=torch.zeros(9, B + 1, dtype=F64) - 1,
+                            x_ub=torch.ones(9, B + 1, dtype=F64))
+    wrong_dev = good._replace(x_lb=good.x_lb.to("meta"), x_ub=good.x_ub.to("meta"))
+    for use_megakernel in (False, True):
+        for bad in (wrong_B, wrong_dev):
+            with pytest.raises(ValueError):
+                batch.make_lanes_fleet_runner(
+                    p, F64, use_megakernel=use_megakernel, consts=bad,
+                    device="cpu")(tdata, tvo)
+            with pytest.raises(ValueError):
+                batch.make_pipeline_fleet_runner(
+                    p, EKFParams(), F64, use_megakernel=use_megakernel, consts=bad,
+                    device="cpu")(tdata, teb, tvo)
+    x, _ = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, consts=good,
+                                         device="cpu")(tdata, tvo)
+    assert x.shape == (T, B, 9)
+
+
+def test_constrained_work_counts():
+    """The constrained tick's bound counts the box-ADMM in place of the Thomas
+    sweep, by the iterations that were run."""
+    ticks = range(1, 31)
+    sched = _work.mhe_schedule([t % 4 == 0 for t in ticks], [max(t - 10, 0) for t in ticks],
+                               [t - 2 for t in ticks], 20)
+    it20 = np.full((30, 16), 20)
+    b0, f0 = _work.mhe_tick(20, 9, 12, 4, 16, sched, 0, 4)
+    b1, f1 = _work.mhe_tick(20, 9, 12, 4, 16, sched, 0, 4, box=(it20, 10, False, True, True))
+    b2, f2 = _work.mhe_tick(20, 9, 12, 4, 16, sched, 0, 4, box=(it20 // 2, 10, False, True, True))
+    assert b1 == b2 == b0 + 4 * 16 * (4 * 180 + 18) + 4 * 30 * 16
+    assert f1 > f2 > f0
+    # the ADMM part alone: per tick, by that tick's number of real slots
+    pat = _work._Go1Patterns(9, 12, 4)
+    rest = sum(_work._solve_ops(pat, 20, n, cam, sweep=False) - _work._solve_ops(pat, 20, n, cam)
+               for n, cam, _, _ in sched) * 16
+    box = sum(_work.admm_ops(9, n, it20[i], 10, False, True, True)
+              for i, (n, _, _, _) in enumerate(sched))
+    assert f1 - f0 == rest + box
+    state = sum(int(np.prod(sh)) for sh in mrk.state_shapes(20, 9, 12, 4, constrained=True))
+    assert b1 == 4 * 16 * (30 * (82 + 9) + 2 * state + 18) + 4 * 30 * 16
