@@ -21,6 +21,18 @@ against their plain versions at full width: float64 element-wise at reduced
 depth, float32 at full depth by accuracy (the eager plain version of a
 constrained tick is thousands of small launches).
 
+Then every lane follows its own camera clock (15 clocks, every 64th lane
+VO-free, per-lane VO content): the per-lane-clock variants of the tick kernel
+against their plain versions at the small size (split log, plain version from
+a kernel state, a ragged fleet, per-lane bounds, and uniform per-lane clocks
+against the shared-clock kernels), the MHE-only runner at full size
+unconstrained and constrained, and the pipeline runner with per-lane MHE
+clocks, once on the shared EKF clock (EKF kernel) and once with per-lane EKF
+timing (the eager scan: neither package has an EKF kernel for it). Their
+float32 accuracy gates are held over the lanes with a camera: a VO-free lane
+breaks down in float32 after a few hundred ticks (ROADMAP.md, fault F5), which
+each of these phases reports; the float64 runs hold every lane.
+
 Any failed check ends the run with a non-zero exit code. Each phase prints one
 JSON line; the line before the last lists every kernel, the last line is the
 verdict.
@@ -71,8 +83,25 @@ TOL_ADAPT = 1e-6
 
 # the constrained path: the velocity box of the reference's bench, the depth of
 # the one-launch-per-tick run, and the depth at which the constrained tick is
-# held against its eager plain version at full width in float64 (6 ring wraps)
+# held against its eager plain version at full width (6 ring wraps; float64
+# element-wise, float32 for the plain version's time)
 V_BOX, T_PER_TICK, T_BOX_PLAIN = 0.3, 200, 120
+
+# per-lane camera clocks: lane b follows clock b % 15 (vo_every 5..9, latency
+# 1..3 ticks), every 64th lane has no VO at all; the depth of the ragged-fleet
+# check and of the eager per-lane EKF timing run
+N_CLOCKS, VO_FREE_EVERY, T_RAGGED_PI, T_EKF_PI = 15, 64, 40, 100
+
+# the constrained tick on per-lane clocks at full width: its dual iterate y
+# (y += rho (alpha x~ + (1 - alpha) z - z+), rho = 5000) carries the primal
+# iterates' rounding times rho, so at a few elements it moves by about
+# TOL_MHE's limit with the order and the contraction of the arithmetic (the
+# plain version itself does, between the card and the CPU: PERF.md §7). There
+# the kernel as built holds y to Y_OVER_TOL_FMA times that limit, and the
+# kernel built with FMAD_OFF must meet TOL_MHE itself against the plain
+# version on the CPU, on the FMA_LANES lanes where the built kernel's y is
+# furthest off (fma_witness)
+FMAD_OFF, Y_OVER_TOL_FMA, FMA_LANES = ("-fmad=false",), 10.0, 8
 
 
 def emit(phase, **kw):
@@ -108,6 +137,45 @@ def make_fleet(T, B, dtype, seed, vo_noise=1.0):
     return log, data_b, eb, vo_b
 
 
+def clock_logs(T):
+    """The synthetic log of each camera clock: the same seed, so the same
+    trajectory and IMU/encoder streams; VO every 5..9 ticks, 1..3 ticks late."""
+    return [synth.generate(synth.SynthConfig(
+        T=T, seed=0, vo_every=5 + k % 5, vo_latency=1 + (k // 5) % 3))
+        for k in range(N_CLOCKS)]
+
+
+def make_clock_fleet(T, B, dtype, seed, ekf_per_lane=False):
+    """The fleet of ``make_fleet`` (per-lane IMU/encoder noise, per-lane VO
+    quaternion into the shared-clock EKF blocks) with a camera clock per
+    lane: lane b takes the VO schedule and content of clock b % 15, every
+    64th lane none, and its own VO-content draw (std ``vo_p_std``) on its
+    own events. ``ekf_per_lane`` gives the EKF blocks each lane's own
+    delayed-VO events too. Returns (log, data_b, eb, vo) with a per-instance
+    ``vo`` (active, tick_pre, tick_now (T,B), dp_body (T,3,B))."""
+    p = go1_params()
+    log, data_b, eb, _ = make_fleet(T, B, dtype, seed)
+    logs = clock_logs(T)
+    lane = torch.arange(B, device=DEV) % N_CLOCKS
+    free = torch.arange(B, device=DEV) % VO_FREE_EVERY == VO_FREE_EVERY - 1
+    vos = [estimator.vodata_from_log(lg, dtype=dtype, device=DEV) for lg in logs]
+    pick = lambda f: torch.stack([getattr(v, f) for v in vos], -1)[..., lane].contiguous()
+    active = pick("active") & ~free
+    g = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    std = torch.tensor(p.vo_p_std, dtype=dtype, device=DEV)[None, :, None]
+    dp = pick("dp_body") + std * torch.randn((T, 3, B), generator=g, dtype=dtype,
+                                             device=DEV) * active[:, None, :]
+    vo = estimator.VOData(active=active, dp_body=dp, tick_pre=pick("tick_pre"),
+                          tick_now=pick("tick_now"))
+    if ekf_per_lane:
+        ebs = [estimator.ekfblocks_from_log(lg, dtype=dtype, device=DEV) for lg in logs]
+        pick_e = lambda f: torch.stack([getattr(e, f) for e in ebs], -1)[..., lane].contiguous()
+        q = pick_e("vo_q")
+        eb = eb._replace(vo_active=pick_e("vo_active") & ~free, vo_q=q,
+                         vo_steps_back=pick_e("vo_steps_back"))
+    return log, data_b, eb, vo
+
+
 def cast(nt, dtype):
     """Cast the float leaves of a NamedTuple of tensors to ``dtype``."""
     return type(nt)(*((a.to(dtype) if a.is_floating_point() else a).contiguous()
@@ -121,7 +189,8 @@ def close(a, b, rtol, atol):
 
 
 def timed(fn, reps=3):
-    """Best-of-reps device time of fn() in ms (CUDA events), after a warm-up."""
+    """Best-of-reps device time of fn() in ms (CUDA events), after a warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
     best = float("inf")
@@ -140,7 +209,8 @@ def mhe_inputs(c, data_l, vo, dtype):
     whole log, exactly as ``mrk.replay`` prepares them."""
     d0 = estimator.TickData(*(a[0] for a in data_l))
     st0 = mhe_lanes.init(c, d0.R_sb, d0.accel_b, d0.omega_b, d0.p_foot,
-                         d0.J_foot, d0.dq, d0.contact, dtype=dtype, device=DEV)
+                         d0.J_foot, d0.dq, d0.contact, dtype=dtype,
+                         per_instance_vo=vo.active.ndim == 2, device=DEV)
     vo_inc = estimator.vo_world_increments(data_l.R_sb, vo)
     return st0, vo_inc
 
@@ -150,8 +220,9 @@ def seg(data_l, vo, vo_inc, sl):
             estimator.VOData(*(a[sl] for a in vo)), vo_inc[sl].contiguous())
 
 
-def vel_rmse(x_tsb, ref_tsb, skip=0):
-    return float(torch.sqrt(((x_tsb[skip:, 3:6].double() - ref_tsb[skip:, 3:6].double()) ** 2).mean()))
+def vel_rmse(x_tsb, ref_tsb, skip=0, lanes=slice(None)):
+    err = x_tsb[skip:, 3:6, lanes].double() - ref_tsb[skip:, 3:6, lanes].double()
+    return float(torch.sqrt((err ** 2).mean()))
 
 
 # ---------------------------------------------------------------- phases
@@ -174,8 +245,12 @@ def phase_build():
     _build.build(verbose=False)
     for name in _build.SOURCES:
         _build.load(name)
-    emit("build", seconds=round(time.time() - t0, 2), sources=list(_build.SOURCES),
-         flags=" ".join(_build.NVCC_FLAGS))
+    t1 = time.time()
+    # the tick kernels once more without FMA contraction, for fma_witness
+    _build.load("mhe", extra_flags=FMAD_OFF)
+    emit("build", seconds=round(t1 - t0, 2), sources=list(_build.SOURCES),
+         flags=" ".join(_build.NVCC_FLAGS),
+         mhe_without_fma={"flags": " ".join(FMAD_OFF), "seconds": round(time.time() - t1, 2)})
 
 
 def check_kernels():
@@ -279,8 +354,7 @@ def main_path(fleet64, fleet32, gt_v):
     x, v, q = runner(data_b, eb, vo_b)
     torch.cuda.synchronize()
     counts = read_counts()
-    assert counts == {"tridiag_solve": 1, "ekf_stage": 1, "mhe_tick": 1,
-                      "mhe_tick_box": 0, "admm_solve": 0, "admm_box_solve": 0}, counts
+    assert counts == dict(NO_LAUNCH, tridiag_solve=1, ekf_stage=1, mhe_tick=1), counts
 
     assert x.shape == (T_MAIN, B_MAIN, 9) and v.shape == (T_MAIN, B_MAIN, 3) and q.shape == (T_MAIN, 4, B_MAIN)
     assert torch.isfinite(x).all() and torch.isfinite(v).all() and torch.isfinite(q).all()
@@ -313,20 +387,41 @@ def main_path(fleet64, fleet32, gt_v):
 def reset_counts():
     for mod in (tridiag_kernel, ekf_kernel, mrk, admm_kernel):
         mod.launches = 0
-    mrk.launches_box = admm_kernel.launches_core = 0
+    mrk.launches_box = mrk.launches_pi = mrk.launches_pi_box = 0
+    admm_kernel.launches_core = 0
 
 
 def read_counts():
     return {"tridiag_solve": tridiag_kernel.launches, "ekf_stage": ekf_kernel.launches,
             "mhe_tick": mrk.launches, "mhe_tick_box": mrk.launches_box,
+            "mhe_tick_pi": mrk.launches_pi, "mhe_tick_pi_box": mrk.launches_pi_box,
             "admm_solve": admm_kernel.launches,
             "admm_box_solve": admm_kernel.launches_core}
 
 
-def fleet_rmse(x_tbs, gt_v):
+NO_LAUNCH = {"tridiag_solve": 0, "ekf_stage": 0, "mhe_tick": 0, "mhe_tick_box": 0,
+             "mhe_tick_pi": 0, "mhe_tick_pi_box": 0, "admm_solve": 0, "admm_box_solve": 0}
+
+
+def fleet_rmse(x_tbs, gt_v, lanes=slice(None)):
     """Fleet velocity RMSE of x (T,B,s) against the log's ground truth."""
-    err = x_tbs[SKIP:, :, 3:6].double() - gt_v[SKIP:, None]
+    err = x_tbs[SKIP:, lanes, 3:6].double() - gt_v[SKIP:, None]
     return float(torch.sqrt((err ** 2).mean()))
+
+
+def split_vo_free(x_tbs, vo):
+    """The lanes of a per-lane-clock fleet that have a camera (a (B,) mask),
+    after checking that every value of theirs is finite; and the first tick at
+    which a VO-free lane's estimate is not finite, or None. Without any VO the
+    absolute position is held by the arrival cost alone, whose information
+    the float32 marginalization loses to cancellation against the process
+    model's 4e10 position weight: such a lane breaks down after several
+    hundred ticks in float32, in the reference as in this package (ROADMAP.md,
+    fault F5), and stays finite in float64."""
+    cam = vo.active.any(0)
+    assert bool(torch.isfinite(x_tbs[:, cam]).all()), "a lane with a camera is not finite"
+    bad = ~torch.isfinite(x_tbs[:, ~cam]).all(-1).all(-1)
+    return cam, (int(torch.nonzero(bad)[0, 0]) if bool(bad.any()) else None)
 
 
 def stage_inputs(p, fleet, q_seq, dtype):
@@ -444,7 +539,7 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
                           "decentralized_ekf_mhe_tpu/pallas/tridiag_kernel.py:213"),
         "ekf_stage": ("decentralized_ekf_mhe_tpu_torch/csrc/ekf.cu",
                       "decentralized_ekf_mhe_tpu/pallas/ekf_kernel.py:370"),
-        "mhe_tick": ("decentralized_ekf_mhe_tpu_torch/csrc/mhe.cu",
+        "mhe_tick": ("decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
                      "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917"),
     }, works, counts, err, ms, plain_ms)
 
@@ -522,18 +617,90 @@ def check_admm(tag, D, U, r, lb, ub, settings, **kw):
     return errs, limits, res_k
 
 
-def check_box_tick(c, c_plain, ks0, d, v, i, tag):
-    """Constrained mhe_tick kernel vs its plain version over the ticks handed
-    in: x, the z/y warm-start rings and the per-tick iteration counts."""
+def over_tol(a, b, tol=TOL_MHE):
+    """The largest |a - b| / (atol + rtol |b|), per lane (last axis)."""
+    r = (a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())
+    return r.reshape(-1, r.shape[-1]).amax(0)
+
+
+def check_box_tick(c, c_plain, ks0, d, v, i, tag, fma=False):
+    """Constrained mhe_tick kernel (either clock) vs its plain version over
+    the ticks handed in: x, the z/y warm-start rings, the per-tick iteration
+    counts and the final Bezier schedule, all to TOL_MHE; "y_over_tol" is how
+    far y comes to that limit (the largest |dy| / (atol + rtol |y|)). With
+    ``fma`` y may go to Y_OVER_TOL_FMA times the limit, and fma_witness must
+    then show the kernel without FMA contraction meeting TOL_MHE."""
     x_p, ks_p = mrk.replay_ticks_plain(c_plain, ks0, d, v, i)
     x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV)
     errs = {}
     for f, a, b in (("x", x_k, x_p), ("z", ks_k.arrays[18], ks_p.arrays[18]),
                     ("y", ks_k.arrays[19], ks_p.arrays[19])):
         ok, errs[f] = close(a, b, **TOL_MHE)
-        assert ok, ("mhe_tick_box vs plain", tag, f, errs[f])
+        if f == "y":
+            y_lane = over_tol(a, b)
+            errs["y_over_tol"] = float(y_lane.max())
+            if fma:
+                ok = bool(torch.isfinite(a).all()) and errs["y_over_tol"] <= Y_OVER_TOL_FMA
+        assert ok, ("mhe_tick_box vs plain", tag, f, errs)
     assert torch.equal(ks_k.iters, ks_p.iters), ("mhe_tick_box iteration counts", tag)
+    check_schedule(ks_k, ks_p, tag)
+    if fma:
+        errs["without_fma"] = fma_witness(c, ks0, d, v, i, (x_k, ks_k), (x_p, ks_p),
+                                          y_lane)
     return x_k, ks_k, x_p, errs
+
+
+def on_cpu(tree, lanes=None):
+    """A tensor, or a (Named)tuple of them, on the CPU; with ``lanes`` only
+    those lanes (B the last axis). Anything else (a tick counter, a setting)
+    as it is."""
+    if torch.is_tensor(tree):
+        return (tree if lanes is None else tree[..., lanes]).contiguous().cpu()
+    if isinstance(tree, tuple):
+        items = [on_cpu(a, lanes) for a in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def fma_witness(c, ks0, d, v, i, kernel, plain, y_lane):
+    """Where the constrained tick's y differs between the kernel as built and
+    its plain version by more than TOL_MHE: the same inputs through the
+    kernel built without FMA contraction (FMAD_OFF), and, on the FMA_LANES
+    lanes where the built kernel's y is furthest off, through the plain
+    version on the CPU. The kernel without FMA contraction must meet TOL_MHE
+    there in x, z, y and the iteration counts. Emits the comparisons of all
+    four (the plain version on the card and on the CPU included) before it
+    asserts. Returns the errors."""
+    x_n, ks_n = mrk.replay_ticks(c, ks0, d, v, i, device=DEV, nvcc_flags=FMAD_OFF)
+    idx = torch.topk(y_lane, FMA_LANES).indices
+    x_c, ks_c = mrk.replay_ticks_plain(on_cpu(c)._replace(use_pallas=False),
+                                       *(on_cpu(a, idx) for a in (ks0, d, v, i)))
+
+    def over(a, b):
+        (xa, ka), (xb, kb) = a, b
+        out = {f: float(over_tol(p.double().cpu(), q.double().cpu()).max())
+               for f, p, q in (("x", xa, xb), ("z", ka.arrays[18], kb.arrays[18]),
+                               ("y", ka.arrays[19], kb.arrays[19]))}
+        out["iters_equal"] = bool(torch.equal(ka.iters.cpu(), kb.iters.cpu()))
+        return out
+
+    res = {"lanes": idx.tolist(), "over_tol": {
+        "without_fma_vs_plain_cpu": over(on_cpu((x_n, ks_n), idx), (x_c, ks_c)),
+        "kernel_vs_plain_cpu": over(on_cpu(kernel, idx), (x_c, ks_c)),
+        "plain_card_vs_plain_cpu": over(on_cpu(plain, idx), (x_c, ks_c)),
+        "without_fma_vs_plain_card": over((x_n, ks_n), plain),
+        "kernel_vs_plain_card": over(kernel, plain)}}
+    emit("fma_witness", flags=" ".join(FMAD_OFF), tol=TOL_MHE, **res)
+    w = res["over_tol"]["without_fma_vs_plain_cpu"]
+    assert w["iters_equal"] and max(w[f] for f in "xzy") <= 1.0, ("kernel without FMA", w)
+    return res
+
+
+def check_schedule(ks_k, ks_p, tag):
+    """The Bezier schedule the kernel leaves equals the plain version's."""
+    assert torch.equal(ks_k.bez_count, ks_p.bez_count), ("Bezier counts", tag)
+    ok, e = close(ks_k.bez_times, ks_p.bez_times, **TOL_MHE)
+    assert ok, ("Bezier times", tag, e)
 
 
 def box_small_setup():
@@ -619,7 +786,7 @@ def check_kernels_box():
     x_pl, _, _, e_pl = check_box_tick(c_pl, c_pl._replace(use_pallas=False), ks0_pl,
                                       dA, vA, iA, "per-lane bounds")
     assert bool((x_pl[:, 3:6].abs().amax(dim=(0, 1)) <= lane_bound + 1e-3).all())
-    errs["per_lane_bounds"] = max(e_pl.values())
+    errs["per_lane_bounds"] = max(e_pl[f] for f in "xzy")
     res["mhe_box_err"] = errs
 
     # ---- K4 admm_solve on assembled windows
@@ -649,8 +816,8 @@ def box_main_path(fleet64, fleet32, gt_v):
     x, v, q = runner(data_b, eb, vo_b)
     torch.cuda.synchronize()
     counts = read_counts()
-    assert counts == {"tridiag_solve": 0, "ekf_stage": 1, "mhe_tick": 0,
-                      "mhe_tick_box": 1, "admm_solve": 1, "admm_box_solve": 2}, counts
+    assert counts == dict(NO_LAUNCH, ekf_stage=1, mhe_tick_box=1, admm_solve=1,
+                          admm_box_solve=2), counts
 
     assert x.shape == (T_MAIN, B_MAIN, 9) and v.shape == (T_MAIN, B_MAIN, 3)
     assert torch.isfinite(x).all() and torch.isfinite(v).all() and torch.isfinite(q).all()
@@ -759,21 +926,26 @@ def box_full_width(fleet64, fleet32, x64, q64, counts):
     el, _, _ = check_admm("final window", *window(c, st_l), **warm(st_l))
     # the largest error over the outputs x, z, y; y (the dual iterate) is of
     # magnitude 1e4 on these windows, so its absolute error leads
-    err = {"mhe_tick_box": max(e_tick.values()),
+    err = {"mhe_tick_box": max(e_tick[f] for f in "xzy"),
            "admm_solve": max(*e0.values(), *el.values()),
            "admm_box_solve": max(el.values())}
 
-    # ---- float32 at the main path's shapes: T_MAIN ticks, kernel and plain
-    # version once each, both held to the float64 main path by accuracy
+    # ---- float32 at the main path's shapes: the kernel over T_MAIN ticks, its
+    # plain version over the first T_BOX_PLAIN (the eager constrained tick is
+    # thousands of small launches per tick), both held to the float64 main
+    # path by accuracy over the ticks they share after the window's warm-up
+    # (ticks N_WIN+1 .. T_BOX_PLAIN-1)
     cm, stm, ksm, (dm, vm, im) = inputs(fleet32, F32, T_MAIN)
     ms, plain_ms = {}, {}
+    cp, _, ksp, (dp_, vp, ip) = inputs(fleet32, F32, T_BOX_PLAIN)
     (x32p, _), plain_ms["mhe_tick_box"] = wall_ms(
-        lambda: mrk.replay_ticks_plain(cm._replace(use_pallas=False), ksm, dm, vm, im))
+        lambda: mrk.replay_ticks_plain(cp._replace(use_pallas=False), ksp, dp_, vp, ip))
     x32k, ks_end = mrk.replay_ticks(cm, ksm, dm, vm, im, device=DEV)
     assert torch.isfinite(x32k).all()
-    ref = torch.movedim(x64, 1, -1)[1:]
-    rk, rp = vel_rmse(x32k, ref, SKIP), vel_rmse(x32p, ref, SKIP)
+    ref = torch.movedim(x64, 1, -1)[1:T_BOX_PLAIN]
+    rk, rp = vel_rmse(x32k[:T_BOX_PLAIN - 1], ref, N_WIN), vel_rmse(x32p, ref, N_WIN)
     assert abs(rk - rp) < 1e-3, ("constrained f32 velocity-RMSE delta", rk, rp)
+    rmse_ticks = [N_WIN + 1, T_BOX_PLAIN - 1]
     del x32p, ref
     mrk.timer.on = True
     ms["mhe_tick_box"] = timed(lambda: mrk.replay_ticks(cm, ksm, dm, vm, im, device=DEV), reps=1)
@@ -809,16 +981,17 @@ def box_full_width(fleet64, fleet32, x64, q64, counts):
     core_ops = works["admm_solve"][1] + sum(
         _work.admm_ops(9, n_states, it, *box)
         for (n_states, *_), it in zip(sched, iters_tick.cpu().numpy()))
-    emit("box_full_width", B=B_MAIN, N=N_WIN, T_f64=T_BOX_PLAIN, T_f32=T_MAIN, tol=TOL_MHE,
+    emit("box_full_width", B=B_MAIN, N=N_WIN, T_f64=T_BOX_PLAIN, T_f32_kernel=T_MAIN,
+         T_f32_plain=T_BOX_PLAIN, tol=TOL_MHE,
          max_abs_err_f64={"mhe_tick_box": e_tick, "admm_solve": {"tick0": e0, "final": el}},
          plain_and_kernel_f64_s=plain64_s,
-         f32={"vel_rmse_vs_f64_kernel": rk, "vel_rmse_vs_f64_plain": rp},
+         f32={"vel_rmse_vs_f64_kernel": rk, "vel_rmse_vs_f64_plain": rp, "ticks": rmse_ticks},
          kernel_f32_ms=ms, plain_f32_ms=plain_ms, mhe_tick_box_kernel_only_ms=kernel_only_ms,
          admm_iters_mean={"mhe_tick_box": float(iters_tick.double().mean()),
                           **{k: float(v.double().mean()) for k, v in iters.items()}})
     f64_shape = {"T": T_BOX_PLAIN, "B": B_MAIN}
     return kernel_rows({
-        "mhe_tick_box": ("decentralized_ekf_mhe_tpu_torch/csrc/mhe.cu",
+        "mhe_tick_box": ("decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
                          "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (admm_ks set)"),
         "admm_box_solve": ("decentralized_ekf_mhe_tpu_torch/csrc/admm.cuh",
                            "decentralized_ekf_mhe_tpu/pallas/admm_core.py:133"),
@@ -826,7 +999,8 @@ def box_full_width(fleet64, fleet32, x64, q64, counts):
                        "decentralized_ekf_mhe_tpu/pallas/admm_kernel.py:75"),
     }, works, counts, err, ms, plain_ms,
         mhe_tick_box=dict(max_abs_err_shape=f64_shape, max_abs_err_by_output=e_tick,
-                          f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp}),
+                          plain_ms_shape=dict(f64_shape, N=N_WIN),
+                          f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp, "ticks": rmse_ticks}),
         admm_solve={"shape": {"B": B_MAIN, "N": N_WIN, "window": "tick 0: one real slot"},
                     "max_abs_err_shape": dict(f64_shape, window="tick 0 and final"),
                     "max_abs_err_by_output": {"tick0_window": e0, "final_window": el}},
@@ -842,7 +1016,346 @@ def box_full_width(fleet64, fleet32, x64, q64, counts):
             "main_path_bound_ms": core_ops / PEAK_F32_FLOPS * 1e3})
 
 
+# ------------------------------------------------ per-lane camera clocks
+
+
+def clock_inputs(c, fleet, dtype, T=None):
+    """Tick-0 kernel state and the per-tick inputs of ``mrk.replay_ticks``
+    for the MHE-only runner on ``fleet`` (orientation ``data.R_sb``), over its
+    first ``T`` ticks (default all): (ks0, (data, vo, vo_inc) of ticks 1..)."""
+    data_b, _, vo = fleet
+    sl = slice(0, T)
+    data_l = batch.tickdata_to_lanes(estimator.TickData(*(a[sl] for a in data_b)))
+    vo = estimator.VOData(*(a[sl] for a in vo))
+    st0, vo_inc = mhe_inputs(c, data_l, vo, dtype)
+    return mrk.kernel_state_from_mhe(st0, c), seg(data_l, vo, vo_inc, slice(1, None))
+
+
+def uniform_clock(vo, B):
+    """A shared-clock VOData as a per-instance one: every lane on the fleet's
+    clock."""
+    T = vo.active.shape[0]
+    return estimator.VOData(vo.active[:, None].expand(T, B).contiguous(), vo.dp_body,
+                            vo.tick_pre[:, None].expand(T, B).contiguous(),
+                            vo.tick_now[:, None].expand(T, B).contiguous())
+
+
+def check_tick(c, ks0, d, v, i, tag, split=30):
+    """The tick kernel (either variant, by the consts) against its plain
+    version over the ticks handed in: x, the final Bezier schedule and, when
+    constrained, z, y and the iteration counts; then the log split at tick
+    ``split`` over two calls, and the plain version continuing from the first
+    call's kernel state. Returns ({check: error}, x and final state of the
+    kernel)."""
+    c_plain = c._replace(use_pallas=False)
+    if c.x_lb is not None:
+        x_k, ks_k, _, errs = check_box_tick(c, c_plain, ks0, d, v, i, tag)
+    else:
+        x_p, ks_p = mrk.replay_ticks_plain(c_plain, ks0, d, v, i)
+        x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV)
+        ok, e = close(x_k, x_p, **TOL_MHE)
+        assert ok, ("per-lane-clock mhe_tick vs plain", tag, e)
+        check_schedule(ks_k, ks_p, tag)
+        errs = {"x": e}
+    cut = lambda sl: (estimator.TickData(*(a[sl] for a in d)),
+                      estimator.VOData(*(a[sl] for a in v)), i[sl])
+    xA, ksA = mrk.replay_ticks(c, ks0, *cut(slice(0, split)), device=DEV)
+    xB, ksB = mrk.replay_ticks(c, ksA, *cut(slice(split, None)), device=DEV)
+    ok, errs["split_log"] = close(torch.cat([xA, xB]), x_k, **TOL_MHE)
+    assert ok and ksB.t == ks_k.t, ("per-lane-clock split-log resume", tag, errs["split_log"])
+    xBp, _ = mrk.replay_ticks_plain(c_plain, ksA, *cut(slice(split, None)))
+    ok, errs["plain_from_kernel_state"] = close(xB, xBp, **TOL_MHE)
+    assert ok, ("plain version from a per-lane-clock kernel state", tag,
+                errs["plain_from_kernel_state"])
+    return errs, x_k, ks_k
+
+
+def check_kernels_pi():
+    """The per-lane-clock tick kernels (unconstrained and constrained)
+    against their plain versions at the small size, float64, on a fleet with
+    15 camera clocks and VO-free lanes; a ragged fleet through the runner;
+    per-lane bounds; and uniform per-lane clocks against the shared-clock
+    kernels, which they must reproduce (the ingestion runs the same
+    statements)."""
+    p = go1_params()
+    res = {}
+    _, *fleet = make_clock_fleet(T_CHK, B_CHK, F64, seed=1)
+    vo = fleet[2]
+    assert int(vo.active.any(0).sum()) == B_CHK - B_CHK // VO_FREE_EVERY
+    c = mhe.make_consts(p, F64, device=DEV)
+    ks0, (d1, v1, i1) = clock_inputs(c, fleet, F64)
+    res["mhe_tick_pi_err"], x_free, ks = check_tick(c, ks0, d1, v1, i1, "unconstrained")
+    counts = ks.bez_count[0]
+    assert int(counts.min()) == 0 and len(set(counts.tolist())) > 3, "clocks did not go apart"
+
+    # constrained, on a box that binds (half the unconstrained run's largest
+    # |v|), OSQP tolerances 1e-8, fixed rho, 20 iterations, polish
+    bound = 0.5 * float(x_free[:, 3:6].abs().max())
+    pb = box_params(tol=1e-8)
+    cb = box_consts(pb, F64, bound, 20)
+    ksb, _ = clock_inputs(cb, fleet, F64)
+    res["mhe_tick_pi_box_err"], xb, _ = check_tick(cb, ksb, d1, v1, i1, "constrained")
+    vmax = float(xb[:, 3:6].abs().max())
+    assert bound - 1e-6 <= vmax <= bound + 1e-3, ("box not active or violated", vmax, bound)
+    lane_bound = torch.linspace(0.4 * bound, 1.2 * bound, B_CHK, dtype=F64, device=DEV)
+    c_pl = box_consts(pb, F64, lane_bound, 20)
+    ks_pl, (dA, vA, iA) = clock_inputs(c_pl, fleet, F64, T=30)
+    x_pl, _, _, e_pl = check_box_tick(c_pl, c_pl._replace(use_pallas=False), ks_pl, dA, vA, iA,
+                                      "per-lane clocks and bounds")
+    assert bool((x_pl[:, 3:6].abs().amax(dim=(0, 1)) <= lane_bound + 1e-3).all())
+    res["mhe_tick_pi_box_err"]["per_lane_bounds"] = max(e_pl[f] for f in "xzy")
+
+    # ragged fleet through the MHE-only runner: kernel route vs eager route
+    _, *fleet_r = make_clock_fleet(T_RAGGED_PI, B_RAGGED, F64, seed=2)
+    errs = {}
+    for tag, cr in (("unconstrained", mhe.make_consts(p, F64, device=DEV)),
+                    ("constrained", box_consts(pb, F64, bound, 20))):
+        run_k = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, consts=cr, device=DEV)
+        run_p = batch.make_lanes_fleet_runner(p, F64, use_megakernel=False,
+                                              consts=cr._replace(use_pallas=False), device=DEV)
+        (xk, vk), (xp, vp) = run_k(fleet_r[0], fleet_r[2]), run_p(fleet_r[0], fleet_r[2])
+        okx, ex = close(xk, xp, **TOL_MHE)
+        okv, ev = close(vk, vp, **TOL_MHE)
+        assert okx and okv, ("ragged B, per-lane clocks", tag, ex, ev)
+        errs[tag] = {"x": ex, "v": ev}
+    res["ragged_err"] = {"B": B_RAGGED, "T": T_RAGGED_PI, **errs}
+
+    # uniform per-lane clocks against the shared-clock kernels, bit for bit
+    # in the ingestion: the same fleet once on its shared clock, once with
+    # that clock broadcast to every lane
+    _, data_s, _, vo_s = make_fleet(T_CHK, B_CHK, F64, seed=1)
+    errs = {}
+    for tag, cc in (("mhe_tick", c), ("mhe_tick_box", cb)):
+        ks_s, (ds, vs, i_s) = clock_inputs(cc, (data_s, None, vo_s), F64)
+        ks_u, (_, vu, iu) = clock_inputs(cc, (data_s, None, uniform_clock(vo_s, B_CHK)), F64)
+        x_s, _ = mrk.replay_ticks(cc, ks_s, ds, vs, i_s, device=DEV)
+        x_u, _ = mrk.replay_ticks(cc, ks_u, ds, vu, iu, device=DEV)
+        ok, errs[tag] = close(x_u, x_s, rtol=0.0, atol=1e-12)
+        assert ok, ("uniform per-lane clocks vs the shared-clock kernel", tag, errs[tag])
+    res["uniform_clock_vs_shared_err"] = errs
+    emit("kernels_pi", dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK, clocks=N_CLOCKS,
+         vo_free_lanes=B_CHK // VO_FREE_EVERY, tol=TOL_MHE, tol_uniform_vs_shared=1e-12,
+         box=bound, osqp_tol=1e-8, **res)
+
+
+def pi_main_path(fleet64, fleet32, gt_v, shared32):
+    """The MHE-only runner at full width on the 15-clock fleet (orientation
+    from the log): launches, accuracy, wall; then the per-lane-clock tick
+    against its plain version — float64 element-wise over T_BOX_PLAIN ticks,
+    float32 timed — and, on the shared-clock fleet ``shared32``, the shared
+    and the per-lane-clock tick in turns on the same schedule, which splits
+    the per-lane clocks' cost into the variant's own and the divergence.
+    Returns the kernel's entry of the last-but-one line."""
+    p = go1_params()
+    data_b, _, vo = fleet32
+    runner = batch.make_lanes_fleet_runner(p, F32, use_megakernel=True, device=DEV)
+    reset_counts()
+    x, v = runner(data_b, vo)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts == dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_pi=1), counts
+    assert x.shape == (T_MAIN, B_MAIN, 9) and v.shape == (T_MAIN, B_MAIN, 3)
+    cam, free_bad = split_vo_free(x, vo)
+    assert bool(torch.isfinite(v[:, cam]).all())
+    rmse = fleet_rmse(x, gt_v, cam)
+    assert rmse < 0.1, f"per-lane-clock fleet velocity RMSE vs ground truth {rmse}"
+    run64 = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, device=DEV)
+    x64 = run64(fleet64[0], fleet64[2])[0]
+    assert bool(torch.isfinite(x64).all()), "float64 run not finite"
+    r64 = fleet_rmse(x64, gt_v, cam)
+    assert abs(rmse - r64) < 1e-3, ("per-lane-clock f32-vs-f64 velocity-RMSE delta", rmse, r64)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        runner(data_b, vo)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+
+    # float64 element-wise at full width over T_BOX_PLAIN ticks
+    c64 = mhe.make_consts(p, F64, use_pallas=False, device=DEV)
+    ks, (d, vv, i) = clock_inputs(c64, fleet64, F64, T=T_BOX_PLAIN)
+    (x_p, _), plain64_ms = wall_ms(lambda: mrk.replay_ticks_plain(c64, ks, d, vv, i))
+    ok, err = close(mrk.replay_ticks(c64, ks, d, vv, i, device=DEV)[0], x_p, **TOL_MHE)
+    assert ok, ("per-lane-clock mhe_tick at full width", err)
+
+    # float32: the kernel and its plain version over all ticks (the kernel
+    # around the wrapper, and alone)
+    c32 = mhe.make_consts(p, F32, use_pallas=False, device=DEV)
+    ks, (d, vv, i) = clock_inputs(c32, fleet32, F32)
+    mrk.timer.on = True
+    ms = timed(lambda: mrk.replay_ticks(c32, ks, d, vv, i, device=DEV), reps=2)
+    mrk.timer.on = False
+    kernel_only_ms = min(mrk.timer.ms())
+    x32k, _ = mrk.replay_ticks(c32, ks, d, vv, i, device=DEV)
+    ks_s, (ds, vs, i_s) = clock_inputs(c32, shared32, F32)
+    ks_u, (_, vu, iu) = clock_inputs(c32, (shared32[0], None, uniform_clock(shared32[2], B_MAIN)),
+                                     F32)
+    ab = {"mhe_tick_shared_clock": [], "mhe_tick_pi_uniform_clock": []}
+    for _ in range(2):
+        ab["mhe_tick_shared_clock"].append(
+            timed(lambda: mrk.replay_ticks(c32, ks_s, ds, vs, i_s, device=DEV), reps=2))
+        ab["mhe_tick_pi_uniform_clock"].append(
+            timed(lambda: mrk.replay_ticks(c32, ks_u, ds, vu, iu, device=DEV), reps=2))
+    (x32p, _), plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c32, ks, d, vv, i))
+    ref = torch.movedim(x64, 1, -1)[1:]
+    rk, rp = vel_rmse(x32k, ref, SKIP, cam), vel_rmse(x32p, ref, SKIP, cam)
+    assert abs(rk - rp) < 1e-3, ("per-lane-clock f32 velocity-RMSE delta", rk, rp)
+    _, free_bad_plain = split_vo_free(torch.movedim(x32p, -1, 1), vv)
+    free_bad_plain = None if free_bad_plain is None else free_bad_plain + 1   # from tick 1
+
+    groups = _work.mhe_lane_schedules(vv.active.cpu().numpy(), vv.tick_pre.cpu().numpy(),
+                                      vv.tick_now.cpu().numpy(), N_WIN,
+                                      ks.bez_count[0].cpu().numpy())
+    work = _work.mhe_tick_lanes(N_WIN, 9, 12, 4, groups, int((d.contact > 0).sum()), 4)
+    n_events = int(vv.active.sum())
+    emit("pi_main_path", config="Go1 N=20 s=9 m=12 L=4, 15 camera clocks, every 64th lane VO-free",
+         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, rmse_vs_ground_truth=rmse,
+         rmse_f64=r64, rmse_lanes=int(cam.sum()),
+         vo_free_lanes_first_nonfinite_tick={"kernel": free_bad, "plain": free_bad_plain,
+                                             "float64": None},
+         wall_s=wall, walls_s=walls,
+         pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
+         mhe_tick_pi_ms=ms, mhe_tick_pi_kernel_only_ms=kernel_only_ms,
+         same_schedule_in_turns_ms=ab,
+         max_abs_err_f64={"T": T_BOX_PLAIN, "x": err}, plain_f64_ms=plain64_ms,
+         plain_f32_ms={"T": T_MAIN, "ms": plain_ms},
+         f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp}, vo_events=n_events,
+         distinct_lane_schedules=len(groups))
+    return kernel_rows({"mhe_tick_pi": (
+        "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+        "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (per_instance=True)")},
+        {"mhe_tick_pi": work}, counts, {"mhe_tick_pi": err}, {"mhe_tick_pi": ms},
+        {"mhe_tick_pi": plain_ms},
+        mhe_tick_pi={"max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
+                     "plain_ms_shape": {"T": T_MAIN, "B": B_MAIN, "N": N_WIN},
+                     "kernel_only_ms": kernel_only_ms,
+                     "path": "make_lanes_fleet_runner, per-instance VOData"})
+
+
+def pi_box(fleet64, fleet32, gt_v):
+    """Configuration 1 on per-lane clocks: the constrained production box
+    (|v| <= 0.3, rho=5000 fixed, 20 it + polish) through the MHE-only runner
+    at full width; the tick against its float64 plain version over
+    T_BOX_PLAIN ticks. Returns the kernel's entry of the last-but-one line."""
+    p = box_params()
+    data_b, _, vo = fleet32
+    runner = batch.make_lanes_fleet_runner(
+        p, F32, use_megakernel=True, consts=box_consts(p, F32, V_BOX, 20), device=DEV)
+    reset_counts()
+    x, v = runner(data_b, vo)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts == dict(NO_LAUNCH, mhe_tick_pi_box=1, admm_solve=1, admm_box_solve=2), counts
+    cam, free_bad = split_vo_free(x, vo)
+    assert bool(torch.isfinite(v[:, cam]).all())
+    vmax = float(x[:, cam, 3:6].abs().max())
+    assert V_BOX - 1e-2 <= vmax <= V_BOX + 1e-3, ("velocity box, per-lane clocks", vmax)
+    rmse = fleet_rmse(x, gt_v, cam)
+    assert rmse < 0.1, f"constrained per-lane-clock RMSE vs ground truth {rmse}"
+    run64 = batch.make_lanes_fleet_runner(
+        p, F64, use_megakernel=True, consts=box_consts(p, F64, V_BOX, 20), device=DEV)
+    x64 = run64(fleet64[0], fleet64[2])[0]
+    assert bool(torch.isfinite(x64).all()), "constrained float64 run not finite"
+    r64 = fleet_rmse(x64, gt_v, cam)
+    assert abs(rmse - r64) < 1e-3, ("constrained per-lane-clock f32-vs-f64 delta", rmse, r64)
+    walls = []
+    mrk.timer.on = True
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        runner(data_b, vo)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    mrk.timer.on = False
+    kernel_only_ms = min(mrk.timer.ms())
+    wall = min(walls)
+
+    # the tick alone around its wrapper (warm from the runs above; one run of
+    # 8-9 s, so the host clock around it)
+    c32 = box_consts(p, F32, V_BOX, 20)
+    ks, (d, vv, i) = clock_inputs(c32, fleet32, F32)
+    (_, ks_end), ms = wall_ms(lambda: mrk.replay_ticks(c32, ks, d, vv, i, device=DEV))
+    # float64 element-wise over T_BOX_PLAIN ticks (y as FMA contraction
+    # allows, with the witness); float32 plain time there
+    c64 = box_consts(p, F64, V_BOX, 20)
+    ks64, (d64, v64, i64) = clock_inputs(c64, fleet64, F64, T=T_BOX_PLAIN)
+    _, _, _, e_tick = check_box_tick(c64, c64._replace(use_pallas=False), ks64, d64, v64, i64,
+                                     "per-lane clocks, full width", fma=True)
+    ksp, (dp_, vp, ip) = clock_inputs(c32, fleet32, F32, T=T_BOX_PLAIN)
+    _, plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c32._replace(use_pallas=False),
+                                                        ksp, dp_, vp, ip))
+    a = c32.admm
+    box = (ks_end.iters.cpu().numpy(), a.rho_update_every, a.adaptive_rho,
+           a.abs_tol > 0 or a.rel_tol > 0, a.polish)
+    groups = _work.mhe_lane_schedules(vv.active.cpu().numpy(), vv.tick_pre.cpu().numpy(),
+                                      vv.tick_now.cpu().numpy(), N_WIN,
+                                      ks.bez_count[0].cpu().numpy())
+    work = _work.mhe_tick_lanes(N_WIN, 9, 12, 4, groups, int((d.contact > 0).sum()), 4, box=box)
+    emit("pi_box", config="Go1 N=20, 15 camera clocks, |v|<=0.3, rho=5000 fixed, 20 it + polish",
+         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, max_abs_v=vmax,
+         max_abs_v_f64=float(x64[..., 3:6].abs().max()), rmse_vs_ground_truth=rmse, rmse_f64=r64,
+         rmse_lanes=int(cam.sum()), vo_free_lanes_first_nonfinite_tick=free_bad,
+         wall_s=wall, walls_s=walls, pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
+         mhe_tick_pi_box_ms=ms, mhe_tick_pi_box_kernel_only_ms=kernel_only_ms,
+         max_abs_err_f64={"T": T_BOX_PLAIN, **e_tick},
+         plain_f32_ms={"T": T_BOX_PLAIN, "ms": plain_ms},
+         admm_iters_mean=float(ks_end.iters.double().mean()))
+    return kernel_rows({"mhe_tick_pi_box": (
+        "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+        "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (per_instance=True, admm_ks set)")},
+        {"mhe_tick_pi_box": work}, counts, {"mhe_tick_pi_box": max(e_tick[f] for f in "xzy")},
+        {"mhe_tick_pi_box": ms}, {"mhe_tick_pi_box": plain_ms},
+        mhe_tick_pi_box={"max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
+                         "max_abs_err_by_output": e_tick,
+                         "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+                         "kernel_only_ms": kernel_only_ms,
+                         "path": "make_lanes_fleet_runner, per-instance VOData, box consts"})
+
+
+def pi_pipeline(fleet32, gt_v):
+    """Configuration 2: the pipeline runner on the shared EKF clock (the EKF
+    kernel) with per-lane MHE clocks, at full width; then the pipeline runner
+    with per-lane EKF timing too, at T_EKF_PI ticks — its EKF stage is the
+    eager scan, timed apart."""
+    p, pe = go1_params(), EKFParams()
+    data_b, eb, vo = fleet32
+    runner = batch.make_pipeline_fleet_runner(p, pe, F32, use_megakernel=True, device=DEV)
+    reset_counts()
+    (x, v, q), ms = wall_ms(lambda: runner(data_b, eb, vo))
+    counts = read_counts()
+    assert counts == dict(NO_LAUNCH, ekf_stage=1, tridiag_solve=1, mhe_tick_pi=1), counts
+    cam, free_bad = split_vo_free(x, vo)
+    assert bool(torch.isfinite(v[:, cam]).all()) and bool(torch.isfinite(q).all())
+    rmse = fleet_rmse(x, gt_v, cam)
+    assert rmse < 0.1, f"pipeline, per-lane MHE clocks: RMSE vs ground truth {rmse}"
+
+    log, data_e, eb_e, vo_e = make_clock_fleet(T_EKF_PI, B_MAIN, F32, seed=3, ekf_per_lane=True)
+    assert eb_e.vo_active.ndim == 3 and bool(eb_e.vo_active.any())
+    reset_counts()
+    (xe, ve, qe), ms_e = wall_ms(lambda: runner(data_e, eb_e, vo_e))
+    counts_e = read_counts()
+    assert counts_e == dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_pi=1), counts_e
+    assert torch.isfinite(xe).all() and torch.isfinite(qe).all()
+    ec = ekf_lanes.make_consts(pe, F32)
+    st = ekf_lanes.init_state(pe, B_MAIN, RING, F32, device=DEV)
+    (_, q2), ekf_ms = wall_ms(lambda: estimator.scan_ekf_blocks(st, eb_e, ec))
+    ok, e = close(q2, qe, rtol=0.0, atol=1e-6)      # the runner's EKF stage
+    assert ok, ("per-lane EKF stage of the runner vs scan_ekf_blocks", e)
+    gt_e = torch.as_tensor(log.gt_v_s, device=DEV)
+    err = xe[20:, :, 3:6].double() - gt_e[20:, None]
+    emit("pi_pipeline", T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_ms=ms,
+         rmse_vs_ground_truth=rmse, rmse_lanes=int(cam.sum()),
+         vo_free_lanes_first_nonfinite_tick=free_bad,
+         per_lane_ekf_timing={"T": T_EKF_PI, "B": B_MAIN, "launches": counts_e,
+                              "wall_ms": ms_e, "ekf_stage_eager_ms": ekf_ms,
+                              "ekf_events": int(eb_e.vo_active.sum()),
+                              "rmse_vs_ground_truth_ticks_20_on": float(torch.sqrt((err ** 2).mean()))})
+
+
 def main():
+    t_start = time.time()
     card = phase_device()
     phase_build()
     check_kernels()
@@ -859,6 +1372,17 @@ def main():
     box_sweep(fleet32)
     box_per_tick(fleet32)
     kernels += box_full_width(fleet64, fleet32, x64_box, q64_box, box_counts)
+    del fleet64, x64_box
+    t_shared = time.time()
+    check_kernels_pi()
+    _, *clocks64 = make_clock_fleet(T_MAIN, B_MAIN, F64, seed=0)
+    clocks32 = tuple(cast(nt, F32) for nt in clocks64)
+    kernels += pi_main_path(clocks64, clocks32, gt_v, fleet32)
+    del fleet32
+    kernels += pi_box(clocks64, clocks32, gt_v)
+    pi_pipeline(clocks32, gt_v)
+    emit("script", seconds=time.time() - t_start,
+         shared_clock_phases_s=t_shared - t_start, per_lane_clock_phases_s=time.time() - t_shared)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,8 @@ def _fields(obj, cls, dtype, device, skip=()):
 
 
 def _bezier(obj, dtype, device):
-    if np.ndim(obj.count) != 0:
-        raise NotImplementedError(
-            "per-instance Bezier schedules are not ported yet: ROADMAP.md, "
-            "'per-instance VO'")
+    """Shared (times (4,), count 0-d) or per-instance (times (B,4), count
+    (B,)) schedule; the layout carries over as it is."""
     return bezier.BezierCarry(**_fields(obj, bezier.BezierCarry, dtype, device))
 
 

@@ -4,7 +4,7 @@
 // Replaces pallas/admm_core.py::admm_box_solve (with factor_chain,
 // sweep_factored, t_apply, add_scalar_diag, add_diag). Two callers:
 // csrc/admm.cu (one whole solve per launch) and the constrained
-// instantiation of csrc/mhe.cu (one solve per estimator tick).
+// instantiations of csrc/mhe_body.cuh (one solve per estimator tick).
 //
 //   min 1/2 x^T T x - r^T x   s.t.  lb <= x <= ub,
 //   T block tridiagonal: D (N,s,s), U (N-1,s,s).

@@ -1,0 +1,736 @@
+// mhe_tick — the whole MHE replay loop, one thread per instance: the kernel
+// bodies, included by csrc/mhe.cu, which compiles each instantiation in a
+// translation unit of its own (see there).
+//
+// Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel in its
+// Gauss-Jordan form (reached through replay -> _replay_chunk), with the shared
+// camera clock or a clock per lane, unconstrained or box-constrained. One loop
+// step is one estimator tick:
+//   VO ingestion + Bezier carry -> arrival-cost marginalization (t >= N) ->
+//   ring shift by base index + assembly of the two changed slots ->
+//   incremental Dslot/Ub/routb cache update -> masked normal equations with a
+//   streaming forward block-Thomas sweep (no backward sweep: only the newest
+//   state is consumed) -> x_{N-1} = S^{-1} y.
+// Same arithmetic, in the same order, as ops/mhe_lanes.step.
+//
+// Where the state lives. The window state is 18 tensors, about 10.3k scalars
+// per instance at N=20, s=9, m=12 (41 KB in float32; 42 MB for 1024
+// instances) — far beyond registers or the 227 KB of shared memory a block
+// may use. So ALL ring/window state stays in GLOBAL memory in the
+// instance-minor layout (coalesced across the warp; at B=1024 in float32 it
+// fits the 50 MB L2), addressed by the dynamic physical slot
+// (base + logical) % N, and is updated in place. Only the per-slot working
+// set (a few s x s matrices with compile-time indices) is thread-private.
+// The cost: every tick re-reads ~5k scalars per instance from L2 and the
+// s x s temporaries spill to local memory; occupancy is B/32 warps.
+//
+// The ring: base_old = (t-1) % N, base_new = t % N; logical slot l of the
+// pre-shift window is physical (base_old + l) % N, of the post-shift window
+// (base_new + l) % N. A state handed in with tick counter t0-1 must already
+// be in that physical order (kernels/mhe_replay_kernel.py does the rolling).
+//
+// The Bezier schedule (4 waypoint times and the count). With the shared camera
+// clock it is fleet-global: each thread keeps a private copy in registers for
+// the whole loop and exactly one thread writes the final values to separate
+// output buffers. With a camera clock per lane (template parameter PI; the TPU
+// kernel with per_instance=True, mhe_replay_kernel.py:456-507) it is per
+// lane, (4,B) times and (1,B) counts, loaded and stored by every thread, and
+// the VO metadata are (Tn,B): the ingestion becomes a per-thread branch on the
+// lane's own event, with the lane's own tick_pre/tick_now, and runs the same
+// statements as the shared clock (so a uniform per-lane clock reproduces it
+// bit for bit). Lanes without an event are untouched. window_start stays
+// t - min(N, t). The one new cost is divergence: in a warp whose lanes follow
+// different clocks, the lanes with an event ingest while the others wait.
+//
+// Bound on this card: operations (about 88k structurally needed floating-point
+// operations per tick and instance, kernels/_work.py, against ~100 values that
+// must be read), in practice the serial dependency chain. The dense loops here
+// do not exploit the zero pattern of A_meas, P_cam, A_dyn and Q_dyn.
+//
+// The constrained variant (template parameter CON; the TPU kernel with
+// admm_ks set, mhe_replay_kernel.py:660-666, 722-731, 787-800). With state box
+// constraints the window solve is the box-ADMM of admm.cuh, which needs the
+// WHOLE masked system at once, not slot by slot. So the assembly loop writes
+// D_j, U_j, r_j to per-launch scratch in global memory (same instance-minor
+// layout; the wrapper allocates it) where the unconstrained variant runs its
+// Thomas step, and admm_box_solve then works on that scratch. The warm-start
+// iterates z, y are two more ring-indexed state tensors: the fresh slot copies
+// the previous newest iterate before the solve, and the solve updates them in
+// place through the ring. Per tick it also writes the iterations each instance
+// ran. The unconstrained, shared-clock instantiation compiles to what it was:
+// every constrained statement sits behind `if constexpr (CON)`, every
+// per-lane-clock statement behind `if constexpr (PI)`.
+#pragma once
+#include "admm.cuh"
+#include "smallmat.cuh"
+
+namespace dem {
+
+template <typename T, int S, int M>
+struct MheConsts {
+  T dt;
+  T H[M * S];        // A_meas (m,s)
+  T Pc[3 * S];       // P_cam (3,s)
+  T Q_vo_p[9];
+  T C_p[9];
+  T C_accel[9];
+  T Q_accel_bias[9];
+  T C_enc_pos[9];
+  T C_enc_vel[9];
+  T C_gyro[9];
+  T Q_foot_swing[9];
+  T gravity[3];
+};
+
+template <typename T>
+struct MhePtrs {
+  // VO schedule, one entry per tick of this call: shared (Tn,) or, with a
+  // camera clock per lane (PI), (Tn,B); the Bezier schedule likewise (4,) and
+  // (1,), or (4,B) and (1,B)
+  const int* vo_active;    // (Tn,) | (Tn,B)
+  const int* vo_tick_pre;  // (Tn,) | (Tn,B)
+  const int* vo_tick_now;  // (Tn,) | (Tn,B)
+  const T* bez_times_in;   // (4,)  | (4,B)
+  const int* bez_count_in; // (1,)  | (1,B)
+  // per-tick inputs
+  const T* R;        // (Tn,3,3,B)
+  const T* accel;    // (Tn,3,B)
+  const T* omega;    // (Tn,3,B)
+  const T* pfoot;    // (Tn,L,3,B)
+  const T* Jfoot;    // (Tn,L,3,3,B)
+  const T* dq;       // (Tn,L,3,B)
+  const T* contact;  // (Tn,L,B)
+  const T* vo_inc;   // (Tn,3,B)
+  // window state, updated in place
+  T* y_meas;   // (N,m,B)
+  T* Q_meas;   // (N,m,m,B)
+  T* A_dyn;    // (N,s,s,B)
+  T* b_dyn;    // (N,s,B)
+  T* Q_dyn;    // (N,s,s,B)
+  T* b_cam;    // (N,3,B)
+  T* Q_cam;    // (N,3,3,B)
+  T* cam_act;  // (N,B) 0/1
+  T* M_p;      // (s,s,B)
+  T* n_p;      // (s,B)
+  T* bez_pts;  // (4,3,B)
+  T* p_accum;  // (3,B)
+  T* prev_R;   // (3,3,B)
+  T* prev_acc; // (3,B)
+  T* prev_ct;  // (L,B)
+  T* Dslot;    // (N,s,s,B)  H^T R H + A^T Qd A per slot
+  T* Ub;       // (N,s,s,B)  -A^T Qd per slot
+  T* routb;    // (N,s,B)    H^T R y + A^T Qd b per slot
+  // outputs
+  T* x;              // (Tn,s,B)
+  T* bez_times_out;  // (4,) | (4,B)
+  int* bez_count_out; // (1,) | (1,B)
+};
+
+// Operands of the constrained variant beyond MhePtrs.
+template <typename T>
+struct MheBox {
+  const T* lb;   // (s,B) per-lane lower bounds
+  const T* ub;   // (s,B)
+  T* z_adm;      // (N,s,B) ADMM warm start, ring-indexed state
+  T* y_adm;      // (N,s,B)
+  int* iters;    // (Tn,B) out: ADMM iterations run per tick and instance
+  // per-launch scratch: the masked window system, the x iterate, the
+  // factorization chain, the forward-sweep vectors
+  T* Dw;         // (N,s,s,B)
+  T* Uw;         // (N-1,s,s,B)
+  T* rw;         // (N,s,B)
+  T* xw;         // (N,s,B)
+  T* Sinv;       // (N,s,s,B)
+  T* ys;         // (N,s,B)
+  AdmmSettings<T> admm;
+};
+
+template <typename T>
+DEM_HD void bezier_node(const T* pts, T u, T* out) {
+  // Bezier_simple.cpp:73-82 on control points pts (4,3)
+  const T u2 = u * u, u3 = u2 * u;
+  DEM_UNROLL
+  for (int k = 0; k < 3; ++k) {
+    const T P0 = pts[k], P1 = pts[3 + k], P2 = pts[6 + k], P3 = pts[9 + k];
+    out[k] = u3 * (-P0 + 3 * P1 - 3 * P2 + P3) + u2 * (3 * P0 - 6 * P1 + 3 * P2) +
+             u * (-3 * P0 + 3 * P1) + P0;
+  }
+}
+
+// assembly_lanes.build_dynamics (leg_odom_type 0): A (s,s), b (s), Q (s,s)
+template <typename T, int S, int M>
+DEM_HD void build_dynamics(const MheConsts<T, S, M>& c, const T* R, const T* accel_s,
+                           T* A, T* bvec, T* Q) {
+  const T dt = c.dt;
+  DEM_UNROLL
+  for (int i = 0; i < S * S; ++i) { A[i] = T(0); Q[i] = T(0); }
+  DEM_UNROLL
+  for (int i = 0; i < S; ++i) bvec[i] = T(0);
+  const T hdt2 = dt * dt / 2;
+  DEM_UNROLL
+  for (int i = 0; i < 3; ++i) {
+    A[i * S + i] = T(1);
+    A[(3 + i) * S + 3 + i] = T(1);
+    A[(6 + i) * S + 6 + i] = T(1);
+    A[i * S + 3 + i] = dt;
+    DEM_UNROLL
+    for (int j = 0; j < 3; ++j) {
+      A[i * S + 6 + j] = -hdt2 * R[i * 3 + j];
+      A[(3 + i) * S + 6 + j] = -dt * R[i * 3 + j];
+    }
+    bvec[i] = -hdt2 * accel_s[i];
+    bvec[3 + i] = -dt * accel_s[i];
+  }
+  // C_pv = G C G^T with G = [[dt R, dt^2/2 R], [0, dt R]], C = diag(C_p, C_accel)
+  T G[36], Cc[36], GC[36], Cpv[36], Qpv[36];
+  DEM_UNROLL
+  for (int i = 0; i < 36; ++i) { G[i] = T(0); Cc[i] = T(0); }
+  const T h2 = T(0.5) * dt * dt;
+  DEM_UNROLL
+  for (int i = 0; i < 3; ++i) {
+    DEM_UNROLL
+    for (int j = 0; j < 3; ++j) {
+      G[i * 6 + j] = dt * R[i * 3 + j];
+      G[i * 6 + 3 + j] = h2 * R[i * 3 + j];
+      G[(3 + i) * 6 + 3 + j] = dt * R[i * 3 + j];
+      Cc[i * 6 + j] = c.C_p[i * 3 + j];
+      Cc[(3 + i) * 6 + 3 + j] = c.C_accel[i * 3 + j];
+    }
+  }
+  matmul<6, 6, 6>(G, Cc, GC);
+  matmul_nt<6, 6, 6>(GC, G, Cpv);
+  gj_inv<6>(Cpv, Qpv);
+  const T inv_dt2 = T(1) / (dt * dt);
+  DEM_UNROLL
+  for (int i = 0; i < 6; ++i) {
+    DEM_UNROLL
+    for (int j = 0; j < 6; ++j) Q[i * S + j] = Qpv[i * 6 + j];
+  }
+  DEM_UNROLL
+  for (int i = 0; i < 3; ++i) {
+    DEM_UNROLL
+    for (int j = 0; j < 3; ++j)
+      Q[(6 + i) * S + 6 + j] = inv_dt2 * c.Q_accel_bias[i * 3 + j];
+  }
+}
+
+// assembly_lanes.build_measurement (leg_odom_type 0): y (m), Q (m,m)
+template <typename T, int S, int M, int L>
+DEM_HD void build_measurement(const MheConsts<T, S, M>& c, const T* R, const T* omega,
+                              const T* pfoot, const T* Jfoot, const T* dq,
+                              const T* contact, T* y, T* Q) {
+  DEM_UNROLL
+  for (int i = 0; i < M * M; ++i) Q[i] = T(0);
+  T Cblk[81];
+  DEM_UNROLL
+  for (int i = 0; i < 81; ++i) Cblk[i] = T(0);
+  DEM_UNROLL
+  for (int i = 0; i < 3; ++i) {
+    DEM_UNROLL
+    for (int j = 0; j < 3; ++j) {
+      Cblk[i * 9 + j] = c.C_enc_vel[i * 3 + j];
+      Cblk[(3 + i) * 9 + 3 + j] = c.C_enc_pos[i * 3 + j];
+      Cblk[(6 + i) * 9 + 6 + j] = c.C_gyro[i * 3 + j];
+    }
+  }
+  T wskew[9];
+  skew3(omega, wskew);
+  for (int leg = 0; leg < L; ++leg) {
+    const T* Ji = Jfoot + leg * 9;
+    const T* pi = pfoot + leg * 3;
+    const T* dqi = dq + leg * 3;
+    T RJ[9], t1[3], wxp[3], t2[3];
+    matmul<3, 3, 3>(R, Ji, RJ);
+    matvec<3, 3>(RJ, dqi, t1);
+    cross3(omega, pi, wxp);
+    matvec<3, 3>(R, wxp, t2);
+    DEM_UNROLL
+    for (int k = 0; k < 3; ++k) y[leg * 3 + k] = -t1[k] - t2[k];
+    // stance: C = R G diag(C_vel,C_pos,C_gyro) G^T R^T, G = [-J, -w^x J, p^x]
+    T wJ[9], pskew[9], G[27], GC[27], inner[9], Rin[9], Cst[9], Qst[9];
+    matmul<3, 3, 3>(wskew, Ji, wJ);
+    skew3(pi, pskew);
+    DEM_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      DEM_UNROLL
+      for (int j = 0; j < 3; ++j) {
+        G[i * 9 + j] = -Ji[i * 3 + j];
+        G[i * 9 + 3 + j] = -wJ[i * 3 + j];
+        G[i * 9 + 6 + j] = pskew[i * 3 + j];
+      }
+    }
+    matmul<3, 9, 9>(G, Cblk, GC);
+    matmul_nt<3, 9, 3>(GC, G, inner);
+    matmul<3, 3, 3>(R, inner, Rin);
+    matmul_nt<3, 3, 3>(Rin, R, Cst);
+    inv3(Cst, Qst);
+    const bool stance = contact[leg] > T(0);
+    DEM_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      DEM_UNROLL
+      for (int j = 0; j < 3; ++j)
+        Q[(leg * 3 + i) * M + leg * 3 + j] =
+            stance ? Qst[i * 3 + j] : c.Q_foot_swing[i * 3 + j];
+    }
+  }
+}
+
+template <typename T, int S, int M, int L, bool CON, bool PI>
+DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c,
+                     const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
+  constexpr int SS = S * S;
+  constexpr int MM = M * M;
+  const T dt = c.dt;
+  T lb[S], ub[S];
+  AdmmPtrs<T> w;
+  if constexpr (CON) {
+    load<S>(lb, q->lb, 0, B, b);
+    load<S>(ub, q->ub, 0, B, b);
+    w.D = q->Dw; w.U = q->Uw; w.r = q->rw; w.x = q->xw;
+    w.z = q->z_adm; w.y = q->y_adm; w.Sinv = q->Sinv; w.ys = q->ys;
+  }
+
+  // private copy of the Bezier schedule: fleet-global, or this lane's own
+  T bt[4];
+  int bcount;
+  if constexpr (PI) {
+    load<4>(bt, p.bez_times_in, 0, B, b);
+    bcount = p.bez_count_in[b];
+  } else {
+    DEM_UNROLL
+    for (int k = 0; k < 4; ++k) bt[k] = p.bez_times_in[k];
+    bcount = p.bez_count_in[0];
+  }
+
+  for (int i = 0; i < Tn; ++i) {
+    const int t = t0 + i;  // absolute tick (>= 1)
+    const int base_old = (t - 1) % N;
+    const int base_new = t % N;
+
+    // ---- VO ingestion (mhe_lanes._apply_vo; per lane: _apply_vo_per_instance)
+    // the schedule entry of this tick: the fleet's, or this lane's (PI)
+    if (PI ? p.vo_active[(size_t)i * B + b] != 0 : p.vo_active[i] != 0) {
+      const int tick_pre = PI ? p.vo_tick_pre[(size_t)i * B + b] : p.vo_tick_pre[i];
+      const int tick_now = PI ? p.vo_tick_now[(size_t)i * B + b] : p.vo_tick_now[i];
+      T p_acc[3], inc[3], pts[12];
+      load<3>(p_acc, p.p_accum, 0, B, b);
+      load<3>(inc, p.vo_inc, (size_t)i * 3, B, b);
+      DEM_UNROLL
+      for (int k = 0; k < 3; ++k) p_acc[k] += inc[k];
+      store<3>(p.p_accum, 0, B, b, p_acc);
+      load<12>(pts, p.bez_pts, 0, B, b);
+      // add_way_point (Bezier_simple.cpp:12-27)
+      if (bcount >= 4) {
+        DEM_UNROLL
+        for (int k = 0; k < 9; ++k) pts[k] = pts[k + 3];
+        bt[0] = bt[1]; bt[1] = bt[2]; bt[2] = bt[3];
+      }
+      const int w = bcount < 3 ? bcount : 3;
+      const T t_now = (T)tick_now * dt;
+      DEM_UNROLL
+      for (int k = 0; k < 4; ++k) {
+        if (k == w) {
+          pts[k * 3] = p_acc[0]; pts[k * 3 + 1] = p_acc[1]; pts[k * 3 + 2] = p_acc[2];
+          bt[k] = t_now;
+        }
+      }
+      bcount += 1;
+      store<12>(p.bez_pts, 0, B, b, pts);
+
+      const int window_start = t - (N < t ? N : t);
+      const int start = window_start > tick_pre ? window_start : tick_pre;
+      const int num = tick_now - start + 1;
+      if (tick_now > window_start && bcount >= 4) {
+        T t_int = bt[3] - bt[0];
+        if (t_int == T(0)) t_int = T(1);
+        const T u0 = ((T)start * dt - bt[0]) / t_int;
+        const T du = dt / t_int;
+        T node_prev[3], node_k[3];
+        bezier_node(pts, u0, node_prev);
+        for (int k = 0; k < N; ++k) {
+          bezier_node(pts, u0 + du * (T)(k + 1), node_k);
+          const int slot = start + k - t + N;
+          if (k <= num - 2 && slot >= 0 && slot <= N - 2) {
+            const int pj = (base_old + slot) % N;
+            DEM_UNROLL
+            for (int a = 0; a < 3; ++a)
+              st(p.b_cam, (size_t)pj * 3 + a, B, b, -(node_k[a] - node_prev[a]));
+            st(p.cam_act, (size_t)pj, B, b, T(1));
+          }
+          DEM_UNROLL
+          for (int a = 0; a < 3; ++a) node_prev[a] = node_k[a];
+        }
+      }
+    }
+
+    // ---- marginalization (mhe_lanes._marginalize) -------------------------
+    if (t >= N) {
+      const int p0 = base_old;
+      T A[SS], Qd[SS], AtQd[SS], Qc[9], PtQc[S * 3], PtQcP[SS];
+      T bv[S], c0[3], Mp[SS], np_[S];
+      load<SS>(A, p.A_dyn, (size_t)p0 * SS, B, b);
+      load<SS>(Qd, p.Q_dyn, (size_t)p0 * SS, B, b);
+      load<S>(bv, p.b_dyn, (size_t)p0 * S, B, b);
+      load<9>(Qc, p.Q_cam, (size_t)p0 * 9, B, b);
+      load<3>(c0, p.b_cam, (size_t)p0 * 3, B, b);
+      load<SS>(Mp, p.M_p, 0, B, b);
+      load<S>(np_, p.n_p, 0, B, b);
+      const T act = ld(p.cam_act, (size_t)p0, B, b);
+      matmul_tn<S, S, S>(A, Qd, AtQd);
+      matmul_tn<3, S, 3>(c.Pc, Qc, PtQc);
+      matmul<S, 3, S>(PtQc, c.Pc, PtQcP);
+
+      T Sm[SS], C01[SS], D1[SS], l0[S], l1[S], tS[SS], tv[S], tv2[S], tv3[S];
+      {
+        // H^T R (s,m), then H^T R H (s,s) and H^T R y (s)
+        T Rm[MM], HtR[S * M], yv[M];
+        load<MM>(Rm, p.Q_meas, (size_t)p0 * MM, B, b);
+        load<M>(yv, p.y_meas, (size_t)p0 * M, B, b);
+        matmul_tn<M, S, M>(c.H, Rm, HtR);
+        matmul<S, M, S>(HtR, c.H, tS);   // H^T R H
+        matvec<S, M>(HtR, yv, tv2);      // H^T R y
+      }
+      matmul<S, S, S>(AtQd, A, Sm);      // A^T Qd A
+      matvec<S, S>(AtQd, bv, tv);        // A^T Qd b
+      matvec<S, 3>(PtQc, c0, tv3);       // P^T Qc c0
+      T Qdb[S];
+      matvec<S, S>(Qd, bv, Qdb);
+      DEM_UNROLL
+      for (int k = 0; k < SS; ++k) {
+        const T app = act * PtQcP[k];
+        Sm[k] = Mp[k] + Sm[k] + tS[k] + app;
+        C01[k] = -(AtQd[k] + app);
+        D1[k] = Qd[k] + app;
+      }
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) {
+        l0[k] = np_[k] - tv[k] - tv2[k] - act * tv3[k];
+        l1[k] = Qdb[k] + act * tv3[k];
+      }
+      T Sinv[SS];
+      gj_inv<S>(Sm, Sinv);
+      matmul<S, S, S>(Sinv, C01, tS);
+      matmul_tn<S, S, S>(C01, tS, Sm);
+      DEM_UNROLL
+      for (int k = 0; k < SS; ++k) Mp[k] = D1[k] - Sm[k];
+      matvec<S, S>(Sinv, l0, tv);
+      matvec_t<S, S>(C01, tv, tv2);
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) np_[k] = l1[k] - tv2[k];
+      store<SS>(p.M_p, 0, B, b, Mp);
+      store<S>(p.n_p, 0, B, b, np_);
+    }
+
+    // ---- shift + assembly of the two changed slots (mhe_lanes._tick_tail) --
+    const int pN1 = base_old;                  // physical slot of logical N-1
+    const int pN2 = (base_old + N - 1) % N;    // logical N-2 after the shift
+    {
+      T Rp[9], accp[3], A_d[SS], b_d[S], Q_d[SS], Qcn[9], tmp9[9];
+      load<9>(Rp, p.prev_R, 0, B, b);
+      load<3>(accp, p.prev_acc, 0, B, b);
+      build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
+      matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
+      matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
+
+      store<SS>(p.A_dyn, (size_t)pN2 * SS, B, b, A_d);
+      store<S>(p.b_dyn, (size_t)pN2 * S, B, b, b_d);
+      store<SS>(p.Q_dyn, (size_t)pN2 * SS, B, b, Q_d);
+      store<9>(p.Q_cam, (size_t)pN2 * 9, B, b, Qcn);
+      fill<3>(p.b_cam, (size_t)pN2 * 3, B, b, T(0));
+      st(p.cam_act, (size_t)pN2, B, b, T(0));
+
+      // cache update for pN2: its measurement terms were cached when it was
+      // the newest slot one tick earlier; add the fresh dynamics terms
+      T AtQd_n[SS], tS[SS], tv[S], cur[SS], curv[S];
+      matmul_tn<S, S, S>(A_d, Q_d, AtQd_n);
+      matmul<S, S, S>(AtQd_n, A_d, tS);
+      load<SS>(cur, p.Dslot, (size_t)pN2 * SS, B, b);
+      DEM_UNROLL
+      for (int k = 0; k < SS; ++k) { cur[k] += tS[k]; tS[k] = -AtQd_n[k]; }
+      store<SS>(p.Dslot, (size_t)pN2 * SS, B, b, cur);
+      store<SS>(p.Ub, (size_t)pN2 * SS, B, b, tS);
+      matvec<S, S>(AtQd_n, b_d, tv);
+      load<S>(curv, p.routb, (size_t)pN2 * S, B, b);
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) curv[k] += tv[k];
+      store<S>(p.routb, (size_t)pN2 * S, B, b, curv);
+    }
+    {
+      T Rt[9], acc[3], om[3], pf[L * 3], Jf[L * 9], dqv[L * 3], ct[L];
+      load<9>(Rt, p.R, (size_t)i * 9, B, b);
+      load<3>(acc, p.accel, (size_t)i * 3, B, b);
+      load<3>(om, p.omega, (size_t)i * 3, B, b);
+      load<L * 3>(pf, p.pfoot, (size_t)i * L * 3, B, b);
+      load<L * 9>(Jf, p.Jfoot, (size_t)i * L * 9, B, b);
+      load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
+      load<L>(ct, p.contact, (size_t)i * L, B, b);
+      T y_T[M], Q_T[MM];
+      build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, y_T, Q_T);
+
+      store<M>(p.y_meas, (size_t)pN1 * M, B, b, y_T);
+      store<MM>(p.Q_meas, (size_t)pN1 * MM, B, b, Q_T);
+      fill<SS>(p.A_dyn, (size_t)pN1 * SS, B, b, T(0));
+      fill<S>(p.b_dyn, (size_t)pN1 * S, B, b, T(0));
+      fill<SS>(p.Q_dyn, (size_t)pN1 * SS, B, b, T(0));
+      fill<3>(p.b_cam, (size_t)pN1 * 3, B, b, T(0));
+      fill<9>(p.Q_cam, (size_t)pN1 * 9, B, b, T(0));
+      st(p.cam_act, (size_t)pN1, B, b, T(0));
+
+      // cache for the fresh slot pN1: measurement terms only
+      T HtR[S * M], tS[SS], tv[S];
+      matmul_tn<M, S, M>(c.H, Q_T, HtR);
+      matmul<S, M, S>(HtR, c.H, tS);
+      matvec<S, M>(HtR, y_T, tv);
+      store<SS>(p.Dslot, (size_t)pN1 * SS, B, b, tS);
+      fill<SS>(p.Ub, (size_t)pN1 * SS, B, b, T(0));
+      store<S>(p.routb, (size_t)pN1 * S, B, b, tv);
+
+      // previous-tick inputs for the next interval's dynamics
+      T acc_s[3];
+      matvec<3, 3>(Rt, acc, acc_s);
+      DEM_UNROLL
+      for (int k = 0; k < 3; ++k) acc_s[k] += c.gravity[k];
+      store<9>(p.prev_R, 0, B, b, Rt);
+      store<3>(p.prev_acc, 0, B, b, acc_s);
+      store<L>(p.prev_ct, 0, B, b, ct);
+    }
+    if constexpr (CON) {
+      // warm-start shift: the fresh slot (new logical N-1 = physical pN1)
+      // reuses the previous newest iterate (old logical N-1 = physical pN2)
+      T v[S];
+      load<S>(v, q->z_adm, (size_t)pN2 * S, B, b);
+      store<S>(q->z_adm, (size_t)pN1 * S, B, b, v);
+      load<S>(v, q->y_adm, (size_t)pN2 * S, B, b);
+      store<S>(q->y_adm, (size_t)pN1 * S, B, b, v);
+    }
+
+    // ---- masked normal equations + streaming forward block-Thomas ---------
+    const int n_states = (t + 1 < N) ? t + 1 : N;
+    const int first = N - n_states;
+    T Sinv[SS], yv[S], U_prev[SS], prev_QdPP[SS], prev_rin[S];
+    T Mp[SS], np_[S];
+    load<SS>(Mp, p.M_p, 0, B, b);
+    load<S>(np_, p.n_p, 0, B, b);
+    for (int j = 0; j < N; ++j) {
+      const int pj = (base_new + j) % N;
+      const bool valid = j >= first;
+      const bool iv = valid && (j <= N - 2);
+      T Qd[SS], bj[S], Qc[9], c0[3], PtQc[S * 3], PtQcP[SS];
+      load<SS>(Qd, p.Q_dyn, (size_t)pj * SS, B, b);
+      load<S>(bj, p.b_dyn, (size_t)pj * S, B, b);
+      load<9>(Qc, p.Q_cam, (size_t)pj * 9, B, b);
+      load<3>(c0, p.b_cam, (size_t)pj * 3, B, b);
+      const T act = iv ? ld(p.cam_act, (size_t)pj, B, b) : T(0);
+      matmul_tn<3, S, 3>(c.Pc, Qc, PtQc);
+      DEM_UNROLL
+      for (int k = 0; k < S * 3; ++k) PtQc[k] *= act;
+      matmul<S, 3, S>(PtQc, c.Pc, PtQcP);
+      if (!iv) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) Qd[k] = T(0);
+      }
+      T Qd_b[S], PtQc_c[S];
+      matvec<S, S>(Qd, bj, Qd_b);
+      matvec<S, 3>(PtQc, c0, PtQc_c);
+
+      T D_j[SS], r_j[S], U_j[SS];
+      load<SS>(D_j, p.Dslot, (size_t)pj * SS, B, b);
+      load<S>(r_j, p.routb, (size_t)pj * S, B, b);
+      load<SS>(U_j, p.Ub, (size_t)pj * SS, B, b);
+      DEM_UNROLL
+      for (int k = 0; k < SS; ++k) D_j[k] += PtQcP[k];
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) r_j[k] += PtQc_c[k];
+      if (j > 0) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) D_j[k] += prev_QdPP[k];
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) r_j[k] -= prev_rin[k];
+      }
+      if (j == first) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) D_j[k] += Mp[k];
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) r_j[k] -= np_[k];
+      }
+      DEM_UNROLL
+      for (int k = 0; k < SS; ++k) prev_QdPP[k] = Qd[k] + PtQcP[k];
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) prev_rin[k] = Qd_b[k] + PtQc_c[k];
+      if (!valid) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) D_j[k] = T(0);
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) { D_j[k * S + k] = T(1); r_j[k] = T(0); }
+      }
+      const bool u_on = iv && (j + 1 >= first);
+      DEM_UNROLL
+      for (int k = 0; k < SS; ++k) U_j[k] = u_on ? (U_j[k] - PtQcP[k]) : T(0);
+
+      if constexpr (CON) {
+        // collect the masked system for the whole-window ADMM below
+        store<SS>(q->Dw, (size_t)j * SS, B, b, D_j);
+        store<S>(q->rw, (size_t)j * S, B, b, r_j);
+        if (j < N - 1) store<SS>(q->Uw, (size_t)j * SS, B, b, U_j);
+      } else if (j == 0) {
+        gj_inv<S>(D_j, Sinv);
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) yv[k] = r_j[k];
+      } else {
+        T W[SS], UtW[SS], t1[S], t2[S];
+        matmul<S, S, S>(Sinv, U_prev, W);
+        matmul_tn<S, S, S>(U_prev, W, UtW);
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) D_j[k] -= UtW[k];
+        matvec<S, S>(Sinv, yv, t1);
+        matvec_t<S, S>(U_prev, t1, t2);
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) yv[k] = r_j[k] - t2[k];
+        gj_inv<S>(D_j, Sinv);
+      }
+      if constexpr (!CON) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) U_prev[k] = U_j[k];
+      }
+    }
+    T xT[S];
+    if constexpr (CON) {
+      // whole-window box-ADMM, warm-started from and written back to the
+      // z/y ring (logical slot j at physical (base_new + j) % N)
+      q->iters[(size_t)i * B + b] =
+          admm_box_solve<T, S>(w, q->admm, lb, ub, base_new, N, B, b);
+      load<S>(xT, q->xw, (size_t)(N - 1) * S, B, b);
+    } else {
+      matvec<S, S>(Sinv, yv, xT);   // logical N-1 = newest state
+    }
+    store<S>(p.x, (size_t)i * S, B, b, xT);
+  }
+
+  if constexpr (PI) {
+    store<4>(p.bez_times_out, 0, B, b, bt);
+    p.bez_count_out[b] = bcount;
+  } else if (b == 0) {
+    for (int k = 0; k < 4; ++k) p.bez_times_out[k] = bt[k];
+    p.bez_count_out[0] = bcount;
+  }
+}
+
+template <typename T, int S, int M, int L>
+__global__ void mhe_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, int N, int B,
+                           int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, false, false>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+template <typename T, int S, int M, int L>
+__global__ void mhe_box_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, MheBox<T> q,
+                               int N, int B, int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, true, false>(p, c, &q, N, B, Tn, t0, b);
+}
+
+template <typename T, int S, int M, int L>
+__global__ void mhe_pi_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, int N, int B,
+                              int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+template <typename T, int S, int M, int L>
+__global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, MheBox<T> q,
+                                  int N, int B, int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, true, true>(p, c, &q, N, B, Tn, t0, b);
+}
+
+// One instantiation of the tick: CON selects the constrained kernel, PI the
+// per-lane camera clock. ptrs: the 34 pointers of MhePtrs in declaration
+// order. consts (double): dt, H[m*s], Pc[3*s], then Q_vo_p, C_p, C_accel,
+// Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro, Q_foot_swing (9 each),
+// gravity[3]. box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
+// the scratch Dw, Uw, rw, xw, Sinv, ys; ints/reals as admm_settings reads them.
+template <typename T, int S, int M, int L, bool CON, bool PI>
+int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
+               const int* ints, const double* reals, int N, int B, int Tn,
+               int t0, int block, void* stream) {
+  MhePtrs<T> p;
+  int q = 0;
+  p.vo_active = (const int*)ptrs[q++];
+  p.vo_tick_pre = (const int*)ptrs[q++];
+  p.vo_tick_now = (const int*)ptrs[q++];
+  p.bez_times_in = (const T*)ptrs[q++];
+  p.bez_count_in = (const int*)ptrs[q++];
+  p.R = (const T*)ptrs[q++];
+  p.accel = (const T*)ptrs[q++];
+  p.omega = (const T*)ptrs[q++];
+  p.pfoot = (const T*)ptrs[q++];
+  p.Jfoot = (const T*)ptrs[q++];
+  p.dq = (const T*)ptrs[q++];
+  p.contact = (const T*)ptrs[q++];
+  p.vo_inc = (const T*)ptrs[q++];
+  p.y_meas = (T*)ptrs[q++];
+  p.Q_meas = (T*)ptrs[q++];
+  p.A_dyn = (T*)ptrs[q++];
+  p.b_dyn = (T*)ptrs[q++];
+  p.Q_dyn = (T*)ptrs[q++];
+  p.b_cam = (T*)ptrs[q++];
+  p.Q_cam = (T*)ptrs[q++];
+  p.cam_act = (T*)ptrs[q++];
+  p.M_p = (T*)ptrs[q++];
+  p.n_p = (T*)ptrs[q++];
+  p.bez_pts = (T*)ptrs[q++];
+  p.p_accum = (T*)ptrs[q++];
+  p.prev_R = (T*)ptrs[q++];
+  p.prev_acc = (T*)ptrs[q++];
+  p.prev_ct = (T*)ptrs[q++];
+  p.Dslot = (T*)ptrs[q++];
+  p.Ub = (T*)ptrs[q++];
+  p.routb = (T*)ptrs[q++];
+  p.x = (T*)ptrs[q++];
+  p.bez_times_out = (T*)ptrs[q++];
+  p.bez_count_out = (int*)ptrs[q++];
+
+  MheConsts<T, S, M> c;
+  int k = 0;
+  c.dt = (T)consts[k++];
+  for (int i = 0; i < M * S; ++i) c.H[i] = (T)consts[k++];
+  for (int i = 0; i < 3 * S; ++i) c.Pc[i] = (T)consts[k++];
+  T* nine[8] = {c.Q_vo_p, c.C_p, c.C_accel, c.Q_accel_bias,
+                c.C_enc_pos, c.C_enc_vel, c.C_gyro, c.Q_foot_swing};
+  for (int a = 0; a < 8; ++a)
+    for (int i = 0; i < 9; ++i) nine[a][i] = (T)consts[k++];
+  for (int i = 0; i < 3; ++i) c.gravity[i] = (T)consts[k++];
+  const int grid = (B + block - 1) / block;
+  if constexpr (!CON) {
+    if constexpr (PI)
+      mhe_pi_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+    else
+      mhe_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+  } else {
+    MheBox<T> bx;
+    q = 0;
+    bx.lb = (const T*)box_ptrs[q++];
+    bx.ub = (const T*)box_ptrs[q++];
+    bx.z_adm = (T*)box_ptrs[q++];
+    bx.y_adm = (T*)box_ptrs[q++];
+    bx.iters = (int*)box_ptrs[q++];
+    bx.Dw = (T*)box_ptrs[q++];
+    bx.Uw = (T*)box_ptrs[q++];
+    bx.rw = (T*)box_ptrs[q++];
+    bx.xw = (T*)box_ptrs[q++];
+    bx.Sinv = (T*)box_ptrs[q++];
+    bx.ys = (T*)box_ptrs[q++];
+    bx.admm = admm_settings<T>(ints, reals);
+    if constexpr (PI)
+      mhe_pi_box_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
+    else
+      mhe_box_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dem

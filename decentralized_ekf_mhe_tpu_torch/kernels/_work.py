@@ -23,9 +23,10 @@ structurally non-trivial operands counts:
   coefficients of one VO event) is counted once per tick or event, not per use;
 * a window slot that the warm-up masks to identity (tick ``t < N-1``) costs
   nothing, and camera terms count only in slots whose camera flag is set —
-  both follow from the shared schedule, which ``mhe_schedule`` and
-  ``ekf_schedule`` walk on the host. The stance covariance of a leg counts
-  only for (tick, leg, instance) triples in stance;
+  both follow from the schedule, which ``mhe_schedule`` and ``ekf_schedule``
+  walk on the host: the fleet's shared camera clock, or with a clock per lane
+  each lane's own (``mhe_lane_schedules``), summed over the lanes. The stance
+  covariance of a leg counts only for (tick, leg, instance) triples in stance;
 * a Gauss-Jordan inverse of a dense n×n matrix is n(n+1)(2n−1) operations
   (n+1 divides and (n−1)(n+1) multiply-subtracts per elimination step), of an
   identity none;
@@ -247,6 +248,24 @@ def mhe_schedule(active, tick_pre, tick_now, N, bez_count=0):
     return out
 
 
+def mhe_lane_schedules(active, tick_pre, tick_now, N, bez_count=0):
+    """A camera clock per lane: ``active``/``tick_pre``/``tick_now`` are
+    (Tn,B) arrays and ``bez_count`` the lanes' (B,) Bezier counts at the start
+    (or one count for all). Each lane's schedule is ``mhe_schedule`` of its
+    own column; lanes with the same events share one walk. Returns
+    ``[(n_lanes, schedule), ...]`` for ``mhe_tick_lanes``."""
+    act = np.asarray(active, bool)
+    Tn, B = act.shape
+    pre = np.where(act, np.asarray(tick_pre, np.int64), 0)
+    now = np.where(act, np.asarray(tick_now, np.int64), 0)
+    cnt = np.broadcast_to(np.asarray(bez_count, np.int64).ravel(), (B,))
+    key = np.concatenate([act.T.astype(np.int64), pre.T, now.T, cnt[:, None]], axis=1)
+    rows, n = np.unique(key, axis=0, return_counts=True)
+    return [(int(k), mhe_schedule(r[:Tn].astype(bool).tolist(), r[Tn:2 * Tn].tolist(),
+                                  r[2 * Tn:3 * Tn].tolist(), N, int(r[-1])))
+            for r, k in zip(rows, n)]
+
+
 class _Go1Patterns:
     """Patterns of the per-slot matrices for leg_odom_type 0."""
 
@@ -406,38 +425,65 @@ def _solve_ops(p, N, n_states, cam, sweep=True):
 _VO_EVENT, _VO_SETUP, _VO_NODE, _VO_WRITE = 4, 5 + 39, 4 + 18, 3
 
 
-def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None):
-    """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
-    starting at tick 1. ``schedule`` comes from ``mhe_schedule``;
-    ``n_stance`` is the number of (tick, leg, instance) triples in stance.
-    For the constrained variant ``box`` is ``(iters, E, adaptive, check,
-    polish)`` with ``iters`` the (Tn, B) ADMM iterations that were run: the
-    Thomas sweep gives way to one box-ADMM per tick and instance, and the z/y
-    warm starts, the bounds and the iteration counts join the bytes."""
+def _mhe_ops(N, s, m, L, groups, n_stance, box):
+    """Operations of one MHE-tick call for ``groups`` of lanes, each
+    ``(n_lanes, schedule)`` with its own schedule (see ``mhe_tick``)."""
     p = _Go1Patterns(s, m, L)
     per_tick, stance = _assembly_ops(p)
     marg = {c: _marg_ops(p, c) for c in (False, True)}
     solve = {}
     ops = 0
-    box_ops = 0
-    for i, (n_states, cam, marg_cam, vo) in enumerate(schedule):
-        key = (n_states, cam)
-        if key not in solve:
-            solve[key] = _solve_ops(p, N, n_states, cam, sweep=box is None)
-        ops += per_tick + solve[key]
-        if box is not None:
-            box_ops += admm_ops(s, n_states, np.asarray(box[0][i]), *box[1:])
-        if marg_cam is not None:
-            ops += marg[marg_cam]
-        if vo is not None:
-            nodes, written = vo
-            ops += _VO_EVENT + (_VO_SETUP + nodes * _VO_NODE
-                                + written * _VO_WRITE if nodes else 0)
-    Tn = len(schedule)
+    for n_lanes, schedule in groups:
+        lane = 0
+        for n_states, cam, marg_cam, vo in schedule:
+            key = (n_states, cam)
+            if key not in solve:
+                solve[key] = _solve_ops(p, N, n_states, cam, sweep=box is None)
+            lane += per_tick + solve[key]
+            if marg_cam is not None:
+                lane += marg[marg_cam]
+            if vo is not None:
+                nodes, written = vo
+                lane += _VO_EVENT + (_VO_SETUP + nodes * _VO_NODE
+                                     + written * _VO_WRITE if nodes else 0)
+        ops += n_lanes * lane
+    if box is not None:
+        # the window's real slots follow the tick alone, not the clock
+        ops += sum(admm_ops(s, n_states, np.asarray(box[0][i]), *box[1:])
+                   for i, (n_states, *_) in enumerate(groups[0][1]))
+    return ops + n_stance * stance
+
+
+def _mhe_bytes(N, s, m, L, B, Tn, itemsize, box):
     per_tick_in = 9 + 3 + 3 + L * 3 + L * 9 + L * 3 + L + 3
     state = (N * (m + m * m + 3 * s * s + 2 * s + 3 + 9 + 1 + s * s)
              + s * s + s + 12 + 3 + 9 + 3 + L)
     nbytes = itemsize * B * (Tn * (per_tick_in + s) + 2 * state)
     if box is not None:
         nbytes += itemsize * B * (4 * N * s + 2 * s) + 4 * Tn * B
-    return nbytes, B * ops + n_stance * stance + box_ops
+    return nbytes
+
+
+def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None):
+    """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
+    starting at tick 1, on the fleet's shared camera clock. ``schedule`` comes
+    from ``mhe_schedule``; ``n_stance`` is the number of (tick, leg,
+    instance) triples in stance. For the constrained variant ``box`` is
+    ``(iters, E, adaptive, check, polish)`` with ``iters`` the (Tn, B) ADMM
+    iterations that were run: the Thomas sweep gives way to one box-ADMM per
+    tick and instance, and the z/y warm starts, the bounds and the iteration
+    counts join the bytes."""
+    return (_mhe_bytes(N, s, m, L, B, len(schedule), itemsize, box),
+            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box))
+
+
+def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None):
+    """``mhe_tick`` with a camera clock per lane: ``groups`` from
+    ``mhe_lane_schedules``. Each lane's camera terms and Bezier work follow
+    its own schedule; the (Tn,B) VO metadata and the per-lane Bezier schedule
+    (read and written) join the bytes."""
+    B = sum(n for n, _ in groups)
+    Tn = len(groups[0][1])
+    nbytes = (_mhe_bytes(N, s, m, L, B, Tn, itemsize, box)
+              + 4 * B * 3 * Tn + 2 * B * (4 * itemsize + 4))
+    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box)

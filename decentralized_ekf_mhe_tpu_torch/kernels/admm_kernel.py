@@ -4,7 +4,7 @@ Replaces the reference's TPU kernel ``pallas/admm_kernel.py``
 (``solve_box_lanes`` → ``_solve_padded`` → ``_make_kernel``) with
 ``csrc/admm.cu``, whose body is the device function ``admm_box_solve`` of
 ``csrc/admm.cuh`` — the port of ``pallas/admm_core.py::admm_box_solve`` that
-the constrained ``mhe_tick`` kernel (``csrc/mhe.cu``) calls once per tick too.
+the constrained ``mhe_tick`` kernel (``csrc/mhe_body.cuh``) calls once per tick too.
 One CUDA thread per instance runs the ρ-epoch factorizations, the α-relaxed
 projection iterations, the converged-freeze, the adaptive-ρ updates and the
 active-set polish on operands in the instance-minor lanes layout.

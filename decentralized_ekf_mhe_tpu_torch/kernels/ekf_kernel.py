@@ -73,8 +73,9 @@ def replay(ec, ekf_st: EKFStateL, eb, device="cuda"):
         raise ValueError(f"gyro: expected (T,S,3,B), got {tuple(eb.gyro.shape)}")
     if eb.vo_active.ndim != 2:
         raise NotImplementedError(
-            "per-lane VO timing is not ported yet: ROADMAP.md, "
-            "'per-instance VO'")
+            "per-lane VO timing has no EKF kernel (nor has the reference's): "
+            "estimator.scan_ekf_blocks runs it; a kernel for it is listed in "
+            "ROADMAP.md under kernel work that is not a port")
     T, S, _, B = eb.gyro.shape
     R = ekf_st.gyro_hist.shape[0]
     dtype = ekf_st.q.dtype

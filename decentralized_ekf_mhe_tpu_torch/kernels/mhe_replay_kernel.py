@@ -2,14 +2,15 @@
 
 Replaces the reference's TPU mega-kernel ``pallas/mhe_replay_kernel.py``
 (``replay`` → ``_replay_chunk`` → ``_make_kernel`` in its shared-clock,
-unconstrained, Gauss-Jordan form) with ``csrc/mhe.cu``: one CUDA thread per
-instance loops over the ticks handed to it, each tick being VO ingestion +
-Bezier carry, arrival-cost marginalization, ring shift + assembly of the two
-changed slots, the incremental ``Dslot/Ub/routb`` cache update, and the
-masked normal equations with a streaming forward block-Thomas sweep.
+unconstrained, Gauss-Jordan form) with ``csrc/mhe_body.cuh`` (C entry points
+in ``csrc/mhe.cu``): one CUDA thread per instance loops over the ticks handed
+to it, each tick being VO ingestion + Bezier carry, arrival-cost
+marginalization, ring shift + assembly of the two changed slots, the
+incremental ``Dslot/Ub/routb`` cache update, and the masked normal equations
+with a streaming forward block-Thomas sweep.
 
-Design on an H100 (details in ``csrc/mhe.cu``): parallelism is the instance
-axis only; time is a loop inside ONE launch per ``replay_ticks`` call (the
+Design on an H100 (details in ``csrc/mhe_body.cuh``): parallelism is the
+instance axis only; time is a loop inside ONE launch per ``replay_ticks`` call (the
 TPU wrapper's chunking and its 128-instance tiles do not carry over — any B
 works, the ragged edge is masked in the kernel); the ~10.3k scalars of window
 state per instance stay in global memory in the instance-minor layout
@@ -27,9 +28,15 @@ ride two more ring-indexed state tensors. The scratch (about 5.3k scalars per
 instance) is allocated by the wrapper and is not part of ``KernelState``. The
 ADMM iterations each instance ran per tick come back as ``KernelState.iters``.
 
-Not ported (each raises ``NotImplementedError``): per-instance VO clocks,
-the Cholesky tail, the ablation switches, and shapes other than Go1's (s=9,
-m=12, L=4, leg_odom_type=0). ROADMAP.md lists them.
+A per-instance ``VOData`` (active, tick_pre, tick_now (T,B): a camera clock
+per lane) runs the per-instance variant of either kernel (the TPU kernel with
+``per_instance=True``): each thread ingests its own lane's VO events and keeps
+its own Bezier schedule, which ``KernelState`` then carries per lane
+((4,B) times, (1,B) counts). Everything after the ingestion is the same code.
+
+Not ported (each raises ``NotImplementedError``): the Cholesky tail, the
+ablation switches, and shapes other than Go1's (s=9, m=12, L=4,
+leg_odom_type=0). ROADMAP.md lists them.
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -50,10 +57,16 @@ from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 BLOCK = 32
-# incremented where a CUDA kernel is launched, nowhere else: the unconstrained
-# kernel (dem_mhe_tick) and the constrained one (dem_mhe_tick_box)
+# incremented where a CUDA kernel is launched, nowhere else: one count per
+# kernel — the unconstrained tick (mhe_kernel), the constrained one
+# (mhe_box_kernel) and their per-lane-clock variants (mhe_pi_kernel,
+# mhe_pi_box_kernel)
 launches = 0
 launches_box = 0
+launches_pi = 0
+launches_pi_box = 0
+_COUNTER = {(False, False): "launches", (True, False): "launches_box",
+            (False, True): "launches_pi", (True, True): "launches_pi_box"}
 
 # times the kernel call alone, apart from the wrapper's state copy
 timer = _build.KernelTimer()
@@ -116,8 +129,8 @@ class KernelState(NamedTuple):
     """Window state as the kernel holds it between calls."""
 
     arrays: tuple             # the 18 (constrained: 20) tensors of state_shapes(), physical ring order
-    bez_times: torch.Tensor   # (4,) shared Bezier waypoint times
-    bez_count: torch.Tensor   # (1,) int32
+    bez_times: torch.Tensor   # (4,) shared or (4,B) per-lane Bezier waypoint times
+    bez_count: torch.Tensor   # (1,) or (1,B) int32
     t: int                    # newest tick in the window
     # (Tn,B) int32 ADMM iterations per tick and instance of the call that
     # produced this state; None for an unconstrained or a fresh state
@@ -175,10 +188,14 @@ def kernel_state_from_mhe(st: mhe_lanes.MHEStateL, c) -> KernelState:
         arrays[k] = torch.roll(arrays[k], base, dims=0)
     arrays = tuple(a.contiguous() for a in arrays)
     dtype = st.y_meas.dtype
+    if st.bez.count.ndim:   # per-instance schedule: (B,4), (B,) -> (4,B), (1,B)
+        times, count = st.bez.times.T, st.bez.count[None]
+    else:
+        times, count = st.bez.times, st.bez.count.reshape(1)
     return KernelState(
         arrays=arrays,
-        bez_times=st.bez.times.to(dtype).contiguous(),
-        bez_count=st.bez.count.reshape(1).to(torch.int32),
+        bez_times=times.to(dtype).contiguous(),
+        bez_count=count.to(torch.int32).contiguous(),
         t=int(st.T),
     )
 
@@ -190,13 +207,17 @@ def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
     constrained = len(a) == 20
     for k in (_RING_BOX if constrained else _RING):
         a[k] = torch.roll(a[k], -base, dims=0)
+    if ks.bez_count.ndim == 2:      # per-instance schedule
+        times, count = ks.bez_times.T, ks.bez_count[0]
+    else:
+        times, count = ks.bez_times, ks.bez_count.reshape(())
     return mhe_lanes.MHEStateL(
         y_meas=a[0], Q_meas=a[1], A_dyn=a[2], b_dyn=a[3], Q_dyn=a[4],
         b_cam=a[5], Q_cam=a[6], cam_active=a[7] != 0, M_p=a[8], n_p=a[9],
         T=ks.t,
         bez=bezier.BezierCarry(
-            pts=torch.movedim(a[10], -1, 0), times=ks.bez_times,
-            count=ks.bez_count.reshape(()), p_accum=torch.movedim(a[11], -1, 0)),
+            pts=torch.movedim(a[10], -1, 0), times=times,
+            count=count, p_accum=torch.movedim(a[11], -1, 0)),
         prev_R=a[12], prev_accel_s=a[13], prev_contact=a[14],
         z_adm=a[18] if constrained else (),
         y_adm=a[19] if constrained else (),
@@ -205,15 +226,21 @@ def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
 
 def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
     """Plain PyTorch version of ``replay_ticks``: a Python loop over
-    ``mhe_lanes.step`` on the logical (shift-by-roll) window."""
+    ``mhe_lanes.step`` (per-instance ``vo``: ``step_per_instance_vo``) on the
+    logical (shift-by-roll) window."""
     st = mhe_state_from_kernel(ks, c)
     Tn = data_l.accel_b.shape[0]
-    active = vo.active.tolist()
-    tick_pre = vo.tick_pre.tolist()
-    tick_now = vo.tick_now.tolist()
+    if vo.active.ndim == 2:
+        active, tick_pre, tick_now = vo.active, vo.tick_pre, vo.tick_now
+        step = mhe_lanes.step_per_instance_vo
+    else:
+        active = vo.active.tolist()
+        tick_pre = vo.tick_pre.tolist()
+        tick_now = vo.tick_now.tolist()
+        step = mhe_lanes.step
     xs, its = [], []
     for i in range(Tn):
-        st, (x_T, _, it) = mhe_lanes.step(
+        st, (x_T, _, it) = step(
             c, st, data_l.R_sb[i], data_l.accel_b[i], data_l.omega_b[i],
             data_l.p_foot[i], data_l.J_foot[i], data_l.dq[i],
             data_l.contact[i], active[i], None, tick_pre[i], tick_now[i],
@@ -231,7 +258,7 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
     return x, kernel_state_from_mhe(st, c)._replace(iters=iters)
 
 
-def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
+def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_flags=()):
     """Advance the window over the ticks handed in.
 
     Args:
@@ -241,21 +268,21 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
       ks: KernelState whose newest tick is ``ks.t``; the first tick of
         ``data_l`` is tick ``ks.t + 1``.
       data_l: estimator.TickData in lanes layout (Tn, ..., B), contiguous.
-      vo: estimator.VOData for the same ticks (shared schedule; ``dp_body``
-        is not read here).
+      vo: estimator.VOData for the same ticks: the shared schedule (active,
+        tick_pre, tick_now (Tn,)) or a camera clock per lane ((Tn,B), with a
+        ``ks`` whose Bezier schedule is per lane); ``dp_body`` is not read
+        here.
       vo_inc: (Tn,3,B) world-frame VO increments
         (``estimator.vo_world_increments``), zero on inactive ticks.
     Returns (x (Tn,s,B), new KernelState); ``ks`` is not modified. On
     constrained consts the new state's ``iters`` holds the (Tn,B) ADMM
     iterations this call ran per tick and instance. CPU
     tensors (``device="cpu"``) take the plain version; CUDA tensors launch
-    the kernel or raise.
+    the kernel or raise. ``nvcc_flags`` launches a variant build of the
+    kernel instead (``_build.load``), e.g. ``("-fmad=false",)`` to compare
+    builds.
     """
     device = resolve_device(device)
-    if vo.active.ndim != 1:
-        raise NotImplementedError(
-            "per-instance VO clocks are not ported yet: ROADMAP.md, "
-            "'per-instance VO'")
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     if N < 2:
         raise ValueError("the window needs N >= 2")
@@ -289,22 +316,33 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda"):
         _build.require_lanes("window state", a, sh + (B,), dtype, dev)
     bounds = (admm.broadcast_bounds(c.x_lb, c.x_ub, s, B, dtype, dev)
               if constrained else None)
+    pi = vo.active.ndim == 2
+    meta = (Tn, B) if pi else (Tn,)
     for name, a in (("vo.active", vo.active), ("vo.tick_pre", vo.tick_pre),
                     ("vo.tick_now", vo.tick_now)):
-        if tuple(a.shape) != (Tn,) or a.device != dev:
-            raise ValueError(f"{name}: expected shared (T,)=({Tn},) on {dev}")
+        if tuple(a.shape) != meta or a.device != dev:
+            raise ValueError(f"{name}: expected {'per-lane' if pi else 'shared'} "
+                             f"{meta} on {dev}, got {tuple(a.shape)} on {a.device}")
+    sched = ((4, B), (1, B)) if pi else ((4,), (1,))
+    if ((tuple(ks.bez_times.shape), tuple(ks.bez_count.shape)) != sched
+            or ks.bez_times.device != dev or ks.bez_count.device != dev):
+        raise ValueError(
+            f"Bezier schedule: times {tuple(ks.bez_times.shape)}, count "
+            f"{tuple(ks.bez_count.shape)}, expected {sched[0]}, {sched[1]} on {dev}"
+            + (" (a camera clock per lane needs a state from "
+               "mhe_lanes.init(per_instance_vo=True))" if pi else ""))
     if dev.type == "cpu":
         return replay_ticks_plain(c, ks, data_l, vo, vo_inc)
-    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds)
+    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds, nvcc_flags)
 
 
-def _launch(c, ks: KernelState, inputs, vo, bounds=None):
-    """Copy the window state, launch ``dem_mhe_tick`` (with ``bounds``, the
-    (lb, ub) pair of (s,B) tensors: ``dem_mhe_tick_box``) on the current
+def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=()):
+    """Copy the window state, launch the tick kernel through ``dem_mhe_tick``
+    (constrained with ``bounds``, the (lb, ub) pair of (s,B) tensors; on a
+    camera clock per lane when ``vo``'s metadata is (Tn,B)) on the current
     stream over all Tn ticks, count the launch. ``inputs`` are the eight
     per-tick tensors in the kernel's order (R, accel, omega, p_foot, J_foot,
     dq, contact, vo_inc)."""
-    global launches, launches_box
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
@@ -312,8 +350,9 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None):
     # the kernel updates the window in place: work on copies
     state = [a.clone() for a in ks.arrays]
     x = torch.empty((Tn, s, B), dtype=dtype, device=dev)
-    bez_times_out = torch.empty((4,), dtype=dtype, device=dev)
-    bez_count_out = torch.empty((1,), dtype=torch.int32, device=dev)
+    pi = vo.active.ndim == 2
+    bez_times_out = torch.empty(tuple(ks.bez_times.shape), dtype=dtype, device=dev)
+    bez_count_out = torch.empty(tuple(ks.bez_count.shape), dtype=torch.int32, device=dev)
     meta = [vo.active.to(torch.int32).contiguous(),
             vo.tick_pre.to(torch.int32).contiguous(),
             vo.tick_now.to(torch.int32).contiguous()]
@@ -331,24 +370,22 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None):
             iters, ws(N, s, s), ws(N - 1, s, s), ws(N, s), ws(N, s),
             ws(N, s, s), ws(N, s)]
         ints, reals = ADMMCoreStatic.from_settings(c.admm, N, s).pack()
-        extra = (ints.ctypes.data, reals.ctypes.data)
+        settings = (ints.ctypes.data, reals.ctypes.data)
     else:
-        extra = ()
-    fn = _build.load("mhe" if bounds is None else "mhe_box")
+        settings = (None, None)
+    fn = _build.load("mhe", extra_flags=nvcc_flags)
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     consts = _pack_consts(kc)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
         timer.record(stream)
-        err = fn(int(dtype == torch.float64), s, m, L, kc.lot, ptrs,
-                 len(tensors), consts.ctypes.data, *extra, N, B, Tn, ks.t + 1,
-                 BLOCK, stream.cuda_stream)
+        err = fn(int(dtype == torch.float64), int(bounds is not None), int(pi), s, m,
+                 L, kc.lot, ptrs, len(tensors), consts.ctypes.data, *settings, N, B,
+                 Tn, ks.t + 1, BLOCK, stream.cuda_stream)
         timer.record(stream)
     _build.check_launch(err, "mhe_tick")
-    if bounds is None:
-        launches += 1
-    else:
-        launches_box += 1
+    globals()[_COUNTER[bounds is not None, pi]] += 1
+    if bounds is not None:
         admm_kernel.launches_core += 1
     return x, KernelState(arrays=tuple(state), bez_times=bez_times_out,
                           bez_count=bez_count_out, t=ks.t + Tn, iters=iters)
@@ -361,7 +398,9 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
       c: ops.mhe.MHEConsts.
       data_l: estimator.TickData in LANES layout (T, ..., B) on ``device``.
       vo: estimator.VOData — the shared fleet schedule (active (T,), dp_body
-        (T,3) or per-lane (T,3,B) content).
+        (T,3) or per-lane (T,3,B) content), or a PER-INSTANCE schedule
+        (active, tick_pre, tick_now (T,B), dp_body (T,3,B)) — told apart by
+        active's rank; the latter runs the per-lane-clock kernel variant.
     Returns x_seq (T, s, B) — newest-state estimate per tick. Tick 0 is the
     init-window solve (with ``c.use_pallas`` through
     ``tridiag_kernel.solve_lanes`` or, for constrained consts,
@@ -376,7 +415,7 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
     d0 = estimator.TickData(*(a[0] for a in data_l))
     st0 = mhe_lanes.init(c, d0.R_sb, d0.accel_b, d0.omega_b, d0.p_foot,
                          d0.J_foot, d0.dq, d0.contact, dtype=dtype,
-                         device=device)
+                         per_instance_vo=vo.active.ndim == 2, device=device)
     x0 = mhe_lanes.solve_window(c, st0)[N - 1]            # (s,B)
     vo_inc = estimator.vo_world_increments(data_l.R_sb, vo)
     rest = estimator.TickData(*(a[1:] for a in data_l))

@@ -8,10 +8,10 @@ instance batch B on the trailing axis: q (4,B), P (4,4,B), history rings
 (R,·,B).
 
 The VO schedule (active flags, steps-back) is shared across the fleet — one
-camera clock — so the per-substep branches are plain Python ``if``s. The
-measured VO quaternion is shared (4,) or per-lane (4,B). Per-lane VO *timing*
-(the masked ``_replay_per_lane`` of the reference) is not ported yet:
-ROADMAP.md, "per-instance VO".
+camera clock, and the per-substep branches are plain Python ``if``s — or
+per lane — a camera clock per lane, and the delayed-VO replay runs masked per
+lane (``_replay_per_lane``). The measured VO quaternion is shared (4,) or
+per-lane (4,B).
 
 ``estimator.scan_ekf_blocks`` loops ``substep_block`` over the log; that loop
 is the plain version of the ``ekf_stage`` CUDA kernel
@@ -240,6 +240,41 @@ def _replay(state: EKFStateL, q_vo, steps_back: int, c: EKFConstsL):
     return q, P
 
 
+def _gather_ring(hist, slot):
+    """hist (R, ..., B) gathered at per-lane ring slots ``slot`` (B,)."""
+    tail = hist.shape[1:]
+    idx = slot.reshape((1,) * len(tail) + tuple(slot.shape))
+    return torch.gather(hist, 0, idx.expand((1,) + tuple(tail)))[0]
+
+
+def _replay_per_lane(state: EKFStateL, q_vo, steps_back, lane_valid,
+                     n_steps: int, c: EKFConstsL):
+    """Per-lane delayed-VO replay: ``steps_back`` (B,) int64, ``q_vo`` (4,B)
+    or (4,), ``lane_valid`` (B,) bool, all on the state's device. Each lane
+    rewinds to its own sync slot and replays its own number of steps
+    (orien_ekf.cpp:186-205), masked; lanes with ``lane_valid`` False keep
+    their current (q, P). ``n_steps`` — the largest number of replayed steps
+    of a valid lane, known on the host — bounds the loop; later steps would
+    be masked on every lane."""
+    R = state.gyro_hist.shape[0]
+    sb = torch.where(lane_valid, steps_back, torch.ones_like(steps_back))
+    sync_slot = torch.remainder(state.t - sb, R)      # (B,)
+    q = _gather_ring(state.q_hist, sync_slot)
+    P = _gather_ring(state.P_hist, sync_slot)
+    for i in range(min(R, n_steps)):
+        slot = torch.remainder(sync_slot + i, R)
+        qc, Pc = predict(q, P, _gather_ring(state.gyro_hist, slot), c)
+        qc, Pc = accel_correct(qc, Pc, _gather_ring(state.accel_hist, slot), c)
+        if i == 0:
+            qc, Pc = vo_correct(qc, Pc, q_vo, c)
+        step_on = (i < sb - 1) & lane_valid            # (B,)
+        q = torch.where(step_on[None, :], qc, q)
+        P = torch.where(step_on[None, None, :], Pc, P)
+    q = torch.where(lane_valid[None, :], q, state.q)
+    P = torch.where(lane_valid[None, None, :], P, state.P)
+    return q, P
+
+
 def _ring_set(hist, slot, val):
     out = hist.clone()
     out[slot] = val
@@ -249,12 +284,13 @@ def _ring_set(hist, slot, val):
 def tick(state: EKFStateL, gyro, accel, vo_active, q_vo, vo_steps_back,
          c: EKFConstsL) -> EKFStateL:
     """One EKF tick (orien_ekf.cpp:77-106): push history, delayed-VO replay
-    if valid, predict, accel-correct. gyro/accel are (3,B); the VO metadata
-    are shared scalars."""
-    if getattr(vo_active, "ndim", 0) >= 1:
-        raise NotImplementedError(
-            "per-lane VO timing is not ported yet: ROADMAP.md, "
-            "'per-instance VO'")
+    if valid, predict, accel-correct. gyro/accel are (3,B). The VO metadata
+    are shared scalars, or per-lane tensors (``vo_active`` (B,) bool,
+    ``vo_steps_back`` (B,) int, ``q_vo`` (4,B)) — told apart by
+    ``vo_active``'s rank; the latter replays masked per lane, and not at all
+    when no lane has a valid event. Per-lane metadata held on the CPU keeps
+    that decision on the host."""
+    per_lane = getattr(vo_active, "ndim", 0) >= 1
     R = state.gyro_hist.shape[0]
     slot = state.t % R
     state = state._replace(
@@ -263,12 +299,23 @@ def tick(state: EKFStateL, gyro, accel, vo_active, q_vo, vo_steps_back,
         q_hist=_ring_set(state.q_hist, slot, state.q),
         P_hist=_ring_set(state.P_hist, slot, state.P),
     )
-    sb = int(vo_steps_back)
-    valid = bool(vo_active) and sb >= 1 and sb <= state.t and sb < R
-    if valid:
-        q, P = _replay(state, q_vo, sb, c)
-    else:
+    if per_lane:
+        sb = torch.as_tensor(vo_steps_back).to(torch.int64)
+        valid = (torch.as_tensor(vo_active).bool() & (sb >= 1)
+                 & (sb <= state.t) & (sb < R))
         q, P = state.q, state.P
+        if bool(valid.any()):
+            n_steps = int(sb[valid].max()) - 1
+            dev = state.q.device
+            q, P = _replay_per_lane(state, q_vo, sb.to(dev), valid.to(dev),
+                                    n_steps, c)
+    else:
+        sb = int(vo_steps_back)
+        valid = bool(vo_active) and sb >= 1 and sb <= state.t and sb < R
+        if valid:
+            q, P = _replay(state, q_vo, sb, c)
+        else:
+            q, P = state.q, state.P
     q_pred, P_pred = predict(q, P, gyro, c)
     q_corr, P_corr = accel_correct(q_pred, P_pred, accel, c)
     return state._replace(q=q_corr, P=P_corr, t=state.t + 1)
@@ -278,9 +325,10 @@ def substep_block(state: EKFStateL, gyro_blk, accel_blk, valid_blk,
                   vo_active_blk, vo_q_blk, vo_sb_blk, c: EKFConstsL):
     """Run one MHE tick's worth of EKF substeps (the 500/200 Hz rate
     mismatch). gyro/accel (S,3,B); valid (S,) shared bools (False ⇒ padding
-    slot, skipped); vo_active (S,), vo_q (S,4) or (S,4,B), vo_sb (S,).
-    The three metadata blocks are read on the host (lists or CPU tensors
-    avoid a device sync per substep)."""
+    slot, skipped); vo_active (S,), vo_q (S,4) or (S,4,B), vo_sb (S,) — or,
+    with a camera clock per lane, vo_active (S,B), vo_sb (S,B) (see
+    ``tick``). The metadata blocks are read on the host (lists or CPU
+    tensors avoid a device sync per substep)."""
     S = gyro_blk.shape[0]
     for j in range(S):
         if bool(valid_blk[j]):

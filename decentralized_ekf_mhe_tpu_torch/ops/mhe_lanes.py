@@ -6,11 +6,11 @@ window tensor keeps the instance batch B on the trailing axis. This eager
 module is what ``estimator.run_mhe_lanes`` loops over, and is therefore the
 plain version of the ``mhe_tick`` CUDA kernel (kernels/mhe_replay_kernel.py).
 
-Ported: the fleet's shared VO schedule, with the exact unconstrained window
-solve or, when the consts carry state box constraints, the OSQP-semantics
-box-ADMM warm-started from the ``z_adm``/``y_adm`` carry. The per-instance VO
-twin (``_apply_vo_per_instance``/``step_per_instance_vo``) is listed in
-ROADMAP.md.
+Ported: the fleet's shared VO schedule (``step``) and per-instance camera
+clocks (``step_per_instance_vo`` on a state from ``init(per_instance_vo=True)``),
+each with the exact unconstrained window solve or, when the consts carry state
+box constraints, the OSQP-semantics box-ADMM warm-started from the
+``z_adm``/``y_adm`` carry.
 
 All functions are pure: they return new tensors and leave their inputs
 untouched.
@@ -62,11 +62,9 @@ def init(
     device="cuda",
 ) -> MHEStateL:
     """Tick-0 initialization (InitializeMHE, DecentralEst.cpp:200-351). The
-    inputs must already lie on ``device``."""
-    if per_instance_vo:
-        raise NotImplementedError(
-            "per-instance VO schedules are not ported yet: ROADMAP.md, "
-            "'per-instance VO'")
+    inputs must already lie on ``device``. ``per_instance_vo`` allocates a
+    per-lane Bezier schedule (times (B,4), count (B,)) for fleets whose VO
+    events differ per instance (``step_per_instance_vo``)."""
     device = resolve_device(device)
     N, s, m = c.N, c.dim_state, c.dim_meas
     p = _params_view(c)
@@ -95,7 +93,8 @@ def init(
         M_p=Q_prior,
         n_p=-lanes.mv(Q_prior, x_prior),
         T=0,
-        bez=bezier.init(dtype, batch=(B,), device=device),
+        bez=bezier.init(dtype, batch=(B,), per_instance_schedule=per_instance_vo,
+                        device=device),
         prev_R=R_sb,
         prev_accel_s=assembly_lanes.spatial_accel(R_sb, accel_b, c.nc),
         prev_contact=contact,
@@ -172,6 +171,56 @@ def _apply_vo(c: MHEConsts, st: MHEStateL, vo_inc, vo_tick_pre: int,
         if i <= num - 2 and 0 <= slot <= N - 2:
             b_cam[slot] = -diffs_l[i + 1]
             cam_active[slot] = True
+    return st._replace(b_cam=b_cam, cam_active=cam_active, bez=bez_c)
+
+
+def _apply_vo_per_instance(c: MHEConsts, st: MHEStateL, vo_inc, vo_tick_pre,
+                           vo_tick_now, vo_active):
+    """Per-instance VO ingestion — the fully masked twin of ``_apply_vo`` for
+    fleets whose camera clocks differ per lane (timing AND content). All VO
+    operands are per lane: ``vo_inc`` (3,B) world-frame increments,
+    ``vo_tick_pre``/``vo_tick_now`` (B,) int, ``vo_active`` (B,) bool; the
+    state carries a per-instance Bezier schedule. Lanes without an event are
+    left untouched; no value is read back to the host."""
+    N = c.N
+    dtype, dev = st.prev_accel_s.dtype, st.prev_accel_s.device
+    dt = torch.as_tensor(c.dt, dtype=dtype, device=dev)
+    T = st.T + 1
+    act = vo_active.to(device=dev, dtype=torch.bool)
+    tick_pre = vo_tick_pre.to(device=dev, dtype=torch.int64)
+    tick_now = vo_tick_now.to(device=dev, dtype=torch.int64)
+
+    inc = vo_inc * act.to(dtype)[None, :]
+    p_accum = st.bez.p_accum + inc.T                  # carry is (B,3)
+    bez_c = st.bez._replace(p_accum=p_accum)
+    bez_c = bezier.add_way_point(bez_c, p_accum, tick_now.to(dtype) * dt,
+                                 mask=act)
+
+    window_start = T - min(N, T)
+    start = torch.clamp(tick_pre, min=window_start)   # (B,)
+    num = tick_now - start + 1                        # (B,)
+    do_interp = act & (tick_now > window_start) & (bez_c.count >= 4)
+
+    # node index i of window slot j: slot = start + i - T + N, so
+    # i = j - start + T - N (per instance)
+    j = torch.arange(N, device=dev)
+    i_b = j[:, None] - start[None, :] + T - N         # (N,B)
+    ok = (do_interp[None, :] & (i_b >= 0) & (i_b <= num[None, :] - 2)
+          & (j[:, None] <= N - 2))
+
+    t_int = bez_c.times[:, 3] - bez_c.times[:, 0]     # (B,)
+    t_int = torch.where(t_int == 0, torch.ones_like(t_int), t_int)
+    u0 = (start.to(dtype) * dt - bez_c.times[:, 0]) / t_int
+    du = dt / t_int
+    uf = i_b.to(dtype).T                              # (B,N)
+    # the increment over [i, i+1] per (slot, instance); pts are (B,4,3), so
+    # eval_at gives (B,N,3) -> lanes (N,3,B)
+    lo = bezier.eval_at(bez_c, u0[:, None] + uf * du[:, None])
+    hi = bezier.eval_at(bez_c, u0[:, None] + (uf + 1) * du[:, None])
+    diff = torch.movedim(hi - lo, 0, -1)
+
+    b_cam = torch.where(ok[:, None, :], -diff, st.b_cam)
+    cam_active = st.cam_active | ok
     return st._replace(b_cam=b_cam, cam_active=cam_active, bez=bez_c)
 
 
@@ -318,6 +367,31 @@ def step(
             dp = (vo_dp[:, None] if vo_dp.ndim == 1 else vo_dp).expand(3, B)
             vo_inc = lanes.mv(vo_R_pre, dp)
         st = _apply_vo(c, st, vo_inc, int(vo_tick_pre), int(vo_tick_now))
+    return _tick_tail(c, st, R_sb, accel_b, omega_b, p_foot, J_foot, dq,
+                      contact)
+
+
+def step_per_instance_vo(
+    c: MHEConsts,
+    st: MHEStateL,
+    R_sb, accel_b, omega_b, p_foot, J_foot, dq, contact,
+    vo_active, vo_dp, vo_tick_pre, vo_tick_now,
+    vo_R_pre,
+    vo_inc=None,
+):
+    """One estimator tick with PER-INSTANCE VO: ``vo_active`` (B,) bool,
+    ``vo_dp`` (3,B), ``vo_tick_pre``/``vo_tick_now`` (B,) int, ``vo_R_pre``
+    (3,3,B), all tensors. A caller that already holds the world-frame
+    increments R_pre·dp passes them as ``vo_inc`` (3,B) and may leave
+    ``vo_dp``/``vo_R_pre`` as None. Requires a state built with
+    ``init(..., per_instance_vo=True)``. Inactive lanes are masked, not
+    branched; otherwise identical to ``step`` (same return value)."""
+    if vo_inc is None:
+        dp = torch.as_tensor(vo_dp, dtype=st.prev_accel_s.dtype,
+                             device=st.prev_accel_s.device)
+        vo_inc = lanes.mv(vo_R_pre, dp)
+    st = _apply_vo_per_instance(c, st, vo_inc, vo_tick_pre, vo_tick_now,
+                                vo_active)
     return _tick_tail(c, st, R_sb, accel_b, omega_b, p_foot, J_foot, dq,
                       contact)
 

@@ -1,8 +1,8 @@
 """Fleet harness: Monte-Carlo perturbations and the fleet runners.
 
 Counterpart of the reference ``parallel/batch.py``. Ported: the three
-``perturb_*`` functions (shared camera timing), the layout helpers, and the
-two lanes fleet runners. The vmapped/standard-layout runners and everything
+``perturb_*`` functions, the layout helpers, and the two lanes fleet runners
+(shared or per-lane camera clocks). The vmapped/standard-layout runners and everything
 sharded over a device mesh are listed in ROADMAP.md ("sharding").
 
 Random draws take an explicit ``torch.Generator`` where the reference takes a
@@ -108,11 +108,10 @@ def perturb_vo_batch(vo: estimator.VOData, B: int,
                      per_instance_timing=False) -> estimator.VOData:
     """Per-lane VO content noise for the MHE stage: dp_body becomes (T,3,B)
     with fresh per-instance draws on active events, scaled by
-    ``params.vo_p_std``. Timing stays the shared camera clock."""
-    if per_instance_timing:
-        raise NotImplementedError(
-            "per-instance VO timing is not ported yet: ROADMAP.md, "
-            "'per-instance VO'")
+    ``params.vo_p_std``. Timing stays the shared camera clock; with
+    ``per_instance_timing`` the active/tick metadata are broadcast per lane
+    ((T,B)), which sends the fleet down the per-instance path with every lane
+    on the same clock (the clocks themselves are not perturbed)."""
     p = params if params is not None else EstimatorParams()
     dev = vo.dp_body.device
     T = vo.dp_body.shape[0]
@@ -122,6 +121,13 @@ def perturb_vo_batch(vo: estimator.VOData, B: int,
         noise_scale * dp_std * _randn((T, 3, B), generator, dtype, dev)
         * vo.active.to(dtype)[:, None, None]
     )
+    if per_instance_timing:
+        return estimator.VOData(
+            active=vo.active[:, None].expand(T, B),
+            dp_body=dp,
+            tick_pre=vo.tick_pre[:, None].expand(T, B),
+            tick_now=vo.tick_now[:, None].expand(T, B),
+        )
     return vo._replace(dp_body=dp)
 
 
@@ -163,8 +169,12 @@ def make_pipeline_fleet_runner(params: EstimatorParams, ekf_params,
     ``use_megakernel=True`` runs each stage as one kernel launch: the EKF
     stage kernel (kernels/ekf_kernel.py), ``ekf_lanes.to_rot``, the MHE tick
     kernel (kernels/mhe_replay_kernel.py, whose tick-0 solve goes through
-    kernels/tridiag_kernel.py when ``use_pallas``), then the lever-arm body
-    velocity. ``use_megakernel=False`` runs the eager lanes path
+    kernels/tridiag_kernel.py when ``use_pallas``; a per-instance ``VOData``
+    takes its per-lane-clock variant), then the lever-arm body velocity.
+    EKF blocks with a camera clock per lane (``eb.vo_active`` (T,S,B)) take
+    ``estimator.scan_ekf_blocks`` on ``device`` instead of the EKF kernel, as
+    the reference's runner takes its scan: neither package has an EKF kernel
+    for per-lane timing. ``use_megakernel=False`` runs the eager lanes path
     (``estimator.run_pipeline_lanes``), which is also what the plain versions
     of the two stage kernels are. ``use_pallas`` keeps the reference's name:
     it routes window solves through the block-tridiagonal kernel wrapper.
@@ -189,7 +199,10 @@ def make_pipeline_fleet_runner(params: EstimatorParams, ekf_params,
             ekf_st = ekf_lanes.init_state(ekf_params, B,
                                           ring_len=ekf_ring_len, dtype=dtype,
                                           device=device)
-            q_seq, _ = ekf_kernel.replay(ec, ekf_st, eb, device=device)
+            if eb.vo_active.ndim == 3:
+                _, q_seq = estimator.scan_ekf_blocks(ekf_st, eb, ec)
+            else:
+                q_seq, _ = ekf_kernel.replay(ec, ekf_st, eb, device=device)
             R_seq = ekf_lanes.to_rot(q_seq)                 # (T,3,3,B)
             data_l = data_l._replace(R_sb=R_seq)
             x = mrk.replay(c, data_l, vo, dtype=dtype, device=device)
@@ -217,7 +230,8 @@ def make_lanes_fleet_runner(params: EstimatorParams, dtype=torch.float32,
     v[T,B,3]) with the whole MHE state and assembly in lanes layout;
     orientation comes from ``data.R_sb``. ``use_megakernel=True`` runs the
     ticks in the MHE tick kernel, otherwise the eager loop
-    (``estimator.run_mhe_lanes``)."""
+    (``estimator.run_mhe_lanes``); either takes a shared or a per-instance
+    ``VOData``."""
     from decentralized_ekf_mhe_tpu_torch.ops import mhe as mhe_lib
 
     device = resolve_device(device)

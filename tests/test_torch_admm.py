@@ -319,9 +319,13 @@ def test_admm_work_counts():
 
 
 def test_build_names_the_admm_sources():
-    assert "admm" in _build.SOURCES and _build._LIB_OF["mhe_box"] == "mhe"
-    assert _build._ARGTYPES["mhe_box"][0] == "dem_mhe_tick_box"
-    assert len(_build._ARGTYPES["mhe_box"][1]) == len(_build._ARGTYPES["mhe"][1]) + 2
+    assert "admm" in _build.SOURCES and _build._ARGTYPES["admm"][0] == "dem_admm_solve"
+    # the constrained tick is a unit of the mhe library behind its one entry
+    # point, which takes (is_double, con, pi, ...) and the ADMM settings
+    assert ("mhe", ("-DDEM_MHE_UNIT=dem_mhe_unit_box_f64", "-DDEM_MHE_REAL=double",
+                    "-DDEM_MHE_CON=1", "-DDEM_MHE_PI=0")) in _build.UNITS["mhe"]
+    assert _build._ARGTYPES["mhe"][0] == "dem_mhe_tick"
+    assert len(_build._ARGTYPES["mhe"][1]) == 18
     t = _build.KernelTimer()
     t.record(None)                       # off: records nothing, needs no device
     assert t.ms() == []

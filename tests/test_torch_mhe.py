@@ -318,19 +318,25 @@ def test_tridiag_plain_matches_pallas_interpret(full_window):
 
 
 def test_unported_branches_raise():
-    p = _params(6, EstimatorParams)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bezier.init(F64, batch=(2,), per_instance_schedule=True, device="cpu")
     p1 = EstimatorParams(num_legs=2, leg_odom_type=1, rate=200, N=6)
     c1 = mhe.make_consts(p1, F64, device="cpu")
     z = torch.zeros
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         assembly_lanes.build_dynamics(p1, c1.nc, z(3, 3, 2, dtype=F64),
                                       z(3, 2, dtype=F64), z(2, 2, dtype=F64))
-    _, _, _, tdata_l, tvo, tc = _fleet(6, 2, 1, 5)
-    vo2 = tvo._replace(active=tvo.active[:, None].expand(-1, 2))
+    # per-lane VO timing has no EKF kernel, in this package as in the
+    # reference: the kernel wrapper refuses it (the runners take the scan)
+    from decentralized_ekf_mhe_tpu_torch.config import EKFParams
+    from decentralized_ekf_mhe_tpu_torch.kernels import ekf_kernel
+    from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes
+    T, S, B = 3, 3, 2
+    eb = estimator.EKFBlocks(
+        gyro=z(T, S, 3, B, dtype=F64), accel=z(T, S, 3, B, dtype=F64),
+        valid=torch.ones(T, S, dtype=torch.bool), vo_active=torch.zeros(T, S, B, dtype=torch.bool),
+        vo_q=z(T, S, 4, B, dtype=F64), vo_steps_back=torch.zeros(T, S, B, dtype=torch.int32))
+    st = ekf_lanes.init_state(EKFParams(), B, 16, F64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mrk.replay(tc, tdata_l, vo2, dtype=F64, device="cpu")
+        ekf_kernel.replay(ekf_lanes.make_consts(EKFParams(), F64), st, eb, device="cpu")
 
 
 def test_wrappers_reject_bad_operands():

@@ -183,8 +183,11 @@ def test_perturbations_are_seeded_and_scaled():
     inactive = ~vo1.active
     assert torch.equal(v1.dp_body[inactive], vo1.dp_body[inactive][..., None].expand(-1, -1, B))
     assert torch.equal(v1.tick_pre, vo1.tick_pre)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch.perturb_vo_batch(vo1, B, torch.Generator(), p, per_instance_timing=True)
+    # per-instance timing: the shared clock broadcast per lane, same content
+    v4 = batch.perturb_vo_batch(vo1, B, torch.Generator().manual_seed(5), p, dtype=F64,
+                                per_instance_timing=True)
+    v5 = batch.perturb_vo_batch(vo1, B, torch.Generator().manual_seed(5), p, dtype=F64)
+    assert v4.active.shape == v4.tick_now.shape == (T, B) and torch.equal(v4.dp_body, v5.dp_body)
     # layout helpers
     tb = batch.to_time_leading(d1)
     ln = batch.tickdata_to_lanes(tb)
@@ -304,6 +307,8 @@ def _entry_points():
             mhe.make_consts(p, F64, x_ub=np.full(9, 0.3), admm_iters=3,
                             use_pallas=True, device="cpu"), data_l, vo, dtype=F64, **k),
         "mhe_replay_kernel.replay": lambda **k: mrk.replay(c, data_l, vo, dtype=F64, **k),
+        "mhe_replay_kernel.replay (per-lane clock)": lambda **k: mrk.replay(
+            c, data_l, estimator.VOData(*(a[..., None] for a in vo)), dtype=F64, **k),
         "mhe_replay_kernel.replay_ticks": lambda **k: mrk.replay_ticks(
             c, ks0, rest, vo_rest, vo_inc, **k),
         "mhe_lanes.init": lambda **k: mhe_lanes.init(
@@ -343,12 +348,14 @@ def test_cpu_path_never_builds_or_launches(monkeypatch):
     monkeypatch.setattr(_build, "load", boom)
     monkeypatch.setattr(_build, "build", boom)
     counts = lambda: (tridiag_kernel.launches, ekf_kernel.launches, mrk.launches,
-                      mrk.launches_box, admm_kernel.launches)
+                      mrk.launches_box, mrk.launches_pi, mrk.launches_pi_box,
+                      admm_kernel.launches)
     before = counts()
     eps = _entry_points()
     for name in ("tridiag_kernel.solve_lanes", "ekf_kernel.replay",
                  "mhe_replay_kernel.replay", "mhe_replay_kernel.replay_ticks",
-                 "admm_kernel.solve_box_lanes", "mhe_replay_kernel.replay (box)"):
+                 "admm_kernel.solve_box_lanes", "mhe_replay_kernel.replay (box)",
+                 "mhe_replay_kernel.replay (per-lane clock)"):
         eps[name](device="cpu")
     assert counts() == before
 
