@@ -63,8 +63,8 @@ def compare(a, b):
 
 
 def main():
-    kernels = {"kernel": _build.load("admm"),
-               "kernel_fmad_false": _build.load("admm", extra_flags=("-fmad=false",))}
+    kernels = {"kernel": _build.load("admm_s9"),
+               "kernel_fmad_false": _build.load("admm_s9", extra_flags=("-fmad=false",))}
     _, _, c, c_pl, data_l, vo_b, vo_inc, ks0 = cs.box_small_setup()
     _, ks_k = mrk.replay_ticks(c, ks0, *cs.seg(data_l, vo_b, vo_inc, slice(1, None)),
                                device=cs.DEV)

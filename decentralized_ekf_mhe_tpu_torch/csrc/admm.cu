@@ -13,6 +13,11 @@
 // polish; kernels/_work.py), in practice the serial chain of one instance with
 // B/32 warps in flight. The ragged edge (B not a multiple of the block) is
 // masked here; there is no padding.
+//
+// The state size is a template parameter: s=9 (Go1, PogoX) and s=15 (Cassie).
+// This file is compiled once per size (-DDEM_ADMM_S=<s>, both element types)
+// into a library of its own, libadmm_s<s>.so (kernels/_build.py), built at
+// the first solve of that size.
 #include "admm.cuh"
 
 namespace dem {
@@ -27,8 +32,6 @@ __global__ void admm_kernel(AdmmPtrs<T> w, const T* lb, const T* ub, int* iters,
   load<S>(hi, ub, 0, B, b);
   iters[b] = admm_box_solve<T, S>(w, a, lo, hi, 0, N, B, b);
 }
-
-constexpr int ADMM_NPTRS = 11;
 
 // ptrs: D, U, r, lb, ub, x, z, y, iters, Sinv scratch, ys scratch.
 template <typename T, int S>
@@ -52,13 +55,15 @@ int admm_launch(void* const* ptrs, const int* ints, const double* reals, int N,
 
 }  // namespace dem
 
+constexpr int ADMM_NPTRS = 11;
+
 // C interface: returns cudaGetLastError() of the launch, or -1 for a state
-// size this build does not instantiate (only s=9).
+// size this library does not instantiate.
 extern "C" int dem_admm_solve(int is_double, int S, void* const* ptrs, int nptrs,
                               const int* ints, const double* reals, int N, int B,
                               int block, void* stream) {
-  if (S != 9 || nptrs != dem::ADMM_NPTRS || N < 1) return -1;
+  if (S != DEM_ADMM_S || nptrs != ADMM_NPTRS || N < 1) return -1;
   if (is_double)
-    return dem::admm_launch<double, 9>(ptrs, ints, reals, N, B, block, stream);
-  return dem::admm_launch<float, 9>(ptrs, ints, reals, N, B, block, stream);
+    return dem::admm_launch<double, DEM_ADMM_S>(ptrs, ints, reals, N, B, block, stream);
+  return dem::admm_launch<float, DEM_ADMM_S>(ptrs, ints, reals, N, B, block, stream);
 }

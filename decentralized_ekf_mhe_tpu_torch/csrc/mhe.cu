@@ -2,14 +2,19 @@
 //
 // Four kernels share one body: the shared camera clock or a clock per lane
 // (PI), unconstrained or box-constrained (CON), each for float and double —
-// eight instantiations of a body that takes nvcc tens of seconds each. So
-// this file is compiled once per instantiation, with
+// instantiations of a body that takes nvcc tens of seconds each — and each
+// model shape is one more set of them. So this file is compiled once per
+// instantiation, with
+//   -DDEM_MHE_SHAPE=<tag> -DDEM_MHE_S=<s> -DDEM_MHE_M=<m> -DDEM_MHE_L=<L>
+//   -DDEM_MHE_LOT=<leg_odom_type>
 //   -DDEM_MHE_UNIT=<symbol> -DDEM_MHE_REAL=float|double -DDEM_MHE_CON=0|1
 //   -DDEM_MHE_PI=0|1
 // (kernels/_build.py starts all of them at once, one nvcc process each), and
-// once more without DEM_MHE_UNIT for the one entry point below, which picks
-// the unit by variant and element type. All of them link into one
-// shared library.
+// once more per shape without DEM_MHE_UNIT for the one entry point below,
+// which picks the unit by variant and element type. The units of one shape
+// link into a shared library of their own (libmhe_<tag>.so), built at the
+// first use of that shape. DEM_MHE_WITH_PI=0 builds a shape without the
+// per-lane-clock units.
 
 #ifdef DEM_MHE_UNIT
 #include "mhe_body.cuh"
@@ -18,40 +23,42 @@ extern "C" int DEM_MHE_UNIT(void* const* ptrs, const double* consts,
                             void* const* box_ptrs, const int* ints,
                             const double* reals, int N, int B, int Tn, int t0,
                             int block, void* stream) {
-  return dem::mhe_launch<DEM_MHE_REAL, 9, 12, 4, DEM_MHE_CON != 0, DEM_MHE_PI != 0>(
+  return dem::mhe_launch<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
+                         DEM_MHE_CON != 0, DEM_MHE_PI != 0>(
       ptrs, consts, box_ptrs, ints, reals, N, B, Tn, t0, block, stream);
 }
 
 #else
 
+#define DEM_CAT2(a, b) a##b
+#define DEM_CAT(a, b) DEM_CAT2(a, b)
+// dem_mhe_unit_<shape><suffix>, the symbol _build._mhe_unit gives a unit
+#define DEM_UNIT(suffix) DEM_CAT(DEM_CAT(dem_mhe_unit_, DEM_MHE_SHAPE), suffix)
 #define DEM_MHE_UNIT_DECL(sym)                                                \
   extern "C" int sym(void* const* ptrs, const double* consts,                 \
                      void* const* box_ptrs, const int* ints,                  \
                      const double* reals, int N, int B, int Tn, int t0,       \
                      int block, void* stream);
-DEM_MHE_UNIT_DECL(dem_mhe_unit_f32)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_f64)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_box_f32)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_box_f64)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_pi_f32)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_pi_f64)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_pi_box_f32)
-DEM_MHE_UNIT_DECL(dem_mhe_unit_pi_box_f64)
+DEM_MHE_UNIT_DECL(DEM_UNIT(_f32))
+DEM_MHE_UNIT_DECL(DEM_UNIT(_f64))
+DEM_MHE_UNIT_DECL(DEM_UNIT(_box_f32))
+DEM_MHE_UNIT_DECL(DEM_UNIT(_box_f64))
+#if DEM_MHE_WITH_PI
+DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_f32))
+DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_f64))
+DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_box_f32))
+DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_box_f64))
+#endif
 
 namespace {
 constexpr int MHE_NPTRS = 34;                 // MhePtrs
 constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 11; // MhePtrs, then MheBox
-
-// only Go1 is instantiated: s=9, m=12, L=4, leg_odom_type 0
-bool go1(int S, int M, int L, int lot, int N) {
-  return S == 9 && M == 12 && L == 4 && lot == 0 && N >= 2;
-}
 }  // namespace
 
 // The entry point returns cudaGetLastError() of the launch, or -1 for a
-// shape this build does not instantiate. con and pi pick the unit: the
-// box-constrained tick (con), a camera clock per lane (pi). ptrs: the 34
-// pointers of MhePtrs in declaration order (mhe_launch lists them); a
+// shape or variant this library does not instantiate. con and pi pick the
+// unit: the box-constrained tick (con), a camera clock per lane (pi). ptrs:
+// the 34 pointers of MhePtrs in declaration order (mhe_launch lists them); a
 // constrained tick takes the 11 of MheBox after them and the ADMM settings in
 // ints/reals (unread otherwise). A per-lane-clock tick takes the same
 // operands with (Tn,B) VO metadata and a (4,B)/(1,B) Bezier schedule.
@@ -64,15 +71,19 @@ extern "C" int dem_mhe_tick(int is_double, int con, int pi, int S, int M, int L,
                        const double*, int, int, int, int, int, void*);
   // [pi][con][is_double]
   static const Unit units[2][2][2] = {
-      {{dem_mhe_unit_f32, dem_mhe_unit_f64},
-       {dem_mhe_unit_box_f32, dem_mhe_unit_box_f64}},
-      {{dem_mhe_unit_pi_f32, dem_mhe_unit_pi_f64},
-       {dem_mhe_unit_pi_box_f32, dem_mhe_unit_pi_box_f64}}};
-  if (!go1(S, M, L, lot, N) || nptrs != (con ? MHE_BOX_NPTRS : MHE_NPTRS))
-    return -1;
-  return units[pi != 0][con != 0][is_double != 0](
-      ptrs, consts, con ? ptrs + MHE_NPTRS : nullptr, ints, reals, N, B, Tn, t0,
-      block, stream);
+      {{DEM_UNIT(_f32), DEM_UNIT(_f64)}, {DEM_UNIT(_box_f32), DEM_UNIT(_box_f64)}},
+#if DEM_MHE_WITH_PI
+      {{DEM_UNIT(_pi_f32), DEM_UNIT(_pi_f64)},
+       {DEM_UNIT(_pi_box_f32), DEM_UNIT(_pi_box_f64)}}};
+#else
+      {{nullptr, nullptr}, {nullptr, nullptr}}};
+#endif
+  const bool shape = S == DEM_MHE_S && M == DEM_MHE_M && L == DEM_MHE_L &&
+                     lot == DEM_MHE_LOT && N >= 2;
+  const Unit unit = units[pi != 0][con != 0][is_double != 0];
+  if (!shape || !unit || nptrs != (con ? MHE_BOX_NPTRS : MHE_NPTRS)) return -1;
+  return unit(ptrs, consts, con ? ptrs + MHE_NPTRS : nullptr, ints, reals, N, B,
+              Tn, t0, block, stream);
 }
 
 #endif

@@ -1,6 +1,8 @@
 // mhe_tick — the whole MHE replay loop, one thread per instance: the kernel
 // bodies, included by csrc/mhe.cu, which compiles each instantiation in a
-// translation unit of its own (see there).
+// translation unit of its own (see there). The model shape (s, m, L and the
+// leg-odometry form LOT) is a template parameter: Go1 (9, 12, 4, 0), Cassie
+// (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
 //
 // Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel in its
 // Gauss-Jordan form (reached through replay -> _replay_chunk), with the shared
@@ -15,12 +17,14 @@
 //
 // Where the state lives. The window state is 18 tensors, about 10.3k scalars
 // per instance at N=20, s=9, m=12 (41 KB in float32; 42 MB for 1024
-// instances) — far beyond registers or the 227 KB of shared memory a block
-// may use. So ALL ring/window state stays in GLOBAL memory in the
-// instance-minor layout (coalesced across the warp; at B=1024 in float32 it
-// fits the 50 MB L2), addressed by the dynamic physical slot
+// instances; 20.0k scalars and 82 MB at Cassie's s=15) — far beyond
+// registers or the 227 KB of shared memory a block may use. So ALL
+// ring/window state stays in GLOBAL memory in the instance-minor layout
+// (coalesced across the warp; at B=1024 in float32 Go1's fits the 50 MB L2,
+// Cassie's does not), addressed by the dynamic physical slot
 // (base + logical) % N, and is updated in place. Only the per-slot working
-// set (a few s x s matrices with compile-time indices) is thread-private.
+// set (a few s x s matrices; compile-time indices at s=9, while at s=15 the
+// long loops stay rolled, smallmat.cuh) is thread-private.
 // The cost: every tick re-reads ~5k scalars per instance from L2 and the
 // s x s temporaries spill to local memory; occupancy is B/32 warps.
 //
@@ -59,7 +63,14 @@
 // place through the ring. Per tick it also writes the iterations each instance
 // ran. The unconstrained, shared-clock instantiation compiles to what it was:
 // every constrained statement sits behind `if constexpr (CON)`, every
-// per-lane-clock statement behind `if constexpr (PI)`.
+// per-lane-clock statement behind `if constexpr (PI)`, and every statement of
+// one leg-odometry form behind `if constexpr` on LOT.
+//
+// Foot positions as states (LOT == 1; the TPU kernel's lot-1 branches,
+// mhe_replay_kernel.py:284-319, 349-355): the dynamics gain identity foot
+// blocks with process noise R Q_foot R^T / dt^2, the slide gain for a leg in
+// contact at the previous tick and the swing gain otherwise; the measurement
+// of leg i is y = R p_i with weight R (J_i C_enc_pos J_i^T)^-1 R^T.
 #pragma once
 #include "admm.cuh"
 #include "smallmat.cuh"
@@ -80,6 +91,18 @@ struct MheConsts {
   T C_gyro[9];
   T Q_foot_swing[9];
   T gravity[3];
+};
+
+// The constants of one leg-odometry form: the foot-position form (LOT == 1)
+// reads the slide gain of the foot-state noise too. The velocity form keeps
+// the layout above, so its kernels compile to what they were (a larger
+// parameter block alone moves ptxas' register allocation).
+template <typename T, int S, int M, int LOT>
+struct MheConstsFor : MheConsts<T, S, M> {};
+
+template <typename T, int S, int M>
+struct MheConstsFor<T, S, M, 1> : MheConsts<T, S, M> {
+  T Q_foot_slide[9];
 };
 
 template <typename T>
@@ -214,6 +237,32 @@ DEM_HD void build_dynamics(const MheConsts<T, S, M>& c, const T* R, const T* acc
   }
 }
 
+// The foot blocks of the dynamics with foot positions as states
+// (assembly_lanes.build_dynamics, leg_odom_type 1): identity in A, noise
+// R Q_foot R^T / dt^2 in Q — the slide gain for a leg in contact at the
+// previous tick (contact (L)), the swing gain otherwise.
+template <typename T, int S, int M, int L>
+DEM_HD void add_foot_dynamics(const MheConstsFor<T, S, M, 1>& c, const T* R,
+                              const T* contact, T* A, T* Q) {
+  const T inv_dt2 = T(1) / (c.dt * c.dt);
+  DEM_UNROLL
+  for (int leg = 0; leg < L; ++leg) {
+    const int f = 9 + 3 * leg;
+    const bool stance = contact[leg] > T(0);
+    T Qf[9], RQ[9], RQR[9];
+    DEM_UNROLL
+    for (int k = 0; k < 9; ++k) Qf[k] = stance ? c.Q_foot_slide[k] : c.Q_foot_swing[k];
+    matmul<3, 3, 3>(R, Qf, RQ);
+    matmul_nt<3, 3, 3>(RQ, R, RQR);
+    DEM_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      A[(f + i) * S + f + i] = T(1);
+      DEM_UNROLL
+      for (int j = 0; j < 3; ++j) Q[(f + i) * S + f + j] = inv_dt2 * RQR[i * 3 + j];
+    }
+  }
+}
+
 // assembly_lanes.build_measurement (leg_odom_type 0): y (m), Q (m,m)
 template <typename T, int S, int M, int L>
 DEM_HD void build_measurement(const MheConsts<T, S, M>& c, const T* R, const T* omega,
@@ -275,8 +324,34 @@ DEM_HD void build_measurement(const MheConsts<T, S, M>& c, const T* R, const T* 
   }
 }
 
-template <typename T, int S, int M, int L, bool CON, bool PI>
-DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c,
+// assembly_lanes.build_measurement with foot positions as states
+// (leg_odom_type 1): y = R p, Q = R (J C_enc_pos J^T)^-1 R^T per leg
+template <typename T, int S, int M, int L>
+DEM_HD void build_measurement_pos(const MheConsts<T, S, M>& c, const T* R, const T* pfoot,
+                                  const T* Jfoot, T* y, T* Q) {
+  DEM_UNROLL
+  for (int i = 0; i < M * M; ++i) Q[i] = T(0);
+  DEM_UNROLL
+  for (int leg = 0; leg < L; ++leg) {
+    const T* Ji = Jfoot + leg * 9;
+    T Rp[3], JC[9], inner[9], Iv[9], RI[9], Qi[9];
+    matvec<3, 3>(R, pfoot + leg * 3, Rp);
+    matmul<3, 3, 3>(Ji, c.C_enc_pos, JC);
+    matmul_nt<3, 3, 3>(JC, Ji, inner);
+    inv3(inner, Iv);
+    matmul<3, 3, 3>(R, Iv, RI);
+    matmul_nt<3, 3, 3>(RI, R, Qi);
+    DEM_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      y[leg * 3 + i] = Rp[i];
+      DEM_UNROLL
+      for (int j = 0; j < 3; ++j) Q[(leg * 3 + i) * M + leg * 3 + j] = Qi[i * 3 + j];
+    }
+  }
+}
+
+template <typename T, int S, int M, int L, int LOT, bool CON, bool PI>
+DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
   constexpr int SS = S * S;
   constexpr int MM = M * M;
@@ -429,6 +504,11 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c,
       load<9>(Rp, p.prev_R, 0, B, b);
       load<3>(accp, p.prev_acc, 0, B, b);
       build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
+      if constexpr (LOT == 1) {
+        T ctp[L];   // the previous tick's contact gates the foot noise
+        load<L>(ctp, p.prev_ct, 0, B, b);
+        add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
+      }
       matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
       matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
 
@@ -465,7 +545,10 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c,
       load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
       load<L>(ct, p.contact, (size_t)i * L, B, b);
       T y_T[M], Q_T[MM];
-      build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, y_T, Q_T);
+      if constexpr (LOT == 1)
+        build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, y_T, Q_T);
+      else
+        build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, y_T, Q_T);
 
       store<M>(p.y_meas, (size_t)pN1 * M, B, b, y_T);
       store<MM>(p.Q_meas, (size_t)pN1 * MM, B, b, Q_T);
@@ -615,45 +698,46 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConsts<T, S, M>& c,
   }
 }
 
-template <typename T, int S, int M, int L>
-__global__ void mhe_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, int N, int B,
+template <typename T, int S, int M, int L, int LOT>
+__global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                            int Tn, int t0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  mhe_body<T, S, M, L, false, false>(p, c, nullptr, N, B, Tn, t0, b);
+  mhe_body<T, S, M, L, LOT, false, false>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
-template <typename T, int S, int M, int L>
-__global__ void mhe_box_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, MheBox<T> q,
+template <typename T, int S, int M, int L, int LOT>
+__global__ void mhe_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                int N, int B, int Tn, int t0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  mhe_body<T, S, M, L, true, false>(p, c, &q, N, B, Tn, t0, b);
+  mhe_body<T, S, M, L, LOT, true, false>(p, c, &q, N, B, Tn, t0, b);
 }
 
-template <typename T, int S, int M, int L>
-__global__ void mhe_pi_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, int N, int B,
+template <typename T, int S, int M, int L, int LOT>
+__global__ void mhe_pi_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                               int Tn, int t0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  mhe_body<T, S, M, L, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+  mhe_body<T, S, M, L, LOT, false, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
-template <typename T, int S, int M, int L>
-__global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConsts<T, S, M> c, MheBox<T> q,
+template <typename T, int S, int M, int L, int LOT>
+__global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                   int N, int B, int Tn, int t0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  mhe_body<T, S, M, L, true, true>(p, c, &q, N, B, Tn, t0, b);
+  mhe_body<T, S, M, L, LOT, true, true>(p, c, &q, N, B, Tn, t0, b);
 }
 
-// One instantiation of the tick: CON selects the constrained kernel, PI the
-// per-lane camera clock. ptrs: the 34 pointers of MhePtrs in declaration
-// order. consts (double): dt, H[m*s], Pc[3*s], then Q_vo_p, C_p, C_accel,
-// Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro, Q_foot_swing (9 each),
-// gravity[3]. box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
+// One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
+// constrained kernel, PI the per-lane camera clock. ptrs: the 34 pointers of
+// MhePtrs in declaration order. consts (double): dt, H[m*s], Pc[3*s], then
+// Q_vo_p, C_p, C_accel, Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro,
+// Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
+// box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw, xw, Sinv, ys; ints/reals as admm_settings reads them.
-template <typename T, int S, int M, int L, bool CON, bool PI>
+template <typename T, int S, int M, int L, int LOT, bool CON, bool PI>
 int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
                const int* ints, const double* reals, int N, int B, int Tn,
                int t0, int block, void* stream) {
@@ -694,7 +778,7 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   p.bez_times_out = (T*)ptrs[q++];
   p.bez_count_out = (int*)ptrs[q++];
 
-  MheConsts<T, S, M> c;
+  MheConstsFor<T, S, M, LOT> c;
   int k = 0;
   c.dt = (T)consts[k++];
   for (int i = 0; i < M * S; ++i) c.H[i] = (T)consts[k++];
@@ -704,12 +788,14 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   for (int a = 0; a < 8; ++a)
     for (int i = 0; i < 9; ++i) nine[a][i] = (T)consts[k++];
   for (int i = 0; i < 3; ++i) c.gravity[i] = (T)consts[k++];
+  if constexpr (LOT == 1)
+    for (int i = 0; i < 9; ++i) c.Q_foot_slide[i] = (T)consts[k++];
   const int grid = (B + block - 1) / block;
   if constexpr (!CON) {
     if constexpr (PI)
-      mhe_pi_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+      mhe_pi_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
     else
-      mhe_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+      mhe_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else {
     MheBox<T> bx;
     q = 0;
@@ -726,9 +812,9 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     bx.ys = (T*)box_ptrs[q++];
     bx.admm = admm_settings<T>(ints, reals);
     if constexpr (PI)
-      mhe_pi_box_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
+      mhe_pi_box_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
     else
-      mhe_box_kernel<T, S, M, L><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
+      mhe_box_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
   }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,22 @@
 #define DEM_HD __device__ __forceinline__
 #define DEM_UNROLL _Pragma("unroll")
 
+// The loops below over matrix dimensions are fully unrolled: every index is
+// then a compile-time constant. A translation unit that sets
+// -DDEM_MAX_UNROLL=<n> (the s=15 instantiations, kernels/_build.py) keeps a
+// loop rolled where its trips times the scalar operations of one trip exceed
+// n: a fully unrolled 15 x 15 x 15 product is thousands of instructions per
+// call site, which costs ptxas minutes per unit and overflows the
+// instruction cache, while the operands live in local memory anyway.
+#ifdef DEM_MAX_UNROLL
+#define DEM_STR_(x) #x
+#define DEM_PRAGMA_(x) _Pragma(DEM_STR_(x))
+#define DEM_UNROLL_UPTO(trips, work) \
+  DEM_PRAGMA_(unroll((trips) * (work) > DEM_MAX_UNROLL ? 1 : (trips)))
+#else
+#define DEM_UNROLL_UPTO(trips, work) DEM_UNROLL
+#endif
+
 namespace dem {
 
 // ---- lanes-layout global memory access: element e of instance b ----------
@@ -28,17 +44,17 @@ DEM_HD void st(T* p, size_t e, int B, int b, T v) { p[e * (size_t)B + b] = v; }
 
 template <int n, typename T>
 DEM_HD void load(T* dst, const T* src, size_t e0, int B, int b) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, 1)
   for (int i = 0; i < n; ++i) dst[i] = ld(src, e0 + i, B, b);
 }
 template <int n, typename T>
 DEM_HD void store(T* dst, size_t e0, int B, int b, const T* src) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, 1)
   for (int i = 0; i < n; ++i) st(dst, e0 + i, B, b, src[i]);
 }
 template <int n, typename T>
 DEM_HD void fill(T* dst, size_t e0, int B, int b, T v) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, 1)
   for (int i = 0; i < n; ++i) st(dst, e0 + i, B, b, v);
 }
 
@@ -46,12 +62,12 @@ DEM_HD void fill(T* dst, size_t e0, int B, int b, T v) {
 // C (I x J) = A (I x K) * Bm (K x J)
 template <int I, int K, int J, typename T>
 DEM_HD void matmul(const T* A, const T* Bm, T* C) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(I, J * K)
   for (int i = 0; i < I; ++i) {
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(J, K)
     for (int j = 0; j < J; ++j) {
       T acc = A[i * K] * Bm[j];
-      DEM_UNROLL
+      DEM_UNROLL_UPTO(K, 1)
       for (int k = 1; k < K; ++k) acc += A[i * K + k] * Bm[k * J + j];
       C[i * J + j] = acc;
     }
@@ -60,12 +76,12 @@ DEM_HD void matmul(const T* A, const T* Bm, T* C) {
 // C (I x J) = A^T * Bm with A (K x I), Bm (K x J)
 template <int K, int I, int J, typename T>
 DEM_HD void matmul_tn(const T* A, const T* Bm, T* C) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(I, J * K)
   for (int i = 0; i < I; ++i) {
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(J, K)
     for (int j = 0; j < J; ++j) {
       T acc = A[i] * Bm[j];
-      DEM_UNROLL
+      DEM_UNROLL_UPTO(K, 1)
       for (int k = 1; k < K; ++k) acc += A[k * I + i] * Bm[k * J + j];
       C[i * J + j] = acc;
     }
@@ -74,12 +90,12 @@ DEM_HD void matmul_tn(const T* A, const T* Bm, T* C) {
 // C (I x J) = A * Bm^T with A (I x K), Bm (J x K)
 template <int I, int K, int J, typename T>
 DEM_HD void matmul_nt(const T* A, const T* Bm, T* C) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(I, J * K)
   for (int i = 0; i < I; ++i) {
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(J, K)
     for (int j = 0; j < J; ++j) {
       T acc = A[i * K] * Bm[j * K];
-      DEM_UNROLL
+      DEM_UNROLL_UPTO(K, 1)
       for (int k = 1; k < K; ++k) acc += A[i * K + k] * Bm[j * K + k];
       C[i * J + j] = acc;
     }
@@ -88,10 +104,10 @@ DEM_HD void matmul_nt(const T* A, const T* Bm, T* C) {
 // w (I) = A (I x K) * v (K)
 template <int I, int K, typename T>
 DEM_HD void matvec(const T* A, const T* v, T* w) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(I, K)
   for (int i = 0; i < I; ++i) {
     T acc = A[i * K] * v[0];
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(K, 1)
     for (int k = 1; k < K; ++k) acc += A[i * K + k] * v[k];
     w[i] = acc;
   }
@@ -99,10 +115,10 @@ DEM_HD void matvec(const T* A, const T* v, T* w) {
 // w (I) = A^T v with A (K x I), v (K)
 template <int K, int I, typename T>
 DEM_HD void matvec_t(const T* A, const T* v, T* w) {
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(I, K)
   for (int i = 0; i < I; ++i) {
     T acc = A[i] * v[0];
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(K, 1)
     for (int k = 1; k < K; ++k) acc += A[k * I + i] * v[k];
     w[i] = acc;
   }
@@ -110,6 +126,7 @@ DEM_HD void matvec_t(const T* A, const T* v, T* w) {
 
 // ---- inverses ---------------------------------------------------------------
 // Pivot-free Gauss-Jordan inverse of an SPD n x n matrix (ops/lanes.gj_inv).
+// Its loops unroll together: all of them, or (past DEM_MAX_UNROLL) none.
 // Works on the augmented [A | I]; at elimination step i the left columns < i
 // are already unit columns and the right columns > i still are, so their
 // updates are exact no-ops and are skipped — the entries that are computed
@@ -117,33 +134,33 @@ DEM_HD void matvec_t(const T* A, const T* v, T* w) {
 template <int n, typename T>
 DEM_HD void gj_inv(const T* A, T* Inv) {
   T L[n * n], R[n * n];
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, n * n)
   for (int i = 0; i < n * n; ++i) { L[i] = A[i]; R[i] = T(0); }
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, n * n)
   for (int i = 0; i < n; ++i) R[i * n + i] = T(1);
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, n * n)
   for (int i = 0; i < n; ++i) {
     const T piv = L[i * n + i];
     T rowL[n], rowR[n];
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(n, n * n)
     for (int k = i; k < n; ++k) rowL[k] = L[i * n + k] / piv;
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(n, n * n)
     for (int k = 0; k <= i; ++k) rowR[k] = R[i * n + k] / piv;
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(n, n * n)
     for (int r = 0; r < n; ++r) {
       if (r == i) continue;
       const T col = L[r * n + i];
-      DEM_UNROLL
+      DEM_UNROLL_UPTO(n, n * n)
       for (int k = i; k < n; ++k) L[r * n + k] -= col * rowL[k];
-      DEM_UNROLL
+      DEM_UNROLL_UPTO(n, n * n)
       for (int k = 0; k <= i; ++k) R[r * n + k] -= col * rowR[k];
     }
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(n, n * n)
     for (int k = i; k < n; ++k) L[i * n + k] = rowL[k];
-    DEM_UNROLL
+    DEM_UNROLL_UPTO(n, n * n)
     for (int k = 0; k <= i; ++k) R[i * n + k] = rowR[k];
   }
-  DEM_UNROLL
+  DEM_UNROLL_UPTO(n, n * n)
   for (int i = 0; i < n * n; ++i) Inv[i] = R[i];
 }
 

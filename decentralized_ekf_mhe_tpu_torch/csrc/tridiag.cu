@@ -15,6 +15,11 @@
 // card's ~20), and in practice the serial dependency chain of one instance,
 // since a fleet of B instances only fills B/32 warps. The ragged
 // edge (B not a multiple of the block) is masked here; there is no padding.
+//
+// The state size is a template parameter: s=9 (Go1, PogoX) and s=15
+// (Cassie). This file is compiled once per size (-DDEM_TRIDIAG_S=<s>, both
+// element types) into a library of its own, libtridiag_s<s>.so
+// (kernels/_build.py), built at the first solve of that size.
 #include "smallmat.cuh"
 
 namespace dem {
@@ -86,13 +91,15 @@ int tridiag_launch(const void* D, const void* U, const void* r, void* x,
 }  // namespace dem
 
 // C interface: returns cudaGetLastError() of the launch, or -1 for a state
-// size this build does not instantiate.
+// size this library does not instantiate.
 extern "C" int dem_tridiag_solve(int is_double, int S, const void* D,
                                  const void* U, const void* r, void* x,
                                  void* Sinv_ws, void* y_ws, int N, int B,
                                  int block, void* stream) {
-  if (S != 9) return -1;
+  if (S != DEM_TRIDIAG_S) return -1;
   if (is_double)
-    return dem::tridiag_launch<double, 9>(D, U, r, x, Sinv_ws, y_ws, N, B, block, stream);
-  return dem::tridiag_launch<float, 9>(D, U, r, x, Sinv_ws, y_ws, N, B, block, stream);
+    return dem::tridiag_launch<double, DEM_TRIDIAG_S>(D, U, r, x, Sinv_ws, y_ws, N, B,
+                                                      block, stream);
+  return dem::tridiag_launch<float, DEM_TRIDIAG_S>(D, U, r, x, Sinv_ws, y_ws, N, B,
+                                                   block, stream);
 }

@@ -1,13 +1,19 @@
 """Builds the CUDA sources of ``csrc/`` with nvcc and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and
-becomes its own shared library ``build/<hash>/lib<name>.so``, where ``<hash>``
-covers every file under ``csrc/``, the compiler flags and the translation
-units. A library is linked from one or more translation units (``UNITS``):
-``csrc/mhe.cu`` is compiled once per instantiation of its kernel body, because
-one nvcc process would spend minutes on all of them in a row. Every unit of
-every library is compiled at once, one nvcc process each, at first use;
-nothing is built when the package is imported. A failed build raises with
+Each ``csrc/<source>.cu`` has a plain C interface (no PyTorch headers) and
+becomes one or more shared libraries ``build/<hash>/lib<name>.so``, where
+``<hash>`` covers every file under ``csrc/``, the compiler flags and the
+translation units. A library is linked from one or more translation units
+(``UNITS``): ``csrc/mhe.cu`` is compiled once per instantiation of its kernel
+body, because one nvcc process would spend minutes on all of them in a row,
+and each model shape of ``MHE_SHAPES`` is a library of its own
+(``libmhe_go1.so``, ``libmhe_cassie.so``, ``libmhe_pogox.so``), so a fleet of
+one robot builds only its own; likewise ``csrc/tridiag.cu`` and
+``csrc/admm.cu`` are one library per state size (``libtridiag_s9.so``,
+``libadmm_s15.so``, ...). ``load`` builds a library at its first use, all its
+units at once, one nvcc process each; ``build`` builds several libraries that
+way together.
+Nothing is built when the package is imported. A failed build raises with
 nvcc's output.
 """
 
@@ -18,6 +24,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,25 +38,73 @@ NVCC_FLAGS = [
 ]
 
 
-def _mhe_unit(pi, con, real):
-    tag = {"float": "f32", "double": "f64"}[real]
-    sym = "dem_mhe_unit" + ("_pi" if pi else "") + ("_box" if con else "") + "_" + tag
-    return ("mhe", (f"-DDEM_MHE_UNIT={sym}", f"-DDEM_MHE_REAL={real}",
-                    f"-DDEM_MHE_CON={con}", f"-DDEM_MHE_PI={pi}"))
-
-
-# library -> its translation units (source, extra nvcc flags); csrc/mhe.cu:
-# its entry points, then one unit per (per-lane clock, constrained, type)
-UNITS = {
-    "tridiag": (("tridiag", ()),),
-    "ekf": (("ekf", ()),),
-    "mhe": (("mhe", ()),) + tuple(_mhe_unit(pi, con, real) for pi in (0, 1)
-                                  for con in (0, 1) for real in ("float", "double")),
-    "admm": (("admm", ()),),
+# The model shapes the MHE tick is instantiated for: tag -> (s, m, L,
+# leg_odom_type, with the per-lane-clock variants). Go1 (the fleet of the
+# reference's bench), Cassie (foot positions as states) and PogoX (one leg).
+MHE_SHAPES = {
+    "go1": (9, 12, 4, 0, True),
+    "cassie": (15, 6, 2, 1, False),
+    "pogox": (9, 3, 1, 0, False),
 }
-SOURCES = tuple(UNITS)
+
+
+def _unroll(S):
+    """nvcc flags of a unit at state size S: above s=12 the long loops of
+    csrc/smallmat.cuh stay rolled (DEM_MAX_UNROLL, see there)."""
+    return ("-DDEM_MAX_UNROLL=256",) if S > 12 else ()
+
+
+SOLVE_SIZES = (9, 15)   # state sizes of the tridiagonal solve and the box-ADMM
+
+
+def solve_library(source, S):
+    """The library of ``csrc/<source>.cu`` (tridiag or admm) at state size S;
+    raises NotImplementedError for a size the build does not instantiate."""
+    if S not in SOLVE_SIZES:
+        raise NotImplementedError(
+            f"{source}: no CUDA instantiation for s={S} (sizes {SOLVE_SIZES}); see "
+            "ROADMAP.md, 'What is left to port'")
+    return f"{source}_s{S}"
+
+
+def mhe_library(S, M, L, lot):
+    """The library that holds the MHE tick of this shape, or None."""
+    for tag, shape in MHE_SHAPES.items():
+        if shape[:4] == (S, M, L, lot):
+            return "mhe_" + tag
+    return None
+
+
+def _mhe_units(tag):
+    """csrc/mhe.cu for one shape: its entry point, then one unit per
+    (per-lane clock, constrained, type)."""
+    S, M, L, lot, with_pi = MHE_SHAPES[tag]
+    shape = (f"-DDEM_MHE_SHAPE={tag}", f"-DDEM_MHE_S={S}", f"-DDEM_MHE_M={M}",
+             f"-DDEM_MHE_L={L}", f"-DDEM_MHE_LOT={lot}") + _unroll(S)
+    units = [("mhe", shape + (f"-DDEM_MHE_WITH_PI={int(with_pi)}",))]
+    for pi in ((0, 1) if with_pi else (0,)):
+        for con in (0, 1):
+            for real in ("float", "double"):
+                sym = (f"dem_mhe_unit_{tag}" + ("_pi" if pi else "") + ("_box" if con else "")
+                       + "_" + {"float": "f32", "double": "f64"}[real])
+                units.append(("mhe", shape + (f"-DDEM_MHE_UNIT={sym}", f"-DDEM_MHE_REAL={real}",
+                                              f"-DDEM_MHE_CON={con}", f"-DDEM_MHE_PI={pi}")))
+    return tuple(units)
+
+
+# library -> its translation units (source, extra nvcc flags)
+UNITS = {
+    **{f"tridiag_s{S}": (("tridiag", (f"-DDEM_TRIDIAG_S={S}",) + _unroll(S)),)
+       for S in SOLVE_SIZES},
+    "ekf": (("ekf", ()),),
+    **{"mhe_" + tag: _mhe_units(tag) for tag in MHE_SHAPES},
+    **{f"admm_s{S}": (("admm", (f"-DDEM_ADMM_S={S}",) + _unroll(S)),) for S in SOLVE_SIZES},
+}
+LIBRARIES = tuple(UNITS)
+SOURCES = ("tridiag", "ekf", "mhe", "admm")   # csrc/<source>.cu
 
 _c_int, _c_void_p = ctypes.c_int, ctypes.c_void_p
+# by source: every mhe_<shape> library has the entry point of csrc/mhe.cu
 _ARGTYPES = {
     "tridiag": ("dem_tridiag_solve",
                 [_c_int, _c_int] + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
@@ -64,6 +121,11 @@ _ARGTYPES = {
 }
 
 _libs: dict = {}
+# what the last build of each library took: {name (and its extra flags):
+# {"seconds": wall seconds until its link ended, "units": [(flags, compiler
+# output, seconds until that unit compiled), ...]}}; with ``ptxas`` the output
+# holds ptxas' register and spill report
+report: dict = {}
 
 
 def _nvcc() -> str:
@@ -85,69 +147,82 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds, verbose):
-    """Run the nvcc commands at once; raise with the output of those that
-    failed. ``verbose`` prints what each printed."""
-    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True))
-             for cmd in cmds]
-    failed = []
-    for cmd, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"$ {' '.join(cmd)}\n{out}")
-        elif verbose and out:
-            print(f"$ {' '.join(cmd)}\n{out}")
+def _run_all(cmds, nice=0):
+    """Run the nvcc commands at once (at scheduling priority ``nice``); raise
+    with the output of those that failed. Returns each command's (output,
+    time.time() when it ended)."""
+    def run(cmd):
+        prio = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
+        r = subprocess.run(prio + cmd,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return r.returncode, r.stdout, time.time()
+
+    with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:
+        results = list(pool.map(run, cmds))
+    failed = [f"$ {' '.join(cmd)}\n{out}" for cmd, (rc, out, _) in zip(cmds, results) if rc]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return [(out, end) for _, out, end in results]
 
 
-def build(verbose: bool = False, extra_flags=(), sources=SOURCES) -> str:
-    """Compile every library of ``sources`` that is not built yet: all their
+def build(extra_flags=(), libraries=LIBRARIES, ptxas=False, nice=0) -> str:
+    """Compile every library of ``libraries`` that is not built yet: all their
     translation units at once into objects, then one link per library;
     returns the build dir. ``extra_flags`` are further nvcc flags; such a
-    variant gets a build dir of its own."""
+    variant gets a build dir of its own. ``ptxas`` asks ptxas for its
+    register and spill report, which lands in ``report`` with the compilers'
+    other output. ``nice`` lowers the compilers' scheduling priority, for a
+    build that runs beside other work; several builds may run at once."""
     flags = NVCC_FLAGS + list(extra_flags)
     out_dir = os.path.join(BUILD_ROOT, _source_hash() + "".join(extra_flags))
     os.makedirs(out_dir, exist_ok=True)
-    todo = [n for n in sources
+    todo = [n for n in libraries
             if not os.path.exists(os.path.join(out_dir, f"lib{n}.so"))]
     if not todo:
         return out_dir
     nvcc = _nvcc()
-    obj_dir = os.path.join(out_dir, f"obj.{os.getpid()}")
-    os.makedirs(obj_dir, exist_ok=True)
+    obj_dir = tempfile.mkdtemp(prefix="obj.", dir=out_dir)
+    t0 = time.time()
     try:
-        objs, compiles = {}, []
+        objs, compiles, owner = {}, [], []
         for n in todo:
             objs[n] = []
             for k, (src, defs) in enumerate(UNITS[n]):
                 obj = os.path.join(obj_dir, f"{n}.{k}.o")
                 objs[n].append(obj)
+                owner.append((n, defs))
                 compiles.append([nvcc] + flags + list(defs)
-                                + (["-Xptxas", "-v"] if verbose else [])
+                                + (["-Xptxas", "-v"] if ptxas else [])
                                 + ["-c", "-o", obj, os.path.join(CSRC, f"{src}.cu")])
-        _run_all(compiles, verbose)
+        outs = _run_all(compiles, nice)
+        compiled = {n: max(end for (m, _), (_, end) in zip(owner, outs) if m == n)
+                    for n in todo}
         tmp = {n: os.path.join(obj_dir, f"lib{n}.so") for n in todo}
-        _run_all([[nvcc] + flags + ["-shared", "-o", tmp[n]] + objs[n]
-                  for n in todo], verbose=False)
-        for n in todo:
+        linked = _run_all([[nvcc] + flags + ["-shared", "-o", tmp[n]] + objs[n]
+                           for n in todo], nice)
+        for n, (_, end) in zip(todo, linked):
             os.replace(tmp[n], os.path.join(out_dir, f"lib{n}.so"))
+            # this library's link ran after every unit had compiled: count
+            # its own units' time and its own link
+            report[" ".join((n,) + tuple(extra_flags))] = {
+                "seconds": compiled[n] - t0 + (end - max(compiled.values())),
+                "units": [(" ".join(d), out, done - t0) for (m, d), (out, done)
+                          in zip(owner, outs) if m == n]}
     finally:
         shutil.rmtree(obj_dir, ignore_errors=True)
     return out_dir
 
 
 def load(name: str, extra_flags=()):
-    """The C entry point of ``csrc/<name>.cu`` with its argtypes set. The
-    wrappers load the standard build; ``extra_flags`` gives the entry point
-    of a variant build (see ``build``) to a caller that compares two builds."""
+    """The C entry point of library ``name`` (a key of ``UNITS``) with its
+    argtypes set, built first if it is not yet. The wrappers load the
+    standard build; ``extra_flags`` gives the entry point of a variant build
+    (see ``build``) to a caller that compares two builds."""
     key = name if not extra_flags else (name,) + tuple(extra_flags)
     if key not in _libs:
-        out_dir = (build(extra_flags=extra_flags, sources=(name,))
-                   if extra_flags else build())
+        out_dir = build(extra_flags=extra_flags, libraries=(name,))
         lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-        fn_name, argtypes = _ARGTYPES[name]
+        fn_name, argtypes = _ARGTYPES[UNITS[name][0][0]]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -187,9 +262,11 @@ def check_launch(err: int, what: str) -> None:
     shape the build does not instantiate)."""
     if err == -1:
         raise NotImplementedError(
-            f"{what}: this shape is not instantiated in the CUDA build "
-            "(only Go1: s=9, m=12, L=4, leg_odom_type=0); see ROADMAP.md, "
-            "'Cassie/PogoX shapes'")
+            f"{what}: this shape is not instantiated in the CUDA build (MHE tick: "
+            + ", ".join(f"{t} s={v[0]}, m={v[1]}, L={v[2]}, leg_odom_type={v[3]}"
+                        for t, v in MHE_SHAPES.items())
+            + f"; per-lane camera clocks: go1 only; box-ADMM and tridiagonal "
+            f"solve: s in {SOLVE_SIZES}); see ROADMAP.md, 'What is left to port'")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed, cudaError {err}")
 

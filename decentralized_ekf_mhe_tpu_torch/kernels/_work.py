@@ -17,6 +17,10 @@ structurally non-trivial operands counts:
   block-diagonal and block-triangular matrices (``A_dyn``, ``Q_dyn``,
   ``Q_meas``, the 6×6 and 9×9 covariance blocks of the assembly) cost only
   their blocks. The 3×3 noise matrices are general (dense) constants;
+* with foot positions as states (``leg_odom_type`` 1: Cassie) the foot blocks
+  of ``A_dyn`` are identities, those of ``Q_dyn`` dense 3×3 blocks, and the
+  measurement rows of ``A_meas`` are ±1 selectors; the position-form weight
+  of a leg is computed every tick whatever the contact;
 * gravity is ``(0, 0, g)`` by construction, so only its third component
   multiplies;
 * a product of constants only (``Q_accel_bias / dt²``, the Bezier polynomial
@@ -266,11 +270,12 @@ def mhe_lane_schedules(active, tick_pre, tick_now, N, bez_count=0):
             for r, k in zip(rows, n)]
 
 
-class _Go1Patterns:
-    """Patterns of the per-slot matrices for leg_odom_type 0."""
+class _Patterns:
+    """Patterns of the per-slot matrices: leg_odom_type 0 (s=9, m=3L) or 1
+    (foot positions as states, s=9+3L, m=3L)."""
 
-    def __init__(self, s, m, L):
-        assert s == 9 and m == 3 * L, "only the leg_odom_type 0 layout is counted"
+    def __init__(self, s, m, L, lot=0):
+        assert lot in (0, 1) and s == 9 + 3 * lot * L and m == 3 * L, (s, m, L, lot)
         R3, I3 = _full(3, 3), _eye(3)
         dI = np.where(np.eye(3, dtype=bool), G, Z).astype(np.int8)
         self.A = np.zeros((s, s), np.int8)
@@ -286,13 +291,19 @@ class _Go1Patterns:
         self.b[:6] = G
         self.H = np.zeros((m, s), np.int8)
         for leg in range(L):
-            _put(self.H, 3 * leg, 3, I3)
+            if lot == 0:
+                _put(self.H, 3 * leg, 3, I3)
+            else:                       # rows [-I 0 0 | I at the leg's foot]
+                _put(self.H, 3 * leg, 0, I3)
+                _put(self.H, 3 * leg, 9 + 3 * leg, I3)
+                _put(self.A, 9 + 3 * leg, 9 + 3 * leg, I3)
+                _put(self.Qd, 9 + 3 * leg, 9 + 3 * leg, R3)
         self.Pc = np.zeros((3, s), np.int8)
         _put(self.Pc, 0, 0, I3)
         self.Qm = np.zeros((m, m), np.int8)
         for leg in range(L):
             _put(self.Qm, 3 * leg, 3 * leg, R3)
-        self.s, self.m, self.L = s, m, L
+        self.s, self.m, self.L, self.lot = s, m, L, lot
         # cached per-slot terms: H^T R H, H^T R y, A^T Qd, A^T Qd A, A^T Qd b
         HtR, o1 = _mm(self.H.T, self.Qm)
         self.HtRH, o2 = _mm(HtR, self.H)
@@ -310,7 +321,8 @@ class _Go1Patterns:
 
 def _assembly_ops(p):
     """Operations of one tick's assembly for one instance, the stance
-    covariances apart: (per tick, per stance leg)."""
+    covariances apart: (per tick, per stance leg). The foot-position form
+    (lot 1) has no stance-dependent work."""
     R3 = _full(3, 3)
     # build_dynamics: dt·R, dt²/2·R, the two products with accel_s, then
     # C_pv = G C G^T by block and its 6x6 inverse
@@ -338,6 +350,12 @@ def _assembly_ops(p):
     stance = s1 + s2 + s3 + 2 * _mm(R3, R3)[1] + _INV3
     fresh = p.meas_ops                               # cache of the newest slot
     prev = _mm(R3, v3)[1] + 3                        # accel_s = R a + g
+    if p.lot == 1:
+        # per leg: foot noise R Q_foot R^T / dt^2 in the dynamics; y = R p and
+        # the weight R (J C J^T)^-1 R^T in the measurement
+        foot = 2 * _mm(R3, R3)[1] + 9
+        meas = _mm(R3, v3)[1] + 4 * _mm(R3, R3)[1] + _INV3
+        return dyn + qcam + upd + p.L * (foot + meas) + fresh + prev, 0
     return dyn + qcam + upd + p.L * y_leg + fresh + prev, stance
 
 
@@ -425,10 +443,10 @@ def _solve_ops(p, N, n_states, cam, sweep=True):
 _VO_EVENT, _VO_SETUP, _VO_NODE, _VO_WRITE = 4, 5 + 39, 4 + 18, 3
 
 
-def _mhe_ops(N, s, m, L, groups, n_stance, box):
+def _mhe_ops(N, s, m, L, groups, n_stance, box, lot):
     """Operations of one MHE-tick call for ``groups`` of lanes, each
     ``(n_lanes, schedule)`` with its own schedule (see ``mhe_tick``)."""
-    p = _Go1Patterns(s, m, L)
+    p = _Patterns(s, m, L, lot)
     per_tick, stance = _assembly_ops(p)
     marg = {c: _marg_ops(p, c) for c in (False, True)}
     solve = {}
@@ -464,20 +482,21 @@ def _mhe_bytes(N, s, m, L, B, Tn, itemsize, box):
     return nbytes
 
 
-def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None):
+def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0):
     """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
-    starting at tick 1, on the fleet's shared camera clock. ``schedule`` comes
-    from ``mhe_schedule``; ``n_stance`` is the number of (tick, leg,
-    instance) triples in stance. For the constrained variant ``box`` is
+    starting at tick 1, on the fleet's shared camera clock, for the model
+    shape (s, m, L, ``lot`` = leg_odom_type). ``schedule`` comes from
+    ``mhe_schedule``; ``n_stance`` is the number of (tick, leg, instance)
+    triples in stance (unused with foot-position states). For the constrained variant ``box`` is
     ``(iters, E, adaptive, check, polish)`` with ``iters`` the (Tn, B) ADMM
     iterations that were run: the Thomas sweep gives way to one box-ADMM per
     tick and instance, and the z/y warm starts, the bounds and the iteration
     counts join the bytes."""
     return (_mhe_bytes(N, s, m, L, B, len(schedule), itemsize, box),
-            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box))
+            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box, lot))
 
 
-def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None):
+def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None, lot=0):
     """``mhe_tick`` with a camera clock per lane: ``groups`` from
     ``mhe_lane_schedules``. Each lane's camera terms and Bezier work follow
     its own schedule; the (Tn,B) VO metadata and the per-lane Bezier schedule
@@ -486,4 +505,4 @@ def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None):
     Tn = len(groups[0][1])
     nbytes = (_mhe_bytes(N, s, m, L, B, Tn, itemsize, box)
               + 4 * B * 3 * Tn + 2 * B * (4 * itemsize + 4))
-    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box)
+    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box, lot)

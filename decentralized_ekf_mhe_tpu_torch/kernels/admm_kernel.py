@@ -22,7 +22,9 @@ warps in flight. The TPU wrapper's pad to a lane tile does not carry over:
 the ragged edge is masked in the kernel.
 
 ADMM settings are runtime values, so every budget shares one binary; only the
-state size is a template parameter (s=9).
+state size is a template parameter: s=9 (Go1, PogoX) and s=15 (Cassie, whose
+foot-position states usually carry ±inf bounds: they pass the clip unchanged
+and the polish never pins them).
 """
 
 from __future__ import annotations
@@ -145,7 +147,7 @@ def _launch(D, U, r, lb, ub, z0, y0, static: ADMMCoreStatic):
     global launches, launches_core
     N, s, _, B = D.shape
     dev, dtype = D.device, D.dtype
-    fn = _build.load("admm")
+    fn = _build.load(_build.solve_library("admm", s))
     x = torch.empty((N, s, B), dtype=dtype, device=dev)
     z = torch.zeros_like(r) if z0 is None else z0.clone()
     y = torch.zeros_like(r) if y0 is None else y0.clone()

@@ -34,9 +34,14 @@ per lane) runs the per-instance variant of either kernel (the TPU kernel with
 its own Bezier schedule, which ``KernelState`` then carries per lane
 ((4,B) times, (1,B) counts). Everything after the ingestion is the same code.
 
+Every model shape the reference runs has its own instantiation, each in a
+library of its own built at the first use of its shape
+(``_build.MHE_SHAPES``): Go1 (s=9, m=12, L=4, leg_odom_type=0), Cassie (15,
+6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
+
 Not ported (each raises ``NotImplementedError``): the Cholesky tail, the
-ablation switches, and shapes other than Go1's (s=9, m=12, L=4,
-leg_odom_type=0). ROADMAP.md lists them.
+ablation switches, and per-lane camera clocks at shapes other than Go1's.
+ROADMAP.md lists them.
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -97,6 +102,7 @@ class KernelConsts(NamedTuple):
     C_gyro: np.ndarray
     Q_foot_swing: np.ndarray
     gravity: np.ndarray   # (3,)
+    Q_foot_slide: np.ndarray   # foot-state noise in contact (leg_odom_type 1)
 
 
 def consts_from_mhe(c) -> KernelConsts:
@@ -113,16 +119,36 @@ def consts_from_mhe(c) -> KernelConsts:
         C_enc_vel=f(nc.C_enc_vel), C_gyro=f(nc.C_gyro),
         Q_foot_swing=f(nc.Q_foot_swing),
         gravity=f(nc.gravity),
+        Q_foot_slide=f(nc.Q_foot_slide),
     )
 
 
 def _pack_consts(kc: KernelConsts) -> np.ndarray:
+    """The constants in the order of ``MheConsts`` (csrc/mhe_body.cuh)."""
     return np.concatenate([
         [kc.dt], kc.A_meas.ravel(), kc.P_cam.ravel(), kc.Q_vo_p.ravel(),
         kc.C_p.ravel(), kc.C_accel.ravel(), kc.Q_accel_bias.ravel(),
         kc.C_enc_pos.ravel(), kc.C_enc_vel.ravel(), kc.C_gyro.ravel(),
-        kc.Q_foot_swing.ravel(), kc.gravity.ravel(),
+        kc.Q_foot_swing.ravel(), kc.gravity.ravel(), kc.Q_foot_slide.ravel(),
     ]).astype(np.float64)
+
+
+def kernel_library(s, m, L, lot, per_lane_clock):
+    """The library (``_build.UNITS``) whose kernels tick this shape and
+    clock; raises ``NotImplementedError`` for what the CUDA build does not
+    instantiate — a shape outside ``_build.MHE_SHAPES``, or a camera clock
+    per lane at a shape other than Go1's."""
+    lib = _build.mhe_library(s, m, L, lot)
+    if lib is None:
+        raise NotImplementedError(
+            f"mhe_tick: no CUDA instantiation for s={s}, m={m}, L={L}, "
+            f"leg_odom_type={lot} (shapes: {sorted(_build.MHE_SHAPES)})")
+    if per_lane_clock and not _build.MHE_SHAPES[lib[len("mhe_"):]][4]:
+        raise NotImplementedError(
+            f"mhe_tick: per-lane camera clocks at the {lib[len('mhe_'):]} shape "
+            f"(s={s}, m={m}, L={L}, leg_odom_type={lot}) are not ported yet: ROADMAP.md, "
+            "'per-lane clocks (K2b, K2c-PI) at the Cassie and PogoX shapes'")
+    return lib
 
 
 class KernelState(NamedTuple):
@@ -346,11 +372,12 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=()):
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
+    pi = vo.active.ndim == 2
+    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi)
     kc = consts_from_mhe(c)
     # the kernel updates the window in place: work on copies
     state = [a.clone() for a in ks.arrays]
     x = torch.empty((Tn, s, B), dtype=dtype, device=dev)
-    pi = vo.active.ndim == 2
     bez_times_out = torch.empty(tuple(ks.bez_times.shape), dtype=dtype, device=dev)
     bez_count_out = torch.empty(tuple(ks.bez_count.shape), dtype=torch.int32, device=dev)
     meta = [vo.active.to(torch.int32).contiguous(),
@@ -373,7 +400,7 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=()):
         settings = (ints.ctypes.data, reals.ctypes.data)
     else:
         settings = (None, None)
-    fn = _build.load("mhe", extra_flags=nvcc_flags)
+    fn = _build.load(lib, extra_flags=nvcc_flags)
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     consts = _pack_consts(kc)
     with torch.cuda.device(dev):

@@ -15,7 +15,8 @@ per instance and shared-memory staging are later work); it is the simple
 version that is right.
 
 On the main path this kernel runs once per replay: the tick-0 init solve of
-``mhe_replay_kernel.replay``.
+``mhe_replay_kernel.replay``. The state size is a template parameter: s=9
+(Go1, PogoX) and s=15 (Cassie).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def _launch(D, U, r):
     global launches
     N, s, _, B = D.shape
     dev = D.device
-    fn = _build.load("tridiag")
+    fn = _build.load(_build.solve_library("tridiag", s))
     x = torch.empty((N, s, B), dtype=D.dtype, device=dev)
     Sinv_ws = torch.empty((N, s, s, B), dtype=D.dtype, device=dev)
     y_ws = torch.empty((N, s, B), dtype=D.dtype, device=dev)

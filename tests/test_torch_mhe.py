@@ -318,12 +318,13 @@ def test_tridiag_plain_matches_pallas_interpret(full_window):
 
 
 def test_unported_branches_raise():
+    # per-lane camera clocks at a shape other than Go1's (here Cassie's, foot
+    # positions as states) have no tick kernel: the wrapper names the row
     p1 = EstimatorParams(num_legs=2, leg_odom_type=1, rate=200, N=6)
-    c1 = mhe.make_consts(p1, F64, device="cpu")
-    z = torch.zeros
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        assembly_lanes.build_dynamics(p1, c1.nc, z(3, 3, 2, dtype=F64),
-                                      z(3, 2, dtype=F64), z(2, 2, dtype=F64))
+        mrk.kernel_library(p1.dim_state, p1.dim_meas, p1.num_legs, p1.leg_odom_type,
+                           per_lane_clock=True)
+    z = torch.zeros
     # per-lane VO timing has no EKF kernel, in this package as in the
     # reference: the kernel wrapper refuses it (the runners take the scan)
     from decentralized_ekf_mhe_tpu_torch.config import EKFParams

@@ -406,7 +406,7 @@ def test_work_counts():
     # the counting rule: dense products in full, selectors free, blocks by block
     dense = _work._full(9, 9)
     assert _work._mm(dense, dense)[1] == 81 * (9 + 8)
-    pat = _work._Go1Patterns(9, 12, 4)
+    pat = _work._Patterns(9, 12, 4)
     assert _work._mm(pat.Pc.T, _work._full(3, 3))[1] == 0      # P^T Qc: a copy
     assert _work._mm(pat.H.T, pat.Qm)[1] == 0                  # H^T R: a copy
     assert _work._mm(_work._mm(pat.H.T, pat.Qm)[0], pat.H)[1] == 9 * 3   # sum of 4 blocks
@@ -578,7 +578,7 @@ def test_constrained_work_counts():
     assert b1 == b2 == b0 + 4 * 16 * (4 * 180 + 18) + 4 * 30 * 16
     assert f1 > f2 > f0
     # the ADMM part alone: per tick, by that tick's number of real slots
-    pat = _work._Go1Patterns(9, 12, 4)
+    pat = _work._Patterns(9, 12, 4)
     rest = sum(_work._solve_ops(pat, 20, n, cam, sweep=False) - _work._solve_ops(pat, 20, n, cam)
                for n, cam, _, _ in sched) * 16
     box = sum(_work.admm_ops(9, n, it20[i], 10, False, True, True)
