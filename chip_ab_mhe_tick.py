@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the unconstrained ``mhe_tick`` kernel of two checkouts in turns on one card.
+"""Compare two checkouts' kernels on one card: every kernel's ptxas figures,
+and the unconstrained ``mhe_tick`` kernel's time in turns.
 
     python3 chip_ab_mhe_tick.py OTHER_CHECKOUT
 
 Run from the root of this checkout on a machine with one NVIDIA GPU and nvcc.
 ``OTHER_CHECKOUT`` is the root of a second checkout (for instance the parent
-commit unpacked with ``git archive`` into a git-ignored directory). Two
-versions are only comparable within one run on one card, so the order is
-other, this, this, other; each turn is a fresh process that builds that
-checkout's kernels at first use (cached for its second turn), draws the
-headline fleet (T=2000, B=1024, float32, seed 0) and prints best-of-3 device
-times of ``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three times.
+commit unpacked with ``git archive`` into a git-ignored directory). First both
+checkouts build all their libraries at once, each with ptxas' report, and
+the script prints, for every kernel the two have in common, whether its
+registers, stack frame and spill stores and loads are the same. Then, since
+two versions are only comparable within one run on one card, the timing
+turns go other, this, this, other; each turn is a fresh process that draws
+the headline fleet (T=2000, B=1024, float32, seed 0) and prints best-of-3
+device times of ``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three
+times.
 """
 
 import json
@@ -39,8 +43,43 @@ ms = [cs.timed(lambda: mrk.replay_ticks(c, ks, d, v, i, device=cs.DEV), reps=3)
 print(json.dumps({"mhe_tick_ms_best_of_3": ms}))
 '''
 
+# build all of a checkout's libraries with ptxas' report: {kernel: figures}
+BUILD = r'''
+import json
+import chip_smoke as cs
+from decentralized_ekf_mhe_tpu_torch.kernels import _build
+_build.build(ptxas=True)
+figs = {}
+for report in _build.report.values():
+    for _, out, _ in report["units"]:
+        figs.update(cs.ptxas_figures(out))
+print(json.dumps(figs))
+'''
+
+
+def ptxas_both(other):
+    """Both checkouts' builds at once; prints the comparison of the kernels
+    they have in common."""
+    procs = {tree: subprocess.Popen([sys.executable, "-c", BUILD], cwd=tree, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for tree in (other, ".")}
+    figs = {}
+    for tree, p in procs.items():
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise SystemExit(f"{tree}: {err[-2000:]}")
+        figs[tree] = json.loads(out.strip().splitlines()[-1])
+    common = sorted(set(figs[other]) & set(figs["."]))
+    differ = {k: {"other": figs[other][k], "this": figs["."][k]} for k in common
+              if figs[other][k] != figs["."][k]}
+    print(json.dumps({"ptxas_registers_frame_spill_stores_loads": {
+        "kernels_in_common": len(common), "identical": len(common) - len(differ),
+        "differ": differ, "only_in_this": sorted(set(figs["."]) - set(figs[other])),
+        "only_in_other": sorted(set(figs[other]) - set(figs["."]))}}), flush=True)
+
 
 def main(other):
+    ptxas_both(other)
     for tree in (other, ".", ".", other):
         r = subprocess.run([sys.executable, "-c", TURN], cwd=tree,
                            capture_output=True, text=True)

@@ -44,14 +44,25 @@ float64 run of the same path, and every new instantiation against its plain
 version at full width (float64 element-wise over 120 ticks, timed in
 float32). Cassie's float32 runs break down after a thousand-odd ticks (fault
 F6, shared with the reference): their gates hold over the ticks before it.
-Last, Cassie's shape at the reference bench's own settings through the
+Cassie's shape also runs at the reference bench's own settings through the
 bench's route (the lanes runner), where float32 stays finite over the whole
 log: unconstrained and constrained, gated over the whole log, and the
 constrained tick timed there.
 
-The kernels are built from csrc/ at the start, every translation unit at
-once; the Cassie and PogoX libraries compile at a lower priority while the
-Go1 phases run.
+The Cholesky tail of the tick (DEM_MK_SOLVE=chol, the reference's
+mk_solve='chol') at each shape: against its plain version and the
+Gauss-Jordan kernel at the small size, then on each robot's headline path at
+full width (Go1's and PogoX's pipeline runner, Cassie's bench route) against
+a float64 run, element-wise against its plain version, and timed in turns
+with the Gauss-Jordan tick on the same inputs. And per-lane camera clocks at
+the PogoX and Cassie (bench settings) shapes: the small checks of the Go1
+ones, then each fleet on 15 clocks through the lanes runner at full width,
+unconstrained and with the box.
+
+The kernels are built from csrc/ at the start: the Go1 shared-clock
+libraries first, every unit at once; every other library compiles at a
+lower priority while the Go1 phases run, in the order the phases need them,
+and each phase waits for its own libraries only.
 
 Any failed check ends the run with a non-zero exit code. Each phase prints one
 JSON line; the line before the last lists every kernel, the last line is the
@@ -60,7 +71,9 @@ verdict.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -123,8 +136,9 @@ N_CLOCKS, VO_FREE_EVERY, T_RAGGED_PI, T_EKF_PI = 15, 64, 40, 100
 # the kernel as built holds y to Y_OVER_TOL_FMA times that limit, and the
 # kernel built with FMAD_OFF must meet TOL_MHE itself against the plain
 # version on the CPU, on the FMA_LANES lanes where the built kernel's y is
-# furthest off (fma_witness)
-FMAD_OFF, Y_OVER_TOL_FMA, FMA_LANES = ("-fmad=false",), 10.0, 8
+# furthest off (fma_witness). That build needs the float64 constrained
+# kernels only, and compiles no other (csrc/mhe.cu)
+FMAD_OFF, Y_OVER_TOL_FMA, FMA_LANES = ("-fmad=false", "-DDEM_MHE_ONLY_BOX_F64"), 10.0, 8
 # K2c on the shared clock at Cassie's shape (s=15) shows the same: at full
 # width its y came to 1.98 times TOL_MHE's limit at one element (x and z at
 # 1e-10). There the kernel built without FMA contraction is no closer to the
@@ -137,13 +151,13 @@ FMAD_OFF, Y_OVER_TOL_FMA, FMA_LANES = ("-fmad=false",), 10.0, 8
 # limit between card and CPU, and the kernel as built within
 # Y_OVER_TOL_ROUNDING of the plain version on the CPU (x, z and the counts
 # within the limit itself)
-Y_ROUNDING_ROBOTS, Y_OVER_TOL_ROUNDING = ("cassie",), 3.0
+Y_ROUNDING_ROBOTS, Y_OVER_TOL_ROUNDING = ("cassie", "cassie_bench"), 3.0
 
 # the Cassie and PogoX fleets: each robot's own parameter file (N=20) and the
 # synthetic log the reference's bench runs them on (seed 2, bench.py:459-460);
 # and Cassie's shape at the bench's own settings ("cassie_bench", see
 # robot_params), whose float32 runs stay finite over the whole log
-LEGGED, LEGGED_LOG_SEED = ("cassie", "pogox"), 2
+LEGGED, LEGGED_LOG_SEED = ("pogox", "cassie"), 2
 # each fleet's velocity-RMSE gate against ground truth: Go1's bench
 # (bench.py:178-181), the other shapes' (bench.py:484)
 RMSE_GATE = {"go1": 0.1, "cassie": 0.5, "pogox": 0.5, "cassie_bench": 0.5}
@@ -155,26 +169,54 @@ T_BOX_F64 = 200
 # a thousand-odd ticks (the arrival cost's float32 Schur complement stops
 # being positive definite), in the reference as in this package
 # (tests/test_torch_foot_states_float32.py); float64 stays sound. Such a
-# robot's float32 gates hold over its first F6_TICKS ticks, which must be
-# finite; its phases print the first non-finite tick and the float32-float64
-# velocity difference per 100 ticks. Every other robot's float32 runs are
-# gated over the whole log and must stay finite throughout
-F6_ROBOTS, F6_TICKS = ("cassie",), 300
-# Cassie's shape at the bench's settings (bench_route) is sound in float32
-# over the whole log without the box; with it, the float32 run holds the box
-# over its first BENCH_BOX_F32_TICKS ticks and then leaves it by up to 0.12
-# m/s, while the float64 run holds it over the whole log: F6 again, in the
-# ticks where the unconstrained float32 velocity too departs from float64 by
-# 0.01-0.1 m/s (bench_route prints both per 100 ticks)
-BENCH_BOX_F32_TICKS = 1000
+# fleet's float32 gates hold over its first F6_TICKS[fleet] ticks, which must
+# be finite; its phases print the first non-finite tick and the
+# float32-float64 velocity difference per 100 ticks. Every other fleet's
+# float32 runs are gated over the whole log and must stay finite throughout.
+# Cassie's shape at the bench's settings ("cassie_bench") is sound in float32
+# over the whole log on the bench's own route (bench_route: the Gauss-Jordan
+# tick on the shared clock, gated there over the whole log); with the box, on
+# per-lane clocks or with the Cholesky tail it stays within 2e-3 m/s of
+# float64 and inside the box over its first 1000 ticks, and then leaves the
+# box, drifts by tenths to tens of m/s or turns non-finite (the Cholesky tail
+# at tick 1073), while float64 holds
+F6_TICKS = {"cassie": 300, "cassie_bench": 1000}
+# such a robot's constrained pipeline (box_path) runs its first T_F6_BOX ticks:
+# its gates cover F6_TICKS of them, float32 is not finite from tick 814 on,
+# and the constrained Cassie tick's time row comes from bench_route's fleet
+T_F6_BOX = 1000
+# on per-lane clocks at Cassie's shape (cells (l), (m)) the float32 plain
+# tick also runs on the card over ticks F6_WITNESS of the counted run's
+# inputs, from the kernel's state, to show whether the plain version departs
+# from float64 and leaves the box in those ticks as the kernel does (F6) or
+# not (a float32 fault of the kernel alone): ``f6_witness``
+F6_WITNESS = (900, 1200)
+# the Cholesky tail (DEM_MK_SOLVE=chol) against the Gauss-Jordan one: the
+# reference's own test of the two tails (tests/test_megakernel.py:261-273)
+TOL_CHOL_VS_GJ = dict(rtol=1e-9, atol=1e-10)
+# a main-path run longer than this many seconds is timed once, in its
+# counted run (the spread within a call is about 3%)
+WALL_ONCE_S = 5.0
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 
 T_START = time.time()
-# the libraries the Go1 phases launch; the others (the Cassie and PogoX tick
-# kernels, the s=15 solves) compile beside those phases
+# the libraries the Go1 shared-clock phases launch, built first; every other
+# library compiles beside the phases at a lower priority, BUILDS_AT_ONCE
+# libraries at a time in the order the phases need them (LATER_BUILDS; a
+# build without FMA contraction, for fma_witness, as (library, FMAD_OFF)),
+# and each later phase waits for its own only (``need``). A compiler beside
+# them halves the speed of the host-bound eager plain versions (PERF.md §5),
+# so Cassie's Cholesky and per-lane-clock libraries start later
+# (CASSIE_LATE_BUILDS), while the GPU runs bench_route's long Cassie ticks
 GO1_LIBRARIES = ("tridiag_s9", "ekf", "mhe_go1", "admm_s9")
-LEGGED_LIBRARIES = tuple(n for n in _build.LIBRARIES if n not in GO1_LIBRARIES)
+LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF),
+                "mhe_pogox", "mhe_pogox_chol", "mhe_pogox_pi",
+                "tridiag_s15", "admm_s15", "mhe_cassie", ("mhe_cassie", FMAD_OFF))
+CASSIE_LATE_BUILDS = ("mhe_cassie_chol", "mhe_cassie_pi")
+BUILDS_AT_ONCE = 4
+assert set(GO1_LIBRARIES + CASSIE_LATE_BUILDS) | {
+    b for b in LATER_BUILDS if isinstance(b, str)} == set(_build.LIBRARIES)
 
 
 def emit(phase, **kw):
@@ -228,25 +270,29 @@ def make_fleet(T, B, dtype, seed, vo_noise=1.0, model="go1"):
     return log, data_b, eb, vo_b
 
 
-def clock_logs(T):
-    """The synthetic log of each camera clock: the same seed, so the same
-    trajectory and IMU/encoder streams; VO every 5..9 ticks, 1..3 ticks late."""
+def clock_logs(T, model="go1"):
+    """The synthetic log of each camera clock: the same seed as ``model``'s
+    fleet, so the same trajectory and IMU/encoder streams; VO every 5..9
+    ticks, 1..3 ticks late."""
+    legs = robot_params(model)[0].num_legs
     return [synth.generate(synth.SynthConfig(
-        T=T, seed=0, vo_every=5 + k % 5, vo_latency=1 + (k // 5) % 3))
+        T=T, seed=0 if model == "go1" else LEGGED_LOG_SEED, num_legs=legs,
+        vo_every=5 + k % 5, vo_latency=1 + (k // 5) % 3))
         for k in range(N_CLOCKS)]
 
 
-def make_clock_fleet(T, B, dtype, seed, ekf_per_lane=False):
+def make_clock_fleet(T, B, dtype, seed, ekf_per_lane=False, model="go1"):
     """The fleet of ``make_fleet`` (per-lane IMU/encoder noise, per-lane VO
     quaternion into the shared-clock EKF blocks) with a camera clock per
     lane: lane b takes the VO schedule and content of clock b % 15, every
     64th lane none, and its own VO-content draw (std ``vo_p_std``) on its
     own events. ``ekf_per_lane`` gives the EKF blocks each lane's own
-    delayed-VO events too. Returns (log, data_b, eb, vo) with a per-instance
-    ``vo`` (active, tick_pre, tick_now (T,B), dp_body (T,3,B))."""
-    p = go1_params()
-    log, data_b, eb, _ = make_fleet(T, B, dtype, seed)
-    logs = clock_logs(T)
+    delayed-VO events too. ``model`` picks the robot (see ``make_fleet``).
+    Returns (log, data_b, eb, vo) with a per-instance ``vo`` (active,
+    tick_pre, tick_now (T,B), dp_body (T,3,B))."""
+    p = robot_params(model)[0]
+    log, data_b, eb, _ = make_fleet(T, B, dtype, seed, model=model)
+    logs = clock_logs(T, model)
     lane = torch.arange(B, device=DEV) % N_CLOCKS
     free = torch.arange(B, device=DEV) % VO_FREE_EVERY == VO_FREE_EVERY - 1
     vos = [estimator.vodata_from_log(lg, dtype=dtype, device=DEV) for lg in logs]
@@ -373,43 +419,56 @@ def build_report(libraries):
 
 
 def phase_build(pool):
-    """Every translation unit is started at once: the Go1 phases' libraries
-    and, beside them, the Go1 tick library built without FMA contraction (for
-    fma_witness), waited for here; the Cassie and PogoX libraries, and the
-    Cassie tick library without FMA contraction, at a lower scheduling
-    priority, which go on compiling while the Go1 phases run and are waited
-    for by ``phase_build_legged``. Returns those builds' futures."""
+    """The Go1 shared-clock phases' libraries, every unit at once, waited for
+    here; then every later build (LATER_BUILDS) in ``pool``, in the order the
+    phases need them, at scheduling priority 10, which go on compiling while
+    the Go1 phases run. Returns those builds' futures."""
     t0 = time.time()
-    legged = [pool.submit(_build.build, ptxas=True, libraries=LEGGED_LIBRARIES, nice=10),
-              pool.submit(_build.build, extra_flags=FMAD_OFF, nice=10,
-                          libraries=tuple("mhe_" + m for m in Y_ROUNDING_ROBOTS))]
-    fma = pool.submit(_build.build, extra_flags=FMAD_OFF, libraries=("mhe_go1",))
     _build.build(ptxas=True, libraries=GO1_LIBRARIES)
-    t1 = time.time()
-    fma.result()
-    t2 = time.time()
     for name in GO1_LIBRARIES:
         _build.load(name)
-    _build.load("mhe_go1", extra_flags=FMAD_OFF)
-    emit("build", seconds=round(t1 - t0, 2), libraries=list(GO1_LIBRARIES),
+    builds = start_builds(pool, LATER_BUILDS)
+    emit("build", seconds=round(time.time() - t0, 2), libraries=list(GO1_LIBRARIES),
          flags=" ".join(_build.NVCC_FLAGS), **build_report(GO1_LIBRARIES),
-         mhe_go1_without_fma={"flags": " ".join(FMAD_OFF), "built_beside_them": True,
-                              "seconds_after_the_rest": round(t2 - t1, 2)},
-         compiling_beside_the_go1_phases=list(LEGGED_LIBRARIES))
-    return legged
+         compiling_beside_the_go1_phases=[" ".join((b[0],) + b[1]) if isinstance(b, tuple)
+                                          else b for b in LATER_BUILDS],
+         at_once=BUILDS_AT_ONCE)
+    return builds
 
 
-def phase_build_legged(legged):
-    """Wait for the Cassie and PogoX libraries started by ``phase_build``."""
+def start_builds(pool, names):
+    """Submit the builds ``names`` to ``pool``, at scheduling priority 10:
+    {name: future}; a name (library, flags) is a variant build."""
+    return {b: pool.submit(_build.build, libraries=(b[0],), extra_flags=b[1], nice=10)
+            if isinstance(b, tuple) else
+            pool.submit(_build.build, ptxas=True, libraries=(b,), nice=10) for b in names}
+
+
+def need(builds, *libs):
+    """Wait for the builds of ``libs`` (started by ``phase_build``; a witness
+    build as (library, FMAD_OFF)) and load them; print how long this waited
+    and each library's build seconds and ptxas figures."""
     t0 = time.time()
-    for f in legged:
-        f.result()
-    for name in LEGGED_LIBRARIES:
-        _build.load(name)
-    for m in Y_ROUNDING_ROBOTS:
-        _build.load("mhe_" + m, extra_flags=FMAD_OFF)
-    emit("build_legged", libraries=list(LEGGED_LIBRARIES), waited_s=round(time.time() - t0, 2),
-         **build_report(LEGGED_LIBRARIES))
+    for lib in libs:
+        builds[lib].result()
+        _build.load(*lib) if isinstance(lib, tuple) else _build.load(lib)
+    names = [lib for lib in libs if not isinstance(lib, tuple)]
+    witness = {lib[0]: round(_build.report[" ".join(lib[:1] + lib[1])]["seconds"], 2)
+               for lib in libs if isinstance(lib, tuple)}
+    emit("build_ready", libraries=names, waited_s=round(time.time() - t0, 2),
+         **build_report(names), without_fma_seconds=witness)
+
+
+def tick_ptxas(lib, kernel):
+    """The ptxas figures of one tick kernel of ``lib``: {"float": [...],
+    "double": [...]} (registers, stack frame, spill stores, spill loads)."""
+    out = {}
+    for _, text, _ in _build.report[lib]["units"]:
+        for name, fig in ptxas_figures(text).items():
+            m = re.search(rf"{len(kernel)}{kernel}I([fd])", name)
+            if m:
+                out[{"f": "float", "d": "double"}[m.group(1)]] = fig
+    return out
 
 
 def check_kernels():
@@ -506,8 +565,9 @@ def main_path(model, fleet64, fleet32, gt_v):
     """``model``'s fleet through the pipeline runner at full width: launches,
     accuracy against ground truth (``RMSE_GATE``) and against the float64 run
     of the same path on the same fleet, the float32-float64 velocity
-    difference per 100 ticks, wall (best of 3 after the counted run) and the
-    tick kernel's own time in those runs; for every robot but Go1 (whose lanes
+    difference per 100 ticks, wall (best of 3 after the counted run, or the
+    counted run's own when it took over WALL_ONCE_S) and the tick kernel's
+    own time in those runs; for every robot but Go1 (whose lanes
     runner ``box_sweep`` and the per-lane-clock phases drive) the lanes runner
     once, the reference bench's route for the other shapes. Returns the
     counted run's launches, the float64 run's (x, q) and the tick kernel's
@@ -517,8 +577,10 @@ def main_path(model, fleet64, fleet32, gt_v):
     runner = batch.make_pipeline_fleet_runner(p, pe, F32, use_megakernel=True, device=DEV)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    x, v, q = runner(*fleet32)
-    torch.cuda.synchronize()
+    mrk.timer.on = True
+    (x, v, q), counted_ms = wall_ms(lambda: runner(*fleet32))
+    mrk.timer.on = False
+    counted_tick_ms = mrk.timer.ms()
     counts = read_counts()
     assert counts == dict(NO_LAUNCH, tridiag_solve=1, ekf_stage=1, mhe_tick=1), counts
     assert x.shape == (T_MAIN, B_MAIN, s) and v.shape == (T_MAIN, B_MAIN, 3)
@@ -541,17 +603,21 @@ def main_path(model, fleet64, fleet32, gt_v):
     drift = [float(d.max()) if bool(torch.isfinite(d).all()) else None for d in dv]
     del dv
 
-    # wall time of the whole pipeline: best of 3 after the counted run
-    walls = []
-    mrk.timer.on = True
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        runner(*fleet32)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    mrk.timer.on = False
-    tick_alone_ms = min(mrk.timer.ms())
+    # wall time of the whole pipeline: best of 3 after the counted run, or
+    # the counted run's own for a fleet whose run takes seconds
+    walls, tick_ms = [counted_ms / 1e3], counted_tick_ms
+    if walls[0] <= WALL_ONCE_S:
+        walls = []
+        mrk.timer.on = True
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runner(*fleet32)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        mrk.timer.on = False
+        tick_ms = mrk.timer.ms()
+    tick_alone_ms = min(tick_ms)
     wall = min(walls)
 
     lanes_runner = None
@@ -575,7 +641,8 @@ def main_path(model, fleet64, fleet32, gt_v):
          rmse_f64=r64, rmse_f64_all_ticks=r64_all, rmse_gate=gate,
          f32_gated_ticks=n, f32_first_nonfinite_tick=t_bad,
          f32_vs_f64_velocity_max_abs_per_100_ticks=drift,
-         wall_s=wall, walls_s=walls, pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
+         wall_s=wall, walls_s=walls, wall_from="the counted run" if len(walls) == 1 else
+         "best of 3 after the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
          mhe_tick_kernel_only_ms=tick_alone_ms,
          peak_mem_bytes=torch.cuda.max_memory_allocated(), lanes_runner=lanes_runner)
     return counts, x64, q64, tick_alone_ms
@@ -584,7 +651,7 @@ def main_path(model, fleet64, fleet32, gt_v):
 def reset_counts():
     for mod in (tridiag_kernel, ekf_kernel, mrk, admm_kernel):
         mod.launches = 0
-    mrk.launches_box = mrk.launches_pi = mrk.launches_pi_box = 0
+    mrk.launches_box = mrk.launches_pi = mrk.launches_pi_box = mrk.launches_chol = 0
     admm_kernel.launches_core = 0
 
 
@@ -592,12 +659,55 @@ def read_counts():
     return {"tridiag_solve": tridiag_kernel.launches, "ekf_stage": ekf_kernel.launches,
             "mhe_tick": mrk.launches, "mhe_tick_box": mrk.launches_box,
             "mhe_tick_pi": mrk.launches_pi, "mhe_tick_pi_box": mrk.launches_pi_box,
-            "admm_solve": admm_kernel.launches,
+            "mhe_tick_chol": mrk.launches_chol, "admm_solve": admm_kernel.launches,
             "admm_box_solve": admm_kernel.launches_core}
 
 
 NO_LAUNCH = {"tridiag_solve": 0, "ekf_stage": 0, "mhe_tick": 0, "mhe_tick_box": 0,
-             "mhe_tick_pi": 0, "mhe_tick_pi_box": 0, "admm_solve": 0, "admm_box_solve": 0}
+             "mhe_tick_pi": 0, "mhe_tick_pi_box": 0, "mhe_tick_chol": 0, "admm_solve": 0,
+             "admm_box_solve": 0}
+
+
+@contextlib.contextmanager
+def tick_calls():
+    """Record every ``mrk.replay_ticks`` call made inside (a runner makes
+    one): its arguments, what it returned and the device time around it
+    (CUDA events, read with ``call_ms`` after a synchronize), so that a
+    runner's counted run also gives the tick's time, the inputs it ticked,
+    its schedule and its ADMM iterations."""
+    calls, inner = [], mrk.replay_ticks
+
+    def spy(c, ks, data_l, vo, vo_inc, *a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(c, ks, data_l, vo, vo_inc, *a, **kw)
+        e1.record()
+        calls.append({"args": (c, ks, data_l, vo, vo_inc), "out": out, "events": (e0, e1)})
+        return out
+
+    mrk.replay_ticks = spy
+    try:
+        yield calls
+    finally:
+        mrk.replay_ticks = inner
+
+
+def call_ms(call):
+    return call["events"][0].elapsed_time(call["events"][1])
+
+
+@contextlib.contextmanager
+def mk_solve_env(tail):
+    """``DEM_MK_SOLVE=tail`` inside, as a user sets it for a whole run."""
+    old = os.environ.get("DEM_MK_SOLVE")
+    os.environ["DEM_MK_SOLVE"] = tail
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DEM_MK_SOLVE"]
+        else:
+            os.environ["DEM_MK_SOLVE"] = old
 
 
 def fleet_rmse(x_tbs, gt_v, lanes=slice(None)):
@@ -839,7 +949,7 @@ def over_tol(a, b, tol=TOL_MHE):
     return r.reshape(-1, r.shape[-1]).amax(0)
 
 
-def check_box_tick(c, c_plain, ks0, d, v, i, tag, fma=False, rounding=False):
+def check_box_tick(c, c_plain, ks0, d, v, i, tag, fma=False, rounding=False, plain=None):
     """Constrained mhe_tick kernel (either clock) vs its plain version over
     the ticks handed in: x, the z/y warm-start rings, the per-tick iteration
     counts and the final Bezier schedule, all to TOL_MHE; "y_over_tol" is how
@@ -848,10 +958,12 @@ def check_box_tick(c, c_plain, ks0, d, v, i, tag, fma=False, rounding=False):
     then show the kernel without FMA contraction meeting TOL_MHE; with
     ``rounding`` to Y_OVER_TOL_ROUNDING times, and fma_witness must then show
     the plain version itself beyond the limit between the card and the CPU
-    where y is, and the kernel within Y_OVER_TOL_ROUNDING of the CPU."""
+    where y is, and the kernel within Y_OVER_TOL_ROUNDING of the CPU.
+    The witness runs only where y does exceed TOL_MHE's limit. ``plain`` is
+    the plain version's result on these inputs, if the caller has it."""
     y_limit = Y_OVER_TOL_ROUNDING if rounding else Y_OVER_TOL_FMA
     fma = fma or rounding
-    x_p, ks_p = mrk.replay_ticks_plain(c_plain, ks0, d, v, i)
+    x_p, ks_p = plain or mrk.replay_ticks_plain(c_plain, ks0, d, v, i)
     x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV)
     errs = {}
     for f, a, b in (("x", x_k, x_p), ("z", ks_k.arrays[18], ks_p.arrays[18]),
@@ -865,7 +977,7 @@ def check_box_tick(c, c_plain, ks0, d, v, i, tag, fma=False, rounding=False):
         assert ok, ("mhe_tick_box vs plain", tag, f, errs)
     assert torch.equal(ks_k.iters, ks_p.iters), ("mhe_tick_box iteration counts", tag)
     check_schedule(ks_k, ks_p, tag)
-    if fma:
+    if fma and errs["y_over_tol"] > 1.0:
         errs["without_fma"] = fma_witness(c, ks0, d, v, i, (x_k, ks_k), (x_p, ks_p),
                                           y_lane, tag, rounding)
     return x_k, ks_k, x_p, errs
@@ -1044,20 +1156,34 @@ def box_path(model, fleet64, fleet32, gt_v):
     entry point (|v| <= 0.3 on states 3:6, rho=5000 fixed, 20 it + polish):
     launches, the box, accuracy, wall (the counted run); its float64 twin over
     the whole log for Go1 (``box_full_width`` holds the kernels against it),
-    over the first T_BOX_F64 ticks for the others. Returns the launches and
-    the float64 twin's (x, q)."""
+    over the first T_BOX_F64 ticks for the others. Returns the launches, the
+    float64 twin's (x, q) and the counted run's constrained tick: its time
+    around the wrapper and alone, (bytes, operations), ADMM iterations, final
+    state and first non-finite tick."""
     p = box_params(model=model)
     pe = robot_params(model)[1]
     gate = RMSE_GATE[model]
+    if model in F6_TICKS:
+        fleet32 = head(fleet32, T_F6_BOX)
+    T = fleet32[0].accel_b.shape[0]
+    gt_v = gt_v[:T]
     runner = batch.make_pipeline_fleet_runner(
         p, pe, F32, use_megakernel=True, consts=box_consts(p, F32, V_BOX, 20), device=DEV)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    (x, v, q), wall = wall_ms(lambda: runner(*fleet32))
+    mrk.timer.on = True
+    with tick_calls() as calls:
+        (x, v, q), wall = wall_ms(lambda: runner(*fleet32))
+    mrk.timer.on = False
+    k_only = min(mrk.timer.ms())
     counts = read_counts()
     assert counts == dict(NO_LAUNCH, ekf_stage=1, mhe_tick_box=1, admm_solve=1,
                           admm_box_solve=2), counts
-    assert x.shape == (T_MAIN, B_MAIN, p.dim_state) and v.shape == (T_MAIN, B_MAIN, 3)
+    ms_tick, work, iters = box_tick_figures(p, box_consts(p, F32, V_BOX, 20), calls[0])
+    tick = {"ms": ms_tick, "kernel_only_ms": k_only, "work": work, "iters": iters,
+            "ks_end": calls[0]["out"][1], "t_bad": first_nonfinite(x), "T": T}
+    del calls
+    assert x.shape == (T, B_MAIN, p.dim_state) and v.shape == (T, B_MAIN, 3)
     assert torch.isfinite(q).all()
     n, t_bad = f32_ticks(model, x)      # n = T_MAIN but for fault F6
     t64 = T_MAIN if model == "go1" else T_BOX_F64
@@ -1076,13 +1202,15 @@ def box_path(model, fleet64, fleet32, gt_v):
     wall /= 1e3
     emit("box_main_path" if model == "go1" else f"{model}_box",
          config=f"{model} N={N_WIN} s={p.dim_state}, |v|<=0.3, rho=5000 fixed, 20 it + polish",
-         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, max_abs_v=vmax,
+         T=T, B=B_MAIN, dtype="float32", launches=counts, max_abs_v=vmax,
          max_abs_v_f64=float(x64[..., 3:6].abs().max()), rmse_vs_ground_truth=rmse,
          rmse_gate=gate, f32_gated_ticks=n, f32_first_nonfinite_tick=t_bad,
          f64_twin={"T": t64, "rmse_f32": r32, "rmse_f64": r64},
-         wall_s=wall, pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
+         wall_s=wall, pipeline_ticks_per_s=B_MAIN * (T - 1) / wall,
+         mhe_tick_box_ms=ms_tick, mhe_tick_box_kernel_only_ms=k_only,
+         admm_iters_mean=float(iters.double().mean()),
          peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return counts, x64, q64
+    return counts, x64, q64, tick
 
 
 def box_sweep(fleet32):
@@ -1127,12 +1255,13 @@ def box_per_tick(fleet32):
          admm_solve_max_ms=max(k_ms), wall_s=ms / 1e3, max_abs_v=vmax)
 
 
-def box_full_width(fleet64, fleet32, x64, q64, counts):
+def box_full_width(fleet64, fleet32, x64, q64, counts, tick):
     """The constrained kernels against their plain versions at full width:
-    float64 element-wise over T_BOX_PLAIN ticks; float32 over the whole log
-    by accuracy against the float64 main path ``x64``, timing both; the
-    bounds from what this run's instances iterated. Returns the kernels'
-    entries of the last-but-one line."""
+    float64 element-wise over T_BOX_PLAIN ticks; float32 by accuracy against
+    the float64 main path ``x64`` over the first T_BOX_PLAIN ticks; the
+    constrained tick's time and bound from the main path's counted run
+    (``tick``, from ``box_path``), the plain version's over T_BOX_PLAIN ticks.
+    Returns the kernels' entries of the last-but-one line."""
     p = box_params()
     R64 = ekf_lanes.to_rot(q64)
 
@@ -1161,28 +1290,25 @@ def box_full_width(fleet64, fleet32, x64, q64, counts):
            "admm_solve": max(*e0.values(), *el.values()),
            "admm_box_solve": max(el.values())}
 
-    # ---- float32 at the main path's shapes: the kernel over T_MAIN ticks, its
-    # plain version over the first T_BOX_PLAIN (the eager constrained tick is
+    # ---- float32 at the main path's shapes: the kernel and its plain version
+    # over the first T_BOX_PLAIN ticks (the eager constrained tick is
     # thousands of small launches per tick), both held to the float64 main
-    # path by accuracy over the ticks they share after the window's warm-up
-    # (ticks N_WIN+1 .. T_BOX_PLAIN-1)
-    cm, stm, ksm, (dm, vm, im) = inputs(fleet32, F32, T_MAIN)
-    ms, plain_ms = {}, {}
-    cp, _, ksp, (dp_, vp, ip) = inputs(fleet32, F32, T_BOX_PLAIN)
+    # path by accuracy over the ticks after the window's warm-up (ticks
+    # N_WIN+1 .. T_BOX_PLAIN-1); the kernel over the whole log is the main
+    # path's counted run (``tick``)
+    cm, stm, ksp, (dp_, vp, ip) = inputs(fleet32, F32, T_BOX_PLAIN)
+    ms, plain_ms = {"mhe_tick_box": tick["ms"]}, {}
     (x32p, _), plain_ms["mhe_tick_box"] = wall_ms(
-        lambda: mrk.replay_ticks_plain(cp._replace(use_pallas=False), ksp, dp_, vp, ip))
-    x32k, ks_end = mrk.replay_ticks(cm, ksm, dm, vm, im, device=DEV)
-    assert torch.isfinite(x32k).all()
+        lambda: mrk.replay_ticks_plain(cm._replace(use_pallas=False), ksp, dp_, vp, ip))
+    x32k, _ = mrk.replay_ticks(cm, ksp, dp_, vp, ip, device=DEV)
+    assert torch.isfinite(x32k).all() and tick["t_bad"] is None
     ref = torch.movedim(x64, 1, -1)[1:T_BOX_PLAIN]
-    rk, rp = vel_rmse(x32k[:T_BOX_PLAIN - 1], ref, N_WIN), vel_rmse(x32p, ref, N_WIN)
+    rk, rp = vel_rmse(x32k, ref, N_WIN), vel_rmse(x32p, ref, N_WIN)
     assert abs(rk - rp) < 1e-3, ("constrained f32 velocity-RMSE delta", rk, rp)
     rmse_ticks = [N_WIN + 1, T_BOX_PLAIN - 1]
     del x32p, ref
-    mrk.timer.on = True
-    ms["mhe_tick_box"] = timed(lambda: mrk.replay_ticks(cm, ksm, dm, vm, im, device=DEV), reps=1)
-    mrk.timer.on = False
-    kernel_only_ms = min(mrk.timer.ms())
-    iters_tick = ks_end.iters
+    kernel_only_ms = tick["kernel_only_ms"]
+    iters_tick, ks_end = tick["iters"], tick["ks_end"]
 
     # admm_solve on the main path's tick-0 window (one real slot); the device
     # function alone on one full window: admm_solve on the main path's final
@@ -1196,15 +1322,15 @@ def box_full_width(fleet64, fleet32, x64, q64, counts):
         ms[name] = timed(run)
         plain_ms[name] = timed(lambda: admm_kernel.solve_box_lanes_plain(*args, **kw), reps=1)
 
-    a = cm.admm
-    box = (a.rho_update_every, a.adaptive_rho, a.abs_tol > 0 or a.rel_tol > 0, a.polish)
-    sched = _work.mhe_schedule(vm.active.tolist(), vm.tick_pre.tolist(),
-                               vm.tick_now.tolist(), N_WIN, int(ksm.bez_count))
+    box = admm_work_settings(cm)
+    # the main path's schedule (ticks 1..), which the counted run walked
+    sched = _work.mhe_schedule(*(a.tolist() for a in (fleet32[2].active[1:],
+                                                      fleet32[2].tick_pre[1:],
+                                                      fleet32[2].tick_now[1:])),
+                               N_WIN, int(ksp.bez_count))
     it_np = {k: v.cpu().numpy() for k, v in iters.items()}
     works = {
-        "mhe_tick_box": _work.mhe_tick(N_WIN, 9, 12, 4, B_MAIN, sched,
-                                       int((dm.contact > 0).sum()), 4,
-                                       box=(iters_tick.cpu().numpy(),) + box),
+        "mhe_tick_box": tick["work"],
         "admm_solve": _work.admm(N_WIN, 9, B_MAIN, 4, it_np["admm_solve"], *box, n_states=1),
         "admm_box_solve": _work.admm(N_WIN, 9, B_MAIN, 4, it_np["admm_box_solve"], *box),
     }
@@ -1301,16 +1427,16 @@ def check_tick(c, ks0, d, v, i, tag, split=30):
     return errs, x_k, ks_k
 
 
-def check_kernels_pi():
-    """The per-lane-clock tick kernels (unconstrained and constrained)
-    against their plain versions at the small size, float64, on a fleet with
-    15 camera clocks and VO-free lanes; a ragged fleet through the runner;
-    per-lane bounds; and uniform per-lane clocks against the shared-clock
-    kernels, which they must reproduce (the ingestion runs the same
-    statements)."""
-    p = go1_params()
+def check_kernels_pi(model="go1"):
+    """The per-lane-clock tick kernels (unconstrained and constrained) of
+    ``model``'s shape against their plain versions at the small size,
+    float64, on a fleet with 15 camera clocks and VO-free lanes; a ragged
+    fleet through the runner; per-lane bounds; and uniform per-lane clocks
+    against the shared-clock kernels, which they must reproduce (the
+    ingestion runs the same statements)."""
+    p = robot_params(model)[0]
     res = {}
-    _, *fleet = make_clock_fleet(T_CHK, B_CHK, F64, seed=1)
+    _, *fleet = make_clock_fleet(T_CHK, B_CHK, F64, seed=1, model=model)
     vo = fleet[2]
     assert int(vo.active.any(0).sum()) == B_CHK - B_CHK // VO_FREE_EVERY
     c = mhe.make_consts(p, F64, device=DEV)
@@ -1322,7 +1448,7 @@ def check_kernels_pi():
     # constrained, on a box that binds (half the unconstrained run's largest
     # |v|), OSQP tolerances 1e-8, fixed rho, 20 iterations, polish
     bound = 0.5 * float(x_free[:, 3:6].abs().max())
-    pb = box_params(tol=1e-8)
+    pb = box_params(tol=1e-8, model=model)
     cb = box_consts(pb, F64, bound, 20)
     ksb, _ = clock_inputs(cb, fleet, F64)
     res["mhe_tick_pi_box_err"], xb, _ = check_tick(cb, ksb, d1, v1, i1, "constrained")
@@ -1337,7 +1463,7 @@ def check_kernels_pi():
     res["mhe_tick_pi_box_err"]["per_lane_bounds"] = max(e_pl[f] for f in "xzy")
 
     # ragged fleet through the MHE-only runner: kernel route vs eager route
-    _, *fleet_r = make_clock_fleet(T_RAGGED_PI, B_RAGGED, F64, seed=2)
+    _, *fleet_r = make_clock_fleet(T_RAGGED_PI, B_RAGGED, F64, seed=2, model=model)
     errs = {}
     for tag, cr in (("unconstrained", mhe.make_consts(p, F64, device=DEV)),
                     ("constrained", box_consts(pb, F64, bound, 20))):
@@ -1354,7 +1480,7 @@ def check_kernels_pi():
     # uniform per-lane clocks against the shared-clock kernels, bit for bit
     # in the ingestion: the same fleet once on its shared clock, once with
     # that clock broadcast to every lane
-    _, data_s, _, vo_s = make_fleet(T_CHK, B_CHK, F64, seed=1)
+    _, data_s, _, vo_s = make_fleet(T_CHK, B_CHK, F64, seed=1, model=model)
     errs = {}
     for tag, cc in (("mhe_tick", c), ("mhe_tick_box", cb)):
         ks_s, (ds, vs, i_s) = clock_inputs(cc, (data_s, None, vo_s), F64)
@@ -1364,7 +1490,9 @@ def check_kernels_pi():
         ok, errs[tag] = close(x_u, x_s, rtol=0.0, atol=1e-12)
         assert ok, ("uniform per-lane clocks vs the shared-clock kernel", tag, errs[tag])
     res["uniform_clock_vs_shared_err"] = errs
-    emit("kernels_pi", dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK, clocks=N_CLOCKS,
+    emit("kernels_pi" if model == "go1" else "kernels_pi_legged", model=model,
+         s=p.dim_state, m=p.dim_meas, L=p.num_legs, leg_odom_type=p.leg_odom_type,
+         dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK, clocks=N_CLOCKS,
          vo_free_lanes=B_CHK // VO_FREE_EVERY, tol=TOL_MHE, tol_uniform_vs_shared=1e-12,
          box=bound, osqp_tol=1e-8, **res)
 
@@ -1468,15 +1596,22 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
 def pi_box(fleet64, fleet32, gt_v):
     """Configuration 1 on per-lane clocks: the constrained production box
     (|v| <= 0.3, rho=5000 fixed, 20 it + polish) through the MHE-only runner
-    at full width; the tick against its float64 plain version over
-    T_BOX_PLAIN ticks. Returns the kernel's entry of the last-but-one line."""
+    at full width, the counted run also the timed one (wall, the tick around
+    its wrapper and alone, its ADMM iterations); the tick against its float64
+    plain version over T_BOX_PLAIN ticks. Returns the kernel's entry of the
+    last-but-one line."""
     p = box_params()
     data_b, _, vo = fleet32
-    runner = batch.make_lanes_fleet_runner(
-        p, F32, use_megakernel=True, consts=box_consts(p, F32, V_BOX, 20), device=DEV)
+    c32 = box_consts(p, F32, V_BOX, 20)
+    runner = batch.make_lanes_fleet_runner(p, F32, use_megakernel=True, consts=c32, device=DEV)
     reset_counts()
-    x, v = runner(data_b, vo)
-    torch.cuda.synchronize()
+    mrk.timer.on = True
+    with tick_calls() as calls:
+        (x, v), wall = wall_ms(lambda: runner(data_b, vo))
+    mrk.timer.on = False
+    kernel_only_ms = min(mrk.timer.ms())
+    wall /= 1e3
+    ms, ks_end = call_ms(calls[0]), calls[0]["out"][1]
     counts = read_counts()
     assert counts == dict(NO_LAUNCH, mhe_tick_pi_box=1, admm_solve=1, admm_box_solve=2), counts
     cam, free_bad = split_vo_free(x, vo)
@@ -1491,23 +1626,8 @@ def pi_box(fleet64, fleet32, gt_v):
     assert bool(torch.isfinite(x64).all()), "constrained float64 run not finite"
     r64 = fleet_rmse(x64, gt_v, cam)
     assert abs(rmse - r64) < 1e-3, ("constrained per-lane-clock f32-vs-f64 delta", rmse, r64)
-    walls = []
-    mrk.timer.on = True
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        runner(data_b, vo)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    mrk.timer.on = False
-    kernel_only_ms = min(mrk.timer.ms())
-    wall = min(walls)
-
-    # the tick alone around its wrapper (warm from the runs above; one run of
-    # 8-9 s, so the host clock around it)
-    c32 = box_consts(p, F32, V_BOX, 20)
-    ks, (d, vv, i) = clock_inputs(c32, fleet32, F32)
-    (_, ks_end), ms = wall_ms(lambda: mrk.replay_ticks(c32, ks, d, vv, i, device=DEV))
+    _, ks, d, vv, _ = calls[0]["args"]
+    del calls
     # float64 element-wise over T_BOX_PLAIN ticks (y as FMA contraction
     # allows, with the witness); float32 plain time there
     c64 = box_consts(p, F64, V_BOX, 20)
@@ -1528,7 +1648,8 @@ def pi_box(fleet64, fleet32, gt_v):
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, max_abs_v=vmax,
          max_abs_v_f64=float(x64[..., 3:6].abs().max()), rmse_vs_ground_truth=rmse, rmse_f64=r64,
          rmse_lanes=int(cam.sum()), vo_free_lanes_first_nonfinite_tick=free_bad,
-         wall_s=wall, walls_s=walls, pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
+         wall_s=wall, wall_from="the counted run",
+         pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
          mhe_tick_pi_box_ms=ms, mhe_tick_pi_box_kernel_only_ms=kernel_only_ms,
          max_abs_err_f64={"T": T_BOX_PLAIN, **e_tick},
          plain_f32_ms={"T": T_BOX_PLAIN, "ms": plain_ms},
@@ -1588,13 +1709,13 @@ def pi_pipeline(fleet32, gt_v):
 # ------------------------------------------------ the Cassie and PogoX fleets
 
 
-def f32_ticks(model, x_tbs):
+def f32_ticks(model, x_tbs, lanes=slice(None)):
     """(gated, first non-finite tick or None) of a float32 result x
-    (T,B,...): the number of leading ticks its gates hold over — all T, or
-    F6_TICKS for a robot of fault F6 — which must all be finite."""
-    bad = ~torch.isfinite(x_tbs.reshape(x_tbs.shape[0], -1)).all(-1)
-    t_bad = int(torch.nonzero(bad)[0, 0]) if bool(bad.any()) else None
-    n = F6_TICKS if model in F6_ROBOTS else x_tbs.shape[0]
+    (T,B,...) over ``lanes``: the number of leading ticks its gates hold over
+    — all T, or F6_TICKS[model] for a fleet of fault F6 — which must all be
+    finite."""
+    t_bad = first_nonfinite(x_tbs[:, lanes])
+    n = F6_TICKS.get(model, x_tbs.shape[0])
     assert t_bad is None or t_bad >= n, (model, "float32 estimate not finite from tick", t_bad)
     return n, t_bad
 
@@ -1691,29 +1812,25 @@ def admm_work_settings(c):
     return a.rho_update_every, a.adaptive_rho, a.abs_tol > 0 or a.rel_tol > 0, a.polish
 
 
-def box_tick_alone(model, p, c, ks0, d, v, i):
-    """One float32 run of ``model``'s constrained tick alone over the ticks
-    handed in: (x, the final state, ms (CUDA events around the wrapper), the
-    kernel's own ms, the first tick (from tick 0) at which x is not finite or
-    None, the run's (bytes, operations) from the ADMM iterations its
-    instances took)."""
-    mrk.timer.on = True
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    x, ks_end = mrk.replay_ticks(c, ks0, d, v, i, device=DEV)
-    e1.record()
-    torch.cuda.synchronize()
-    mrk.timer.on = False
-    k_only = min(mrk.timer.ms())
-    _, t_bad = f32_ticks(model, x)
+def first_nonfinite(x_tbs):
+    """The first tick at which a (T,B,...) result is not finite, or None."""
+    bad = ~torch.isfinite(x_tbs.reshape(x_tbs.shape[0], -1)).all(-1)
+    return int(torch.nonzero(bad)[0, 0]) if bool(bad.any()) else None
+
+
+def box_tick_figures(p, c, call):
+    """A constrained tick call recorded by ``tick_calls`` (a runner's counted
+    run): its ms around the wrapper, its (bytes, operations) from the
+    schedule it walked and the ADMM iterations its instances took, and those
+    iterations ((Tn,B))."""
+    _, ks0, d, v, _ = call["args"]
+    iters = call["out"][1].iters
     sched = _work.mhe_schedule(v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist(),
                                N_WIN, int(ks0.bez_count))
-    work = _work.mhe_tick(N_WIN, p.dim_state, p.dim_meas, p.num_legs, x.shape[-1], sched,
+    work = _work.mhe_tick(N_WIN, p.dim_state, p.dim_meas, p.num_legs, d.accel_b.shape[-1], sched,
                           int((d.contact > 0).sum()), 4,
-                          box=(ks_end.iters.cpu().numpy(),) + admm_work_settings(c),
-                          lot=p.leg_odom_type)
-    # the kernel's output starts at tick 1
-    return x, ks_end, e0.elapsed_time(e1), k_only, None if t_bad is None else t_bad + 1, work
+                          box=(iters.cpu().numpy(),) + admm_work_settings(c), lot=p.leg_odom_type)
+    return call_ms(call), work, iters
 
 
 def bench_route(model, fleet64, fleet32, gt_v):
@@ -1724,11 +1841,12 @@ def bench_route(model, fleet64, fleet32, gt_v):
     log, the float64 run of the same route on the same fleet over the whole
     log, the f32-vs-f64 RMSE delta over it (the constrained one over its first
     T_BOX_F64 ticks), the box over the whole float64 log and the first
-    BENCH_BOX_F32_TICKS of the float32 one (fault F6). Then the
-    constrained tick alone over the whole float32 log of these inputs: time,
-    bound, ADMM iterations. Also prints where the pipeline runner's float32
-    estimate on this fleet stops being finite (fault F6). Returns the
-    constrained tick's figures."""
+    F6_TICKS of the float32 one (fault F6). The counted float32
+    runs are the timed ones: the tick kernel alone (``mrk.timer``), and for
+    the constrained tick its time around the wrapper, bound and ADMM
+    iterations. Also prints where the pipeline runner's float32 estimate on
+    this fleet stops being finite (fault F6). Returns the constrained tick's
+    figures and the unconstrained tick's kernel-alone time."""
     p, pe = robot_params(model)
     pb = box_params(model=model)
     gate = RMSE_GATE[model]
@@ -1741,7 +1859,11 @@ def bench_route(model, fleet64, fleet32, gt_v):
              T_BOX_F64, dict(admm_solve=1, mhe_tick_box=1, admm_box_solve=2))):
         run = batch.make_lanes_fleet_runner(pp, F32, use_megakernel=True, consts=c32, device=DEV)
         reset_counts()
-        (x, _), ms = wall_ms(lambda: run(data_b, vo_b))
+        mrk.timer.on = True
+        with tick_calls() as calls:
+            (x, _), ms = wall_ms(lambda: run(data_b, vo_b))
+        mrk.timer.on = False
+        k_only = min(mrk.timer.ms())
         counts = read_counts()
         assert counts == dict(NO_LAUNCH, **launched), (model, tag, counts)
         run64 = batch.make_lanes_fleet_runner(pp, F64, use_megakernel=True, consts=c64,
@@ -1750,7 +1872,8 @@ def bench_route(model, fleet64, fleet32, gt_v):
         rmse, r64 = fleet_rmse(x, gt_v), fleet_rmse(x64, gt_v)
         r32_d, r64_d = fleet_rmse(x[:t_delta], gt_v[:t_delta]), fleet_rmse(x64[:t_delta], gt_v[:t_delta])
         res[tag] = {"wall_s": ms / 1e3, "ticks_per_s": B_MAIN * (T_MAIN - 1) / (ms / 1e3),
-                    "launches": counts, "rmse_vs_ground_truth": rmse, "rmse_f64": r64,
+                    "launches": counts, "tick_kernel_only_ms": k_only,
+                    "rmse_vs_ground_truth": rmse, "rmse_f64": r64,
                     "f32_vs_f64_delta_gated": {"T": t_delta, "rmse_f32": r32_d, "rmse_f64": r64_d},
                     "f32_vs_f64_velocity_max_abs_per_100_ticks":
                         per_100((x[..., 3:6].double() - x64[..., 3:6]).abs())}
@@ -1761,40 +1884,40 @@ def bench_route(model, fleet64, fleet32, gt_v):
             ("f32-vs-f64 velocity-RMSE delta", abs(r32_d - r64_d) < 1e-3)) if not ok]
         if c32 is not None:
             v32, v64 = x[..., 3:6].abs(), x64[..., 3:6].abs()
-            vmax, vmax64 = float(v32[:BENCH_BOX_F32_TICKS].max()), float(v64.max())
-            res[tag].update(max_abs_v={"T": BENCH_BOX_F32_TICKS, "f32": vmax},
+            n_box = F6_TICKS[model]
+            vmax, vmax64 = float(v32[:n_box].max()), float(v64.max())
+            res[tag].update(max_abs_v={"T": n_box, "f32": vmax},
                             max_abs_v_f64=vmax64, max_abs_v_per_100_ticks=per_100(v32),
                             max_abs_v_f64_per_100_ticks=per_100(v64))
             failed += [(tag, what) for what, ok in (
                 ("velocity box, float32", V_BOX - 1e-2 <= vmax <= V_BOX + 1e-3),
                 ("velocity box, float64", V_BOX - 1e-2 <= vmax64 <= V_BOX + 1e-3)) if not ok]
             del v32, v64
-        del x, x64
-
-    # the constrained tick alone on the lanes runner's inputs
-    c = box_consts(pb, F32, V_BOX, 20)
-    R = batch.tickdata_to_lanes(data_b).R_sb
-    _, ks0, (d, v, i) = window_inputs(c, fleet32, R, F32, T_MAIN)
-    _, ks_end, ms, k_only, t_bad, work = box_tick_alone(model, pb, c, ks0, d, v, i)
-    tick = {"fleet": model, "T": T_MAIN, "B": B_MAIN, "dtype": "float32", "ms": ms,
-            "kernel_only_ms": k_only, "ms_per_tick": ms / (T_MAIN - 1), **bound(work),
-            "f32_first_nonfinite_tick": t_bad,
-            "admm_iters_mean": float(ks_end.iters.double().mean()),
-            "path": "make_lanes_fleet_runner's inputs (the log's orientation)"}
+            # the constrained tick of the counted run: time, bound, iterations
+            ms_tick, work, iters = box_tick_figures(pp, c32, calls[0])
+            t_bad = first_nonfinite(x)
+            tick = {"fleet": model, "T": T_MAIN, "B": B_MAIN, "dtype": "float32", "ms": ms_tick,
+                    "kernel_only_ms": k_only, "ms_per_tick": ms_tick / (T_MAIN - 1),
+                    **bound(work), "bytes": work[0], "operations": work[1],
+                    "f32_first_nonfinite_tick": t_bad,
+                    "admm_iters_mean": float(iters.double().mean()),
+                    "path": "the counted run of make_lanes_fleet_runner"}
+        else:
+            k2_ms = k_only
+        del x, x64, calls
 
     pipe = batch.make_pipeline_fleet_runner(p, pe, F32, use_megakernel=True, device=DEV)
-    bad = ~torch.isfinite(pipe(*fleet32)[0]).reshape(T_MAIN, -1).all(-1)
+    pipe_bad = first_nonfinite(pipe(*fleet32)[0])
     emit("bench_route", model=model,
          config=f"{model} N={N_WIN} s={p.dim_state} m={p.dim_meas} L={p.num_legs} "
                 f"leg_odom_type={p.leg_odom_type}; lanes runner; box |v|<=0.3, rho=5000 fixed, "
                 "20 it + polish",
          T=T_MAIN, B=B_MAIN, dtype="float32", rmse_gate=gate, f32_gated_ticks=T_MAIN, **res,
          mhe_tick_box_alone=tick,
-         pipeline_runner_f32_first_nonfinite_tick=(int(torch.nonzero(bad)[0, 0])
-                                                   if bool(bad.any()) else None),
+         pipeline_runner_f32_first_nonfinite_tick=pipe_bad,
          failed=failed)
     assert not failed, (model, failed)
-    return tick
+    return tick, k2_ms
 
 
 def window_inputs(c, fleet, R, dtype, T):
@@ -1809,12 +1932,13 @@ def window_inputs(c, fleet, R, dtype, T):
     return st0, mrk.kernel_state_from_mhe(st0, c), seg(data_l, vo, vo_inc, slice(1, None))
 
 
-def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick_ms):
+def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick_ms, box_tick):
     """``model``'s new kernel instantiations against their plain versions at
     the main path's width (B=1024, N=20) on the float64 main path's
     orientation: float64 element-wise over T_BOX_PLAIN ticks; the kernels'
-    float32 times over the whole log (the unconstrained tick's, ``mhe_tick_ms``,
-    from the main path's runs), the plain versions' over T_BOX_PLAIN ticks
+    float32 times over the whole log (the ticks' from the main path's runs:
+    the unconstrained one's ``mhe_tick_ms``, the constrained one's
+    ``box_tick`` from ``box_path``), the plain versions' over T_BOX_PLAIN ticks
     (eager loops), and the float32 kernel held to the float64 plain version
     by accuracy there; the bounds from this run's inputs. Returns the
     kernels' entries of the last-but-one line."""
@@ -1864,7 +1988,7 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     works[f"tridiag_solve[s={s}]"] = _work.tridiag(N_WIN, s, B_MAIN, 4, n_states=1)
     more["mhe_tick" + tag] = {
         "max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
-        "ms_how": "the kernel alone (CUDA events), best of the main path's 3 timed runs",
+        "ms_how": "the kernel alone (CUDA events), best of the main path's timed runs",
         "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
         "plain_f64_ms": plain64_ms,
         "f32_vel_rmse_vs_f64": {"kernel": rk, "plain": rp, "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]}}
@@ -1887,13 +2011,13 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     err[f"admm_box_solve[s={s}]"] = max(el.values())
 
     cb32 = box_consts(pb, F32, V_BOX, 20)
-    stb32, ksb32, (dm, vm, im) = inputs(cb32, fleet32, F32, T_MAIN)
-    xb32, ks_end, ms["mhe_tick_box" + tag], kb_only, nb, works["mhe_tick_box" + tag] = \
-        box_tick_alone(model, pb, cb32, ksb32, dm, vm, im)
-    _, ksbp, (dbp, vbp, ibp) = inputs(cb32, fleet32, F32, T_BOX_PLAIN)
+    stb32, ksbp, (dbp, vbp, ibp) = inputs(cb32, fleet32, F32, T_BOX_PLAIN)
+    xb32, _ = mrk.replay_ticks(cb32, ksbp, dbp, vbp, ibp, device=DEV)
     (xb32p, _), plain_ms["mhe_tick_box" + tag] = wall_ms(
         lambda: mrk.replay_ticks_plain(cb32._replace(use_pallas=False), ksbp, dbp, vbp, ibp))
-    rbk, rbp = vel_rmse(xb32[:T_BOX_PLAIN - 1], x_bp, N_WIN), vel_rmse(xb32p, x_bp, N_WIN)
+    ms["mhe_tick_box" + tag], works["mhe_tick_box" + tag] = box_tick["ms"], box_tick["work"]
+    kb_only, nb, ks_end = box_tick["kernel_only_ms"], box_tick["t_bad"], box_tick["ks_end"]
+    rbk, rbp = vel_rmse(xb32, x_bp, N_WIN), vel_rmse(xb32p, x_bp, N_WIN)
     assert abs(rbk - rbp) < 1e-3, (f"{model} constrained f32 velocity-RMSE delta", rbk, rbp)
     del xb32, xb32p
     st_end = mrk.mhe_state_from_kernel(ks_end, cb32)
@@ -1914,9 +2038,10 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     more["mhe_tick_box" + tag] = {
         "max_abs_err_shape": f64_shape, "max_abs_err_by_output": e_tick,
         "kernel_only_ms": kb_only, "ms_runs": 1, "plain_and_kernel_f64_s": plainb64_s,
+        "ms_how": "the constrained main path's counted run (box_path), around the wrapper",
         "f32_first_nonfinite_tick": nb,
         "plain_ms_shape": dict(f64_shape, N=N_WIN),
-        "admm_iters_mean": float(ks_end.iters.double().mean()),
+        "admm_iters_mean": float(box_tick["iters"].double().mean()),
         "f32_vel_rmse_vs_f64": {"kernel": rbk, "plain": rbp, "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]}}
     more[f"admm_solve[s={s}]"] = {"shape": {"B": B_MAIN, "N": N_WIN, "window": "tick 0: one real slot"},
                                   "max_abs_err_by_output": {"tick0_window": e0, "final_window": el}}
@@ -1949,11 +2074,423 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
                        **{k: dict(v, model=model) for k, v in more.items() if k in meta})
 
 
+
+# ------------------------------------------- the Cholesky tail (K2d)
+
+
+def check_kernels_chol(model):
+    """K2d, the tick with the Cholesky tail, at ``model``'s shape against its
+    plain version (the tick loop both tails share) and against K2, at the
+    small size, float64, on the EKF kernel's orientation: a log split over
+    two calls, the plain version from a kernel state, a ragged fleet through
+    the lanes runner with DEM_MK_SOLVE=chol; and the refusals: the tail on
+    per-lane clocks (a ROADMAP row) and a tail that does not exist."""
+    p = robot_params(model)[0]
+    fleet = ekf_oriented(model, make_fleet(T_CHK, B_CHK, F64, seed=1, model=model)[1:], F64)
+    c = mhe.make_consts(p, F64, device=DEV)
+    ks0, (d1, v1, i1) = clock_inputs(c, fleet, F64)
+    assert int(v1.active.sum()) > 0 and T_CHK > N_WIN
+    x_p, ks_p = mrk.replay_ticks_plain(c._replace(use_pallas=False), ks0, d1, v1, i1)
+    reset_counts()
+    x_k, ks_k = mrk.replay_ticks(c, ks0, d1, v1, i1, device=DEV, mk_solve="chol")
+    assert read_counts() == dict(NO_LAUNCH, mhe_tick_chol=1), read_counts()
+    errs = {}
+    ok, errs["x"] = close(x_k, x_p, **TOL_MHE)
+    assert ok, ("mhe_tick_chol vs plain", model, errs["x"])
+    check_schedule(ks_k, ks_p, f"{model} chol")
+    x_g, _ = mrk.replay_ticks(c, ks0, d1, v1, i1, device=DEV)
+    ok, errs["vs_gauss_jordan_kernel"] = close(x_k, x_g, **TOL_CHOL_VS_GJ)
+    assert ok, ("mhe_tick_chol vs mhe_tick", model, errs["vs_gauss_jordan_kernel"])
+    cut = lambda sl: (estimator.TickData(*(a[sl] for a in d1)),
+                      estimator.VOData(*(a[sl] for a in v1)), i1[sl])
+    xA, ksA = mrk.replay_ticks(c, ks0, *cut(slice(0, 30)), device=DEV, mk_solve="chol")
+    xB, ksB = mrk.replay_ticks(c, ksA, *cut(slice(30, None)), device=DEV, mk_solve="chol")
+    ok, errs["split_log"] = close(torch.cat([xA, xB]), x_k, **TOL_MHE)
+    assert ok and ksB.t == ks_k.t, ("mhe_tick_chol split-log resume", model, errs["split_log"])
+    xBp, _ = mrk.replay_ticks_plain(c._replace(use_pallas=False), ksA, *cut(slice(30, None)))
+    ok, errs["plain_from_kernel_state"] = close(xB, xBp, **TOL_MHE)
+    assert ok, ("plain version from a mhe_tick_chol state", model, errs["plain_from_kernel_state"])
+
+    # a ragged fleet through the lanes runner, the tail from the environment
+    _, data_r, _, vo_r = make_fleet(T_RAGGED, B_RAGGED, F64, seed=2, model=model)
+    run_p = batch.make_lanes_fleet_runner(p, F64, use_megakernel=False, use_pallas=False,
+                                          device=DEV)
+    with mk_solve_env("chol"):
+        run_k = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, device=DEV)
+        reset_counts()
+        xk, vk = run_k(data_r, vo_r)
+        assert read_counts() == dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_chol=1), read_counts()
+        xp, vp = run_p(data_r, vo_r)
+        okx, ex = close(xk, xp, **TOL_MHE)
+        okv, ev = close(vk, vp, **TOL_MHE)
+        assert okx and okv, ("ragged B, DEM_MK_SOLVE=chol", model, ex, ev)
+        errs["ragged"] = {"B": B_RAGGED, "T": T_RAGGED, "x": ex, "v": ev}
+        # per-lane clocks have no Cholesky tail on the card: it says so
+        try:
+            run_k(data_r, uniform_clock(vo_r, B_RAGGED))
+            refused = None
+        except NotImplementedError as e:
+            refused = str(e)
+        assert refused and "ROADMAP.md" in refused, refused
+    try:
+        mrk.replay(c, batch.tickdata_to_lanes(data_r), vo_r, dtype=F64, device=DEV,
+                   mk_solve="cholesky")
+        unknown = None
+    except ValueError as e:
+        unknown = str(e)
+    assert unknown, "an unknown tail must raise"
+    emit("kernels_chol", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
+         leg_odom_type=p.leg_odom_type, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
+         tol=TOL_MHE, tol_vs_gauss_jordan=TOL_CHOL_VS_GJ, mhe_tick_chol_err=errs,
+         per_lane_clock_refused=refused, unknown_tail_refused=unknown)
+
+
+def chol_path(model, fleet64, fleet32, gt_v, k2_ms=None):
+    """Cell (p): DEM_MK_SOLVE=chol on ``model``'s headline path at full width —
+    Go1's and PogoX's pipeline runner, Cassie's (at the bench's settings) lanes
+    runner, where the pipeline runner's float32 estimate breaks down (F6).
+    The counted float32 run (also the timed one: the tick kernel alone) and a
+    float64 run of the same path: launches, accuracy against ground truth and
+    float32 against float64 over the whole log (on Cassie's shape, where the
+    float32 Cholesky tail breaks down on this fleet (F6), over its first
+    F6_TICKS[model] ticks: ``f32_ticks``), the difference per 100 ticks;
+    K2d against its plain version in float64 on the float64 run's own inputs
+    over T_BOX_PLAIN ticks; K2d and K2 on the float32 run's inputs timed in
+    turns (two each; Cassie: the counted run against ``k2_ms``, the
+    Gauss-Jordan tick of ``bench_route``'s counted run on the same fleet),
+    with both kernels' ptxas figures. Returns the kernel's entry of the
+    last-but-one line."""
+    p, pe = robot_params(model)
+    s, tag = p.dim_state, {"cassie_bench": "cassie"}.get(model, model)
+    lanes = model == "cassie_bench"
+    gate = RMSE_GATE[model]
+
+    def make(dtype):
+        if lanes:
+            run = batch.make_lanes_fleet_runner(p, dtype, use_megakernel=True, device=DEV)
+            return lambda f: run(f[0], f[2])[0]
+        run = batch.make_pipeline_fleet_runner(p, pe, dtype, use_megakernel=True, device=DEV)
+        return lambda f: run(*f)[0]
+
+    with mk_solve_env("chol"):
+        run32 = make(F32)
+        reset_counts()
+        mrk.timer.on = True
+        with tick_calls() as calls:
+            x, wall = wall_ms(lambda: run32(fleet32))
+        mrk.timer.on = False
+        counted_ms = mrk.timer.ms()
+        counts = read_counts()
+        want = dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_chol=1, ekf_stage=0 if lanes else 1)
+        assert counts == want, (model, counts)
+        with tick_calls() as calls64:
+            x64 = make(F64)(fleet64)
+    assert x.shape == (T_MAIN, B_MAIN, s)
+    n, t_bad = f32_ticks(model, x)
+    rmse, r64_all = fleet_rmse(x[:n], gt_v[:n]), fleet_rmse(x64, gt_v)
+    r64 = fleet_rmse(x64[:n], gt_v[:n])
+    rmse_all = fleet_rmse(x, gt_v)
+    failed = [what for what, ok in (
+        ("float64 estimate finite", bool(torch.isfinite(x64).all())),
+        ("RMSE vs ground truth", rmse < gate and r64_all < gate),
+        ("f32-vs-f64 velocity-RMSE delta", abs(rmse - r64) < 1e-3)) if not ok]
+    dv = (x[..., 3:6].double() - x64[..., 3:6]).abs().reshape(T_MAIN // 100, -1)
+    drift = [float(d.max()) if bool(torch.isfinite(d).all()) else None for d in dv]
+    del dv, x, x64
+
+    # float64, element-wise, on the float64 run's own tick inputs
+    c64, ks64, d, v, i = calls64[0]["args"]
+    T = T_BOX_PLAIN - 1
+    d64, v64, i64 = (estimator.TickData(*(a[:T].contiguous() for a in d)),
+                     estimator.VOData(*(a[:T] for a in v)), i[:T].contiguous())
+    del calls64, d, v, i
+    (x_p, _), plain_ms = wall_ms(
+        lambda: mrk.replay_ticks_plain(c64._replace(use_pallas=False), ks64, d64, v64, i64))
+    x_k, _ = mrk.replay_ticks(c64, ks64, d64, v64, i64, device=DEV, mk_solve="chol")
+    ok, err = close(x_k, x_p, **TOL_MHE)
+    failed += [] if ok else ["mhe_tick_chol against its plain version at full width"]
+
+    # K2d and K2 on the float32 run's inputs, in turns
+    c32, ks32, d32, v32, i32 = calls[0]["args"]
+    ab = {"mhe_tick_chol": [min(counted_ms)], "mhe_tick": [] if k2_ms is None else [k2_ms]}
+    if not lanes:
+        mrk.timer.on = True
+        for _ in range(2):
+            for tail, key in (("chol", "mhe_tick_chol"), ("gj", "mhe_tick")):
+                mrk.replay_ticks(c32, ks32, d32, v32, i32, device=DEV, mk_solve=tail)
+                ab[key] += mrk.timer.ms()
+        mrk.timer.on = False
+    sched = _work.mhe_schedule(v32.active.tolist(), v32.tick_pre.tolist(),
+                               v32.tick_now.tolist(), N_WIN, int(ks32.bez_count))
+    n_stance = int((d32.contact > 0).sum())
+    work = _work.mhe_tick(N_WIN, s, p.dim_meas, p.num_legs, B_MAIN, sched, n_stance, 4,
+                          lot=p.leg_odom_type, tail="chol")
+    work_gj = _work.mhe_tick(N_WIN, s, p.dim_meas, p.num_legs, B_MAIN, sched, n_stance, 4,
+                             lot=p.leg_odom_type)
+    del calls
+    ptxas = {"mhe_tick_chol": tick_ptxas(f"mhe_{tag}_chol", "mhe_chol_kernel"),
+             "mhe_tick": tick_ptxas(f"mhe_{tag}", "mhe_kernel")}
+    ms = min(ab["mhe_tick_chol"])
+    emit("chol_path", model=model, config=f"{model} N={N_WIN} s={s} m={p.dim_meas} "
+         f"L={p.num_legs} leg_odom_type={p.leg_odom_type}, DEM_MK_SOLVE=chol, "
+         + ("lanes runner" if lanes else "pipeline runner"),
+         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
+         pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
+         rmse_vs_ground_truth=rmse, rmse_f64=r64, rmse_f64_all_ticks=r64_all, rmse_gate=gate,
+         f32_gated_ticks=n, f32_first_nonfinite_tick=t_bad, rmse_f32_all_ticks=rmse_all,
+         f32_vs_f64_velocity_max_abs_per_100_ticks=drift,
+         max_abs_err_f64={"T": T_BOX_PLAIN, "x": err}, plain_f64_ms=plain_ms,
+         kernel_only_ms_in_turns=ab, bound_ms={"mhe_tick_chol": bound(work)["bound_ms"],
+                                               "mhe_tick": bound(work_gj)["bound_ms"]},
+         ptxas_registers_frame_spill_stores_loads=ptxas, failed=failed)
+    assert not failed, (model, failed)
+    return kernel_rows({f"mhe_tick_chol[{tag}]": (
+        "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+        "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (mk_solve='chol')")},
+        {f"mhe_tick_chol[{tag}]": work}, {f"mhe_tick_chol[{tag}]": counts["mhe_tick_chol"]},
+        {f"mhe_tick_chol[{tag}]": err}, {f"mhe_tick_chol[{tag}]": ms},
+        {f"mhe_tick_chol[{tag}]": plain_ms},
+        **{f"mhe_tick_chol[{tag}]": {
+            "model": model, "ms_how": "the kernel alone (CUDA events), best of the runs in turns"
+            if not lanes else "the kernel alone (CUDA events), the counted run",
+            "max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
+            "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+            "plain_ms_dtype": "float64", "gauss_jordan_kernel_only_ms": ab["mhe_tick"],
+            "ptxas": ptxas, "path": "DEM_MK_SOLVE=chol, " + (
+                "make_lanes_fleet_runner" if lanes else "make_pipeline_fleet_runner")}})
+
+
+# ----------------------- per-lane camera clocks at the Cassie and PogoX shapes
+
+
+def f6_witness(call, x, x64, cam):
+    """The float32 plain version of a counted run's per-lane-clock tick
+    (``call``, recorded by ``tick_calls``) on the card over ticks F6_WITNESS,
+    from the kernel's state at the tick before (the kernel reruns the ticks up
+    to it): per 100 ticks over the lanes with a camera (``cam``), the largest
+    |v| of plain and kernel (``x``, the counted run), their largest velocity
+    difference from each other and, where the float64 run ``x64`` reaches,
+    from float64 (None where a block is not finite). A plain version that
+    departs from float64 and leaves the box in the ticks where the kernel does
+    shows fault F6, not a float32 fault of the kernel alone."""
+    c, ks0, d, v, i = call["args"]
+    a, b = F6_WITNESS
+    cut = lambda sl: (estimator.TickData(*(t[sl] for t in d)),
+                      estimator.VOData(*(t[sl] for t in v)), i[sl])
+    # tick call j gives x[j + 1]
+    _, ks = mrk.replay_ticks(c, ks0, *cut(slice(0, a - 1)), device=DEV)
+    (xp, _), plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(
+        c._replace(use_pallas=False), ks, *cut(slice(a - 1, b - 1))))
+    vp = torch.movedim(xp, -1, 1)[:, cam, 3:6].double()
+    vk = x[a:b, cam, 3:6].double()
+    per_100 = lambda t: [float(m) if math.isfinite(m) else None for m in
+                         t.reshape(t.shape[0] // 100, -1).amax(-1).tolist()]
+    out = {"ticks": [a, b], "plain_f32_ms": plain_ms,
+           "max_abs_v_plain_per_100_ticks": per_100(vp.abs()),
+           "max_abs_v_kernel_per_100_ticks": per_100(vk.abs()),
+           "plain_vs_kernel_velocity_max_abs_per_100_ticks": per_100((vp - vk).abs())}
+    if x64.shape[0] >= b:
+        v64 = x64[a:b, cam, 3:6]
+        out["plain_vs_f64_velocity_max_abs_per_100_ticks"] = per_100((vp - v64).abs())
+        out["kernel_vs_f64_velocity_max_abs_per_100_ticks"] = per_100((vk - v64).abs())
+    return out
+
+
+def pi_cell(model, box, clocks64, clocks32, gt_v):
+    """Cells (l)-(o): ``model``'s fleet with a camera clock per lane (15
+    clocks, every 64th lane VO-free) through the lanes runner at full width,
+    unconstrained (K2b) or with the |v| <= 0.3 box (K2c on per-lane clocks).
+    The counted float32 run is the timed one (wall, the tick around its
+    wrapper and alone; the bound from the schedules it walked and, with the
+    box, the ADMM iterations it ran); a float64 run of the same path, over
+    the whole log unconstrained and T_BOX_F64 ticks with the box: RMSE against
+    ground truth and float32 against float64 over the lanes with a camera
+    (F5), the difference per 100 ticks, the box; for a fleet of fault F6
+    the float32 plain tick over ticks F6_WITNESS (``f6_witness``); then the
+    tick against its plain version in float64 over T_BOX_PLAIN ticks at full
+    width (with the box the y limit and witness of its shared-clock or Go1
+    twin). Returns the
+    kernel's entry of the last-but-one line."""
+    p = box_params(model=model) if box else robot_params(model)[0]
+    s, m, L, lot = p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type
+    tag = {"cassie_bench": "cassie"}.get(model, model)
+    name = ("mhe_tick_pi_box" if box else "mhe_tick_pi") + f"[{tag}]"
+    gate = RMSE_GATE[model]
+    consts = lambda dt: (box_consts(p, dt, V_BOX, 20) if box else
+                         mhe.make_consts(p, dt, use_pallas=True, device=DEV))
+    data_b, _, vo = clocks32
+    run = batch.make_lanes_fleet_runner(p, F32, use_megakernel=True, consts=consts(F32), device=DEV)
+    reset_counts()
+    mrk.timer.on = True
+    with tick_calls() as calls:
+        (x, _), wall = wall_ms(lambda: run(data_b, vo))
+    mrk.timer.on = False
+    k_only = min(mrk.timer.ms())
+    counts = read_counts()
+    want = (dict(NO_LAUNCH, mhe_tick_pi_box=1, admm_solve=1, admm_box_solve=2) if box
+            else dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_pi=1))
+    assert counts == want, (model, counts)
+    assert x.shape == (T_MAIN, B_MAIN, s)
+    cam = vo.active.any(0)
+    n, t_bad = f32_ticks(model, x, cam)
+    free_bad = first_nonfinite(x[:, ~cam])
+    rmse, rmse_all = fleet_rmse(x[:n], gt_v[:n], cam), fleet_rmse(x, gt_v, cam)
+    t64 = T_BOX_F64 if box else T_MAIN
+    run64 = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, consts=consts(F64),
+                                          device=DEV)
+    d64, _, v64 = head(clocks64, t64)
+    x64 = run64(d64, v64)[0]
+    r64_all = fleet_rmse(x64, gt_v[:t64])
+    td = min(n, t64)
+    r32, r64 = fleet_rmse(x[:td], gt_v[:td], cam), fleet_rmse(x64[:td], gt_v[:td], cam)
+    failed = [what for what, ok in (
+        ("float64 estimate finite", bool(torch.isfinite(x64).all())),
+        ("RMSE vs ground truth", rmse < gate and r64_all < gate),
+        ("f32-vs-f64 velocity-RMSE delta", abs(r32 - r64) < 1e-3)) if not ok]
+    dv = (x[:t64, cam, 3:6].double() - x64[:, cam, 3:6]).abs()
+    drift = [float(d.max()) if bool(torch.isfinite(d).all()) else None
+             for d in dv.reshape(t64 // 100, -1)]
+    extra = {}
+    if box:
+        vmax = float(x[:n, cam, 3:6].abs().max())
+        vmax64 = float(x64[..., 3:6].abs().max())
+        failed += [what for what, ok in (
+            ("velocity box, float32", V_BOX - 1e-2 <= vmax <= V_BOX + 1e-3),
+            ("velocity box, float64", V_BOX - 1e-2 <= vmax64 <= V_BOX + 1e-3)) if not ok]
+        extra = {"max_abs_v": {"T": n, "f32": vmax}, "max_abs_v_f64": {"T": t64, "f64": vmax64},
+                 "max_abs_v_f32_per_100_ticks":
+                     x[:, cam, 3:6].abs().reshape(T_MAIN // 100, -1).amax(-1).tolist()}
+    if model in F6_TICKS:
+        extra["f6_witness"] = f6_witness(calls[0], x, x64, cam)
+    del dv, x, x64
+    call = calls[0]
+    ms, (_, ks0, d, v, _) = call_ms(call), call["args"]
+    iters = call["out"][1].iters if box else None
+    groups = _work.mhe_lane_schedules(v.active.cpu().numpy(), v.tick_pre.cpu().numpy(),
+                                      v.tick_now.cpu().numpy(), N_WIN,
+                                      ks0.bez_count[0].cpu().numpy())
+    work = _work.mhe_tick_lanes(
+        N_WIN, s, m, L, groups, int((d.contact > 0).sum()), 4, lot=lot,
+        box=(iters.cpu().numpy(),) + admm_work_settings(call["args"][0]) if box else None)
+    del calls, call, d, v
+
+    # float64 element-wise at full width over T_BOX_PLAIN ticks
+    c64 = consts(F64)
+    ks, (d, vv, i) = clock_inputs(c64, clocks64, F64, T=T_BOX_PLAIN)
+    plain, plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c64._replace(use_pallas=False),
+                                                            ks, d, vv, i))
+    if box:
+        _, _, _, errs = check_box_tick(c64, c64._replace(use_pallas=False), ks, d, vv, i,
+                                       f"{model} per-lane clocks, full width",
+                                       fma=model not in Y_ROUNDING_ROBOTS,
+                                       rounding=model in Y_ROUNDING_ROBOTS, plain=plain)
+        err = max(errs[f] for f in "xzy")
+    else:
+        x_k, ks_k = mrk.replay_ticks(c64, ks, d, vv, i, device=DEV)
+        ok, err = close(x_k, plain[0], **TOL_MHE)
+        failed += [] if ok else ["per-lane-clock mhe_tick against its plain version at full width"]
+        check_schedule(ks_k, plain[1], f"{model} per-lane clocks, full width")
+        errs = {"x": err}
+    emit(f"{tag}_pi_box" if box else f"{tag}_pi",
+         config=f"{model} N={N_WIN} s={s} m={m} L={L} leg_odom_type={lot}, 15 camera clocks, "
+         "every 64th lane VO-free" + (", |v|<=0.3, rho=5000 fixed, 20 it + polish" if box else ""),
+         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
+         wall_from="the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
+         tick_ms=ms, tick_kernel_only_ms=k_only, rmse_vs_ground_truth=rmse, rmse_gate=gate,
+         rmse_lanes=int(cam.sum()), f32_gated_ticks=n, f32_first_nonfinite_tick=t_bad,
+         rmse_f32_all_ticks=rmse_all, vo_free_lanes_first_nonfinite_tick=free_bad,
+         f64_twin={"T": t64, "rmse_f32": r32, "rmse_f64": r64, "ticks_compared": td,
+                   "rmse_f64_all_lanes": r64_all},
+         f32_vs_f64_velocity_max_abs_per_100_ticks=drift, **extra,
+         max_abs_err_f64={"T": T_BOX_PLAIN, **errs}, plain_f64_ms=plain_ms,
+         admm_iters_mean=None if iters is None else float(iters.double().mean()),
+         distinct_lane_schedules=len(groups), failed=failed)
+    assert not failed, (model, failed)
+    return kernel_rows({name: (
+        "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+        "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (per_instance=True"
+        + (", admm_ks set)" if box else ")"))},
+        {name: work}, {name: counts["mhe_tick_pi_box" if box else "mhe_tick_pi"]}, {name: err},
+        {name: ms}, {name: plain_ms},
+        **{name: {"model": model, "kernel_only_ms": k_only,
+                  "ms_how": "the counted run, around the wrapper",
+                  "max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
+                  "max_abs_err_by_output": errs,
+                  "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+                  "plain_ms_dtype": "float64",
+                  "path": "make_lanes_fleet_runner, per-instance VOData"
+                          + (", box consts" if box else "")}})
+
+
+def legged_phases(model, builds, pool):
+    """Every phase of ``model``'s shape (PogoX, Cassie): its shared-clock
+    fleet (g)-(j) against float64 and the plain versions, its Cholesky tail
+    (Cassie's on the bench's route (k), run first), and its fleet on per-lane
+    clocks (l)-(o), each after waiting for its libraries. Returns the
+    kernels' entries of the last-but-one line."""
+    s = robot_params(model)[0].dim_state
+    need(builds, f"mhe_{model}", *((f"tridiag_s{s}", f"admm_s{s}") if s != 9 else ()),
+         *(((f"mhe_{model}", FMAD_OFF),) if model in Y_ROUNDING_ROBOTS else ()))
+    check_kernels_legged(model)
+    log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model=model)
+    f32 = tuple(cast(nt, F32) for nt in f64)
+    gt = torch.as_tensor(log.gt_v_s, device=DEV)
+    counts, x64, q64, tick_ms = main_path(model, f64, f32, gt)
+    del x64
+    box_counts, _, _, box_tick = box_path(model, f64, f32, gt)
+    kernels = legged_full_width(model, f64, f32, q64, counts, box_counts, tick_ms, box_tick)
+    del q64, box_tick
+    chol_model = model
+    if model == "cassie":
+        # Cassie's shape at the reference bench's settings through the
+        # bench's route (k): float32 gated over the whole log, the
+        # constrained tick timed on ticks that all do full work; the
+        # Cholesky tail runs on the same route (p)
+        builds.update(start_builds(pool, CASSIE_LATE_BUILDS))
+        log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model="cassie_bench")
+        f32 = tuple(cast(nt, F32) for nt in f64)
+        gt = torch.as_tensor(log.gt_v_s, device=DEV)
+        tick, k2_ms = bench_route("cassie_bench", f64, f32, gt)
+        # the constrained Cassie tick's row: its time and bound from (k),
+        # on which every tick does full work; the yaml fleet's (h) beside
+        row = next(k for k in kernels if k["name"] == "mhe_tick_box[cassie]")
+        keys = ("ms", "kernel_only_ms", "bound_ms", "bound_by", "bytes", "operations",
+                "admm_iters_mean", "f32_first_nonfinite_tick")
+        row["on_the_yaml_fleet"] = {k: row[k] for k in keys} | {"T": T_F6_BOX}
+        row.update({k: tick[k] for k in keys}, fleet="cassie_bench",
+                   ms_how="the counted run of bench_route's constrained lanes runner (k)")
+        chol_model = "cassie_bench"
+    else:
+        k2_ms = None
+    need(builds, f"mhe_{model}_chol")
+    check_kernels_chol(model)
+    kernels += chol_path(chol_model, f64, f32, gt, k2_ms=k2_ms)
+    del f64, f32
+    need(builds, *(b for b in (f"mhe_{model}_pi", (f"mhe_{model}_pi", FMAD_OFF)) if b in builds))
+    check_kernels_pi(model)
+    clock_model = "cassie_bench" if model == "cassie" else model
+    log, *c64 = make_clock_fleet(T_MAIN, B_MAIN, F64, seed=0, model=clock_model)
+    c32 = tuple(cast(nt, F32) for nt in c64)
+    gt = torch.as_tensor(log.gt_v_s, device=DEV)
+    for box in (False, True):
+        kernels += pi_cell(clock_model, box, c64, c32, gt)
+    return kernels
+
+
 def main():
     t_start = time.time()
+    group_s, t_group = {}, [t_start]
+
+    def done(group):
+        """Close a group of phases: its seconds go into the script line."""
+        now = time.time()
+        group_s[group] = round(now - t_group[0], 1)
+        t_group[0] = now
+
     card = phase_device()
-    pool = ThreadPoolExecutor(3)
-    legged_build = phase_build(pool)
+    pool = ThreadPoolExecutor(BUILDS_AT_ONCE)
+    builds = phase_build(pool)
+    done("build_go1")
     check_kernels()
     # one perturbed fleet at full width, drawn in float64; the main path runs
     # its float32 cast, so both precisions see the same inputs
@@ -1964,12 +2501,19 @@ def main():
     kernels = full_size(fleet64, fleet32, x64, q64, counts)
     del x64
     check_kernels_box()
-    box_counts, x64_box, q64_box = box_path("go1", fleet64, fleet32, gt_v)
+    box_counts, x64_box, q64_box, box_tick = box_path("go1", fleet64, fleet32, gt_v)
     box_sweep(fleet32)
     box_per_tick(fleet32)
-    kernels += box_full_width(fleet64, fleet32, x64_box, q64_box, box_counts)
-    del fleet64, x64_box
-    t_shared = time.time()
+    kernels += box_full_width(fleet64, fleet32, x64_box, q64_box, box_counts, box_tick)
+    del x64_box, box_tick
+    done("go1_shared_clock")
+    # the Cholesky tail at Go1's shape: cell (p) on cell (a)'s fleet
+    need(builds, "mhe_go1_chol")
+    check_kernels_chol("go1")
+    kernels += chol_path("go1", fleet64, fleet32, gt_v)
+    del fleet64
+    done("go1_cholesky")
+    need(builds, "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF))
     check_kernels_pi()
     _, *clocks64 = make_clock_fleet(T_MAIN, B_MAIN, F64, seed=0)
     clocks32 = tuple(cast(nt, F32) for nt in clocks64)
@@ -1978,31 +2522,13 @@ def main():
     kernels += pi_box(clocks64, clocks32, gt_v)
     pi_pipeline(clocks32, gt_v)
     del clocks64, clocks32
-    t_legged = time.time()
-    phase_build_legged(legged_build)
-    pool.shutdown()
+    done("go1_per_lane_clocks")
+    # PogoX, then Cassie (whose s=15 libraries compile longest)
     for model in LEGGED:
-        check_kernels_legged(model)
-        log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model=model)
-        f32 = tuple(cast(nt, F32) for nt in f64)
-        gt = torch.as_tensor(log.gt_v_s, device=DEV)
-        counts_l, x64_l, q64_l, tick_ms = main_path(model, f64, f32, gt)
-        del x64_l
-        box_counts_l = box_path(model, f64, f32, gt)[0]
-        kernels += legged_full_width(model, f64, f32, q64_l, counts_l, box_counts_l, tick_ms)
-        del f64, f32, q64_l
-    # Cassie's shape at the reference bench's settings through the bench's
-    # route: float32 gated over the whole log, the Cassie constrained tick
-    # timed on ticks that all do full work
-    log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model="cassie_bench")
-    f32 = tuple(cast(nt, F32) for nt in f64)
-    row = next(k for k in kernels if k["name"] == "mhe_tick_box[cassie]")
-    row["on_the_bench_settings_fleet"] = bench_route(
-        "cassie_bench", f64, f32, torch.as_tensor(log.gt_v_s, device=DEV))
-    del f64, f32
-    emit("script", seconds=time.time() - t_start,
-         shared_clock_phases_s=t_shared - t_start, per_lane_clock_phases_s=t_legged - t_shared,
-         cassie_pogox_phases_s=time.time() - t_legged)
+        kernels += legged_phases(model, builds, pool)
+        done(model)
+    pool.shutdown()
+    emit("script", seconds=time.time() - t_start, groups_s=group_s)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

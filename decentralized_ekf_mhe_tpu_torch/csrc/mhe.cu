@@ -1,22 +1,37 @@
 // mhe_tick — the C interface of the MHE replay kernels (csrc/mhe_body.cuh).
 //
-// Four kernels share one body: the shared camera clock or a clock per lane
-// (PI), unconstrained or box-constrained (CON), each for float and double —
-// instantiations of a body that takes nvcc tens of seconds each — and each
-// model shape is one more set of them. So this file is compiled once per
-// instantiation, with
+// Five kernels share one body: the shared camera clock or a clock per lane
+// (PI), unconstrained or box-constrained (CON), and the Cholesky tail (CHOL,
+// unconstrained on the shared clock), each for float and double —
+// instantiations of a body that takes nvcc tens of seconds each, minutes at
+// s=15 — and each model shape is one more set of them. So this file is
+// compiled once per instantiation, with
 //   -DDEM_MHE_SHAPE=<tag> -DDEM_MHE_S=<s> -DDEM_MHE_M=<m> -DDEM_MHE_L=<L>
 //   -DDEM_MHE_LOT=<leg_odom_type>
 //   -DDEM_MHE_UNIT=<symbol> -DDEM_MHE_REAL=float|double -DDEM_MHE_CON=0|1
-//   -DDEM_MHE_PI=0|1
-// (kernels/_build.py starts all of them at once, one nvcc process each), and
-// once more per shape without DEM_MHE_UNIT for the one entry point below,
-// which picks the unit by variant and element type. The units of one shape
-// link into a shared library of their own (libmhe_<tag>.so), built at the
-// first use of that shape. DEM_MHE_WITH_PI=0 builds a shape without the
-// per-lane-clock units.
+//   -DDEM_MHE_PI=0|1 [-DDEM_MHE_CHOL=1]
+// (kernels/_build.py starts all of them at once, one nvcc process each).
+// The units of one shape are grouped into shared libraries by variant: the
+// shared clock (libmhe_<tag>.so: unconstrained and constrained), the clock per
+// lane (libmhe_<tag>_pi.so) and the Cholesky tail (libmhe_<tag>_chol.so), each
+// built at its first use. Each library has this file once more, without
+// DEM_MHE_UNIT, for the one entry point below, which declares every unit of
+// its shape weak: a unit the library does not link is null there.
+//
+// A build with -DDEM_MHE_ONLY_BOX_F64 compiles the float64 constrained units
+// alone (the others come out empty): the build without FMA contraction that
+// chip_smoke.py's fma_witness compares needs no other.
+
+#ifndef DEM_MHE_CHOL
+#define DEM_MHE_CHOL 0
+#endif
+#define DEM_CAT2(a, b) a##b
+#define DEM_CAT(a, b) DEM_CAT2(a, b)
+#define DEM_MHE_IS_F64_double 1
+#define DEM_MHE_IS_F64_float 0
 
 #ifdef DEM_MHE_UNIT
+#if !defined(DEM_MHE_ONLY_BOX_F64) || (DEM_MHE_CON && DEM_CAT(DEM_MHE_IS_F64_, DEM_MHE_REAL))
 #include "mhe_body.cuh"
 
 extern "C" int DEM_MHE_UNIT(void* const* ptrs, const double* consts,
@@ -24,31 +39,30 @@ extern "C" int DEM_MHE_UNIT(void* const* ptrs, const double* consts,
                             const double* reals, int N, int B, int Tn, int t0,
                             int block, void* stream) {
   return dem::mhe_launch<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
-                         DEM_MHE_CON != 0, DEM_MHE_PI != 0>(
+                         DEM_MHE_CON != 0, DEM_MHE_PI != 0, DEM_MHE_CHOL != 0>(
       ptrs, consts, box_ptrs, ints, reals, N, B, Tn, t0, block, stream);
 }
+#endif
 
 #else
 
-#define DEM_CAT2(a, b) a##b
-#define DEM_CAT(a, b) DEM_CAT2(a, b)
-// dem_mhe_unit_<shape><suffix>, the symbol _build._mhe_unit gives a unit
+// dem_mhe_unit_<shape><suffix>, the symbol _build._mhe_units gives a unit
 #define DEM_UNIT(suffix) DEM_CAT(DEM_CAT(dem_mhe_unit_, DEM_MHE_SHAPE), suffix)
-#define DEM_MHE_UNIT_DECL(sym)                                                \
-  extern "C" int sym(void* const* ptrs, const double* consts,                 \
-                     void* const* box_ptrs, const int* ints,                  \
-                     const double* reals, int N, int B, int Tn, int t0,       \
-                     int block, void* stream);
-DEM_MHE_UNIT_DECL(DEM_UNIT(_f32))
-DEM_MHE_UNIT_DECL(DEM_UNIT(_f64))
-DEM_MHE_UNIT_DECL(DEM_UNIT(_box_f32))
-DEM_MHE_UNIT_DECL(DEM_UNIT(_box_f64))
-#if DEM_MHE_WITH_PI
-DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_f32))
-DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_f64))
-DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_box_f32))
-DEM_MHE_UNIT_DECL(DEM_UNIT(_pi_box_f64))
-#endif
+#define DEM_MHE_UNIT_DECL(suffix)                                             \
+  extern "C" __attribute__((weak)) int DEM_UNIT(suffix)(                      \
+      void* const* ptrs, const double* consts, void* const* box_ptrs,         \
+      const int* ints, const double* reals, int N, int B, int Tn, int t0,     \
+      int block, void* stream);
+DEM_MHE_UNIT_DECL(_f32)
+DEM_MHE_UNIT_DECL(_f64)
+DEM_MHE_UNIT_DECL(_box_f32)
+DEM_MHE_UNIT_DECL(_box_f64)
+DEM_MHE_UNIT_DECL(_pi_f32)
+DEM_MHE_UNIT_DECL(_pi_f64)
+DEM_MHE_UNIT_DECL(_pi_box_f32)
+DEM_MHE_UNIT_DECL(_pi_box_f64)
+DEM_MHE_UNIT_DECL(_chol_f32)
+DEM_MHE_UNIT_DECL(_chol_f64)
 
 namespace {
 constexpr int MHE_NPTRS = 34;                 // MhePtrs
@@ -56,31 +70,30 @@ constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 11; // MhePtrs, then MheBox
 }  // namespace
 
 // The entry point returns cudaGetLastError() of the launch, or -1 for a
-// shape or variant this library does not instantiate. con and pi pick the
-// unit: the box-constrained tick (con), a camera clock per lane (pi). ptrs:
-// the 34 pointers of MhePtrs in declaration order (mhe_launch lists them); a
+// shape or variant this library does not link. con, pi and chol pick the
+// unit: the box-constrained tick (con), a camera clock per lane (pi), the
+// Cholesky tail (chol; only unconstrained on the shared clock). ptrs: the 34
+// pointers of MhePtrs in declaration order (mhe_launch lists them); a
 // constrained tick takes the 11 of MheBox after them and the ADMM settings in
 // ints/reals (unread otherwise). A per-lane-clock tick takes the same
 // operands with (Tn,B) VO metadata and a (4,B)/(1,B) Bezier schedule.
-extern "C" int dem_mhe_tick(int is_double, int con, int pi, int S, int M, int L,
-                            int lot, void* const* ptrs, int nptrs,
+extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int S, int M,
+                            int L, int lot, void* const* ptrs, int nptrs,
                             const double* consts, const int* ints,
                             const double* reals, int N, int B, int Tn, int t0,
                             int block, void* stream) {
   using Unit = int (*)(void* const*, const double*, void* const*, const int*,
                        const double*, int, int, int, int, int, void*);
-  // [pi][con][is_double]
+  // [pi][con][is_double]; a unit this library does not link is null
   static const Unit units[2][2][2] = {
       {{DEM_UNIT(_f32), DEM_UNIT(_f64)}, {DEM_UNIT(_box_f32), DEM_UNIT(_box_f64)}},
-#if DEM_MHE_WITH_PI
       {{DEM_UNIT(_pi_f32), DEM_UNIT(_pi_f64)},
        {DEM_UNIT(_pi_box_f32), DEM_UNIT(_pi_box_f64)}}};
-#else
-      {{nullptr, nullptr}, {nullptr, nullptr}}};
-#endif
+  static const Unit chol_units[2] = {DEM_UNIT(_chol_f32), DEM_UNIT(_chol_f64)};
   const bool shape = S == DEM_MHE_S && M == DEM_MHE_M && L == DEM_MHE_L &&
                      lot == DEM_MHE_LOT && N >= 2;
-  const Unit unit = units[pi != 0][con != 0][is_double != 0];
+  const Unit unit = !chol ? units[pi != 0][con != 0][is_double != 0]
+                    : (!con && !pi) ? chol_units[is_double != 0] : nullptr;
   if (!shape || !unit || nptrs != (con ? MHE_BOX_NPTRS : MHE_NPTRS)) return -1;
   return unit(ptrs, consts, con ? ptrs + MHE_NPTRS : nullptr, ints, reals, N, B,
               Tn, t0, block, stream);

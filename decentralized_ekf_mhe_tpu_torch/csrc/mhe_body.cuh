@@ -4,9 +4,10 @@
 // leg-odometry form LOT) is a template parameter: Go1 (9, 12, 4, 0), Cassie
 // (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
 //
-// Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel in its
-// Gauss-Jordan form (reached through replay -> _replay_chunk), with the shared
-// camera clock or a clock per lane, unconstrained or box-constrained. One loop
+// Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel (reached
+// through replay -> _replay_chunk), with the shared camera clock or a clock per
+// lane, unconstrained or box-constrained, and with its Gauss-Jordan tail or,
+// unconstrained on the shared clock, its Cholesky tail. One loop
 // step is one estimator tick:
 //   VO ingestion + Bezier carry -> arrival-cost marginalization (t >= N) ->
 //   ring shift by base index + assembly of the two changed slots ->
@@ -71,6 +72,17 @@
 // blocks with process noise R Q_foot R^T / dt^2, the slide gain for a leg in
 // contact at the previous tick and the swing gain otherwise; the measurement
 // of leg i is y = R p_i with weight R (J_i C_enc_pos J_i^T)^-1 R^T.
+//
+// The Cholesky tail (template parameter CHOL; the TPU kernel with
+// mk_solve='chol', mhe_replay_kernel.py:743-772, 801-802): the same forward
+// sweep as a factor-and-substitute chain, chol_step below, and
+// x_{N-1} = L^-T L^-1 y. It keeps a packed triangle and the reciprocal pivots
+// (s(s+1)/2 + s scalars) where the Gauss-Jordan tail keeps S^-1 (s^2), and
+// does about 1.3 s^3 multiplies per slot against about 4 s^3. The Gauss-Jordan
+// statements are untouched; the Cholesky ones sit behind `if constexpr (CHOL)`.
+// With box constraints the tail is never reached (the ADMM solves the
+// window), as in the TPU kernel, so CHOL is an unconstrained, shared-clock
+// instantiation only (mhe_chol_kernel).
 #pragma once
 #include "admm.cuh"
 #include "smallmat.cuh"
@@ -350,7 +362,39 @@ DEM_HD void build_measurement_pos(const MheConsts<T, S, M>& c, const T* R, const
   }
 }
 
-template <typename T, int S, int M, int L, int LOT, bool CON, bool PI>
+// One slot of the Cholesky tail (CHOL; the TPU kernel with mk_solve='chol',
+// mhe_replay_kernel.py:743-772): the oldest slot's block is factored; after
+// it W = L^-1 U_prev, S_j = D_j - W^T W (only its lower triangle, which chol
+// reads, in place of D_j), z = L^-1 yv, yv = r_j - W^T z, then S_j is
+// factored.
+template <typename T, int S>
+DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd, T* yv) {
+  if (j == 0) {
+    chol<S>(D_j, Lc, rd);
+    DEM_UNROLL
+    for (int k = 0; k < S; ++k) yv[k] = r_j[k];
+    return;
+  }
+  T W[S * S], z[S], wz[S];
+  trsm_l<S, S>(Lc, rd, U_prev, W);
+  DEM_UNROLL_UPTO(S, S * S)
+  for (int a = 0; a < S; ++a) {
+    DEM_UNROLL_UPTO(S, S * S)
+    for (int c = a; c < S; ++c) {
+      T acc = W[a] * W[c];
+      DEM_UNROLL_UPTO(S, S * S)
+      for (int i = 1; i < S; ++i) acc += W[i * S + a] * W[i * S + c];
+      D_j[c * S + a] -= acc;
+    }
+  }
+  trsv_l<S>(Lc, rd, yv, z);
+  matvec_t<S, S>(W, z, wz);
+  DEM_UNROLL
+  for (int k = 0; k < S; ++k) yv[k] = r_j[k] - wz[k];
+  chol<S>(D_j, Lc, rd);
+}
+
+template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL = false>
 DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
   constexpr int SS = S * S;
@@ -591,6 +635,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     const int n_states = (t + 1 < N) ? t + 1 : N;
     const int first = N - n_states;
     T Sinv[SS], yv[S], U_prev[SS], prev_QdPP[SS], prev_rin[S];
+    T Lc[CHOL ? S * (S + 1) / 2 : 1], rd[CHOL ? S : 1];   // the Cholesky tail's factor
     T Mp[SS], np_[S];
     load<SS>(Mp, p.M_p, 0, B, b);
     load<S>(np_, p.n_p, 0, B, b);
@@ -655,6 +700,8 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
         store<SS>(q->Dw, (size_t)j * SS, B, b, D_j);
         store<S>(q->rw, (size_t)j * S, B, b, r_j);
         if (j < N - 1) store<SS>(q->Uw, (size_t)j * SS, B, b, U_j);
+      } else if constexpr (CHOL) {
+        chol_step<T, S>(j, D_j, r_j, U_prev, Lc, rd, yv);
       } else if (j == 0) {
         gj_inv<S>(D_j, Sinv);
         DEM_UNROLL
@@ -683,6 +730,10 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       q->iters[(size_t)i * B + b] =
           admm_box_solve<T, S>(w, q->admm, lb, ub, base_new, N, B, b);
       load<S>(xT, q->xw, (size_t)(N - 1) * S, B, b);
+    } else if constexpr (CHOL) {
+      T z[S];
+      trsv_l<S>(Lc, rd, yv, z);
+      trsv_lt<S>(Lc, rd, z, xT);
     } else {
       matvec<S, S>(Sinv, yv, xT);   // logical N-1 = newest state
     }
@@ -730,14 +781,23 @@ __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, Mh
   mhe_body<T, S, M, L, LOT, true, true>(p, c, &q, N, B, Tn, t0, b);
 }
 
+template <typename T, int S, int M, int L, int LOT>
+__global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
+                                int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
 // One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
-// constrained kernel, PI the per-lane camera clock. ptrs: the 34 pointers of
+// constrained kernel, PI the per-lane camera clock, CHOL the Cholesky tail
+// (unconstrained, shared clock only). ptrs: the 34 pointers of
 // MhePtrs in declaration order. consts (double): dt, H[m*s], Pc[3*s], then
 // Q_vo_p, C_p, C_accel, Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro,
 // Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw, xw, Sinv, ys; ints/reals as admm_settings reads them.
-template <typename T, int S, int M, int L, int LOT, bool CON, bool PI>
+template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL>
 int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
                const int* ints, const double* reals, int N, int B, int Tn,
                int t0, int block, void* stream) {
@@ -791,7 +851,10 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   if constexpr (LOT == 1)
     for (int i = 0; i < 9; ++i) c.Q_foot_slide[i] = (T)consts[k++];
   const int grid = (B + block - 1) / block;
-  if constexpr (!CON) {
+  static_assert(!CHOL || (!CON && !PI), "the Cholesky tail runs unconstrained on the shared clock");
+  if constexpr (CHOL) {
+    mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+  } else if constexpr (!CON) {
     if constexpr (PI)
       mhe_pi_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
     else

@@ -164,6 +164,71 @@ DEM_HD void gj_inv(const T* A, T* Inv) {
   for (int i = 0; i < n * n; ++i) Inv[i] = R[i];
 }
 
+// ---- Cholesky factor and triangular solves (the Cholesky tail of the MHE
+// tick; the reference's pallas/tridiag_kernel.py _chol, _trsm_l, _trsv_l,
+// _trsv_lt). The factor L of an SPD n x n matrix is kept as its lower
+// triangle packed by rows, Lp[tri(i) + k] = L[i][k] for k <= i, beside the
+// reciprocal pivots rd[i] = 1 / L[i][i], which the solves multiply by. All
+// loops unroll together, as gj_inv's do. Sums run m = 0, 1, ... like the
+// reference's.
+DEM_HD constexpr int tri(int i) { return i * (i + 1) / 2; }
+
+// Lp, rd of A (reads its lower triangle). Each pivot is clamped at 1e-30
+// before its square root, in both types, as the reference clamps it: a
+// Schur block that rounding has left indefinite gives a tiny pivot, not NaN.
+template <int n, typename T>
+DEM_HD void chol(const T* A, T* Lp, T* rd) {
+  DEM_UNROLL_UPTO(n, n * n)
+  for (int k = 0; k < n; ++k) {
+    T d = A[k * n + k];
+    DEM_UNROLL_UPTO(n, n * n)
+    for (int m = 0; m < k; ++m) d -= Lp[tri(k) + m] * Lp[tri(k) + m];
+    d = sqrt(d < T(1e-30) ? T(1e-30) : d);   // NaN passes, as jnp.maximum's
+    Lp[tri(k) + k] = d;
+    rd[k] = T(1) / d;
+    DEM_UNROLL_UPTO(n, n * n)
+    for (int i = k + 1; i < n; ++i) {
+      T e = A[i * n + k];
+      DEM_UNROLL_UPTO(n, n * n)
+      for (int m = 0; m < k; ++m) e -= Lp[tri(i) + m] * Lp[tri(k) + m];
+      Lp[tri(i) + k] = e * rd[k];
+    }
+  }
+}
+
+// X (n x c) = L^-1 Bm (n x c), row by row
+template <int n, int c, typename T>
+DEM_HD void trsm_l(const T* Lp, const T* rd, const T* Bm, T* X) {
+  DEM_UNROLL_UPTO(n, n * n)
+  for (int i = 0; i < n; ++i) {
+    DEM_UNROLL_UPTO(c, n * n)
+    for (int j = 0; j < c; ++j) {
+      T acc = Bm[i * c + j];
+      DEM_UNROLL_UPTO(n, n * n)
+      for (int m = 0; m < i; ++m) acc -= Lp[tri(i) + m] * X[m * c + j];
+      X[i * c + j] = acc * rd[i];
+    }
+  }
+}
+
+// z (n) = L^-1 b
+template <int n, typename T>
+DEM_HD void trsv_l(const T* Lp, const T* rd, const T* b, T* z) {
+  trsm_l<n, 1>(Lp, rd, b, z);
+}
+
+// x (n) = L^-T z, from the last row up
+template <int n, typename T>
+DEM_HD void trsv_lt(const T* Lp, const T* rd, const T* z, T* x) {
+  DEM_UNROLL_UPTO(n, n * n)
+  for (int i = n - 1; i >= 0; --i) {
+    T acc = z[i];
+    DEM_UNROLL_UPTO(n, n * n)
+    for (int m = i + 1; m < n; ++m) acc -= Lp[tri(m) + i] * x[m];
+    x[i] = acc * rd[i];
+  }
+}
+
 // Closed-form adjugate inverse of a 3 x 3 matrix (ops/lanes.inv3).
 template <typename T>
 DEM_HD void inv3(const T* A, T* Inv) {

@@ -6,9 +6,11 @@ becomes one or more shared libraries ``build/<hash>/lib<name>.so``, where
 translation units. A library is linked from one or more translation units
 (``UNITS``): ``csrc/mhe.cu`` is compiled once per instantiation of its kernel
 body, because one nvcc process would spend minutes on all of them in a row,
-and each model shape of ``MHE_SHAPES`` is a library of its own
-(``libmhe_go1.so``, ``libmhe_cassie.so``, ``libmhe_pogox.so``), so a fleet of
-one robot builds only its own; likewise ``csrc/tridiag.cu`` and
+and each model shape of ``MHE_SHAPES`` has one library per variant group of
+``MHE_GROUPS`` (``libmhe_go1.so``: the shared camera clock,
+``libmhe_go1_pi.so``: a clock per lane, ``libmhe_go1_chol.so``: the Cholesky
+tail; likewise ``cassie`` and ``pogox``), so a fleet builds only what it
+launches; likewise ``csrc/tridiag.cu`` and
 ``csrc/admm.cu`` are one library per state size (``libtridiag_s9.so``,
 ``libadmm_s15.so``, ...). ``load`` builds a library at its first use, all its
 units at once, one nvcc process each; ``build`` builds several libraries that
@@ -39,12 +41,22 @@ NVCC_FLAGS = [
 
 
 # The model shapes the MHE tick is instantiated for: tag -> (s, m, L,
-# leg_odom_type, with the per-lane-clock variants). Go1 (the fleet of the
-# reference's bench), Cassie (foot positions as states) and PogoX (one leg).
+# leg_odom_type). Go1 (the fleet of the reference's bench), Cassie (foot
+# positions as states) and PogoX (one leg).
 MHE_SHAPES = {
-    "go1": (9, 12, 4, 0, True),
-    "cassie": (15, 6, 2, 1, False),
-    "pogox": (9, 3, 1, 0, False),
+    "go1": (9, 12, 4, 0),
+    "cassie": (15, 6, 2, 1),
+    "pogox": (9, 3, 1, 0),
+}
+# The tick's variant groups, one library each per shape (mhe_<tag>,
+# mhe_<tag>_pi, mhe_<tag>_chol): group -> the (per-lane clock, constrained,
+# Cholesky tail) variants of its units, each for float and double. The
+# Cholesky tail exists unconstrained on the shared clock only: the
+# constrained tick solves its window with the box-ADMM.
+MHE_GROUPS = {
+    "": ((0, 0, 0), (0, 1, 0)),
+    "pi": ((1, 0, 0), (1, 1, 0)),
+    "chol": ((0, 0, 1),),
 }
 
 
@@ -67,28 +79,29 @@ def solve_library(source, S):
     return f"{source}_s{S}"
 
 
-def mhe_library(S, M, L, lot):
-    """The library that holds the MHE tick of this shape, or None."""
+def mhe_library(S, M, L, lot, group=""):
+    """The library that holds the MHE tick of this shape and variant group
+    (a key of ``MHE_GROUPS``), or None for a shape without one."""
     for tag, shape in MHE_SHAPES.items():
-        if shape[:4] == (S, M, L, lot):
-            return "mhe_" + tag
+        if shape == (S, M, L, lot):
+            return "mhe_" + tag + ("_" + group if group else "")
     return None
 
 
-def _mhe_units(tag):
-    """csrc/mhe.cu for one shape: its entry point, then one unit per
-    (per-lane clock, constrained, type)."""
-    S, M, L, lot, with_pi = MHE_SHAPES[tag]
+def _mhe_units(tag, group):
+    """csrc/mhe.cu for one shape and variant group: its entry point, then one
+    unit per variant of the group and type."""
+    S, M, L, lot = MHE_SHAPES[tag]
     shape = (f"-DDEM_MHE_SHAPE={tag}", f"-DDEM_MHE_S={S}", f"-DDEM_MHE_M={M}",
              f"-DDEM_MHE_L={L}", f"-DDEM_MHE_LOT={lot}") + _unroll(S)
-    units = [("mhe", shape + (f"-DDEM_MHE_WITH_PI={int(with_pi)}",))]
-    for pi in ((0, 1) if with_pi else (0,)):
-        for con in (0, 1):
-            for real in ("float", "double"):
-                sym = (f"dem_mhe_unit_{tag}" + ("_pi" if pi else "") + ("_box" if con else "")
-                       + "_" + {"float": "f32", "double": "f64"}[real])
-                units.append(("mhe", shape + (f"-DDEM_MHE_UNIT={sym}", f"-DDEM_MHE_REAL={real}",
-                                              f"-DDEM_MHE_CON={con}", f"-DDEM_MHE_PI={pi}")))
+    units = [("mhe", shape)]
+    for pi, con, chol in MHE_GROUPS[group]:
+        for real in ("float", "double"):
+            sym = (f"dem_mhe_unit_{tag}" + ("_pi" if pi else "") + ("_box" if con else "")
+                   + ("_chol" if chol else "") + "_" + {"float": "f32", "double": "f64"}[real])
+            units.append(("mhe", shape + (f"-DDEM_MHE_UNIT={sym}", f"-DDEM_MHE_REAL={real}",
+                                          f"-DDEM_MHE_CON={con}", f"-DDEM_MHE_PI={pi}")
+                          + (("-DDEM_MHE_CHOL=1",) if chol else ())))
     return tuple(units)
 
 
@@ -97,7 +110,8 @@ UNITS = {
     **{f"tridiag_s{S}": (("tridiag", (f"-DDEM_TRIDIAG_S={S}",) + _unroll(S)),)
        for S in SOLVE_SIZES},
     "ekf": (("ekf", ()),),
-    **{"mhe_" + tag: _mhe_units(tag) for tag in MHE_SHAPES},
+    **{mhe_library(*shape, group): _mhe_units(tag, group)
+       for tag, shape in MHE_SHAPES.items() for group in MHE_GROUPS},
     **{f"admm_s{S}": (("admm", (f"-DDEM_ADMM_S={S}",) + _unroll(S)),) for S in SOLVE_SIZES},
 }
 LIBRARIES = tuple(UNITS)
@@ -110,10 +124,10 @@ _ARGTYPES = {
                 [_c_int, _c_int] + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
     "ekf": ("dem_ekf_stage",
             [_c_int, _c_void_p, _c_void_p] + [_c_int] * 8 + [_c_void_p]),
-    # is_double, con, pi, S, M, L, lot, ptrs, nptrs, consts, ints, reals, N, B,
-    # Tn, t0, block, stream: one entry point for the four tick kernels
+    # is_double, con, pi, chol, S, M, L, lot, ptrs, nptrs, consts, ints, reals,
+    # N, B, Tn, t0, block, stream: one entry point for the five tick kernels
     "mhe": ("dem_mhe_tick",
-            [_c_int] * 7 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int] * 5
+            [_c_int] * 8 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int] * 5
             + [_c_void_p]),
     "admm": ("dem_admm_solve",
              [_c_int, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p]
@@ -265,8 +279,9 @@ def check_launch(err: int, what: str) -> None:
             f"{what}: this shape is not instantiated in the CUDA build (MHE tick: "
             + ", ".join(f"{t} s={v[0]}, m={v[1]}, L={v[2]}, leg_odom_type={v[3]}"
                         for t, v in MHE_SHAPES.items())
-            + f"; per-lane camera clocks: go1 only; box-ADMM and tridiagonal "
-            f"solve: s in {SOLVE_SIZES}); see ROADMAP.md, 'What is left to port'")
+            + f"; the Cholesky tail: unconstrained on the shared camera clock only; "
+            f"box-ADMM and tridiagonal solve: s in {SOLVE_SIZES}); see ROADMAP.md, "
+            "'What is left to port'")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed, cudaError {err}")
 

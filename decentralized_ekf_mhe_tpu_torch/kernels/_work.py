@@ -33,7 +33,12 @@ structurally non-trivial operands counts:
   covariance of a leg counts only for (tick, leg, instance) triples in stance;
 * a Gauss-Jordan inverse of a dense n×n matrix is n(n+1)(2n−1) operations
   (n+1 divides and (n−1)(n+1) multiply-subtracts per elimination step), of an
-  identity none;
+  identity none; the Cholesky tail's factor of a dense n×n block is
+  Σ_k (2k + 3 + (n−1−k)(2k+1)) (per pivot its k multiply-subtracts, the
+  clamp, the square root and the reciprocal; per entry below it k
+  multiply-subtracts and the multiply by the reciprocal), and its triangular
+  solves and the symmetric Schur update count their structurally non-zero
+  terms like the products;
 * the box-ADMM (``admm_solve`` and the constrained ``mhe_tick``) counts what
   each instance ran: its iterations, the factorizations and residual checks
   that go with them (a converged instance stops), and the polish. The
@@ -87,6 +92,47 @@ def _gj(a):
     if np.array_equal(a, _eye(n)):
         return a, 0
     return _full(n, n), n * (n + 1) * (2 * n - 1)
+
+
+def _chol(a):
+    """(pattern of the factor, operations) of ``smallmat.cuh``'s ``chol`` on
+    a dense n×n block."""
+    n = a.shape[0]
+    return _full(n, n), sum(2 * k + 3 + (n - 1 - k) * (2 * k + 1) for k in range(n))
+
+
+def _trsm_l(b):
+    """(pattern, operations) of X = L⁻¹ b for a dense lower factor L, row by
+    row as ``trsm_l`` does it: X[i] = (b[i] − Σ_{m<i} L[i][m] X[m]) · rd[i];
+    a column of b stays zero down to its first non-zero row."""
+    n, c = b.shape
+    x = np.zeros((n, c), np.int8)
+    ops = 0
+    for i in range(n):
+        for j in range(c):
+            nx, nb = int((x[:i, j] != Z).sum()), int(b[i, j] != Z)
+            if nx + nb:
+                ops += 2 * nx + nb        # nx multiplies, nx + nb − 1 adds, · rd[i]
+                x[i, j] = G
+    return x, ops
+
+
+def _syrk_sub(d, w):
+    """(pattern, operations) of the lower triangle of d − wᵀw, the Cholesky
+    tail's Schur update (``chol_step``): per entry a ≤ c of wᵀw its product
+    terms, then the subtraction."""
+    s = d.shape[0]
+    out = d.copy()
+    ops = 0
+    for a in range(s):
+        for c in range(a, s):
+            nz = (w[:, a] != Z) & (w[:, c] != Z)
+            mul = int(((w[:, a] == G) & (w[:, c] == G)).sum())
+            terms = int(nz.sum())
+            ops += mul + max(terms - 1, 0) + int(terms > 0 and d[c, a] != Z)
+            if terms:
+                out[c, a] = out[a, c] = G
+    return out, ops
 
 
 _INV3 = 41       # 9 cofactors (2 multiplies, 1 subtract), determinant 5, 9 divides
@@ -378,6 +424,15 @@ class _Tally:
     def gj(self, a):
         return self._take(_gj(a))
 
+    def chol(self, a):
+        return self._take(_chol(a))
+
+    def trsm(self, b):
+        return self._take(_trsm_l(b))
+
+    def syrk_sub(self, d, w):
+        return self._take(_syrk_sub(d, w))
+
 
 def _marg_ops(p, cam):
     """Operations of one arrival-cost marginalization for one instance."""
@@ -398,9 +453,10 @@ def _marg_ops(p, cam):
     return k.ops
 
 
-def _solve_ops(p, N, n_states, cam, sweep=True):
+def _solve_ops(p, N, n_states, cam, sweep=True, tail="gj"):
     """Operations of the masked normal equations and (``sweep``) the streaming
-    forward block-Thomas sweep of one tick for one instance."""
+    forward block-Thomas sweep of one tick for one instance, with the
+    Gauss-Jordan (``tail`` "gj") or the Cholesky tail ("chol")."""
     s = p.s
     first = N - n_states
     zero, zvec = np.zeros((s, s), np.int8), np.zeros((s, 1), np.int8)
@@ -427,11 +483,20 @@ def _solve_ops(p, N, n_states, cam, sweep=True):
         Uj = k.add(p.AtQd, PtQcP) if iv else zero
         if not sweep:
             continue
-        D = k.add(D, k.mm(U_prev.T, k.mm(Sinv, U_prev)))
-        yv = k.add(r, k.mm(U_prev.T, k.mm(Sinv, yv)))
-        Sinv = k.gj(D)
+        if tail == "chol":
+            # W = L⁻¹U_prev, S = D − WᵀW, yv = r − Wᵀ(L⁻¹yv), then L of S
+            W = k.trsm(U_prev)
+            D = k.syrk_sub(D, W)
+            yv = k.add(r, k.mm(W.T, k.trsm(yv)))
+            k.chol(D)
+        else:
+            D = k.add(D, k.mm(U_prev.T, k.mm(Sinv, U_prev)))
+            yv = k.add(r, k.mm(U_prev.T, k.mm(Sinv, yv)))
+            Sinv = k.gj(D)
         U_prev = Uj
-    if sweep:
+    if sweep and tail == "chol":
+        k.trsm(k.trsm(yv))          # x = L⁻ᵀ(L⁻¹yv): two dense triangular solves
+    elif sweep:
         k.mm(Sinv, yv)
     return k.ops
 
@@ -443,7 +508,7 @@ def _solve_ops(p, N, n_states, cam, sweep=True):
 _VO_EVENT, _VO_SETUP, _VO_NODE, _VO_WRITE = 4, 5 + 39, 4 + 18, 3
 
 
-def _mhe_ops(N, s, m, L, groups, n_stance, box, lot):
+def _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail="gj"):
     """Operations of one MHE-tick call for ``groups`` of lanes, each
     ``(n_lanes, schedule)`` with its own schedule (see ``mhe_tick``)."""
     p = _Patterns(s, m, L, lot)
@@ -456,7 +521,7 @@ def _mhe_ops(N, s, m, L, groups, n_stance, box, lot):
         for n_states, cam, marg_cam, vo in schedule:
             key = (n_states, cam)
             if key not in solve:
-                solve[key] = _solve_ops(p, N, n_states, cam, sweep=box is None)
+                solve[key] = _solve_ops(p, N, n_states, cam, sweep=box is None, tail=tail)
             lane += per_tick + solve[key]
             if marg_cam is not None:
                 lane += marg[marg_cam]
@@ -482,7 +547,7 @@ def _mhe_bytes(N, s, m, L, B, Tn, itemsize, box):
     return nbytes
 
 
-def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0):
+def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0, tail="gj"):
     """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
     starting at tick 1, on the fleet's shared camera clock, for the model
     shape (s, m, L, ``lot`` = leg_odom_type). ``schedule`` comes from
@@ -491,9 +556,10 @@ def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0):
     ``(iters, E, adaptive, check, polish)`` with ``iters`` the (Tn, B) ADMM
     iterations that were run: the Thomas sweep gives way to one box-ADMM per
     tick and instance, and the z/y warm starts, the bounds and the iteration
-    counts join the bytes."""
+    counts join the bytes. ``tail`` is the unconstrained sweep's tail, "gj"
+    or "chol" (the box variant has none)."""
     return (_mhe_bytes(N, s, m, L, B, len(schedule), itemsize, box),
-            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box, lot))
+            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box, lot, tail))
 
 
 def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None, lot=0):

@@ -1,8 +1,7 @@
 """The MHE replay loop: hand-written CUDA kernel + plain version.
 
 Replaces the reference's TPU mega-kernel ``pallas/mhe_replay_kernel.py``
-(``replay`` → ``_replay_chunk`` → ``_make_kernel`` in its shared-clock,
-unconstrained, Gauss-Jordan form) with ``csrc/mhe_body.cuh`` (C entry points
+(``replay`` → ``_replay_chunk`` → ``_make_kernel``) with ``csrc/mhe_body.cuh`` (C entry points
 in ``csrc/mhe.cu``): one CUDA thread per instance loops over the ticks handed
 to it, each tick being VO ingestion + Bezier carry, arrival-cost
 marginalization, ring shift + assembly of the two changed slots, the
@@ -34,14 +33,25 @@ per lane) runs the per-instance variant of either kernel (the TPU kernel with
 its own Bezier schedule, which ``KernelState`` then carries per lane
 ((4,B) times, (1,B) counts). Everything after the ingestion is the same code.
 
-Every model shape the reference runs has its own instantiation, each in a
-library of its own built at the first use of its shape
-(``_build.MHE_SHAPES``): Go1 (s=9, m=12, L=4, leg_odom_type=0), Cassie (15,
-6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
+The tail of the window solve is the Gauss-Jordan chain (``mk_solve="gj"``,
+the default) or the Cholesky factor-and-substitute chain (``"chol"``, the TPU
+kernel's ``mk_solve='chol'``; ``csrc/mhe_body.cuh``, ``CHOL``). As in the
+reference, ``replay`` reads the tail from the environment variable
+``DEM_MK_SOLVE`` at each call when ``mk_solve`` is None, so the fleet runners,
+which never name it, run whichever the environment asks for. Unlike the
+reference, a value other than "gj" or "chol" raises ``ValueError`` instead of
+running GJ. The two tails return the same newest state of the same window, so
+the plain version of either is the same ``mhe_lanes.step`` loop. The box
+kernels ignore the tail: their window solve is the ADMM.
 
-Not ported (each raises ``NotImplementedError``): the Cholesky tail, the
-ablation switches, and per-lane camera clocks at shapes other than Go1's.
-ROADMAP.md lists them.
+Every model shape the reference runs has its own instantiations, in one
+library per variant group, each built at its first use (``_build.MHE_SHAPES``,
+``_build.MHE_GROUPS``): Go1 (s=9, m=12, L=4, leg_odom_type=0), Cassie (15, 6,
+2, 1: foot positions as states) and PogoX (9, 3, 1, 0), each with the shared
+camera clock, a clock per lane, and the Cholesky tail.
+
+Not ported (each raises ``NotImplementedError``): the Cholesky tail on
+per-lane camera clocks, and the ablation switches. ROADMAP.md lists them.
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -51,6 +61,7 @@ log split over two ``replay_ticks`` calls equals one call.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -64,14 +75,20 @@ from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 BLOCK = 32
 # incremented where a CUDA kernel is launched, nowhere else: one count per
 # kernel — the unconstrained tick (mhe_kernel), the constrained one
-# (mhe_box_kernel) and their per-lane-clock variants (mhe_pi_kernel,
-# mhe_pi_box_kernel)
+# (mhe_box_kernel), their per-lane-clock variants (mhe_pi_kernel,
+# mhe_pi_box_kernel) and the unconstrained tick with the Cholesky tail
+# (mhe_chol_kernel)
 launches = 0
 launches_box = 0
 launches_pi = 0
 launches_pi_box = 0
-_COUNTER = {(False, False): "launches", (True, False): "launches_box",
-            (False, True): "launches_pi", (True, True): "launches_pi_box"}
+launches_chol = 0
+# (constrained, per-lane clock, Cholesky tail) -> counter
+_COUNTER = {(False, False, False): "launches", (True, False, False): "launches_box",
+            (False, True, False): "launches_pi", (True, True, False): "launches_pi_box",
+            (False, False, True): "launches_chol"}
+
+MK_SOLVES = ("gj", "chol")     # the tails of the window solve
 
 # times the kernel call alone, apart from the wrapper's state copy
 timer = _build.KernelTimer()
@@ -133,22 +150,29 @@ def _pack_consts(kc: KernelConsts) -> np.ndarray:
     ]).astype(np.float64)
 
 
-def kernel_library(s, m, L, lot, per_lane_clock):
-    """The library (``_build.UNITS``) whose kernels tick this shape and
-    clock; raises ``NotImplementedError`` for what the CUDA build does not
-    instantiate — a shape outside ``_build.MHE_SHAPES``, or a camera clock
-    per lane at a shape other than Go1's."""
-    lib = _build.mhe_library(s, m, L, lot)
-    if lib is None:
+def kernel_library(s, m, L, lot, per_lane_clock, chol=False):
+    """The library (``_build.UNITS``) whose kernels tick this shape and clock,
+    with the Cholesky tail if ``chol`` (unconstrained ticks only: the box
+    kernels ignore the tail); raises ``NotImplementedError`` for what the
+    CUDA build does not instantiate — a shape outside ``_build.MHE_SHAPES``,
+    or the Cholesky tail on a camera clock per lane."""
+    if _build.mhe_library(s, m, L, lot) is None:
         raise NotImplementedError(
             f"mhe_tick: no CUDA instantiation for s={s}, m={m}, L={L}, "
             f"leg_odom_type={lot} (shapes: {sorted(_build.MHE_SHAPES)})")
-    if per_lane_clock and not _build.MHE_SHAPES[lib[len("mhe_"):]][4]:
+    if chol and per_lane_clock:
         raise NotImplementedError(
-            f"mhe_tick: per-lane camera clocks at the {lib[len('mhe_'):]} shape "
-            f"(s={s}, m={m}, L={L}, leg_odom_type={lot}) are not ported yet: ROADMAP.md, "
-            "'per-lane clocks (K2b, K2c-PI) at the Cassie and PogoX shapes'")
-    return lib
+            "mhe_tick: the Cholesky tail (DEM_MK_SOLVE=chol) on per-lane camera clocks is "
+            "not ported yet: ROADMAP.md, 'the Cholesky tail (K2d) on per-lane camera "
+            "clocks'; the Gauss-Jordan tail (mk_solve='gj') runs them")
+    return _build.mhe_library(s, m, L, lot, "chol" if chol else "pi" if per_lane_clock else "")
+
+
+def check_mk_solve(mk_solve):
+    """Raise ``ValueError`` for a tail that does not exist (the reference runs
+    Gauss-Jordan there without a word)."""
+    if mk_solve not in MK_SOLVES:
+        raise ValueError(f"mk_solve / DEM_MK_SOLVE: {mk_solve!r} is not one of {MK_SOLVES}")
 
 
 class KernelState(NamedTuple):
@@ -284,7 +308,8 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
     return x, kernel_state_from_mhe(st, c)._replace(iters=iters)
 
 
-def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_flags=()):
+def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_flags=(),
+                 mk_solve="gj"):
     """Advance the window over the ticks handed in.
 
     Args:
@@ -306,8 +331,11 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     tensors (``device="cpu"``) take the plain version; CUDA tensors launch
     the kernel or raise. ``nvcc_flags`` launches a variant build of the
     kernel instead (``_build.load``), e.g. ``("-fmad=false",)`` to compare
-    builds.
+    builds. ``mk_solve`` is the tail of the unconstrained window solve, "gj"
+    or "chol" (see the module docstring); the plain version and the box
+    kernels do not depend on it.
     """
+    check_mk_solve(mk_solve)
     device = resolve_device(device)
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     if N < 2:
@@ -359,21 +387,22 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
                "mhe_lanes.init(per_instance_vo=True))" if pi else ""))
     if dev.type == "cpu":
         return replay_ticks_plain(c, ks, data_l, vo, vo_inc)
-    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds, nvcc_flags)
+    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds, nvcc_flags, mk_solve)
 
 
-def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=()):
+def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve="gj"):
     """Copy the window state, launch the tick kernel through ``dem_mhe_tick``
     (constrained with ``bounds``, the (lb, ub) pair of (s,B) tensors; on a
-    camera clock per lane when ``vo``'s metadata is (Tn,B)) on the current
-    stream over all Tn ticks, count the launch. ``inputs`` are the eight
-    per-tick tensors in the kernel's order (R, accel, omega, p_foot, J_foot,
-    dq, contact, vo_inc)."""
+    camera clock per lane when ``vo``'s metadata is (Tn,B); unconstrained
+    with the tail ``mk_solve``) on the current stream over all Tn ticks, count
+    the launch. ``inputs`` are the eight per-tick tensors in the kernel's
+    order (R, accel, omega, p_foot, J_foot, dq, contact, vo_inc)."""
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
     pi = vo.active.ndim == 2
-    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi)
+    chol = mk_solve == "chol" and bounds is None
+    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi, chol)
     kc = consts_from_mhe(c)
     # the kernel updates the window in place: work on copies
     state = [a.clone() for a in ks.arrays]
@@ -406,19 +435,19 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=()):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
         timer.record(stream)
-        err = fn(int(dtype == torch.float64), int(bounds is not None), int(pi), s, m,
-                 L, kc.lot, ptrs, len(tensors), consts.ctypes.data, *settings, N, B,
+        err = fn(int(dtype == torch.float64), int(bounds is not None), int(pi), int(chol),
+                 s, m, L, kc.lot, ptrs, len(tensors), consts.ctypes.data, *settings, N, B,
                  Tn, ks.t + 1, BLOCK, stream.cuda_stream)
         timer.record(stream)
     _build.check_launch(err, "mhe_tick")
-    globals()[_COUNTER[bounds is not None, pi]] += 1
+    globals()[_COUNTER[bounds is not None, pi, chol]] += 1
     if bounds is not None:
         admm_kernel.launches_core += 1
     return x, KernelState(arrays=tuple(state), bez_times=bez_times_out,
                           bez_count=bez_count_out, t=ks.t + Tn, iters=iters)
 
 
-def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
+def replay(c, data_l, vo, dtype=torch.float32, device="cuda", mk_solve=None):
     """Full-log fleet MHE replay.
 
     Args:
@@ -433,10 +462,15 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
     ``tridiag_kernel.solve_lanes`` or, for constrained consts,
     ``admm_kernel.solve_box_lanes``), as in ``estimator.run_mhe_lanes``; only
     its x is kept, so tick 1 warm-starts the ADMM from zeros. Ticks 1.. run
-    in ``replay_ticks``.
+    in ``replay_ticks`` with the tail ``mk_solve``: "gj" or "chol", read from
+    the environment variable ``DEM_MK_SOLVE`` (default "gj") at each call
+    when None, as the reference reads it.
     """
     from decentralized_ekf_mhe_tpu_torch.ops import estimator
 
+    if mk_solve is None:
+        mk_solve = os.environ.get("DEM_MK_SOLVE", "gj")
+    check_mk_solve(mk_solve)
     device = resolve_device(device)
     N = c.N
     d0 = estimator.TickData(*(a[0] for a in data_l))
@@ -448,5 +482,5 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda"):
     rest = estimator.TickData(*(a[1:] for a in data_l))
     vo_rest = estimator.VOData(*(a[1:] for a in vo))
     x, _ = replay_ticks(c, kernel_state_from_mhe(st0, c), rest, vo_rest,
-                        vo_inc[1:], device=device)
+                        vo_inc[1:], device=device, mk_solve=mk_solve)
     return torch.cat([x0[None], x], dim=0)

@@ -307,20 +307,38 @@ def test_convert_carries_consts_and_state(model):
     assert np.array_equal(kc.Q_foot_slide, np.asarray(jc.nc.Q_foot_slide))
 
 
-def test_per_lane_clocks_at_other_shapes_are_not_ported():
-    """The CUDA build has a library per shape; per-lane camera clocks exist
-    for Go1 only, and the wrapper names the ROADMAP row for the others."""
-    assert mrk.kernel_library(9, 12, 4, 0, True) == "mhe_go1"
-    for model, (s, m, L, lot) in SHAPES.items():
-        assert mrk.kernel_library(s, m, L, lot, False) == f"mhe_{model}"
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*per-lane clocks"):
-            mrk.kernel_library(s, m, L, lot, True)
+def test_library_map_has_every_variant_group_at_every_shape():
+    """Every shape has its shared-clock, per-lane-clock and Cholesky-tail
+    library, each unit carries its shape's and its variant's defines (the
+    entry point its shape's alone), the s=15 units keep their long loops
+    rolled, and a shape outside the build still raises."""
+    shapes = dict(SHAPES, go1=(9, 12, 4, 0))
+    variants = {"": {(0, 0, 0), (0, 1, 0)}, "pi": {(1, 0, 0), (1, 1, 0)}, "chol": {(0, 0, 1)}}
+    for model, (s, m, L, lot) in shapes.items():
+        for group, want in variants.items():
+            lib = f"mhe_{model}" + (f"_{group}" if group else "")
+            assert _build.mhe_library(s, m, L, lot, group) == lib
+            assert mrk.kernel_library(s, m, L, lot, per_lane_clock=group == "pi",
+                                      chol=group == "chol") == lib
+            entry, *units = _build.UNITS[lib]
+            shape = (f"-DDEM_MHE_SHAPE={model}", f"-DDEM_MHE_S={s}", f"-DDEM_MHE_M={m}",
+                     f"-DDEM_MHE_L={L}", f"-DDEM_MHE_LOT={lot}")
+            for _, defs in (entry, *units):
+                assert defs[:5] == shape and ("-DDEM_MAX_UNROLL=256" in defs) == (s == 15)
+            assert entry[1] == shape + (("-DDEM_MAX_UNROLL=256",) if s == 15 else ())
+            got = {(int("-DDEM_MHE_PI=1" in d), int("-DDEM_MHE_CON=1" in d),
+                    int("-DDEM_MHE_CHOL=1" in d)) for _, d in units}
+            assert got == want and len(units) == 2 * len(want), (lib, units)
+            reals = sorted(d for _, defs in units for d in defs if d.startswith("-DDEM_MHE_REAL="))
+            assert reals == (["-DDEM_MHE_REAL=double"] * len(want)
+                             + ["-DDEM_MHE_REAL=float"] * len(want))
+        # the box kernels ignore the tail: a constrained tick on either clock
+        # still goes to its library; the tail on per-lane clocks is refused
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*K2d.*per-lane"):
+            mrk.kernel_library(s, m, L, lot, per_lane_clock=True, chol=True)
     with pytest.raises(NotImplementedError):
         mrk.kernel_library(12, 6, 1, 1, False)
-    for model in MODELS:
-        assert _build.mhe_library(*SHAPES[model]) == f"mhe_{model}"
-        units = _build.UNITS[f"mhe_{model}"]
-        assert len(units) == 5 and not any("-DDEM_MHE_PI=1" in d for _, d in units)
+    assert _build.mhe_library(12, 6, 1, 1) is None
     # each s=15 unit keeps its long loops rolled; no s=9 unit does
     for lib, units in _build.UNITS.items():
         for _, defs in units:
