@@ -59,6 +59,15 @@ the PogoX and Cassie (bench settings) shapes: the small checks of the Go1
 ones, then each fleet on 15 clocks through the lanes runner at full width,
 unconstrained and with the box.
 
+The standard layout (cell (q)): the block-tridiagonal kernel's standard-layout
+route against its plain version on every window of the standard-layout fleet
+runner's first 40 ticks (float64; s=9 on Go1's fleet, s=15 at Cassie's small
+size), the runner (``parallel.batch.make_fused_batched_runner(use_pallas=True)``,
+the route every tick) at full width in float32 and float64, the latter against
+the lanes runner's tick kernel, and the reference bench's float64 oracle — the
+single-instance orientation EKF, then the single-instance MHE — on the card,
+with the KF baseline and a constrained single instance.
+
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
 lower priority while the Go1 phases run, in the order the phases need them,
@@ -91,7 +100,7 @@ from decentralized_ekf_mhe_tpu_torch.io import synth
 from decentralized_ekf_mhe_tpu_torch.kernels import _build, _work
 from decentralized_ekf_mhe_tpu_torch.kernels import admm_kernel, ekf_kernel, tridiag_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
-from decentralized_ekf_mhe_tpu_torch.ops import admm, ekf_lanes, estimator, mhe, mhe_lanes
+from decentralized_ekf_mhe_tpu_torch.ops import admm, ekf_lanes, estimator, mhe, mhe_lanes, tridiag
 from decentralized_ekf_mhe_tpu_torch.parallel import batch
 
 DEV = torch.device("cuda")
@@ -194,9 +203,22 @@ F6_WITNESS = (900, 1200)
 # the Cholesky tail (DEM_MK_SOLVE=chol) against the Gauss-Jordan one: the
 # reference's own test of the two tails (tests/test_megakernel.py:261-273)
 TOL_CHOL_VS_GJ = dict(rtol=1e-9, atol=1e-10)
+# cell (q), the standard layout: K5's standard-layout route is held against
+# its plain version on every window of the fused runner's first T_STD_CHK
+# ticks of cell (a)'s fleet (float64; the warm-up ticks among them), the
+# float64 run against the lanes runner's tick kernel at the reference's
+# lanes-vs-standard tolerance (tests/test_mhe_lanes.py:157); the float64
+# oracle's KF baseline at the reference test's gate (tests/test_kf_slice.py:99)
+# and its constrained single-instance run over T_ORACLE_BOX ticks
+T_STD_CHK, TOL_STD_VS_LANES, KF_RMSE_GATE, T_ORACLE_BOX = 40, dict(rtol=1e-7, atol=1e-8), 0.06, 200
+# the element-wise float64 check of the main path's kernels (full_size) covers
+# its first T_F64_CHK ticks at TOL_MHE; over the whole log std_path holds the
+# lanes runner's tick kernel (K2) against the standard-layout fused runner (its
+# window solves through K5's standard route on the card) at TOL_STD_VS_LANES
+T_F64_CHK = 1000
 # a main-path run longer than this many seconds is timed once, in its
 # counted run (the spread within a call is about 3%)
-WALL_ONCE_S = 5.0
+WALL_ONCE_S = 2.0
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 
@@ -574,6 +596,7 @@ def main_path(model, fleet64, fleet32, gt_v):
     time alone (best of the 3 runs)."""
     p, pe = robot_params(model)
     s, gate = p.dim_state, RMSE_GATE[model]
+    T = fleet32[0].accel_b.shape[0]
     runner = batch.make_pipeline_fleet_runner(p, pe, F32, use_megakernel=True, device=DEV)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -583,9 +606,9 @@ def main_path(model, fleet64, fleet32, gt_v):
     counted_tick_ms = mrk.timer.ms()
     counts = read_counts()
     assert counts == dict(NO_LAUNCH, tridiag_solve=1, ekf_stage=1, mhe_tick=1), counts
-    assert x.shape == (T_MAIN, B_MAIN, s) and v.shape == (T_MAIN, B_MAIN, 3)
-    assert q.shape == (T_MAIN, 4, B_MAIN) and torch.isfinite(q).all()
-    n, t_bad = f32_ticks(model, x)      # n = T_MAIN but for fault F6
+    assert x.shape == (T, B_MAIN, s) and v.shape == (T, B_MAIN, 3)
+    assert q.shape == (T, 4, B_MAIN) and torch.isfinite(q).all()
+    n, t_bad = f32_ticks(model, x)      # n = T but for fault F6
     assert bool(torch.isfinite(v[:n]).all())
     rmse = fleet_rmse(x[:n], gt_v[:n])
     assert rmse < gate, f"{model} fleet velocity RMSE vs ground truth {rmse}"
@@ -599,7 +622,7 @@ def main_path(model, fleet64, fleet32, gt_v):
     r64 = fleet_rmse(x64[:n], gt_v[:n])
     assert abs(rmse - r64) < 1e-3, (f"{model} f32-vs-f64 velocity-RMSE delta", rmse, r64)
     # the float32 velocity's largest departure from float64, per 100 ticks
-    dv = (x[..., 3:6].double() - x64[..., 3:6]).abs().reshape(T_MAIN // 100, -1)
+    dv = (x[..., 3:6].double() - x64[..., 3:6]).abs().reshape(T // 100, -1)
     drift = [float(d.max()) if bool(torch.isfinite(d).all()) else None for d in dv]
     del dv
 
@@ -633,16 +656,16 @@ def main_path(model, fleet64, fleet32, gt_v):
         lanes_runner = {"wall_s": lanes_ms / 1e3, "launches": lanes_counts,
                         "rmse_vs_ground_truth": lanes_rmse,
                         "f32_gated_ticks": n_l, "f32_first_nonfinite_tick": t_bad_l,
-                        "ticks_per_s": B_MAIN * (T_MAIN - 1) / (lanes_ms / 1e3)}
+                        "ticks_per_s": B_MAIN * (T - 1) / (lanes_ms / 1e3)}
     emit("main_path" if model == "go1" else f"{model}_main_path",
          config=f"{model} N={N_WIN} s={s} m={p.dim_meas} L={p.num_legs} "
                 f"leg_odom_type={p.leg_odom_type} ring={RING}",
-         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, rmse_vs_ground_truth=rmse,
+         T=T, B=B_MAIN, dtype="float32", launches=counts, rmse_vs_ground_truth=rmse,
          rmse_f64=r64, rmse_f64_all_ticks=r64_all, rmse_gate=gate,
          f32_gated_ticks=n, f32_first_nonfinite_tick=t_bad,
          f32_vs_f64_velocity_max_abs_per_100_ticks=drift,
          wall_s=wall, walls_s=walls, wall_from="the counted run" if len(walls) == 1 else
-         "best of 3 after the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
+         "best of 3 after the counted run", pipeline_ticks_per_s=B_MAIN * (T - 1) / wall,
          mhe_tick_kernel_only_ms=tick_alone_ms,
          peak_mem_bytes=torch.cuda.max_memory_allocated(), lanes_runner=lanes_runner)
     return counts, x64, q64, tick_alone_ms
@@ -653,6 +676,7 @@ def reset_counts():
         mod.launches = 0
     mrk.launches_box = mrk.launches_pi = mrk.launches_pi_box = mrk.launches_chol = 0
     admm_kernel.launches_core = 0
+    tridiag_kernel.launches_batched = 0
 
 
 def read_counts():
@@ -660,12 +684,13 @@ def read_counts():
             "mhe_tick": mrk.launches, "mhe_tick_box": mrk.launches_box,
             "mhe_tick_pi": mrk.launches_pi, "mhe_tick_pi_box": mrk.launches_pi_box,
             "mhe_tick_chol": mrk.launches_chol, "admm_solve": admm_kernel.launches,
-            "admm_box_solve": admm_kernel.launches_core}
+            "admm_box_solve": admm_kernel.launches_core,
+            "tridiag_solve_batched": tridiag_kernel.launches_batched}
 
 
 NO_LAUNCH = {"tridiag_solve": 0, "ekf_stage": 0, "mhe_tick": 0, "mhe_tick_box": 0,
              "mhe_tick_pi": 0, "mhe_tick_pi_box": 0, "mhe_tick_chol": 0, "admm_solve": 0,
-             "admm_box_solve": 0}
+             "admm_box_solve": 0, "tridiag_solve_batched": 0}
 
 
 @contextlib.contextmanager
@@ -754,19 +779,20 @@ def wall_ms(fn):
 def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     """Each kernel against its plain version at the main path's size (T=2000,
     B=1024, N=20) on identical inputs, and the float64 main path against the
-    chain of plain versions: float64 element-wise over the whole log, float32
-    by the velocity-RMSE gate over the first T_BOX_PLAIN ticks (the eager
-    plain versions are host-bound loops of small launches); the kernels'
-    float32 times over the whole log, the plain versions' over T_BOX_PLAIN
-    ticks; the bounds from this run's inputs."""
+    chain of plain versions: float64 element-wise over the first T_F64_CHK
+    ticks, float32 by the velocity-RMSE gate over the first T_BOX_PLAIN ticks
+    (the eager plain versions are host-bound loops of small launches); the
+    kernels' float32 times over the whole log, the plain versions' over
+    T_BOX_PLAIN ticks; the bounds from this run's inputs."""
     p, pe = go1_params(), EKFParams()
     err, ms, plain_ms = {}, {}, {}
     head32 = head(fleet32, T_BOX_PLAIN)
 
-    # ---- float64, element-wise over the whole log
+    # ---- float64, element-wise over the first T_F64_CHK ticks
     ec = ekf_lanes.make_consts(pe, F64)
     st = ekf_lanes.init_state(pe, B_MAIN, RING, F64, device=DEV)
-    eb = fleet64[1]
+    head64 = head(fleet64, T_F64_CHK)
+    eb = head64[1]
     (q_p, fin_p), ekf_plain64_ms = wall_ms(lambda: ekf_kernel.replay_plain(ec, st, eb))
     q_k, fin_k = ekf_kernel.replay(ec, st, eb, device=DEV)
     ok, e1 = close(q_k, q_p, **TOL_EKF)
@@ -774,7 +800,7 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     assert ok and ok2 and fin_k.t == fin_p.t, ("ekf_stage at full width", e1, e2)
     err["ekf_stage"] = max(e1, e2)
 
-    c, tri, ks0, (d1, v1, i1) = stage_inputs(p, fleet64, q_p, F64)
+    c, tri, ks0, (d1, v1, i1) = stage_inputs(p, head64, q_p, F64)
     (x_p, _), mhe_plain64_ms = wall_ms(lambda: mrk.replay_ticks_plain(c, ks0, d1, v1, i1))
     x_k, ks_k = mrk.replay_ticks(c, ks0, d1, v1, i1, device=DEV)
     ok, e = close(x_k, x_p, **TOL_MHE)
@@ -794,8 +820,9 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     # the float64 main path (EKF kernel -> tridiagonal kernel at tick 0 ->
     # MHE kernel) against the chain of plain versions
     x0_p = tridiag_kernel.solve_lanes_plain(*tri)[-1]
-    okq, eq = close(q64_main, q_p, **TOL_EKF)
-    okx, ex = close(torch.movedim(x64_main, 1, -1), torch.cat([x0_p[None], x_p]), **TOL_MHE)
+    okq, eq = close(q64_main[:T_F64_CHK], q_p, **TOL_EKF)
+    okx, ex = close(torch.movedim(x64_main[:T_F64_CHK], 1, -1), torch.cat([x0_p[None], x_p]),
+                    **TOL_MHE)
     assert okq and okx, ("float64 main path vs plain chain", eq, ex)
     err["main_path_f64"] = {"q": eq, "x": ex}
 
@@ -829,8 +856,9 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     assert abs(rk - rp) < 1e-3, ("f32 velocity-RMSE delta", rk, rp)
     ms["tridiag_solve"] = timed(lambda: tridiag_kernel.solve_lanes(*tri32, device=DEV))
     plain_ms["tridiag_solve"] = timed(lambda: tridiag_kernel.solve_lanes_plain(*tri32))
+    lib_ms, lib_diff = library_ms(*(torch.movedim(a, -1, 1) for a in tri32))
 
-    emit("full_size", T=T_MAIN, B=B_MAIN, N=N_WIN, T_f64=T_MAIN, T_f32_plain=T_BOX_PLAIN,
+    emit("full_size", T=T_MAIN, B=B_MAIN, N=N_WIN, T_f64=T_F64_CHK, T_f32_plain=T_BOX_PLAIN,
          tol_ekf=TOL_EKF, tol_mhe_tridiag=TOL_MHE, max_abs_err_f64=err,
          plain_f64_ms={"ekf_stage": ekf_plain64_ms, "mhe_tick": mhe_plain64_ms},
          f32={"ekf_q_err_kernel": dq_k, "ekf_q_err_plain": dq_p,
@@ -860,7 +888,11 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
         "mhe_tick": ("decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
                      "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917"),
     }, works, counts, err, ms, plain_ms,
-        **{k: {"plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN}}
+        tridiag_solve={"library_ms": lib_ms, "library_minus_kernel_max_abs_f32": lib_diff,
+                       "library": "torch.linalg.solve on the densified (B, N*s, N*s) system",
+                       "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN}},
+        **{k: {"plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+               "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN}}
            for k in ("ekf_stage", "mhe_tick")})
 
 
@@ -889,6 +921,239 @@ def bound(work):
     over the memory rate and the operations over the float32 peak."""
     t_b, t_f = work[0] / PEAK_BYTES_S * 1e3, work[1] / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+# ------------------------------------------ the standard layout (cell (q))
+
+
+def std_fleet(fleet, q64, dtype):
+    """``fleet`` as the standard-layout fleet runner takes it: TickData
+    (T,B,...) whose orientation comes from the float64 EKF quaternions
+    ``q64`` (T,4,B), as ``stage_inputs`` builds it, and VOData whose per-lane
+    translation is (T,B,3)."""
+    data_b, _, vo = fleet
+    T = data_b.accel_b.shape[0]
+    R = torch.movedim(ekf_lanes.to_rot(q64[:T].to(dtype)), -1, 1).contiguous()
+    return data_b._replace(R_sb=R), vo._replace(dp_body=vo.dp_body.transpose(1, 2).contiguous())
+
+
+@contextlib.contextmanager
+def route_calls(keep=lambda i: False):
+    """Record every call of K5's standard-layout route
+    (``tridiag_kernel.solve_batched``) made inside: CUDA events around the
+    route and around its kernel launch, and, for the calls ``keep(i)``
+    selects, the operands and the result."""
+    calls, route, launch = [], tridiag_kernel.solve_batched, tridiag_kernel._launch
+    event = lambda: torch.cuda.Event(enable_timing=True)
+
+    def spy_launch(*a):
+        e = calls[-1]["kernel_events"] = (event(), event())
+        e[0].record()
+        out = launch(*a)
+        e[1].record()
+        return out
+
+    def spy_route(D, U, r, valid=None, device="cuda"):
+        call = {"events": (event(), event())}
+        calls.append(call)
+        call["events"][0].record()
+        out = route(D, U, r, valid=valid, device=device)
+        call["events"][1].record()
+        if keep(len(calls) - 1):
+            call.update(args=(D, U, r, valid), out=out)
+        return out
+
+    tridiag_kernel.solve_batched, tridiag_kernel._launch = spy_route, spy_launch
+    try:
+        yield calls
+    finally:
+        tridiag_kernel.solve_batched, tridiag_kernel._launch = route, launch
+
+
+def dense_system(D, U, r, valid=None):
+    """A standard-layout block-tridiagonal system (K,B,s,s) (masked by
+    ``valid`` as the route masks it) as B dense (K·s, K·s) matrices and (K·s,)
+    right-hand sides: the operands of the library's one-call solve."""
+    D, U, r = tridiag.mask_system(D, U, r, valid)
+    K, B, s, _ = D.shape
+    H = torch.zeros((B, K * s, K * s), dtype=D.dtype, device=D.device)
+    for j in range(K):
+        a = slice(j * s, (j + 1) * s)
+        H[:, a, a] = D[j]
+        if j < K - 1:
+            b = slice((j + 1) * s, (j + 2) * s)
+            H[:, a, b] = U[j]
+            H[:, b, a] = U[j].transpose(-1, -2)
+    return H, r.transpose(0, 1).reshape(B, K * s)
+
+
+def library_ms(D, U, r, valid=None):
+    """(ms, |x_library - x_route| max) of ``torch.linalg.solve`` on the
+    densified system, timed alone (best of 3; densified outside the timed
+    region)."""
+    H, rhs = dense_system(D, U, r, valid)
+    ms = timed(lambda: torch.linalg.solve(H, rhs))
+    x = torch.linalg.solve(H, rhs).reshape(D.shape[1], D.shape[0], -1).transpose(0, 1)
+    return ms, float((x - tridiag_kernel.solve_batched(D, U, r, valid, device=DEV)).abs().max())
+
+
+def check_kernels_std(model, data, vo, B_ragged):
+    """K5's standard-layout route against its plain version, float64,
+    TOL_MHE, on real windows: every window solve of the standard-layout fleet
+    runner over ``data``/``vo`` (float64, T > N, so the warm-up ticks with
+    dead slots are among them), and the last window cut to a ragged fleet of
+    ``B_ragged`` lanes. Returns the largest error."""
+    p = robot_params(model)[0]
+    run = batch.make_fused_batched_runner(p, F64, use_pallas=True, device=DEV)
+    with route_calls(keep=lambda i: True) as calls:
+        run(data, vo)
+    T, B = data.accel_b.shape[:2]
+    assert len(calls) == T, (model, len(calls))
+    errs = []
+    for call in calls:
+        ok, e = close(call["out"], tridiag_kernel.solve_batched_plain(*call["args"]), **TOL_MHE)
+        assert ok, ("standard-layout route vs plain", model, len(errs), e)
+        errs.append(e)
+    n_warm = sum(not bool(c["args"][3].all()) for c in calls)
+    assert n_warm == N_WIN - 1, (model, n_warm)
+    cut = tuple(a[:, :B_ragged].contiguous() for a in calls[-1]["args"])
+    ok, e_ragged = close(tridiag_kernel.solve_batched(*cut, device=DEV),
+                         tridiag_kernel.solve_batched_plain(*cut), **TOL_MHE)
+    assert ok, ("standard-layout route vs plain, ragged B", model, e_ragged)
+    emit("kernels_std", model=model, s=p.dim_state, dtype="float64", N=N_WIN, T=T, B=B,
+         tol=TOL_MHE, windows=len(calls), warm_up_windows=n_warm,
+         max_abs_err={"windows": max(errs), "warm_up_windows": max(errs[:n_warm]),
+                      f"ragged_B_{B_ragged}": e_ragged})
+    return max(errs + [e_ragged])
+
+
+def std_path(fleet64, fleet32, q64, gt_v, err_std):
+    """Cell (q): the standard-layout fleet runner
+    (``batch.make_fused_batched_runner(use_pallas=True)``) at full width on
+    cell (a)'s fleet, orientation from the float64 main path's EKF: the
+    counted float32 run — K5's standard-layout route every tick, timed per
+    call (route and kernel) — and a float64 run of the same path: launches,
+    RMSE against ground truth, the f32-vs-f64 delta, the float64 result
+    against the lanes runner's tick kernel (K2) over the whole log. Then the
+    route on the float32 run's final window: its time, its kernel's alone,
+    its plain version's and the library's dense solve. Returns the route's
+    entry of the last-but-one line."""
+    p = go1_params()
+    d32, v32 = std_fleet(fleet32, q64, F32)
+    run32 = batch.make_fused_batched_runner(p, F32, use_pallas=True, device=DEV)
+    reset_counts()
+    with route_calls(keep=lambda i: i == T_MAIN - 1) as calls:
+        (x, v), wall = wall_ms(lambda: run32(d32, v32))
+    counts = read_counts()
+    want = dict(NO_LAUNCH, tridiag_solve=T_MAIN, tridiag_solve_batched=T_MAIN)
+    assert counts == want, counts
+    route_ms = sum(call_ms(c) for c in calls)
+    kernel_ms = sum(c["kernel_events"][0].elapsed_time(c["kernel_events"][1]) for c in calls)
+    final = calls[-1]["args"]
+    del calls
+    assert x.shape == (T_MAIN, B_MAIN, 9) and v.shape == (T_MAIN, B_MAIN, 3)
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(v).all())
+    rmse = fleet_rmse(x, gt_v)
+    assert rmse < RMSE_GATE["go1"], f"standard-layout fleet RMSE vs ground truth {rmse}"
+
+    d64, v64 = std_fleet(fleet64, q64, F64)
+    run64 = batch.make_fused_batched_runner(p, F64, use_pallas=True, device=DEV)
+    reset_counts()
+    (x64, vb64), wall64 = wall_ms(lambda: run64(d64, v64))
+    counts64 = read_counts()
+    assert counts64 == want, counts64
+    assert bool(torch.isfinite(x64).all()) and bool(torch.isfinite(vb64).all())
+    r64 = fleet_rmse(x64, gt_v)
+    assert r64 < RMSE_GATE["go1"] and abs(rmse - r64) < 1e-3, ("f32-vs-f64 delta", rmse, r64)
+    # the float64 result against the lanes runner's tick kernel, whole log
+    lanes64 = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, device=DEV)
+    xl, vl = lanes64(d64, fleet64[2])
+    okx, ex = close(x64, xl, **TOL_STD_VS_LANES)
+    okv, ev = close(vb64, vl, **TOL_STD_VS_LANES)
+    assert okx and okv, ("standard-layout runner vs lanes runner (K2), float64", ex, ev)
+    del x64, vb64, xl, vl
+
+    # the route per launch, on the float32 run's final window (20 real slots)
+    ms = timed(lambda: tridiag_kernel.solve_batched(*final, device=DEV))
+    moved = tuple(torch.movedim(a, 1, -1).contiguous()
+                  for a in tridiag.mask_system(*final))
+    kernel_only = timed(lambda: tridiag_kernel._launch(*moved))
+    plain = timed(lambda: tridiag_kernel.solve_batched_plain(*final))
+    lib_ms, lib_diff = library_ms(*final)
+    # the bound is the function's own work (K5's: D, U, r read once, x
+    # written once); the masking and the layout moves are the glue's cost
+    work = _work.tridiag_batched(N_WIN, 9, B_MAIN, 4)
+    replay = [_work.tridiag_batched(N_WIN, 9, B_MAIN, 4, n_states=min(t + 1, N_WIN))["solve"]
+              for t in range(T_MAIN)]
+    replay_bound = bound((sum(w[0] for w in replay), sum(w[1] for w in replay)))
+    emit("std_path", config="Go1 N=20 s=9 m=12 L=4, standard layout, use_pallas=True",
+         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, launches_f64=counts64,
+         wall_s=wall / 1e3, ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
+         wall_f64_s=wall64 / 1e3, rmse_vs_ground_truth=rmse, rmse_f64=r64,
+         rmse_gate=RMSE_GATE["go1"], f64_vs_lanes_runner={"x": ex, "v": ev, "tol": TOL_STD_VS_LANES},
+         route_ms_summed=route_ms, kernel_ms_summed=kernel_ms,
+         glue_share=(route_ms - kernel_ms) / route_ms, route_share_of_wall=route_ms / wall,
+         final_window_ms={"route": ms, "kernel_only": kernel_only, "plain": plain,
+                          "library_linalg_solve": lib_ms},
+         library_minus_route_max_abs_f32=lib_diff,
+         bound_ms_per_launch=bound(work["solve"])["bound_ms"],
+         glue_bound_ms_per_launch={k: bound(work[k])["bound_ms"] for k in ("mask", "layout")},
+         bound_ms_summed_per_replay=replay_bound["bound_ms"])
+    name = "tridiag_solve_batched"
+    return kernel_rows(
+        {name: ("decentralized_ekf_mhe_tpu_torch/csrc/tridiag.cu (route: "
+                "decentralized_ekf_mhe_tpu_torch/kernels/tridiag_kernel.py solve_batched)",
+                "decentralized_ekf_mhe_tpu/pallas/tridiag_kernel.py:227-245 (solve_batched) "
+                "-> :213")},
+        {name: work["solve"]}, {name: counts[name]}, {name: err_std}, {name: ms},
+        {name: plain},
+        **{name: {"library_ms": lib_ms, "kernel_only_ms": kernel_only,
+                  "ms_how": "one route call (masking, layout moves, kernel) on the float32 "
+                            "run's final window, best of 3",
+                  "work_by_part": work,
+                  "replay": {"route_ms_summed": route_ms, "kernel_ms_summed": kernel_ms,
+                             "glue_share": (route_ms - kernel_ms) / route_ms,
+                             "bound_ms_summed": replay_bound["bound_ms"], "launches": T_MAIN},
+                  "max_abs_err_shape": {"T": T_STD_CHK, "B": B_MAIN, "ragged_B": B_RAGGED},
+                  "path": "make_fused_batched_runner(use_pallas=True)"}})
+
+
+def oracle(log, gt_v):
+    """The reference bench's float64 oracle on the card, as bench.py:57-65
+    runs it: the single-instance orientation EKF over the log's 500 Hz
+    stream, then the single-instance MHE on its orientation (Go1, T=2000).
+    Then the KF baseline on the same inputs, and the single-instance MHE
+    with the |v| <= 0.3 box over its first T_ORACLE_BOX ticks. A single
+    instance takes no kernel (its window solve has no batch axis, as in the
+    reference). RMSE gates, the box, and each run's wall."""
+    p, pe = go1_params(), EKFParams()
+    reset_counts()
+    (R, _), ekf_ms = wall_ms(lambda: estimator.ekf_orientation_sequence(pe, log, F64, device=DEV))
+    data = estimator.tickdata_from_log(log, dtype=F64, device=DEV)._replace(R_sb=R)
+    vo = estimator.vodata_from_log(log, dtype=F64, device=DEV)
+    (x, _), mhe_ms = wall_ms(lambda: estimator.run_mhe(p, data, vo=vo, dtype=F64, device=DEV))
+    (xk, _), kf_ms = wall_ms(lambda: estimator.run_kf(p, data, dtype=F64, device=DEV))
+    pb = box_params()
+    cut = lambda nt: type(nt)(*(a[:T_ORACLE_BOX] for a in nt))
+    (xb, _), box_ms = wall_ms(lambda: estimator.run_mhe(
+        pb, cut(data), vo=cut(vo), dtype=F64, consts=box_consts(pb, F64, V_BOX, 20), device=DEV))
+    counts = read_counts()
+    rmse = lambda a: float(torch.sqrt(((a[SKIP:, 3:6] - gt_v[SKIP:a.shape[0]]) ** 2).mean()))
+    vmax = float(xb[:, 3:6].abs().max())
+    failed = [what for what, ok in (
+        ("no kernel launched", counts == NO_LAUNCH),
+        ("finite", all(bool(torch.isfinite(a).all()) for a in (R, x, xk, xb))),
+        ("MHE RMSE vs ground truth", rmse(x) < RMSE_GATE["go1"]),
+        ("KF RMSE vs ground truth", rmse(xk) < KF_RMSE_GATE),
+        ("velocity box", V_BOX - 1e-2 <= vmax <= V_BOX + 1e-3)) if not ok]
+    emit("oracle", config="Go1 N=20, single instance, float64; bench.py:57-65", T=T_MAIN,
+         launches=counts, ekf_orientation_sequence_s=ekf_ms / 1e3, run_mhe_s=mhe_ms / 1e3,
+         rmse_vs_ground_truth=rmse(x), rmse_gate=RMSE_GATE["go1"], run_kf_s=kf_ms / 1e3,
+         kf_rmse_vs_ground_truth=rmse(xk), kf_rmse_gate=KF_RMSE_GATE,
+         constrained={"T": T_ORACLE_BOX, "box": V_BOX, "max_abs_v": vmax, "wall_s": box_ms / 1e3,
+                      "rmse_vs_ground_truth": rmse(xb)},
+         failed=failed)
+    assert not failed, failed
 
 
 # ------------------------------------------------- the constrained path
@@ -1500,8 +1765,9 @@ def check_kernels_pi(model="go1"):
 def pi_main_path(fleet64, fleet32, gt_v, shared32):
     """The MHE-only runner at full width on the 15-clock fleet (orientation
     from the log): launches, accuracy, wall; then the per-lane-clock tick
-    against its plain version — float64 element-wise over T_BOX_PLAIN ticks,
-    float32 timed — and, on the shared-clock fleet ``shared32``, the shared
+    against its plain version — float64 element-wise over T_BOX_PLAIN ticks;
+    float32, the kernel timed over the whole log, the plain version over
+    T_BOX_PLAIN ticks — and, on the shared-clock fleet ``shared32``, the shared
     and the per-lane-clock tick in turns on the same schedule, which splits
     the per-lane clocks' cost into the variant's own and the divergence.
     Returns the kernel's entry of the last-but-one line."""
@@ -1539,8 +1805,7 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
     ok, err = close(mrk.replay_ticks(c64, ks, d, vv, i, device=DEV)[0], x_p, **TOL_MHE)
     assert ok, ("per-lane-clock mhe_tick at full width", err)
 
-    # float32: the kernel and its plain version over all ticks (the kernel
-    # around the wrapper, and alone)
+    # float32: the kernel over all ticks (around the wrapper, and alone)
     c32 = mhe.make_consts(p, F32, use_pallas=False, device=DEV)
     ks, (d, vv, i) = clock_inputs(c32, fleet32, F32)
     mrk.timer.on = True
@@ -1557,11 +1822,15 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
             timed(lambda: mrk.replay_ticks(c32, ks_s, ds, vs, i_s, device=DEV), reps=2))
         ab["mhe_tick_pi_uniform_clock"].append(
             timed(lambda: mrk.replay_ticks(c32, ks_u, ds, vu, iu, device=DEV), reps=2))
-    (x32p, _), plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c32, ks, d, vv, i))
-    ref = torch.movedim(x64, 1, -1)[1:]
-    rk, rp = vel_rmse(x32k, ref, SKIP, cam), vel_rmse(x32p, ref, SKIP, cam)
+    # the plain version over the first T_BOX_PLAIN ticks, both held to the
+    # float64 run by accuracy over the ticks after the window's warm-up
+    ksp, (dp_, vp, ip) = clock_inputs(c32, fleet32, F32, T=T_BOX_PLAIN)
+    (x32p, _), plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c32, ksp, dp_, vp, ip))
+    ref = torch.movedim(x64, 1, -1)[1:T_BOX_PLAIN]
+    rk = vel_rmse(x32k[:T_BOX_PLAIN - 1], ref, N_WIN, cam)
+    rp = vel_rmse(x32p, ref, N_WIN, cam)
     assert abs(rk - rp) < 1e-3, ("per-lane-clock f32 velocity-RMSE delta", rk, rp)
-    _, free_bad_plain = split_vo_free(torch.movedim(x32p, -1, 1), vv)
+    _, free_bad_plain = split_vo_free(torch.movedim(x32p, -1, 1), vp)
     free_bad_plain = None if free_bad_plain is None else free_bad_plain + 1   # from tick 1
 
     groups = _work.mhe_lane_schedules(vv.active.cpu().numpy(), vv.tick_pre.cpu().numpy(),
@@ -1579,8 +1848,9 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
          mhe_tick_pi_ms=ms, mhe_tick_pi_kernel_only_ms=kernel_only_ms,
          same_schedule_in_turns_ms=ab,
          max_abs_err_f64={"T": T_BOX_PLAIN, "x": err}, plain_f64_ms=plain64_ms,
-         plain_f32_ms={"T": T_MAIN, "ms": plain_ms},
-         f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp}, vo_events=n_events,
+         plain_f32_ms={"T": T_BOX_PLAIN, "ms": plain_ms},
+         f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp, "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]},
+         vo_events=n_events,
          distinct_lane_schedules=len(groups))
     return kernel_rows({"mhe_tick_pi": (
         "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
@@ -1588,7 +1858,7 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
         {"mhe_tick_pi": work}, counts, {"mhe_tick_pi": err}, {"mhe_tick_pi": ms},
         {"mhe_tick_pi": plain_ms},
         mhe_tick_pi={"max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
-                     "plain_ms_shape": {"T": T_MAIN, "B": B_MAIN, "N": N_WIN},
+                     "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
                      "kernel_only_ms": kernel_only_ms,
                      "path": "make_lanes_fleet_runner, per-instance VOData"})
 
@@ -1839,14 +2109,15 @@ def bench_route(model, fleet64, fleet32, gt_v):
     log's orientation) at full width, unconstrained and with the |v| <= 0.3
     box: launches, finite and the RMSE against ground truth over the whole
     log, the float64 run of the same route on the same fleet over the whole
-    log, the f32-vs-f64 RMSE delta over it (the constrained one over its first
-    T_BOX_F64 ticks), the box over the whole float64 log and the first
-    F6_TICKS of the float32 one (fault F6). The counted float32
+    log, constrained too, the f32-vs-f64 RMSE delta over it (the constrained
+    one over its first T_BOX_F64 ticks), the box over the whole float64 run
+    and the first F6_TICKS[model] ticks of the float32 one (fault F6). The counted float32
     runs are the timed ones: the tick kernel alone (``mrk.timer``), and for
     the constrained tick its time around the wrapper, bound and ADMM
     iterations. Also prints where the pipeline runner's float32 estimate on
     this fleet stops being finite (fault F6). Returns the constrained tick's
-    figures and the unconstrained tick's kernel-alone time."""
+    figures and the unconstrained tick's kernel-alone time. The pipeline
+    runner's run covers the first T_F6_BOX ticks."""
     p, pe = robot_params(model)
     pb = box_params(model=model)
     gate = RMSE_GATE[model]
@@ -1868,15 +2139,19 @@ def bench_route(model, fleet64, fleet32, gt_v):
         assert counts == dict(NO_LAUNCH, **launched), (model, tag, counts)
         run64 = batch.make_lanes_fleet_runner(pp, F64, use_megakernel=True, consts=c64,
                                               device=DEV)
-        x64 = run64(fleet64[0], fleet64[2])[0]
-        rmse, r64 = fleet_rmse(x, gt_v), fleet_rmse(x64, gt_v)
+        # both float64 twins run the whole log: the constrained one holds
+        # the box past the ticks where float32 leaves it (F6)
+        t64 = T_MAIN
+        d64, _, vo64 = head(fleet64, t64)
+        x64 = run64(d64, vo64)[0]
+        rmse, r64 = fleet_rmse(x, gt_v), fleet_rmse(x64, gt_v[:t64])
         r32_d, r64_d = fleet_rmse(x[:t_delta], gt_v[:t_delta]), fleet_rmse(x64[:t_delta], gt_v[:t_delta])
         res[tag] = {"wall_s": ms / 1e3, "ticks_per_s": B_MAIN * (T_MAIN - 1) / (ms / 1e3),
                     "launches": counts, "tick_kernel_only_ms": k_only,
                     "rmse_vs_ground_truth": rmse, "rmse_f64": r64,
                     "f32_vs_f64_delta_gated": {"T": t_delta, "rmse_f32": r32_d, "rmse_f64": r64_d},
-                    "f32_vs_f64_velocity_max_abs_per_100_ticks":
-                        per_100((x[..., 3:6].double() - x64[..., 3:6]).abs())}
+                    "f64_twin_T": t64, "f32_vs_f64_velocity_max_abs_per_100_ticks":
+                        per_100((x[:t64, :, 3:6].double() - x64[..., 3:6]).abs())}
         failed += [(tag, what) for what, ok in (
             ("float32 estimate finite", bool(torch.isfinite(x).all())),
             ("float64 estimate finite", bool(torch.isfinite(x64).all())),
@@ -1907,7 +2182,7 @@ def bench_route(model, fleet64, fleet32, gt_v):
         del x, x64, calls
 
     pipe = batch.make_pipeline_fleet_runner(p, pe, F32, use_megakernel=True, device=DEV)
-    pipe_bad = first_nonfinite(pipe(*fleet32)[0])
+    pipe_bad = first_nonfinite(pipe(*head(fleet32, T_F6_BOX))[0])
     emit("bench_route", model=model,
          config=f"{model} N={N_WIN} s={p.dim_state} m={p.dim_meas} L={p.num_legs} "
                 f"leg_odom_type={p.leg_odom_type}; lanes runner; box |v|<=0.3, rho=5000 fixed, "
@@ -1970,7 +2245,8 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     err[f"tridiag_solve[s={s}]"] = max(errs)
 
     c32 = mhe.make_consts(p, F32, use_pallas=False, device=DEV)
-    st32, ks32, (d32, v32, i32) = inputs(c32, fleet32, F32, T_MAIN)
+    T = fleet32[0].accel_b.shape[0]      # T_F6_BOX for yaml Cassie (F6)
+    st32, ks32, (d32, v32, i32) = inputs(c32, fleet32, F32, T)
     ms["mhe_tick" + tag] = mhe_tick_ms
     _, ksp, (dp_, vp, ip) = inputs(c32, fleet32, F32, T_BOX_PLAIN)
     (x32p, _), plain_ms["mhe_tick" + tag] = wall_ms(
@@ -1981,6 +2257,10 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     tri32 = tuple(a.contiguous() for a in mhe_lanes._masked_system(c32, st32))
     ms[f"tridiag_solve[s={s}]"] = timed(lambda: tridiag_kernel.solve_lanes(*tri32, device=DEV))
     plain_ms[f"tridiag_solve[s={s}]"] = timed(lambda: tridiag_kernel.solve_lanes_plain(*tri32))
+    lib_ms, lib_diff = library_ms(*(torch.movedim(a, -1, 1) for a in tri32))
+    more[f"tridiag_solve[s={s}]"] = {
+        "library_ms": lib_ms, "library_minus_kernel_max_abs_f32": lib_diff,
+        "library": "torch.linalg.solve on the densified (B, N*s, N*s) system"}
     sched = _work.mhe_schedule(v32.active.tolist(), v32.tick_pre.tolist(),
                                v32.tick_now.tolist(), N_WIN, int(ks32.bez_count))
     n_stance = int((d32.contact > 0).sum())
@@ -1988,6 +2268,7 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     works[f"tridiag_solve[s={s}]"] = _work.tridiag(N_WIN, s, B_MAIN, 4, n_states=1)
     more["mhe_tick" + tag] = {
         "max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
+        "shape": {"T": T, "B": B_MAIN, "N": N_WIN},
         "ms_how": "the kernel alone (CUDA events), best of the main path's timed runs",
         "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
         "plain_f64_ms": plain64_ms,
@@ -2050,7 +2331,7 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
         "note": "device function inside mhe_tick_box and admm_solve: launches counts those "
                 "two kernels' launches; ms, plain_ms and the bound are of one warm-started "
                 "whole-window solve through admm_solve"}
-    emit(f"{model}_full_width", B=B_MAIN, N=N_WIN, T_f64=T_BOX_PLAIN, T_f32_kernel=T_MAIN,
+    emit(f"{model}_full_width", B=B_MAIN, N=N_WIN, T_f64=T_BOX_PLAIN, T_f32_kernel=T,
          T_f32_plain=T_BOX_PLAIN, tol=TOL_MHE, max_abs_err_f64=err,
          max_abs_err_f64_by_output={"mhe_tick_box": e_tick, "admm_solve": {"tick0": e0, "final": el}},
          kernel_f32_ms=ms, plain_f32_ms=plain_ms, mhe_tick_box_kernel_only_ms=kb_only)
@@ -2422,24 +2703,41 @@ def pi_cell(model, box, clocks64, clocks32, gt_v):
                           + (", box consts" if box else "")}})
 
 
-def legged_phases(model, builds, pool):
+def legged_phases(model, builds, pool, rows):
     """Every phase of ``model``'s shape (PogoX, Cassie): its shared-clock
     fleet (g)-(j) against float64 and the plain versions, its Cholesky tail
     (Cassie's on the bench's route (k), run first), and its fleet on per-lane
     clocks (l)-(o), each after waiting for its libraries. Returns the
-    kernels' entries of the last-but-one line."""
+    kernels' entries of the last-but-one line; ``rows`` are the entries so
+    far."""
     s = robot_params(model)[0].dim_state
     need(builds, f"mhe_{model}", *((f"tridiag_s{s}", f"admm_s{s}") if s != 9 else ()),
          *(((f"mhe_{model}", FMAD_OFF),) if model in Y_ROUNDING_ROBOTS else ()))
     check_kernels_legged(model)
+    err_std = None
+    if s != 9:      # K5's standard-layout route at this state size, small size
+        data, _, vo = ekf_oriented(model, make_fleet(T_STD_CHK, B_CHK, F64, seed=1,
+                                                     model=model)[1:], F64)
+        err_std = check_kernels_std(model, data, vo._replace(
+            dp_body=vo.dp_body.transpose(1, 2).contiguous()), B_CHK - 6)
     log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model=model)
-    f32 = tuple(cast(nt, F32) for nt in f64)
     gt = torch.as_tensor(log.gt_v_s, device=DEV)
+    if model in F6_TICKS:
+        # yaml Cassie's (g), like its (h), runs its first T_F6_BOX ticks: its
+        # float32 gates cover F6_TICKS of them (fault F6)
+        f64, gt = head(f64, T_F6_BOX), gt[:T_F6_BOX]
+    f32 = tuple(cast(nt, F32) for nt in f64)
     counts, x64, q64, tick_ms = main_path(model, f64, f32, gt)
     del x64
     box_counts, _, _, box_tick = box_path(model, f64, f32, gt)
     kernels = legged_full_width(model, f64, f32, q64, counts, box_counts, tick_ms, box_tick)
     del q64, box_tick
+    if err_std is not None:
+        # K5's standard-layout route at this state size: held against its
+        # plain version at the small size only; its row is the s=9 route's
+        row = next(k for k in rows if k["name"] == "tridiag_solve_batched")
+        row.setdefault("max_abs_err_other_sizes", {})[f"s={s}"] = {
+            "max_abs_err": err_std, "model": model, "T": T_STD_CHK, "B": B_CHK}
     chol_model = model
     if model == "cassie":
         # Cassie's shape at the reference bench's settings through the
@@ -2507,6 +2805,11 @@ def main():
     kernels += box_full_width(fleet64, fleet32, x64_box, q64_box, box_counts, box_tick)
     del x64_box, box_tick
     done("go1_shared_clock")
+    # cell (q): the standard layout on cell (a)'s fleet, and the float64 oracle
+    err_std = check_kernels_std("go1", *std_fleet(head(fleet64, T_STD_CHK), q64, F64), B_RAGGED)
+    kernels += std_path(fleet64, fleet32, q64, gt_v, err_std)
+    oracle(log, gt_v)
+    done("go1_standard_layout")
     # the Cholesky tail at Go1's shape: cell (p) on cell (a)'s fleet
     need(builds, "mhe_go1_chol")
     check_kernels_chol("go1")
@@ -2525,7 +2828,7 @@ def main():
     done("go1_per_lane_clocks")
     # PogoX, then Cassie (whose s=15 libraries compile longest)
     for model in LEGGED:
-        kernels += legged_phases(model, builds, pool)
+        kernels += legged_phases(model, builds, pool, kernels)
         done(model)
     pool.shutdown()
     emit("script", seconds=time.time() - t_start, groups_s=group_s)
@@ -2537,4 +2840,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # no autograd bookkeeping: the eager plain versions are host-bound loops
+    # of small launches, and nothing here differentiates
+    with torch.inference_mode():
+        sys.exit(main())

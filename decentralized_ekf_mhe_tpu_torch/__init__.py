@@ -7,10 +7,12 @@ counterpart by name; the reference's ``pallas/`` directory corresponds to
 ``kernels/`` here, with the CUDA C++ sources under ``csrc/``. The port imports
 ``torch``, ``numpy`` and the standard library only.
 
-Ported so far: the Go1 production fleet cycle — orientation-EKF stage →
-``ekf_lanes.to_rot`` → MHE tick → lever-arm body velocity
-(``parallel.batch.make_pipeline_fleet_runner``), unconstrained, with one shared
-camera clock across the fleet.
+Ported so far: the fleet cycle — orientation-EKF stage → ``ekf_lanes.to_rot``
+→ MHE tick → lever-arm body velocity (``parallel.batch.make_pipeline_fleet_runner``)
+— for Go1, Cassie and PogoX, unconstrained or with state box constraints, on
+one shared camera clock or a clock per lane; and the standard-layout estimator
+(``ops.estimator.run_kf``/``run_mhe``/``ekf_orientation_sequence``, the fleet
+runner ``parallel.batch.make_fused_batched_runner``). ROADMAP.md lists the rest.
 
 Device rule: every entry point defaults to ``device="cuda"`` and raises when
 CUDA is unavailable; it runs on the CPU only when the caller passes

@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from decentralized_ekf_mhe_tpu_torch.ops import admm, assembly, bezier, ekf_lanes, estimator, mhe, mhe_lanes
+from decentralized_ekf_mhe_tpu_torch.ops import (admm, assembly, bezier, ekf, ekf_lanes, estimator,
+                                                 mhe, mhe_lanes)
 
 
 def _tensor(a, dtype, device):
@@ -79,6 +80,24 @@ def _mhe_state(obj, dtype, device):
         **_fields(obj, mhe_lanes.MHEStateL, dtype, device, skip=skip))
 
 
+def _mhe_state_std(obj, dtype, device):
+    skip = ("T", "bez")
+    bez = _bezier(obj.bez, dtype, device)._replace(count=int(obj.bez.count))
+    return mhe.MHEState(T=int(obj.T), bez=bez,
+                        **_fields(obj, mhe.MHEState, dtype, device, skip=skip))
+
+
+def _ekf_consts_std(obj, dtype, device):
+    return ekf.EKFConsts(dt=float(obj.dt), quirk_W=bool(obj.quirk_W),
+                         **_fields(obj, ekf.EKFConsts, dtype, device,
+                                   skip=("dt", "quirk_W")))
+
+
+def _ekf_state_std(obj, dtype, device):
+    return ekf.EKFState(t=int(obj.t),
+                        **_fields(obj, ekf.EKFState, dtype, device, skip=("t",)))
+
+
 def _ekf_consts(obj, dtype, device):
     return ekf_lanes.EKFConstsL(
         dt=float(obj.dt),
@@ -98,6 +117,9 @@ def _ekf_state(obj, dtype, device):
 
 _CONVERTERS = {
     "MHEConsts": _mhe_consts,
+    "MHEState": _mhe_state_std,
+    "EKFConsts": _ekf_consts_std,
+    "EKFState": _ekf_state_std,
     "EKFConstsL": _ekf_consts,
     "MHEStateL": _mhe_state,
     "EKFStateL": _ekf_state,
@@ -113,8 +135,9 @@ _CONVERTERS = {
 
 def from_jax_numpy(obj, device, dtype):
     """Convert one of the reference's NamedTuples (numpy leaves) to this
-    package's counterpart: MHEConsts, EKFConstsL, MHEStateL, EKFStateL,
-    BezierCarry, TickData, VOData or EKFBlocks, chosen by the class name.
+    package's counterpart: MHEConsts, MHEState, MHEStateL, EKFConsts,
+    EKFConstsL, EKFState, EKFStateL, BezierCarry, TickData, VOData or
+    EKFBlocks, chosen by the class name.
     Float leaves are cast to ``dtype``; integers become int32, booleans stay
     bool; scalar counters (``T``, ``t``) become Python ints."""
     name = type(obj).__name__

@@ -156,6 +156,26 @@ def tridiag(N, s, B, itemsize, n_states=None):
     return nbytes, B * ops
 
 
+def tridiag_batched(N, s, B, itemsize, n_states=None):
+    """The standard-layout route (``tridiag_kernel.solve_batched``) per
+    launch: {"solve": K5's own (bytes, operations) (``tridiag``), the
+    function's own work and so its bound, "mask": the warm-up masking of D, U
+    and r (each read and written once; a select of the identity is 2
+    operations per element of D, a mask 1 per element of U and r), "layout":
+    the moves of D, U and r to the lanes layout and of x back (each read and
+    written once), "total"}. The mask and the layout moves are the glue's
+    cost: a kernel that read the standard layout and masked in registers
+    would not move those bytes."""
+    D, Um, v = N * s * s, (N - 1) * s * s, N * s
+    parts = {
+        "solve": tridiag(N, s, B, itemsize, n_states),
+        "mask": (itemsize * B * 2 * (D + Um + v), B * (2 * D + Um + v)),
+        "layout": (itemsize * B * 2 * (D + Um + v + v), 0),
+    }
+    parts["total"] = tuple(sum(w[i] for w in parts.values()) for i in (0, 1))
+    return parts
+
+
 # ---- box-ADMM (admm_solve, and inside the constrained mhe_tick) --------------
 
 _ADMM_RHS, _ADMM_UPDATE, _ADMM_RESID, _ADMM_RHO, _ADMM_ACTIVE = 5, 12, 10, 10, 10

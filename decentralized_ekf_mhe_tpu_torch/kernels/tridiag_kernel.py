@@ -14,9 +14,18 @@ instance, because B instances fill only B/32 warps. The design does nothing abou
 per instance and shared-memory staging are later work); it is the simple
 version that is right.
 
-On the main path this kernel runs once per replay: the tick-0 init solve of
-``mhe_replay_kernel.replay``. The state size is a template parameter: s=9
-(Go1, PogoX) and s=15 (Cassie).
+On the lanes fleet path this kernel runs once per replay: the tick-0 init
+solve of ``mhe_replay_kernel.replay``. The state size is a template
+parameter: s=9 (Go1, PogoX) and s=15 (Cassie).
+
+``solve_batched`` is the reference's standard-layout route
+(``pallas/tridiag_kernel.py`` ``solve_batched``): the drop-in for
+``ops.tridiag.solve`` on (K, B, s, s) operands that ``ops.mhe.solve_window``
+takes every tick of the standard-layout fleet runner
+(``parallel.batch.make_fused_batched_runner(use_pallas=True)``). It masks the
+warm-up slots, moves B to the minor axis, launches the same kernel and moves
+the result back; the masking and the two moves are plain PyTorch, as they are
+XLA glue around the reference's kernel.
 """
 
 from __future__ import annotations
@@ -24,11 +33,12 @@ from __future__ import annotations
 import torch
 
 from decentralized_ekf_mhe_tpu_torch.kernels import _build
-from decentralized_ekf_mhe_tpu_torch.ops import lanes
+from decentralized_ekf_mhe_tpu_torch.ops import lanes, tridiag
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 BLOCK = 32       # threads per block: one warp, so a small fleet spreads over SMs
 launches = 0     # incremented where the CUDA kernel is launched, nowhere else
+launches_batched = 0   # launches made by the standard-layout route (solve_batched)
 
 
 def solve_lanes_plain(D, U, r):
@@ -61,6 +71,55 @@ def solve_lanes(D, U, r, device="cuda"):
     if dev.type == "cpu":
         return solve_lanes_plain(D, U, r)
     return _launch(D, U, r)
+
+
+def solve_batched_plain(D, U, r, valid=None):
+    """Plain PyTorch version of the standard-layout route: ``ops.tridiag.solve``
+    (the same masking and layout moves around ``ops.lanes.thomas_solve``)."""
+    return tridiag.solve(D, U, r, valid)
+
+
+def solve_batched(D, U, r, valid=None, device="cuda"):
+    """Drop-in for ``ops.tridiag.solve`` on standard-layout operands with one
+    batch axis.
+
+    Args:
+      D: (K, B, s, s) diagonal blocks.
+      U: (K-1, B, s, s) couplings.
+      r: (K, B, s) right-hand side.
+      valid: optional (K, B) bool mask of live slots.
+    Returns x: (K, B, s). Dead slots become identity blocks with zero
+    coupling and right-hand side (``ops.tridiag.mask_system``), B moves to
+    the minor axis, the kernel solves, and B moves back. The kernel masks the
+    ragged edge of the last block itself, so B needs no padding. CPU tensors
+    (``device="cpu"``) take the plain version; CUDA tensors launch the kernel
+    or raise.
+    """
+    global launches_batched
+    device = resolve_device(device)
+    if D.ndim != 4:
+        raise ValueError(f"D: expected (K,B,s,s), got {tuple(D.shape)}")
+    K, B, s, _ = D.shape
+    if D.device.type != device.type:
+        raise ValueError(f"D: on {D.device}, expected {device}")
+    if D.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"D: dtype {D.dtype} not supported")
+    dev = D.device
+    for name, t, shape in (("D", D, (K, B, s, s)), ("U", U, (K - 1, B, s, s)),
+                           ("r", r, (K, B, s))):
+        if t.device != dev or t.dtype != D.dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape} {D.dtype} on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if valid is not None and (valid.device != dev or valid.dtype != torch.bool
+                              or tuple(valid.shape) != (K, B)):
+        raise ValueError(f"valid: expected ({K}, {B}) bool on {dev}, got "
+                         f"{tuple(valid.shape)} {valid.dtype} on {valid.device}")
+    if dev.type == "cpu":
+        return solve_batched_plain(D, U, r, valid)
+    D, U, r = tridiag.mask_system(D, U, r, valid)
+    x = _launch(*(torch.movedim(a, 1, -1).contiguous() for a in (D, U, r)))
+    launches_batched += 1
+    return torch.movedim(x, -1, 1)
 
 
 def _launch(D, U, r):

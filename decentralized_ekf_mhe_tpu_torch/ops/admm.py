@@ -14,15 +14,17 @@ Ported here:
   inside the constrained ``mhe_tick`` kernel (``csrc/admm.cuh``).
 - ``solve_box_qp``: the dense batched solver for l ≤ Ax ≤ u, used by tests.
 
-The standard-layout ``solve_box_tridiag`` comes with the standard-layout MHE
-(ROADMAP.md, "KF baseline and single-instance paths").
+- ``solve_box_tridiag``: the same MHE specialization in standard layout,
+  time-leading (K, …, s) with any batch axes — the constrained window solve
+  of ``ops/mhe.py``. Its sweeps are ``ops/tridiag.py``'s.
 
 The reference runs a fixed-length scan with masked updates; here a Python
 loop walks the same epoch structure, which is known on the host: the
 factorization happens at iteration 1 and, with adaptive ρ, at every
-iteration kE+1; the residual check and the ρ update happen at iterations kE
-only; a partial last epoch is not followed by a check; converged instances
-keep x, z, y and ρ and stop counting iterations.
+iteration kE+1; the residual check and the ρ update happen at the end of an
+epoch (in the lanes solver at iterations kE only: the check after a partial
+last epoch moves nothing that is returned); converged instances keep x, z, y
+and ρ and stop counting iterations.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from decentralized_ekf_mhe_tpu_torch.config import OSQPParams
-from decentralized_ekf_mhe_tpu_torch.ops import lanes
+from decentralized_ekf_mhe_tpu_torch.ops import lanes, tridiag
 
 
 class ADMMSettings(NamedTuple):
@@ -380,4 +382,89 @@ def solve_box_tridiag_lanes(D, U, r, lb, ub, settings: ADMMSettings,
         x = lanes.thomas_solve(D_p, U, r_p)
 
     prim, dual = final_residuals(D, U, r, x, z, y)
+    return ADMMResult(x, z, y, prim, dual, iters)
+
+
+def _t_apply_std(D, U, xv):
+    """Block-tridiagonal operator in standard layout: (K,…,s,s) on (K,…,s)."""
+    out = _mv(D, xv)
+    out[:-1] += _mv(U, xv[1:])
+    out[1:] += _mv(U.transpose(-1, -2), xv[:-1])
+    return out
+
+
+def solve_box_tridiag(D, U, r, lb, ub, settings: ADMMSettings,
+                      valid=None, z0=None, y0=None, x0=None):
+    """Box-constrained block-tridiagonal QP in standard layout:
+    min ½xᵀTx − rᵀx s.t. lb ≤ x ≤ ub, T given by diagonal blocks D
+    (K,…,s,s) and couplings U (K-1,…,s,s), r (K,…,s). ``lb``/``ub`` are
+    (s,) or broadcastable over the batch ((B,s) per lane); ±inf makes a
+    dimension unconstrained. ``valid`` (K,…) is the warm-up mask; z0/y0
+    warm-start the iterates and x warm-starts from z0.
+
+    A = I, so the x-update matrix T + (σ+ρ)I stays block tridiagonal: it is
+    factorized once per ρ-epoch (``tridiag.factor``, once for the whole run
+    with fixed ρ) and the iterations in between are substitution sweeps
+    (``tridiag.solve_factored``). At each epoch end the residuals drive the
+    converged-freeze and the adaptive-ρ rule. Returns ADMMResult(x, z, y
+    (K,…,s), prim, dual, iters (…))."""
+    s = D.shape[-1]
+    sigma, alpha = settings.sigma, settings.alpha
+    eye = torch.eye(s, dtype=D.dtype, device=D.device)
+
+    z = torch.zeros_like(r) if z0 is None else z0
+    x = (z if z0 is not None else torch.zeros_like(r)) if x0 is None else x0
+    y = torch.zeros_like(r) if y0 is None else y0
+    batch_shape = r.shape[1:-1]
+    rho = torch.full(batch_shape, settings.rho, dtype=D.dtype, device=D.device)
+    done = torch.zeros(batch_shape, dtype=torch.bool, device=D.device)
+    iters = torch.zeros(batch_shape, dtype=torch.int32, device=D.device)
+    check = settings.abs_tol > 0.0 or settings.rel_tol > 0.0
+    lb = torch.as_tensor(lb, dtype=D.dtype, device=D.device)
+    ub = torch.as_tensor(ub, dtype=D.dtype, device=D.device)
+
+    def freeze(new_val, old_val):
+        return torch.where(done[None, ..., None], old_val, new_val)
+
+    def factor(rho):
+        return tridiag.factor(D + (sigma + rho)[..., None, None] * eye, U, valid=valid)
+
+    fac = None if settings.adaptive_rho else factor(rho)
+    E = max(1, int(settings.rho_update_every))
+    n_full, rem = divmod(int(settings.iters), E)
+    for length in [E] * n_full + ([rem] if rem else []):
+        if settings.adaptive_rho:
+            fac = factor(rho)
+        rho_v = rho[..., None]
+        for _ in range(length):
+            rhs = r + sigma * x + rho_v * z - y
+            x_t = tridiag.solve_factored(fac, rhs, valid=valid)
+            x_n = freeze(alpha * x_t + (1 - alpha) * x, x)
+            z_r = alpha * x_t + (1 - alpha) * z
+            z_n = freeze(_clip(z_r + y / rho_v, lb, ub), z)
+            y_n = freeze(y + rho_v * (z_r - z_n), y)
+            iters = iters + (~done).to(torch.int32)
+            x, z, y = x_n, z_n, y_n
+        # epoch-end residuals (OSQP §3.4): converged-freeze and ρ update
+        prim = _amax(x - z, (0, -1))
+        Tx = _t_apply_std(D, U, x)
+        dual = _amax(Tx - r + y, (0, -1))
+        ps = torch.maximum(_amax(x, (0, -1)), _amax(z, (0, -1)))
+        ds = torch.maximum(torch.maximum(_amax(Tx, (0, -1)), _amax(y, (0, -1))),
+                           _amax(r, (0, -1)))
+        if check:
+            done = done | ((prim <= settings.abs_tol + settings.rel_tol * ps)
+                           & (dual <= settings.abs_tol + settings.rel_tol * ds))
+        if settings.adaptive_rho:
+            rho = torch.where(~done, _rho_update(rho, prim, dual, ps, ds), rho)
+
+    if settings.polish:
+        act, target = _active_targets(z, lb.expand_as(z), ub.expand_as(z))
+        diagD = torch.abs(torch.diagonal(D, dim1=-2, dim2=-1))
+        pen = settings.polish_penalty * (torch.amax(diagD, dim=-1, keepdim=True) + diagD)
+        x = tridiag.solve(D + (act * pen)[..., :, None] * eye, U, r + act * pen * target,
+                          valid=valid)
+
+    prim = _amax(x - z, (0, -1))
+    dual = _amax(_t_apply_std(D, U, x) - r + y, (0, -1))
     return ADMMResult(x, z, y, prim, dual, iters)

@@ -24,7 +24,8 @@ from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 class BezierCarry(NamedTuple):
     pts: torch.Tensor      # (...,4,3) control points, oldest..newest
     times: torch.Tensor    # (4,) shared or (B,4) per-instance waypoint times
-    count: torch.Tensor    # int32 points ever added: 0-d or (B,)
+    count: torch.Tensor    # int32 points ever added: 0-d or (B,); a host int
+                           # in the standard layout's state (ops.mhe), as T is
     p_accum: torch.Tensor  # (...,3) accumulated world-frame VO path
 
 
@@ -48,8 +49,9 @@ def add_way_point(c: BezierCarry, p: torch.Tensor, t_end,
     With a per-instance schedule (or a ``mask``) the push is a masked select
     per instance, as in the reference: ``t_end`` is a scalar or (B,), and
     instances whose ``mask`` (B,) is False keep their carry (their VO frame
-    did not arrive)."""
-    if c.count.ndim or mask is not None:
+    did not arrive). A count held as a host int stays one, and is read
+    without a device sync."""
+    if mask is not None or (torch.is_tensor(c.count) and c.count.ndim):
         return _add_way_point_masked(c, p, t_end, mask)
     count = int(c.count)
     pts, times = c.pts, c.times

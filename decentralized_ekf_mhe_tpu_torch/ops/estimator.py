@@ -1,16 +1,21 @@
 """Estimation replays: run the decentralized EKF → MHE pipeline over a log.
 
 Counterpart of the reference ``ops/estimator.py``. The reference scans each
-stage with ``lax.scan``; here the plain versions are Python loops over the
-eager lanes functions (thousands of small launches — fine on the CPU and as
-the kernels' reference at small sizes, not a production path), and the
-production path replaces each loop with one hand-written CUDA kernel
-(``kernels/ekf_kernel.py``, ``kernels/mhe_replay_kernel.py``).
+stage with ``lax.scan``; here the replays are Python loops over the eager
+functions (thousands of small launches — fine on the CPU and as the kernels'
+reference at small sizes), and the lanes fleet path replaces each loop with
+one hand-written CUDA kernel (``kernels/ekf_kernel.py``,
+``kernels/mhe_replay_kernel.py``). Every loop brings its schedule (VO
+events, tick counters) to the host once, so no tick reads a device scalar.
 
 Ported: ``TickData``, ``VOData``, ``EKFBlocks`` and their ``*_from_log``
-packers, ``scan_ekf_blocks``, ``run_mhe_lanes`` and ``run_pipeline_lanes``,
-each with the fleet's shared camera clock or a camera clock per lane. The KF baseline (``run_kf``), the standard-layout MHE
-(``run_mhe``) and ``ekf_orientation_sequence`` are listed in ROADMAP.md.
+packers; the standard-layout replays ``run_kf`` (the KF baseline),
+``run_mhe`` (single instance (T, …) or a time-leading fleet (T, B, …), whose
+window solve takes the block-tridiagonal kernel's standard-layout route with
+``use_pallas`` consts) and ``ekf_orientation_sequence`` — together the
+reference bench's float64 oracle; and the lanes replays ``scan_ekf_blocks``,
+``run_mhe_lanes`` and ``run_pipeline_lanes``, each with the fleet's shared
+camera clock or a camera clock per lane.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import numpy as np
 import torch
 
 from decentralized_ekf_mhe_tpu_torch.config import EstimatorParams
-from decentralized_ekf_mhe_tpu_torch.ops import kf
+from decentralized_ekf_mhe_tpu_torch.ops import assembly, kf
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 
@@ -85,6 +90,114 @@ def _empty_vo(T_total, dtype, device) -> VOData:
         tick_pre=torch.zeros(T_total, dtype=torch.int32, device=device),
         tick_now=torch.zeros(T_total, dtype=torch.int32, device=device),
     )
+
+
+def _tick(data: TickData, t: int) -> TickData:
+    return TickData(*(a[t] for a in data))
+
+
+def run_kf(params: EstimatorParams, data: TickData,
+           lever_arm=kf.DEFAULT_LEVER_ARM, dtype=torch.float64, device="cuda"):
+    """Replay the KF baseline over a log (est_type=1, EstSub.cpp:58-91): tick
+    0 runs InitializeKF, ticks 1.. UpdateKF. ``data`` (T, …) or (T, B, …) on
+    ``device``. Returns (x_seq (T,[B,]s), v_b_seq (T,[B,]3))."""
+    device = resolve_device(device)
+    nc = assembly.make_noise_consts(params, dtype, device=device)
+    A_meas = assembly.a_meas(params, dtype, device=device)
+    lever = torch.tensor(lever_arm, dtype=dtype, device=device)
+
+    d0 = _tick(data, 0)
+    b0, C0, _ = assembly.build_measurement(params, nc, d0.R_sb, d0.omega_b,
+                                           d0.p_foot, d0.J_foot, d0.dq, d0.contact)
+    state = kf.init(params, nc, A_meas, b0, C0)
+    xs = [state.x]
+    vs = [kf.body_velocity(state.x, d0.R_sb, d0.omega_b, lever)]
+    # UpdateKF predicts with the inputs of tick T−1 (the stacks before
+    # GetMeasurement pushes tick T, DecentralEst.cpp:707-709, 766) and
+    # corrects with tick T
+    prev = (d0.R_sb, assembly.spatial_accel(d0.R_sb, d0.accel_b, nc), d0.contact)
+    for t in range(1, data.accel_b.shape[0]):
+        d = _tick(data, t)
+        A_dyn, b_dyn, C_dyn, _ = assembly.build_dynamics(params, nc, *prev)
+        b_meas, C_meas, _ = assembly.build_measurement(
+            params, nc, d.R_sb, d.omega_b, d.p_foot, d.J_foot, d.dq, d.contact)
+        state = kf.update(state, A_dyn, b_dyn, C_dyn, A_meas, b_meas, C_meas)
+        xs.append(state.x)
+        vs.append(kf.body_velocity(state.x, d.R_sb, d.omega_b, lever))
+        prev = (d.R_sb, assembly.spatial_accel(d.R_sb, d.accel_b, nc), d.contact)
+    return torch.stack(xs, dim=0), torch.stack(vs, dim=0)
+
+
+def run_mhe(params: EstimatorParams, data: TickData, vo: Optional[VOData] = None,
+            lever_arm=kf.DEFAULT_LEVER_ARM, dtype=torch.float64, consts=None,
+            device="cuda"):
+    """Replay the MHE (est_type=0) over a log: ``mhe.init`` at tick 0, then
+    one ``mhe.step`` per tick (the timerCallback dispatch, EstSub.cpp:58-91).
+
+    ``data`` is single-instance (T, …) or a time-leading fleet (T, B, …) on
+    ``device``; ``vo`` is the shared VO schedule (active, tick_pre, tick_now
+    (T,); dp_body (T,3), or (T,B,3) per instance) or None. Pass ``consts`` to
+    choose the solver: with ``use_pallas`` consts a fleet's window solves take
+    the block-tridiagonal kernel's standard-layout route
+    (``parallel.batch.make_fused_batched_runner``); with a box, the box-ADMM.
+
+    Returns (x_seq (T,[B,]s), v_b_seq (T,[B,]3)); x_seq[0] is the tick-0
+    prior+measurement solve."""
+    from decentralized_ekf_mhe_tpu_torch.ops import mhe
+
+    device = resolve_device(device)
+    c = consts if consts is not None else mhe.make_consts(params, dtype, device=device)
+    lever = torch.tensor(lever_arm, dtype=dtype, device=device)
+    T_total = data.accel_b.shape[0]
+    if vo is None:
+        vo = _empty_vo(T_total, dtype, device)
+    if vo.active.ndim != 1:
+        raise ValueError(
+            "run_mhe takes the fleet's shared camera clock (active (T,)); a clock per "
+            "lane runs through run_mhe_lanes (parallel.batch.make_lanes_fleet_runner)")
+    active = vo.active.tolist()
+    tick_pre = vo.tick_pre.tolist()
+    tick_now = vo.tick_now.tolist()
+    # the orientation at each VO pair's previous-frame tick (the R_vo_sb_pre
+    # lookup of DecentralEst.cpp:915): one gather over the whole log
+    R_pre_seq = data.R_sb[vo.tick_pre.long()]
+
+    d0 = _tick(data, 0)
+    st = mhe.init(c, d0.R_sb, d0.accel_b, d0.omega_b, d0.p_foot, d0.J_foot,
+                  d0.dq, d0.contact, dtype=dtype, device=device)
+    x0 = mhe.solve_window(c, st)[..., c.N - 1, :]
+    xs = [x0]
+    vs = [kf.body_velocity(x0, d0.R_sb, d0.omega_b, lever)]
+    for t in range(1, T_total):
+        d = _tick(data, t)
+        st, (x_T, _) = mhe.step(
+            c, st, d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq,
+            d.contact, active[t], vo.dp_body[t], tick_pre[t], tick_now[t],
+            R_pre_seq[t])
+        xs.append(x_T)
+        vs.append(kf.body_velocity(x_T, d.R_sb, d.omega_b, lever))
+    return torch.stack(xs, dim=0), torch.stack(vs, dim=0)
+
+
+def ekf_orientation_sequence(params_ekf, log, dtype=torch.float64, device="cuda"):
+    """Run the single-instance orientation EKF over the log's EKF-rate
+    stream and sample the fused quaternion at each MHE tick (the imu/filter
+    -> est_sub handoff, orien_ekf.cpp:90-105 -> EstSub.cpp:34-43). Returns
+    (R (T,3,3), q (T,4))."""
+    from decentralized_ekf_mhe_tpu_torch.ops import ekf as ekf_ops
+    from decentralized_ekf_mhe_tpu_torch.utils import quaternion as quat
+
+    device = resolve_device(device)
+    c = ekf_ops.make_consts(params_ekf, dtype, device=device)
+    state = ekf_ops.init_state(params_ekf, ring_len=64, dtype=dtype, device=device)
+    _, q_seq = ekf_ops.run_sequence(
+        state, _t(log.ekf_gyro, dtype, device), _t(log.ekf_accel, dtype, device),
+        np.asarray(log.ekf_vo_active, bool), _t(log.ekf_vo_q, dtype, device),
+        np.asarray(log.ekf_vo_steps_back, np.int64), c)
+    bounds = np.cumsum(np.asarray(log.ekf_substeps))
+    idx = torch.as_tensor(np.maximum(bounds - 1, 0), device=device)
+    q_mhe = q_seq[idx]
+    return quat.to_rot(q_mhe), q_mhe
 
 
 def vo_world_increments(R_seq, vo: VOData):

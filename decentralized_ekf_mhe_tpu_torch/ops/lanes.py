@@ -78,6 +78,16 @@ def const(M):
     return M[..., None]
 
 
+def to_lanes(a):
+    """Standard batch-leading (B, ...) -> lanes (..., B)."""
+    return torch.movedim(a, 0, -1)
+
+
+def from_lanes(a):
+    """Lanes (..., B) -> standard batch-leading (B, ...)."""
+    return torch.movedim(a, -1, 0)
+
+
 def skew(v):
     """(..., 3, b) -> (..., 3, 3, b) skew-symmetric (EigenUtils.hpp:91-97)."""
     x, y, z = v[..., 0, :], v[..., 1, :], v[..., 2, :]

@@ -54,6 +54,25 @@ class MHEStateL(NamedTuple):
     y_adm: object = ()        # (N,s,B)
 
 
+def to_lanes_state(st) -> MHEStateL:
+    """``mhe.MHEState`` with one leading batch axis -> lanes layout (the
+    Bezier carry stays batch-leading, as in the lanes state; its host count
+    becomes the lanes state's 0-d tensor)."""
+    count = torch.tensor(st.bez.count, dtype=torch.int32, device=st.M_p.device)
+    return MHEStateL(
+        *(lanes.to_lanes(a) for a in (
+            st.y_meas, st.Q_meas, st.A_dyn, st.b_dyn, st.Q_dyn,
+            st.b_cam, st.Q_cam, st.cam_active, st.M_p, st.n_p)),
+        T=st.T,
+        bez=st.bez._replace(count=count),
+        prev_R=lanes.to_lanes(st.prev_R),
+        prev_accel_s=lanes.to_lanes(st.prev_accel_s),
+        prev_contact=lanes.to_lanes(st.prev_contact),
+        z_adm=lanes.to_lanes(st.z_adm),
+        y_adm=lanes.to_lanes(st.y_adm),
+    )
+
+
 def init(
     c: MHEConsts,
     R_sb, accel_b, omega_b, p_foot, J_foot, dq, contact,

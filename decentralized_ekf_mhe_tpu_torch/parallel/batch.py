@@ -1,9 +1,11 @@
 """Fleet harness: Monte-Carlo perturbations and the fleet runners.
 
 Counterpart of the reference ``parallel/batch.py``. Ported: the three
-``perturb_*`` functions, the layout helpers, and the two lanes fleet runners
-(shared or per-lane camera clocks). The vmapped/standard-layout runners and everything
-sharded over a device mesh are listed in ROADMAP.md ("sharding").
+``perturb_*`` functions, the layout helpers, the standard-layout runners
+(``mhe_window_solve_batch``, ``make_batched_runner``,
+``make_fused_batched_runner``) and the two lanes fleet runners (shared or
+per-lane camera clocks). Everything sharded over a device mesh is listed in
+ROADMAP.md ("sharding").
 
 Random draws take an explicit ``torch.Generator`` where the reference takes a
 PRNG key; the two frameworks give different numbers for the same seed, so a
@@ -129,6 +131,64 @@ def perturb_vo_batch(vo: estimator.VOData, B: int,
             tick_now=vo.tick_now[:, None].expand(T, B),
         )
     return vo._replace(dp_body=dp)
+
+
+def mhe_window_solve_batch(params: EstimatorParams, dtype=torch.float32,
+                           device="cuda"):
+    """f(batched mhe.MHEState) -> (B, N, s): the window solve alone, on the
+    default consts (the exact sweep ``ops.tridiag.solve``)."""
+    from decentralized_ekf_mhe_tpu_torch.ops import mhe
+
+    c = mhe.make_consts(params, dtype, device=resolve_device(device))
+
+    def f(st):
+        return mhe.solve_window(c, st)
+
+    return f
+
+
+def make_batched_runner(params: EstimatorParams, dtype=torch.float32, with_vo=True,
+                        device="cuda"):
+    """Full-log MHE replay of a B-leading fleet: f(TickData[B,T,...], VOData)
+    -> (x[B,T,s], v[B,T,3]) (``with_vo=False``: f(TickData) without VO). The
+    reference vmaps the single-instance replay; here B moves to the
+    time-leading form and the fleet replays in one loop
+    (``estimator.run_mhe``, every instance its own rows of each tensor) on the
+    default consts, the exact sweep ``ops.tridiag.solve``. ``vo`` is the
+    fleet's shared schedule."""
+    device = resolve_device(device)
+
+    def run(data_b: estimator.TickData, vo: Optional[estimator.VOData] = None):
+        x, v = estimator.run_mhe(params, to_time_leading(data_b), vo=vo, dtype=dtype,
+                                 device=device)
+        return x.transpose(0, 1), v.transpose(0, 1)
+
+    if with_vo:
+        return run
+    return lambda data_b: run(data_b)
+
+
+def make_fused_batched_runner(params: EstimatorParams, dtype=torch.float32,
+                              use_pallas=True, device="cuda"):
+    """Fleet MHE replay in standard layout: f(TickData[T,B,...], VOData) ->
+    (x[T,B,s], v[T,B,3]). Every ``ops.mhe`` function broadcasts over the
+    instance axis, so the time-leading fleet runs through one loop with host
+    tick counters. With ``use_pallas`` (the default) every tick's window solve
+    takes the block-tridiagonal kernel's standard-layout route
+    (``kernels/tridiag_kernel.solve_batched``: the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors), as the reference takes its
+    Pallas kernel. ``vo`` is the fleet's shared schedule, dp_body (T,3) or
+    per instance (T,B,3)."""
+    from decentralized_ekf_mhe_tpu_torch.ops import mhe
+
+    device = resolve_device(device)
+    c = mhe.make_consts(params, dtype, use_pallas=use_pallas, device=device)
+
+    def run(data_tb: estimator.TickData, vo: Optional[estimator.VOData] = None):
+        return estimator.run_mhe(params, data_tb, vo=vo, dtype=dtype, consts=c,
+                                 device=device)
+
+    return run
 
 
 def to_time_leading(data_b: estimator.TickData) -> estimator.TickData:

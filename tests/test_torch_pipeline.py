@@ -452,6 +452,11 @@ def test_port_imports_no_jax():
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 20
+    # the standard-layout modules are among the files walked
+    for name in ("utils/quaternion.py", "ops/smallmat.py", "ops/tridiag.py", "ops/assembly.py",
+                 "ops/kf.py", "ops/ekf.py", "ops/mhe.py", "ops/admm.py", "ops/estimator.py",
+                 "parallel/batch.py", "kernels/tridiag_kernel.py"):
+        assert os.path.join(PORT, *name.split("/")) in files, name
     bad = re.compile(
         r"^\s*(import\s+jax\b|from\s+jax\b|import\s+decentralized_ekf_mhe_tpu(\s|\.|$)"
         r"|from\s+decentralized_ekf_mhe_tpu(\s|\.))", re.M)
