@@ -68,6 +68,19 @@ the lanes runner's tick kernel, and the reference bench's float64 oracle — the
 single-instance orientation EKF, then the single-instance MHE — on the card,
 with the KF baseline and a constrained single instance.
 
+The Cholesky tail on per-lane camera clocks (K2d-PI, cell (r)) at each shape:
+against its plain version, against the Gauss-Jordan tick on the same clocks
+(K2b) and, with the fleet's clock given to every lane, against the
+shared-clock Cholesky tick at the small size (split log, plain version from a
+kernel state, a ragged fleet through the lanes runner with DEM_MK_SOLVE=chol);
+then each robot's 15-clock fleet through the lanes runner at full width with
+DEM_MK_SOLVE=chol against a float64 run, element-wise against its plain
+version, and timed against K2b. And the stage ablation of the tick (K2e,
+cell (s)): each ablated unit against its plain version at a small size
+(float64, the same positions of non-finite values), then the stage table of
+``decentralized_ekf_mhe_tpu_torch.tools.roofline.ablation`` on cell (a)'s
+fleet.
+
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
 lower priority while the Go1 phases run, in the order the phases need them,
@@ -95,13 +108,14 @@ import torch
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
-from decentralized_ekf_mhe_tpu_torch.config import EKFParams, EstimatorParams, load_yaml_params
+from decentralized_ekf_mhe_tpu_torch.config import EKFParams, load_yaml_params
 from decentralized_ekf_mhe_tpu_torch.io import synth
 from decentralized_ekf_mhe_tpu_torch.kernels import _build, _work
 from decentralized_ekf_mhe_tpu_torch.kernels import admm_kernel, ekf_kernel, tridiag_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
 from decentralized_ekf_mhe_tpu_torch.ops import admm, ekf_lanes, estimator, mhe, mhe_lanes, tridiag
 from decentralized_ekf_mhe_tpu_torch.parallel import batch
+from decentralized_ekf_mhe_tpu_torch.tools import roofline
 
 DEV = torch.device("cuda")
 F32, F64 = torch.float32, torch.float64
@@ -111,11 +125,11 @@ N_WIN, T_MAIN, B_MAIN, RING = 20, 2000, 1024, 16
 SKIP = 100            # warm-up ticks left out of the RMSE
 # small size of the split-log, shared-quaternion and ragged-fleet checks (the
 # eager plain versions are Python loops of thousands of small launches)
-T_CHK, B_CHK, B_RAGGED, T_RAGGED = 64, 256, 1000, 24
+T_CHK, B_CHK, B_RAGGED, T_RAGGED = 48, 256, 1000, 24
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 3.35 TB/s,
 # 67 TFLOP/s float32 outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+PEAK_BYTES_S, PEAK_F32_FLOPS = roofline.PEAK_BYTES_S, roofline.PEAK_F32_FLOPS
 
 # tolerances: as the reference's tests hold each kernel against its scan at
 # float64 (EKF rtol 1e-10/atol 1e-12; MHE and tridiagonal rtol 1e-8/atol 1e-8)
@@ -135,7 +149,7 @@ V_BOX, T_PER_TICK, T_BOX_PLAIN = 0.3, 200, 120
 # per-lane camera clocks: lane b follows clock b % 15 (vo_every 5..9, latency
 # 1..3 ticks), every 64th lane has no VO at all; the depth of the ragged-fleet
 # check and of the eager per-lane EKF timing run
-N_CLOCKS, VO_FREE_EVERY, T_RAGGED_PI, T_EKF_PI = 15, 64, 40, 100
+N_CLOCKS, VO_FREE_EVERY, T_RAGGED_PI, T_EKF_PI = 15, 64, 30, 100
 
 # the constrained tick on per-lane clocks at full width: its dual iterate y
 # (y += rho (alpha x~ + (1 - alpha) z - z+), rho = 5000) carries the primal
@@ -199,7 +213,7 @@ T_F6_BOX = 1000
 # inputs, from the kernel's state, to show whether the plain version departs
 # from float64 and leaves the box in those ticks as the kernel does (F6) or
 # not (a float32 fault of the kernel alone): ``f6_witness``
-F6_WITNESS = (900, 1200)
+F6_WITNESS = (1000, 1100)
 # the Cholesky tail (DEM_MK_SOLVE=chol) against the Gauss-Jordan one: the
 # reference's own test of the two tails (tests/test_megakernel.py:261-273)
 TOL_CHOL_VS_GJ = dict(rtol=1e-9, atol=1e-10)
@@ -209,13 +223,35 @@ TOL_CHOL_VS_GJ = dict(rtol=1e-9, atol=1e-10)
 # float64 run against the lanes runner's tick kernel at the reference's
 # lanes-vs-standard tolerance (tests/test_mhe_lanes.py:157); the float64
 # oracle's KF baseline at the reference test's gate (tests/test_kf_slice.py:99)
-# and its constrained single-instance run over T_ORACLE_BOX ticks
+# and its constrained single-instance run over T_ORACLE_BOX ticks; the oracle
+# replays Go1's synthetic log (seed 0) of T_ORACLE ticks (a single instance is
+# host-bound on the card: thousands of small launches per tick)
 T_STD_CHK, TOL_STD_VS_LANES, KF_RMSE_GATE, T_ORACLE_BOX = 40, dict(rtol=1e-7, atol=1e-8), 0.06, 200
+T_ORACLE = 500
 # the element-wise float64 check of the main path's kernels (full_size) covers
 # its first T_F64_CHK ticks at TOL_MHE; over the whole log std_path holds the
 # lanes runner's tick kernel (K2) against the standard-layout fused runner (its
 # window solves through K5's standard route on the card) at TOL_STD_VS_LANES
-T_F64_CHK = 1000
+T_F64_CHK = 300
+# cell (s), the stage ablation (K2e): each ablated unit is held against its
+# plain version over T_ABL ticks (the window full, then a dozen ticks of
+# marginalization) of a B_ABL-instance fleet in float64, x and the window
+# state it leaves, and the tool's stage table runs over the first T_ABL_TABLE
+# ticks of cell (a)'s fleet (the tool's default depth). The "solve" stage
+# returns a sum over the window's slots of the assembled system's entries,
+# which are themselves sums of products of either sign up to about 1e12 in
+# size that cancel to a few hundred or to rounding noise, so no limit on the
+# value separates rounding from a wrong sum (the kernel read 41 times TOL_MHE
+# there, PERF.md §7). It is held to ATOL_SOLVE + RTOL_SOLVE times the
+# magnitude of its elementary products (``solve_scales``' terms: the normal
+# equations of the absolute values), the scale of the rounding that the
+# kernel's and the plain version's orders of summation leave in it: 900 eps,
+# where the sound kernel reads up to 6.3e-14 (280 eps) of it; the readings
+# of a kernel that wrote zeros or dropped r, and on the value and on the
+# masked system's own entries (whose own rounding is of the 4e10 weights'
+# size), are printed beside it
+T_ABL, B_ABL, T_ABL_TABLE = N_WIN + 12, 64, 200
+RTOL_SOLVE, ATOL_SOLVE = 2e-13, 1e-8
 # a main-path run longer than this many seconds is timed once, in its
 # counted run (the spread within a call is about 3%)
 WALL_ONCE_S = 2.0
@@ -232,7 +268,7 @@ T_START = time.time()
 # so Cassie's Cholesky and per-lane-clock libraries start later
 # (CASSIE_LATE_BUILDS), while the GPU runs bench_route's long Cassie ticks
 GO1_LIBRARIES = ("tridiag_s9", "ekf", "mhe_go1", "admm_s9")
-LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF),
+LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF), "mhe_go1_abl",
                 "mhe_pogox", "mhe_pogox_chol", "mhe_pogox_pi",
                 "tridiag_s15", "admm_s15", "mhe_cassie", ("mhe_cassie", FMAD_OFF))
 CASSIE_LATE_BUILDS = ("mhe_cassie_chol", "mhe_cassie_pi")
@@ -246,15 +282,9 @@ def emit(phase, **kw):
           flush=True)
 
 
-def go1_params(N=N_WIN):
-    return EstimatorParams(
-        num_legs=4, leg_odom_type=0, rate=200, N=N,
-        p_process_std=[0.001] * 3, accel_input_std=[0.025, 0.025, 0.02],
-        gyro_input_std=[0.03] * 3, accel_bias_std=[0.07, 0.02, 0.03],
-        joint_position_std=[0.04] * 3, joint_velocity_std=[0.22] * 3,
-        foot_slide_std=[0.003] * 3, foot_swing_std=[1e7] * 3,
-        vo_p_std=[1.5e-5] * 3,
-    )
+def go1_params():
+    """The reference bench's Go1 estimator (N=20, ``bench.py``'s ``_params``)."""
+    return roofline.bench_params()
 
 
 def robot_params(model="go1"):
@@ -675,6 +705,8 @@ def reset_counts():
     for mod in (tridiag_kernel, ekf_kernel, mrk, admm_kernel):
         mod.launches = 0
     mrk.launches_box = mrk.launches_pi = mrk.launches_pi_box = mrk.launches_chol = 0
+    mrk.launches_pi_chol = 0
+    mrk.launches_abl_by_stage.update(dict.fromkeys(mrk.ABLATE_STAGES, 0))
     admm_kernel.launches_core = 0
     tridiag_kernel.launches_batched = 0
 
@@ -683,13 +715,16 @@ def read_counts():
     return {"tridiag_solve": tridiag_kernel.launches, "ekf_stage": ekf_kernel.launches,
             "mhe_tick": mrk.launches, "mhe_tick_box": mrk.launches_box,
             "mhe_tick_pi": mrk.launches_pi, "mhe_tick_pi_box": mrk.launches_pi_box,
-            "mhe_tick_chol": mrk.launches_chol, "admm_solve": admm_kernel.launches,
+            "mhe_tick_chol": mrk.launches_chol, "mhe_tick_pi_chol": mrk.launches_pi_chol,
+            "mhe_tick_abl": sum(mrk.launches_abl_by_stage.values()),
+            "admm_solve": admm_kernel.launches,
             "admm_box_solve": admm_kernel.launches_core,
             "tridiag_solve_batched": tridiag_kernel.launches_batched}
 
 
 NO_LAUNCH = {"tridiag_solve": 0, "ekf_stage": 0, "mhe_tick": 0, "mhe_tick_box": 0,
-             "mhe_tick_pi": 0, "mhe_tick_pi_box": 0, "mhe_tick_chol": 0, "admm_solve": 0,
+             "mhe_tick_pi": 0, "mhe_tick_pi_box": 0, "mhe_tick_chol": 0, "mhe_tick_pi_chol": 0,
+             "mhe_tick_abl": 0, "admm_solve": 0,
              "admm_box_solve": 0, "tridiag_solve_batched": 0}
 
 
@@ -916,11 +951,9 @@ def kernel_rows(meta, works, counts, err, ms, plain_ms, **more):
     return kernels
 
 
-def bound(work):
-    """bound_ms and bound_by of (bytes, operations): the larger of the bytes
-    over the memory rate and the operations over the float32 peak."""
-    t_b, t_f = work[0] / PEAK_BYTES_S * 1e3, work[1] / PEAK_F32_FLOPS * 1e3
-    return {"bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+# bound_ms and bound_by of (bytes, operations): the larger of the bytes over
+# the memory rate and the operations over the float32 peak
+bound = roofline.bound
 
 
 # ------------------------------------------ the standard layout (cell (q))
@@ -1118,15 +1151,19 @@ def std_path(fleet64, fleet32, q64, gt_v, err_std):
                   "path": "make_fused_batched_runner(use_pallas=True)"}})
 
 
-def oracle(log, gt_v):
-    """The reference bench's float64 oracle on the card, as bench.py:57-65
-    runs it: the single-instance orientation EKF over the log's 500 Hz
-    stream, then the single-instance MHE on its orientation (Go1, T=2000).
+def oracle():
+    """The reference bench's float64 oracle on the card, in the steps of
+    bench.py:57-65 but on a log of its own (Go1's synthetic log of T_ORACLE
+    ticks, seed 0; the bench's log has 2000): the single-instance orientation
+    EKF over the log's 500 Hz stream, then the single-instance MHE on its
+    orientation.
     Then the KF baseline on the same inputs, and the single-instance MHE
     with the |v| <= 0.3 box over its first T_ORACLE_BOX ticks. A single
     instance takes no kernel (its window solve has no batch axis, as in the
     reference). RMSE gates, the box, and each run's wall."""
     p, pe = go1_params(), EKFParams()
+    log = synth.generate(synth.SynthConfig(T=T_ORACLE, seed=0))
+    gt_v = torch.as_tensor(log.gt_v_s, device=DEV)
     reset_counts()
     (R, _), ekf_ms = wall_ms(lambda: estimator.ekf_orientation_sequence(pe, log, F64, device=DEV))
     data = estimator.tickdata_from_log(log, dtype=F64, device=DEV)._replace(R_sb=R)
@@ -1146,7 +1183,8 @@ def oracle(log, gt_v):
         ("MHE RMSE vs ground truth", rmse(x) < RMSE_GATE["go1"]),
         ("KF RMSE vs ground truth", rmse(xk) < KF_RMSE_GATE),
         ("velocity box", V_BOX - 1e-2 <= vmax <= V_BOX + 1e-3)) if not ok]
-    emit("oracle", config="Go1 N=20, single instance, float64; bench.py:57-65", T=T_MAIN,
+    emit("oracle", config=f"Go1 N=20, single instance, float64; the steps of bench.py:57-65 on "
+         f"Go1's synthetic log of {T_ORACLE} ticks, seed 0", T=T_ORACLE, seed=0,
          launches=counts, ekf_orientation_sequence_s=ekf_ms / 1e3, run_mhe_s=mhe_ms / 1e3,
          rmse_vs_ground_truth=rmse(x), rmse_gate=RMSE_GATE["go1"], run_kf_s=kf_ms / 1e3,
          kf_rmse_vs_ground_truth=rmse(xk), kf_rmse_gate=KF_RMSE_GATE,
@@ -1662,27 +1700,27 @@ def uniform_clock(vo, B):
                             vo.tick_now[:, None].expand(T, B).contiguous())
 
 
-def check_tick(c, ks0, d, v, i, tag, split=30):
-    """The tick kernel (either variant, by the consts) against its plain
-    version over the ticks handed in: x, the final Bezier schedule and, when
-    constrained, z, y and the iteration counts; then the log split at tick
-    ``split`` over two calls, and the plain version continuing from the first
-    call's kernel state. Returns ({check: error}, x and final state of the
-    kernel)."""
+def check_tick(c, ks0, d, v, i, tag, split=30, mk_solve="gj"):
+    """The tick kernel (either variant, by the consts; unconstrained with the
+    tail ``mk_solve``) against its plain version over the ticks handed in: x,
+    the final Bezier schedule and, when constrained, z, y and the iteration
+    counts; then the log split at tick ``split`` over two calls, and the plain
+    version continuing from the first call's kernel state. Returns ({check:
+    error}, x and final state of the kernel)."""
     c_plain = c._replace(use_pallas=False)
     if c.x_lb is not None:
         x_k, ks_k, _, errs = check_box_tick(c, c_plain, ks0, d, v, i, tag)
     else:
         x_p, ks_p = mrk.replay_ticks_plain(c_plain, ks0, d, v, i)
-        x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV)
+        x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV, mk_solve=mk_solve)
         ok, e = close(x_k, x_p, **TOL_MHE)
         assert ok, ("per-lane-clock mhe_tick vs plain", tag, e)
         check_schedule(ks_k, ks_p, tag)
         errs = {"x": e}
     cut = lambda sl: (estimator.TickData(*(a[sl] for a in d)),
                       estimator.VOData(*(a[sl] for a in v)), i[sl])
-    xA, ksA = mrk.replay_ticks(c, ks0, *cut(slice(0, split)), device=DEV)
-    xB, ksB = mrk.replay_ticks(c, ksA, *cut(slice(split, None)), device=DEV)
+    xA, ksA = mrk.replay_ticks(c, ks0, *cut(slice(0, split)), device=DEV, mk_solve=mk_solve)
+    xB, ksB = mrk.replay_ticks(c, ksA, *cut(slice(split, None)), device=DEV, mk_solve=mk_solve)
     ok, errs["split_log"] = close(torch.cat([xA, xB]), x_k, **TOL_MHE)
     assert ok and ksB.t == ks_k.t, ("per-lane-clock split-log resume", tag, errs["split_log"])
     xBp, _ = mrk.replay_ticks_plain(c_plain, ksA, *cut(slice(split, None)))
@@ -2364,8 +2402,13 @@ def check_kernels_chol(model):
     plain version (the tick loop both tails share) and against K2, at the
     small size, float64, on the EKF kernel's orientation: a log split over
     two calls, the plain version from a kernel state, a ragged fleet through
-    the lanes runner with DEM_MK_SOLVE=chol; and the refusals: the tail on
-    per-lane clocks (a ROADMAP row) and a tail that does not exist."""
+    the lanes runner with DEM_MK_SOLVE=chol. Then K2d-PI, the tail on
+    per-lane camera clocks, on the 15-clock fleet: against its plain version
+    (split log, plain version from a kernel state), against K2b, with the
+    shared-clock fleet's clock given to every lane against K2d (1e-12
+    absolute: the ingestion runs the same statements), and a ragged 15-clock
+    fleet through the lanes runner with DEM_MK_SOLVE=chol. And the refusal of
+    a tail that does not exist."""
     p = robot_params(model)[0]
     fleet = ekf_oriented(model, make_fleet(T_CHK, B_CHK, F64, seed=1, model=model)[1:], F64)
     c = mhe.make_consts(p, F64, device=DEV)
@@ -2406,13 +2449,34 @@ def check_kernels_chol(model):
         okv, ev = close(vk, vp, **TOL_MHE)
         assert okx and okv, ("ragged B, DEM_MK_SOLVE=chol", model, ex, ev)
         errs["ragged"] = {"B": B_RAGGED, "T": T_RAGGED, "x": ex, "v": ev}
-        # per-lane clocks have no Cholesky tail on the card: it says so
-        try:
-            run_k(data_r, uniform_clock(vo_r, B_RAGGED))
-            refused = None
-        except NotImplementedError as e:
-            refused = str(e)
-        assert refused and "ROADMAP.md" in refused, refused
+        # per-lane clocks: a ragged 15-clock fleet through the same runners
+        _, data_c, _, vo_c = make_clock_fleet(T_RAGGED_PI, B_RAGGED, F64, seed=2, model=model)
+        reset_counts()
+        xk, vk = run_k(data_c, vo_c)
+        assert read_counts() == dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_pi_chol=1), \
+            read_counts()
+        xp, vp = run_p(data_c, vo_c)
+        okx, ex = close(xk, xp, **TOL_MHE)
+        okv, ev = close(vk, vp, **TOL_MHE)
+        assert okx and okv, ("ragged B, per-lane clocks, DEM_MK_SOLVE=chol", model, ex, ev)
+        pi_ragged = {"B": B_RAGGED, "T": T_RAGGED_PI, "x": ex, "v": ev}
+
+    # K2d-PI at the small size on the 15-clock fleet
+    _, *cfleet = make_clock_fleet(T_CHK, B_CHK, F64, seed=1, model=model)
+    cks0, (cd, cv, ci) = clock_inputs(c, cfleet, F64)
+    reset_counts()
+    pi_errs, x_pi, _ = check_tick(c, cks0, cd, cv, ci, f"{model} Cholesky tail, per-lane clocks",
+                                  mk_solve="chol")
+    assert read_counts() == dict(NO_LAUNCH, mhe_tick_pi_chol=3), read_counts()
+    x_pg, _ = mrk.replay_ticks(c, cks0, cd, cv, ci, device=DEV)
+    ok, pi_errs["vs_gauss_jordan_kernel"] = close(x_pi, x_pg, **TOL_CHOL_VS_GJ)
+    assert ok, ("mhe_tick_pi_chol vs mhe_tick_pi", model, pi_errs["vs_gauss_jordan_kernel"])
+    ks_u, (_, vu, iu) = clock_inputs(c, (fleet[0], None, uniform_clock(fleet[2], B_CHK)), F64)
+    x_u, _ = mrk.replay_ticks(c, ks_u, d1, vu, iu, device=DEV, mk_solve="chol")
+    ok, pi_errs["uniform_clock_vs_shared"] = close(x_u, x_k, rtol=0.0, atol=1e-12)
+    assert ok, ("uniform per-lane clocks vs mhe_tick_chol", model,
+                pi_errs["uniform_clock_vs_shared"])
+    pi_errs["ragged"] = pi_ragged
     try:
         mrk.replay(c, batch.tickdata_to_lanes(data_r), vo_r, dtype=F64, device=DEV,
                    mk_solve="cholesky")
@@ -2422,8 +2486,9 @@ def check_kernels_chol(model):
     assert unknown, "an unknown tail must raise"
     emit("kernels_chol", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
          leg_odom_type=p.leg_odom_type, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
-         tol=TOL_MHE, tol_vs_gauss_jordan=TOL_CHOL_VS_GJ, mhe_tick_chol_err=errs,
-         per_lane_clock_refused=refused, unknown_tail_refused=unknown)
+         tol=TOL_MHE, tol_vs_gauss_jordan=TOL_CHOL_VS_GJ, tol_uniform_vs_shared=1e-12,
+         mhe_tick_chol_err=errs, clocks=N_CLOCKS, vo_free_lanes=B_CHK // VO_FREE_EVERY,
+         mhe_tick_pi_chol_err=pi_errs, unknown_tail_refused=unknown)
 
 
 def chol_path(model, fleet64, fleet32, gt_v, k2_ms=None):
@@ -2703,11 +2768,338 @@ def pi_cell(model, box, clocks64, clocks32, gt_v):
                           + (", box consts" if box else "")}})
 
 
+def pi_chol_cell(model, clocks64, clocks32, gt_v, k2b_ms=None):
+    """Cell (r): DEM_MK_SOLVE=chol on ``model``'s 15-clock fleet (cells (c),
+    (n), (l)) through the lanes runner at full width — K5 at tick 0, then
+    K2d-PI. The counted float32 run is the timed one (wall, the tick alone);
+    a float64 run of the same path over the whole log: RMSE against ground
+    truth and float32 against float64 over the lanes with a camera (F5; on
+    Cassie's shape the float32 gates over F6_TICKS ticks, ``f32_ticks``), the
+    difference per 100 ticks; K2d-PI against its plain version in float64
+    over T_BOX_PLAIN ticks at full width; K2d-PI and K2b alone on the counted
+    run's inputs in turns (two each; Cassie: the counted run against
+    ``k2b_ms``, the K2b tick of ``pi_cell``'s counted run on the same fleet),
+    with both kernels' ptxas figures. Returns the kernel's entry of the
+    last-but-one line."""
+    p = robot_params(model)[0]
+    s, m, L, lot = p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type
+    tag = {"cassie_bench": "cassie"}.get(model, model)
+    name = f"mhe_tick_pi_chol[{tag}]"
+    gate = RMSE_GATE[model]
+    data_b, _, vo = clocks32
+    with mk_solve_env("chol"):
+        run = batch.make_lanes_fleet_runner(p, F32, use_megakernel=True, device=DEV)
+        reset_counts()
+        mrk.timer.on = True
+        with tick_calls() as calls:
+            (x, _), wall = wall_ms(lambda: run(data_b, vo))
+        mrk.timer.on = False
+        k_only = min(mrk.timer.ms())
+        counts = read_counts()
+        assert counts == dict(NO_LAUNCH, tridiag_solve=1, mhe_tick_pi_chol=1), (model, counts)
+        run64 = batch.make_lanes_fleet_runner(p, F64, use_megakernel=True, device=DEV)
+        x64 = run64(clocks64[0], clocks64[2])[0]
+    assert x.shape == (T_MAIN, B_MAIN, s)
+    cam = vo.active.any(0)
+    n, t_bad = f32_ticks(model, x, cam)
+    free_bad = first_nonfinite(x[:, ~cam])
+    rmse, rmse_all = fleet_rmse(x[:n], gt_v[:n], cam), fleet_rmse(x, gt_v, cam)
+    r64_all = fleet_rmse(x64, gt_v)
+    r64 = fleet_rmse(x64[:n], gt_v[:n], cam)
+    failed = [what for what, ok in (
+        ("float64 estimate finite", bool(torch.isfinite(x64).all())),
+        ("RMSE vs ground truth", rmse < gate and r64_all < gate),
+        ("f32-vs-f64 velocity-RMSE delta", abs(rmse - r64) < 1e-3)) if not ok]
+    dv = (x[:, cam, 3:6].double() - x64[:, cam, 3:6]).abs()
+    drift = [float(d.max()) if bool(torch.isfinite(d).all()) else None
+             for d in dv.reshape(T_MAIN // 100, -1)]
+    del dv, x, x64
+
+    # float64 element-wise at full width over T_BOX_PLAIN ticks
+    c64 = mhe.make_consts(p, F64, device=DEV)
+    ks, (d, vv, i) = clock_inputs(c64, clocks64, F64, T=T_BOX_PLAIN)
+    (x_p, ks_p), plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(
+        c64._replace(use_pallas=False), ks, d, vv, i))
+    x_k, ks_k = mrk.replay_ticks(c64, ks, d, vv, i, device=DEV, mk_solve="chol")
+    ok, err = close(x_k, x_p, **TOL_MHE)
+    failed += [] if ok else ["mhe_tick_pi_chol against its plain version at full width"]
+    check_schedule(ks_k, ks_p, f"{model} Cholesky tail, per-lane clocks, full width")
+    del x_p, x_k, d, vv, i
+
+    # K2d-PI and K2b alone on the counted run's inputs, in turns
+    call = calls[0]
+    c32, ks32, d32, v32, i32 = call["args"]
+    ab = {"mhe_tick_pi_chol": [k_only], "mhe_tick_pi": [] if k2b_ms is None else [k2b_ms]}
+    if k2b_ms is None:
+        mrk.timer.on = True
+        for _ in range(2):
+            for tail, key in (("chol", "mhe_tick_pi_chol"), ("gj", "mhe_tick_pi")):
+                mrk.replay_ticks(c32, ks32, d32, v32, i32, device=DEV, mk_solve=tail)
+                ab[key] += mrk.timer.ms()
+        mrk.timer.on = False
+    groups = _work.mhe_lane_schedules(v32.active.cpu().numpy(), v32.tick_pre.cpu().numpy(),
+                                      v32.tick_now.cpu().numpy(), N_WIN,
+                                      ks32.bez_count[0].cpu().numpy())
+    n_stance = int((d32.contact > 0).sum())
+    work = _work.mhe_tick_lanes(N_WIN, s, m, L, groups, n_stance, 4, lot=lot, tail="chol")
+    work_gj = _work.mhe_tick_lanes(N_WIN, s, m, L, groups, n_stance, 4, lot=lot)
+    del calls, call, c32, ks32, d32, v32, i32
+    ptxas = {"mhe_tick_pi_chol": tick_ptxas(f"mhe_{tag}_chol", "mhe_pi_chol_kernel"),
+             "mhe_tick_pi": tick_ptxas(f"mhe_{tag}_pi", "mhe_pi_kernel")}
+    ms = min(ab["mhe_tick_pi_chol"])
+    emit(f"{tag}_pi_chol",
+         config=f"{model} N={N_WIN} s={s} m={m} L={L} leg_odom_type={lot}, 15 camera clocks, "
+         "every 64th lane VO-free, DEM_MK_SOLVE=chol, lanes runner",
+         T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
+         wall_from="the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
+         tick_kernel_only_ms=k_only, rmse_vs_ground_truth=rmse, rmse_gate=gate,
+         rmse_lanes=int(cam.sum()), rmse_f64=r64, rmse_f64_all_lanes_all_ticks=r64_all,
+         f32_gated_ticks=n, f32_first_nonfinite_tick=t_bad, rmse_f32_all_ticks=rmse_all,
+         vo_free_lanes_first_nonfinite_tick=free_bad,
+         f32_vs_f64_velocity_max_abs_per_100_ticks=drift,
+         max_abs_err_f64={"T": T_BOX_PLAIN, "x": err}, plain_f64_ms=plain_ms,
+         kernel_only_ms_in_turns=ab, bound_ms={"mhe_tick_pi_chol": bound(work)["bound_ms"],
+                                               "mhe_tick_pi": bound(work_gj)["bound_ms"]},
+         ptxas_registers_frame_spill_stores_loads=ptxas, distinct_lane_schedules=len(groups),
+         failed=failed)
+    assert not failed, (model, failed)
+    return kernel_rows({name: (
+        "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+        "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 "
+        "(per_instance=True, mk_solve='chol')")},
+        {name: work}, {name: counts["mhe_tick_pi_chol"]}, {name: err}, {name: ms},
+        {name: plain_ms},
+        **{name: {"model": model, "ms_how": "the kernel alone (CUDA events), best of the runs "
+                  "in turns" if k2b_ms is None else
+                  "the kernel alone (CUDA events), the counted run",
+                  "max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
+                  "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+                  "plain_ms_dtype": "float64", "gauss_jordan_kernel_only_ms": ab["mhe_tick_pi"],
+                  "ptxas": ptxas,
+                  "path": "DEM_MK_SOLVE=chol, make_lanes_fleet_runner, per-instance VOData"}})
+
+
+# ------------------------------------------------- the stage ablation (K2e)
+
+
+def solve_scales(c, ks, d, v, i):
+    """Per tick and state of the "solve" stage's result x = Σ_j (D_j[:,0] +
+    r_j + U_j[:,0]): ``terms``, the same sum over the magnitudes of its
+    elementary products (the normal equations assembled from the absolute
+    values of every operand, each difference a sum), the scale of the
+    rounding that two orders of summation leave in x; ``system``, the sum of
+    the magnitudes of the masked system's own entries Σ_j (|D_j[:,0]| + |r_j|
+    + |U_j[:,0]|); and ``r_sum``, Σ_j r_j, what a sum without r would miss.
+    Each (Tn, s, B), from the plain version's ticks (``mrk._step_ablated``)."""
+    from decentralized_ekf_mhe_tpu_torch.ops import lanes
+
+    N = c.N
+    H, P = c.A_meas.abs(), c.P_cam.abs()
+    st = mrk.mhe_state_from_kernel(ks, c)
+    act, pre, now = v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist()
+    out = {"terms": [], "system": [], "r_sum": []}
+    for t in range(d.accel_b.shape[0]):
+        st, _ = mrk._step_ablated(c, st, d.R_sb[t], d.accel_b[t], d.omega_b[t], d.p_foot[t],
+                                  d.J_foot[t], d.dq[t], d.contact[t], act[t], pre[t], now[t],
+                                  i[t], "solve")
+        Ds, Us, rs = mhe_lanes._masked_system(c, st)
+        out["system"].append(Ds[:, :, 0].abs().sum(0) + rs.abs().sum(0) + Us[:, :, 0].abs().sum(0))
+        out["r_sum"].append(rs.sum(0))
+        first = N - min(st.T + 1, N)
+        j = torch.arange(N, device=DEV)
+        iv = ((j >= first) & (j <= N - 2)).to(F64)[:, None, None, None]
+        cam = (st.cam_active.to(F64)[:, None, None, :] * iv)
+        A, Qd, b = st.A_dyn.abs(), st.Q_dyn.abs() * iv, st.b_dyn.abs()
+        AtQd = lanes.mm_tn(A, Qd)
+        PtQc = lanes.cmm_t(P, st.Q_cam.abs()) * cam
+        PtQcP = lanes.mmc(PtQc, P)
+        HtR = lanes.cmm_t(H, st.Q_meas.abs())
+        pc = lanes.mv(PtQc, st.b_cam.abs())
+        shift = lambda a: torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+        D = lanes.mmc(HtR, H) + lanes.mm(AtQd, A) + PtQcP + shift(Qd + PtQcP)
+        r = (lanes.mv(HtR, st.y_meas.abs()) + lanes.mv(AtQd, b) + pc
+             + shift(lanes.mv(Qd, b) + pc))
+        D[first] += st.M_p.abs()
+        r[first] += st.n_p.abs()
+        valid = (j >= first).to(F64)
+        out["terms"].append((D[:, :, 0] * valid[:, None, None] + (1 - valid)[:, None, None]
+                             * (j[:, None] == 0).to(F64)[..., None]).sum(0)
+                            + (r * valid[:, None, None]).sum(0)
+                            + ((AtQd + PtQcP)[:-1, :, 0] * valid[:-1, None, None]).sum(0))
+    return {k: torch.stack(a) for k, a in out.items()}
+
+
+# the tensors of KernelState.arrays, in mrk.state_shapes' order
+STATE_NAMES = ("y_meas", "Q_meas", "A_dyn", "b_dyn", "Q_dyn", "b_cam", "Q_cam", "cam_act",
+               "M_p", "n_p", "bez_pts", "p_accum", "prev_R", "prev_accel_s", "prev_contact",
+               "Dslot", "Ub", "routb")
+
+
+def state_scales(arrays):
+    """The scale each entry of a window state is held to, by name: its own
+    magnitude, except in the symmetric weights and the cache D (Q_meas, Q_dyn,
+    Q_cam, M_p, Dslot), where it is at least the diagonal scale
+    sqrt(|W_ii W_jj|), and in the cache U = -AᵀQd, at least sqrt(|Dslot_ii|
+    |Q_dyn_jj|) (both bound |W_ij| for a positive semi-definite matrix): an
+    entry that is zero but for rounding next to a 4e10 weight keeps rounding
+    of that weight's size."""
+    w = dict(zip(STATE_NAMES, arrays))
+    diag = lambda a: torch.diagonal(a, dim1=-3, dim2=-2).abs().movedim(-1, -2)   # (..., n, B)
+    out = {n: a.abs() for n, a in w.items()}
+    for n in ("Q_meas", "Q_dyn", "Q_cam", "M_p", "Dslot"):
+        out[n] = torch.maximum(out[n], torch.sqrt(diag(w[n])[..., :, None, :]
+                                                  * diag(w[n])[..., None, :, :]))
+    out["Ub"] = torch.maximum(out["Ub"], torch.sqrt(diag(w["Dslot"])[..., :, None, :]
+                                                    * diag(w["Q_dyn"])[..., None, :, :]))
+    return out
+
+
+def check_state(ks_k, ks_p, tag):
+    """Every tensor of the window state the kernel leaves against the plain
+    version's: the same non-finite positions, the finite entries within
+    TOL_MHE of ``state_scales``; the Bezier schedule (``check_schedule``) and
+    the tick counter. Returns per tensor the largest |dk - dp| / (atol + rtol
+    scale) ("scaled") and the same on the entry's own magnitude ("own")."""
+    assert ks_k.t == ks_p.t and len(ks_k.arrays) == len(STATE_NAMES), (tag, ks_k.t, ks_p.t)
+    check_schedule(ks_k, ks_p, tag)
+    scales = state_scales(ks_p.arrays)
+    read = {}
+    for n, a, b in zip(STATE_NAMES, ks_k.arrays, ks_p.arrays):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a)) and torch.equal(torch.isnan(a),
+                                                                   torch.isnan(b)), (tag, n)
+        lim = lambda sc: TOL_MHE["atol"] + TOL_MHE["rtol"] * sc[fin]
+        dif = (a - b).abs()[fin]
+        read[n] = {"scaled": float((dif / lim(scales[n])).max()) if bool(fin.any()) else None,
+                   "own": float((dif / lim(b.abs())).max()) if bool(fin.any()) else None,
+                   "finite_share": float(fin.double().mean())}
+        assert read[n]["scaled"] is None or read[n]["scaled"] <= 1.0, (tag, n, read[n])
+    return read
+
+
+def check_ablation():
+    """Each unit of the stage ablation (K2e, ``mrk.ABLATE_STAGES``, Go1's
+    shape) against its plain version over T_ABL ticks of a B_ABL-instance
+    fleet, float64, the EKF kernel's orientation: x with the same non-finite
+    positions and its finite entries within TOL_MHE (the "solve" stage's
+    within ATOL_SOLVE + RTOL_SOLVE of its terms, see T_ABL), and the window
+    state it leaves (``check_state``); then the refusals on the card.
+    Returns ({stage: readings}, {stage: plain ms}, {refusal: message})."""
+    p = go1_params()
+    data_b, _, vo = ekf_oriented("go1", make_fleet(T_ABL, B_ABL, F64, seed=1)[1:], F64)
+    c = mhe.make_consts(p, F64, device=DEV)
+    ks0, (d, v, i) = clock_inputs(c, (data_b, None, vo), F64)
+    assert int(v.active.sum()) > 0 and T_ABL > N_WIN
+    errs, plain_ms = {}, {}
+    for stage in mrk.ABLATE_STAGES:
+        reset_counts()
+        x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV, ablate=stage)
+        assert read_counts() == dict(NO_LAUNCH, mhe_tick_abl=1), read_counts()
+        assert mrk.launches_abl_by_stage[stage] == 1
+        (x_p, ks_p), plain_ms[stage] = wall_ms(
+            lambda: mrk.replay_ticks_plain(c._replace(use_pallas=False), ks0, d, v, i,
+                                           ablate=stage))
+        same_nan = torch.equal(torch.isnan(x_k), torch.isnan(x_p))
+        same_inf = torch.equal(torch.isinf(x_k), torch.isinf(x_p))
+        fin = torch.isfinite(x_p)
+        diff = (x_k - x_p)[fin].abs()
+        over = lambda sc, tol=TOL_MHE: float((diff / (tol["atol"] + tol["rtol"] * sc[fin])).max())
+        errs[stage] = {"max_abs_err": float(diff.max()) if bool(fin.any()) else None,
+                       "same_nonfinite": same_nan and same_inf,
+                       "finite_share": float(fin.double().mean()),
+                       "x_over_tol": over(x_p.abs()) if bool(fin.any()) else None,
+                       "state_over_tol": check_state(ks_k, ks_p, ("ablated mhe_tick", stage))}
+        ok = same_nan and same_inf
+        if stage == "solve":
+            sc = solve_scales(c, ks0, d, v, i)
+            tol = dict(rtol=RTOL_SOLVE, atol=ATOL_SOLVE)
+            errs[stage].update(
+                x_over_tol_of_terms=over(sc["terms"], tol),
+                x_over_tol_of_system=over(sc["system"], tol),
+                zeros_over_tol_of_terms=float((x_p.abs() / (ATOL_SOLVE + RTOL_SOLVE
+                                                            * sc["terms"])).max()),
+                without_r_over_tol_of_terms=float((sc["r_sum"].abs() / (
+                    ATOL_SOLVE + RTOL_SOLVE * sc["terms"])).max()),
+                max_err_over_terms=float((diff / sc["terms"][fin]).max()))
+            ok = ok and errs[stage]["x_over_tol_of_terms"] <= 1.0
+        elif bool(fin.any()):
+            ok = ok and errs[stage]["x_over_tol"] <= 1.0
+        assert ok, ("ablated mhe_tick vs plain", stage, errs[stage])
+    refused = {}
+    pi_vo = uniform_clock(v, B_ABL)
+    box = box_consts(box_params(), F64, V_BOX, 20)
+    for what, call in (
+            ("box consts", lambda: mrk.replay_ticks(box, ks0, d, v, i, device=DEV,
+                                                    ablate="solve")),
+            ("per-lane clocks", lambda: mrk.replay_ticks(c, ks0, d, pi_vo, i, device=DEV,
+                                                         ablate="marg")),
+            ("Cholesky tail", lambda: mrk.replay_ticks(c, ks0, d, v, i, device=DEV,
+                                                       mk_solve="chol", ablate="build"))):
+        try:
+            call()
+            refused[what] = None
+        except NotImplementedError as e:
+            refused[what] = str(e)
+        assert refused[what] and mrk.ABLATE_ROW in refused[what], (what, refused[what])
+    return errs, plain_ms, refused
+
+
+def ablation_phase(fleet32):
+    """Cell (s), the stage ablation of the tick: ``check_ablation``, then
+    the stage table of ``roofline.ablation`` on the first T_ABL_TABLE ticks
+    of cell (a)'s float32 fleet ``fleet32`` (K2 and the five units, each
+    alone, best of 3), whose launches are counted. Returns the units' entries
+    of the last-but-one line."""
+    errs, plain_ms, refused = check_ablation()
+    # the stage table on cell (a)'s fleet, the tool's code path
+    fleet = (go1_params(), *head(fleet32, T_ABL_TABLE))
+    reset_counts()
+    table = roofline.ablation(device=DEV, fleet=fleet)
+    counts = read_counts()
+    by_stage = dict(mrk.launches_abl_by_stage)
+    assert counts == dict(NO_LAUNCH, mhe_tick=4, mhe_tick_abl=20), counts
+    assert all(n == 4 for n in by_stage.values()), by_stage
+    ptxas = {}     # by stage and type: the units' kernels differ in their last template argument
+    for _, text, _ in _build.report["mhe_go1_abl"]["units"]:
+        for kern, fig in ptxas_figures(text).items():
+            m = re.search(r"14mhe_abl_kernelI([fd])(?:Li\d+E){4}Li(\d)E", kern)
+            if m:
+                ptxas[f"{mrk.ABLATE_STAGES[int(m.group(2)) - 1]} "
+                      f"{ {'f': 'float', 'd': 'double'}[m.group(1)]}"] = fig
+    emit("ablation", config="Go1 N=20 s=9 m=12 L=4, the tick with one stage skipped, "
+         "roofline.ablation on cell (a)'s fleet", check={"T": T_ABL, "B": B_ABL,
+                                                         "dtype": "float64", "tol": TOL_MHE,
+                                                         "tol_solve_of_terms": dict(
+                                                             rtol=RTOL_SOLVE, atol=ATOL_SOLVE),
+                                                         "errors": errs},
+         plain_f64_ms=plain_ms, refused=refused, table=table, launches=counts,
+         launches_by_stage=by_stage, ptxas_registers_frame_spill_stores_loads=ptxas)
+    rows = []
+    for stage, row in table["stages"].items():
+        name = f"mhe_tick_abl[{stage}]"
+        rows += kernel_rows({name: (
+            "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+            f"decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (ablate='{stage}')")},
+            {name: (row["bytes"], row["operations"])}, {name: by_stage[stage]},
+            {name: errs[stage]["max_abs_err"]}, {name: row["ms"]}, {name: plain_ms[stage]},
+            **{name: {"shape": {"T": table["T"], "B": table["B"], "N": N_WIN},
+                      "ms_how": "roofline.ablation: the kernel alone (CUDA events), best of 3",
+                      "share_of_the_tick": row["share"], "full_tick_ms": table["full"]["ms"],
+                      "max_abs_err_shape": {"T": T_ABL, "B": B_ABL},
+                      "max_abs_err_detail": errs[stage],
+                      "plain_ms_shape": {"T": T_ABL - 1, "B": B_ABL, "N": N_WIN},
+                      "plain_ms_dtype": "float64",
+                      "path": "tools.roofline.ablation (mhe_replay_kernel.replay_ticks, "
+                              "ablate=)"}})
+    return rows
+
+
 def legged_phases(model, builds, pool, rows):
     """Every phase of ``model``'s shape (PogoX, Cassie): its shared-clock
     fleet (g)-(j) against float64 and the plain versions, its Cholesky tail
     (Cassie's on the bench's route (k), run first), and its fleet on per-lane
-    clocks (l)-(o), each after waiting for its libraries. Returns the
+    clocks (l)-(o) and, with the Cholesky tail, (r), each after waiting for
+    its libraries. Returns the
     kernels' entries of the last-but-one line; ``rows`` are the entries so
     far."""
     s = robot_params(model)[0].dim_state
@@ -2772,6 +3164,11 @@ def legged_phases(model, builds, pool, rows):
     gt = torch.as_tensor(log.gt_v_s, device=DEV)
     for box in (False, True):
         kernels += pi_cell(clock_model, box, c64, c32, gt)
+    # cell (r) on the same fleet; Cassie's ticks take seconds, so its K2b time
+    # comes from pi_cell's counted run instead of runs in turns
+    k2b = next(k for k in kernels if k["name"] == f"mhe_tick_pi[{model}]")["kernel_only_ms"]
+    kernels += pi_chol_cell(clock_model, c64, c32, gt,
+                            k2b_ms=k2b if model == "cassie" else None)
     return kernels
 
 
@@ -2808,7 +3205,7 @@ def main():
     # cell (q): the standard layout on cell (a)'s fleet, and the float64 oracle
     err_std = check_kernels_std("go1", *std_fleet(head(fleet64, T_STD_CHK), q64, F64), B_RAGGED)
     kernels += std_path(fleet64, fleet32, q64, gt_v, err_std)
-    oracle(log, gt_v)
+    oracle()
     done("go1_standard_layout")
     # the Cholesky tail at Go1's shape: cell (p) on cell (a)'s fleet
     need(builds, "mhe_go1_chol")
@@ -2816,6 +3213,10 @@ def main():
     kernels += chol_path("go1", fleet64, fleet32, gt_v)
     del fleet64
     done("go1_cholesky")
+    # cell (s): the stage ablation on cell (a)'s fleet
+    need(builds, "mhe_go1_abl")
+    kernels += ablation_phase(fleet32)
+    done("go1_ablation")
     need(builds, "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF))
     check_kernels_pi()
     _, *clocks64 = make_clock_fleet(T_MAIN, B_MAIN, F64, seed=0)
@@ -2824,6 +3225,7 @@ def main():
     del fleet32
     kernels += pi_box(clocks64, clocks32, gt_v)
     pi_pipeline(clocks32, gt_v)
+    kernels += pi_chol_cell("go1", clocks64, clocks32, gt_v)
     del clocks64, clocks32
     done("go1_per_lane_clocks")
     # PogoX, then Cassie (whose s=15 libraries compile longest)

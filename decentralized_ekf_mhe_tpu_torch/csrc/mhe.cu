@@ -1,20 +1,22 @@
 // mhe_tick — the C interface of the MHE replay kernels (csrc/mhe_body.cuh).
 //
-// Five kernels share one body: the shared camera clock or a clock per lane
-// (PI), unconstrained or box-constrained (CON), and the Cholesky tail (CHOL,
-// unconstrained on the shared clock), each for float and double —
+// Six kernels share one body: the shared camera clock or a clock per lane
+// (PI), unconstrained or box-constrained (CON), the Cholesky tail (CHOL,
+// unconstrained, on either clock), each for float and double, and the stage
+// ablation (ABL, 1..5; unconstrained, shared clock, Gauss-Jordan) —
 // instantiations of a body that takes nvcc tens of seconds each, minutes at
 // s=15 — and each model shape is one more set of them. So this file is
 // compiled once per instantiation, with
 //   -DDEM_MHE_SHAPE=<tag> -DDEM_MHE_S=<s> -DDEM_MHE_M=<m> -DDEM_MHE_L=<L>
 //   -DDEM_MHE_LOT=<leg_odom_type>
 //   -DDEM_MHE_UNIT=<symbol> -DDEM_MHE_REAL=float|double -DDEM_MHE_CON=0|1
-//   -DDEM_MHE_PI=0|1 [-DDEM_MHE_CHOL=1]
+//   -DDEM_MHE_PI=0|1 [-DDEM_MHE_CHOL=1] [-DDEM_MHE_ABL=1..5]
 // (kernels/_build.py starts all of them at once, one nvcc process each).
 // The units of one shape are grouped into shared libraries by variant: the
 // shared clock (libmhe_<tag>.so: unconstrained and constrained), the clock per
-// lane (libmhe_<tag>_pi.so) and the Cholesky tail (libmhe_<tag>_chol.so), each
-// built at its first use. Each library has this file once more, without
+// lane (libmhe_<tag>_pi.so), the Cholesky tail (libmhe_<tag>_chol.so, on
+// either clock) and, at Go1's shape only, the stage ablation
+// (libmhe_go1_abl.so), each built at its first use. Each library has this file once more, without
 // DEM_MHE_UNIT, for the one entry point below, which declares every unit of
 // its shape weak: a unit the library does not link is null there.
 //
@@ -24,6 +26,9 @@
 
 #ifndef DEM_MHE_CHOL
 #define DEM_MHE_CHOL 0
+#endif
+#ifndef DEM_MHE_ABL
+#define DEM_MHE_ABL 0
 #endif
 #define DEM_CAT2(a, b) a##b
 #define DEM_CAT(a, b) DEM_CAT2(a, b)
@@ -39,7 +44,7 @@ extern "C" int DEM_MHE_UNIT(void* const* ptrs, const double* consts,
                             const double* reals, int N, int B, int Tn, int t0,
                             int block, void* stream) {
   return dem::mhe_launch<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
-                         DEM_MHE_CON != 0, DEM_MHE_PI != 0, DEM_MHE_CHOL != 0>(
+                         DEM_MHE_CON != 0, DEM_MHE_PI != 0, DEM_MHE_CHOL != 0, DEM_MHE_ABL>(
       ptrs, consts, box_ptrs, ints, reals, N, B, Tn, t0, block, stream);
 }
 #endif
@@ -63,6 +68,18 @@ DEM_MHE_UNIT_DECL(_pi_box_f32)
 DEM_MHE_UNIT_DECL(_pi_box_f64)
 DEM_MHE_UNIT_DECL(_chol_f32)
 DEM_MHE_UNIT_DECL(_chol_f64)
+DEM_MHE_UNIT_DECL(_pi_chol_f32)
+DEM_MHE_UNIT_DECL(_pi_chol_f64)
+DEM_MHE_UNIT_DECL(_abl1_f32)
+DEM_MHE_UNIT_DECL(_abl1_f64)
+DEM_MHE_UNIT_DECL(_abl2_f32)
+DEM_MHE_UNIT_DECL(_abl2_f64)
+DEM_MHE_UNIT_DECL(_abl3_f32)
+DEM_MHE_UNIT_DECL(_abl3_f64)
+DEM_MHE_UNIT_DECL(_abl4_f32)
+DEM_MHE_UNIT_DECL(_abl4_f64)
+DEM_MHE_UNIT_DECL(_abl5_f32)
+DEM_MHE_UNIT_DECL(_abl5_f64)
 
 namespace {
 constexpr int MHE_NPTRS = 34;                 // MhePtrs
@@ -70,15 +87,17 @@ constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 11; // MhePtrs, then MheBox
 }  // namespace
 
 // The entry point returns cudaGetLastError() of the launch, or -1 for a
-// shape or variant this library does not link. con, pi and chol pick the
-// unit: the box-constrained tick (con), a camera clock per lane (pi), the
-// Cholesky tail (chol; only unconstrained on the shared clock). ptrs: the 34
+// shape or variant this library does not link. con, pi, chol and ablate pick
+// the unit: the box-constrained tick (con), a camera clock per lane (pi), the
+// Cholesky tail (chol; only unconstrained), the tick with stage ablate
+// skipped (1 ingest, 2 marg, 3 build, 4 assembly, 5 solve; only unconstrained
+// on the shared clock with Gauss-Jordan; 0 none). ptrs: the 34
 // pointers of MhePtrs in declaration order (mhe_launch lists them); a
 // constrained tick takes the 11 of MheBox after them and the ADMM settings in
 // ints/reals (unread otherwise). A per-lane-clock tick takes the same
 // operands with (Tn,B) VO metadata and a (4,B)/(1,B) Bezier schedule.
-extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int S, int M,
-                            int L, int lot, void* const* ptrs, int nptrs,
+extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int ablate, int S,
+                            int M, int L, int lot, void* const* ptrs, int nptrs,
                             const double* consts, const int* ints,
                             const double* reals, int N, int B, int Tn, int t0,
                             int block, void* stream) {
@@ -89,11 +108,22 @@ extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int S, int
       {{DEM_UNIT(_f32), DEM_UNIT(_f64)}, {DEM_UNIT(_box_f32), DEM_UNIT(_box_f64)}},
       {{DEM_UNIT(_pi_f32), DEM_UNIT(_pi_f64)},
        {DEM_UNIT(_pi_box_f32), DEM_UNIT(_pi_box_f64)}}};
-  static const Unit chol_units[2] = {DEM_UNIT(_chol_f32), DEM_UNIT(_chol_f64)};
+  // [pi][is_double]
+  static const Unit chol_units[2][2] = {{DEM_UNIT(_chol_f32), DEM_UNIT(_chol_f64)},
+                                        {DEM_UNIT(_pi_chol_f32), DEM_UNIT(_pi_chol_f64)}};
+  // [stage - 1][is_double]
+  static const Unit abl_units[5][2] = {{DEM_UNIT(_abl1_f32), DEM_UNIT(_abl1_f64)},
+                                       {DEM_UNIT(_abl2_f32), DEM_UNIT(_abl2_f64)},
+                                       {DEM_UNIT(_abl3_f32), DEM_UNIT(_abl3_f64)},
+                                       {DEM_UNIT(_abl4_f32), DEM_UNIT(_abl4_f64)},
+                                       {DEM_UNIT(_abl5_f32), DEM_UNIT(_abl5_f64)}};
   const bool shape = S == DEM_MHE_S && M == DEM_MHE_M && L == DEM_MHE_L &&
                      lot == DEM_MHE_LOT && N >= 2;
-  const Unit unit = !chol ? units[pi != 0][con != 0][is_double != 0]
-                    : (!con && !pi) ? chol_units[is_double != 0] : nullptr;
+  const Unit unit =
+      ablate ? ((ablate >= 1 && ablate <= 5 && !con && !pi && !chol)
+                    ? abl_units[ablate - 1][is_double != 0] : nullptr)
+      : !chol ? units[pi != 0][con != 0][is_double != 0]
+      : !con  ? chol_units[pi != 0][is_double != 0] : nullptr;
   if (!shape || !unit || nptrs != (con ? MHE_BOX_NPTRS : MHE_NPTRS)) return -1;
   return unit(ptrs, consts, con ? ptrs + MHE_NPTRS : nullptr, ints, reals, N, B,
               Tn, t0, block, stream);

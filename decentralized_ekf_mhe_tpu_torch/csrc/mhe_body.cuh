@@ -7,7 +7,7 @@
 // Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel (reached
 // through replay -> _replay_chunk), with the shared camera clock or a clock per
 // lane, unconstrained or box-constrained, and with its Gauss-Jordan tail or,
-// unconstrained on the shared clock, its Cholesky tail. One loop
+// unconstrained, its Cholesky tail; and its stage ablation (timing only). One loop
 // step is one estimator tick:
 //   VO ingestion + Bezier carry -> arrival-cost marginalization (t >= N) ->
 //   ring shift by base index + assembly of the two changed slots ->
@@ -81,8 +81,23 @@
 // does about 1.3 s^3 multiplies per slot against about 4 s^3. The Gauss-Jordan
 // statements are untouched; the Cholesky ones sit behind `if constexpr (CHOL)`.
 // With box constraints the tail is never reached (the ADMM solves the
-// window), as in the TPU kernel, so CHOL is an unconstrained, shared-clock
-// instantiation only (mhe_chol_kernel).
+// window), as in the TPU kernel, so CHOL is an unconstrained instantiation
+// only: on the shared clock (mhe_chol_kernel) or a clock per lane
+// (mhe_pi_chol_kernel; the TPU kernel with per_instance=True and
+// mk_solve='chol': the per-lane ingestion above, then this tail).
+//
+// The stage ablation (template parameter ABL; the TPU kernel's ablate,
+// mhe_replay_kernel.py:375-394; driven by tools/roofline.py --ablate) skips
+// one stage of the tick so that the time it saves is that stage's share. The
+// output is wrong by construction. ABL_INGEST: no VO ingestion and no Bezier
+// carry; ABL_MARG: no marginalization; ABL_BUILD: the fresh slot's dynamics,
+// camera weight and measurement are zeros (the caches are still updated from
+// them); ABL_ASSEMBLY: x = n_p after the shift and the cache update, no
+// normal equations; ABL_SOLVE: the masked system is assembled and
+// x = sum_j (D_j[:,0] + r_j + U_j[:,0]) replaces the inverse chain. Every skip
+// sits behind `if constexpr` on ABL, so ABL == ABL_NONE compiles to the tick
+// above; ABL is instantiated unconstrained, on the shared clock, with the
+// Gauss-Jordan tail only (mhe_abl_kernel), the configuration the tool times.
 #pragma once
 #include "admm.cuh"
 #include "smallmat.cuh"
@@ -179,6 +194,10 @@ struct MheBox {
   T* ys;         // (N,s,B)
   AdmmSettings<T> admm;
 };
+
+// the stages ABL can skip (csrc/mhe.cu's ablate; kernels/_build.ABLATE_STAGES)
+enum : int { ABL_NONE = 0, ABL_INGEST = 1, ABL_MARG = 2, ABL_BUILD = 3, ABL_ASSEMBLY = 4,
+             ABL_SOLVE = 5 };
 
 template <typename T>
 DEM_HD void bezier_node(const T* pts, T u, T* out) {
@@ -394,7 +413,8 @@ DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd
   chol<S>(D_j, Lc, rd);
 }
 
-template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL = false>
+template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL = false,
+          int ABL = ABL_NONE>
 DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
   constexpr int SS = S * S;
@@ -428,7 +448,8 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
 
     // ---- VO ingestion (mhe_lanes._apply_vo; per lane: _apply_vo_per_instance)
     // the schedule entry of this tick: the fleet's, or this lane's (PI)
-    if (PI ? p.vo_active[(size_t)i * B + b] != 0 : p.vo_active[i] != 0) {
+    if constexpr (ABL == ABL_INGEST) {
+    } else if (PI ? p.vo_active[(size_t)i * B + b] != 0 : p.vo_active[i] != 0) {
       const int tick_pre = PI ? p.vo_tick_pre[(size_t)i * B + b] : p.vo_tick_pre[i];
       const int tick_now = PI ? p.vo_tick_now[(size_t)i * B + b] : p.vo_tick_now[i];
       T p_acc[3], inc[3], pts[12];
@@ -483,7 +504,8 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     }
 
     // ---- marginalization (mhe_lanes._marginalize) -------------------------
-    if (t >= N) {
+    if constexpr (ABL == ABL_MARG) {
+    } else if (t >= N) {
       const int p0 = base_old;
       T A[SS], Qd[SS], AtQd[SS], Qc[9], PtQc[S * 3], PtQcP[SS];
       T bv[S], c0[3], Mp[SS], np_[S];
@@ -545,16 +567,25 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     const int pN2 = (base_old + N - 1) % N;    // logical N-2 after the shift
     {
       T Rp[9], accp[3], A_d[SS], b_d[S], Q_d[SS], Qcn[9], tmp9[9];
-      load<9>(Rp, p.prev_R, 0, B, b);
-      load<3>(accp, p.prev_acc, 0, B, b);
-      build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
-      if constexpr (LOT == 1) {
-        T ctp[L];   // the previous tick's contact gates the foot noise
-        load<L>(ctp, p.prev_ct, 0, B, b);
-        add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
+      if constexpr (ABL == ABL_BUILD) {
+        DEM_UNROLL
+        for (int k = 0; k < SS; ++k) { A_d[k] = T(0); Q_d[k] = T(0); }
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) b_d[k] = T(0);
+        DEM_UNROLL
+        for (int k = 0; k < 9; ++k) Qcn[k] = T(0);
+      } else {
+        load<9>(Rp, p.prev_R, 0, B, b);
+        load<3>(accp, p.prev_acc, 0, B, b);
+        build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
+        if constexpr (LOT == 1) {
+          T ctp[L];   // the previous tick's contact gates the foot noise
+          load<L>(ctp, p.prev_ct, 0, B, b);
+          add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
+        }
+        matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
+        matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
       }
-      matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
-      matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
 
       store<SS>(p.A_dyn, (size_t)pN2 * SS, B, b, A_d);
       store<S>(p.b_dyn, (size_t)pN2 * S, B, b, b_d);
@@ -589,10 +620,16 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
       load<L>(ct, p.contact, (size_t)i * L, B, b);
       T y_T[M], Q_T[MM];
-      if constexpr (LOT == 1)
+      if constexpr (ABL == ABL_BUILD) {
+        DEM_UNROLL
+        for (int k = 0; k < M; ++k) y_T[k] = T(0);
+        DEM_UNROLL
+        for (int k = 0; k < MM; ++k) Q_T[k] = T(0);
+      } else if constexpr (LOT == 1) {
         build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, y_T, Q_T);
-      else
+      } else {
         build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, y_T, Q_T);
+      }
 
       store<M>(p.y_meas, (size_t)pN1 * M, B, b, y_T);
       store<MM>(p.Q_meas, (size_t)pN1 * MM, B, b, Q_T);
@@ -631,11 +668,20 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       store<S>(q->y_adm, (size_t)pN1 * S, B, b, v);
     }
 
+    if constexpr (ABL == ABL_ASSEMBLY) {
+      // no normal equations: the arrival cost's vector stands in for x
+      T np_[S];
+      load<S>(np_, p.n_p, 0, B, b);
+      store<S>(p.x, (size_t)i * S, B, b, np_);
+      continue;
+    }
+
     // ---- masked normal equations + streaming forward block-Thomas ---------
     const int n_states = (t + 1 < N) ? t + 1 : N;
     const int first = N - n_states;
     T Sinv[SS], yv[S], U_prev[SS], prev_QdPP[SS], prev_rin[S];
     T Lc[CHOL ? S * (S + 1) / 2 : 1], rd[CHOL ? S : 1];   // the Cholesky tail's factor
+    T abl_acc[ABL == ABL_SOLVE ? S : 1];   // ABL_SOLVE: the sum that stands in for x
     T Mp[SS], np_[S];
     load<SS>(Mp, p.M_p, 0, B, b);
     load<S>(np_, p.n_p, 0, B, b);
@@ -702,6 +748,13 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
         if (j < N - 1) store<SS>(q->Uw, (size_t)j * SS, B, b, U_j);
       } else if constexpr (CHOL) {
         chol_step<T, S>(j, D_j, r_j, U_prev, Lc, rd, yv);
+      } else if constexpr (ABL == ABL_SOLVE) {
+        // keep the assembled system live, skip the inverse chain
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) {
+          const T term = D_j[k * S] + r_j[k] + U_j[k * S];
+          abl_acc[k] = j == 0 ? term : abl_acc[k] + term;
+        }
       } else if (j == 0) {
         gj_inv<S>(D_j, Sinv);
         DEM_UNROLL
@@ -734,6 +787,9 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       T z[S];
       trsv_l<S>(Lc, rd, yv, z);
       trsv_lt<S>(Lc, rd, z, xT);
+    } else if constexpr (ABL == ABL_SOLVE) {
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) xT[k] = abl_acc[k];
     } else {
       matvec<S, S>(Sinv, yv, xT);   // logical N-1 = newest state
     }
@@ -789,15 +845,35 @@ __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int 
   mhe_body<T, S, M, L, LOT, false, false, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
+template <typename T, int S, int M, int L, int LOT>
+__global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
+                                   int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, true, true>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+// the stage ablation: the unconstrained Gauss-Jordan tick on the shared clock
+// with stage ABL skipped
+template <typename T, int S, int M, int L, int LOT, int ABL>
+__global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
+                               int Tn, int t0) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, false, false, ABL>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
 // One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
 // constrained kernel, PI the per-lane camera clock, CHOL the Cholesky tail
-// (unconstrained, shared clock only). ptrs: the 34 pointers of
+// (unconstrained only), ABL the stage ablation (unconstrained, shared clock,
+// Gauss-Jordan tail only). ptrs: the 34 pointers of
 // MhePtrs in declaration order. consts (double): dt, H[m*s], Pc[3*s], then
 // Q_vo_p, C_p, C_accel, Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro,
 // Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw, xw, Sinv, ys; ints/reals as admm_settings reads them.
-template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL>
+template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL,
+          int ABL = ABL_NONE>
 int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
                const int* ints, const double* reals, int N, int B, int Tn,
                int t0, int block, void* stream) {
@@ -851,9 +927,19 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   if constexpr (LOT == 1)
     for (int i = 0; i < 9; ++i) c.Q_foot_slide[i] = (T)consts[k++];
   const int grid = (B + block - 1) / block;
-  static_assert(!CHOL || (!CON && !PI), "the Cholesky tail runs unconstrained on the shared clock");
-  if constexpr (CHOL) {
-    mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
+  static_assert(!CHOL || !CON, "the Cholesky tail runs unconstrained");
+  static_assert(ABL == ABL_NONE || (!CON && !PI && !CHOL),
+                "the stage ablation runs unconstrained on the shared clock with Gauss-Jordan");
+  if constexpr (ABL != ABL_NONE) {
+    mhe_abl_kernel<T, S, M, L, LOT, ABL><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B,
+                                                                                  Tn, t0);
+  } else if constexpr (CHOL) {
+    if constexpr (PI)
+      mhe_pi_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B,
+                                                                                    Tn, t0);
+    else
+      mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn,
+                                                                                 t0);
   } else if constexpr (!CON) {
     if constexpr (PI)
       mhe_pi_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);

@@ -9,8 +9,9 @@ body, because one nvcc process would spend minutes on all of them in a row,
 and each model shape of ``MHE_SHAPES`` has one library per variant group of
 ``MHE_GROUPS`` (``libmhe_go1.so``: the shared camera clock,
 ``libmhe_go1_pi.so``: a clock per lane, ``libmhe_go1_chol.so``: the Cholesky
-tail; likewise ``cassie`` and ``pogox``), so a fleet builds only what it
-launches; likewise ``csrc/tridiag.cu`` and
+tail on either clock; likewise ``cassie`` and ``pogox``; and
+``libmhe_go1_abl.so``, the stage ablation, at Go1's shape only), so a fleet
+builds only what it launches; likewise ``csrc/tridiag.cu`` and
 ``csrc/admm.cu`` are one library per state size (``libtridiag_s9.so``,
 ``libadmm_s15.so``, ...). ``load`` builds a library at its first use, all its
 units at once, one nvcc process each; ``build`` builds several libraries that
@@ -51,13 +52,19 @@ MHE_SHAPES = {
 # The tick's variant groups, one library each per shape (mhe_<tag>,
 # mhe_<tag>_pi, mhe_<tag>_chol): group -> the (per-lane clock, constrained,
 # Cholesky tail) variants of its units, each for float and double. The
-# Cholesky tail exists unconstrained on the shared clock only: the
-# constrained tick solves its window with the box-ADMM.
+# Cholesky tail exists unconstrained only, on either clock: the constrained
+# tick solves its window with the box-ADMM.
 MHE_GROUPS = {
     "": ((0, 0, 0), (0, 1, 0)),
     "pi": ((1, 0, 0), (1, 1, 0)),
-    "chol": ((0, 0, 1),),
+    "chol": ((0, 0, 1), (1, 0, 1)),
 }
+# The stage ablation of the tick (a timing diagnostic: tools/roofline.py
+# --ablate), stage k + 1 of csrc/mhe_body.cuh's ABL for ABLATE_STAGES[k],
+# unconstrained on the shared clock with the Gauss-Jordan tail, float and
+# double: one library, mhe_<tag>_abl, for each shape of MHE_ABL_SHAPES
+ABLATE_STAGES = ("ingest", "marg", "build", "assembly", "solve")
+MHE_ABL_SHAPES = ("go1",)
 
 
 def _unroll(S):
@@ -88,21 +95,37 @@ def mhe_library(S, M, L, lot, group=""):
     return None
 
 
+def _mhe_shape_flags(tag):
+    S, M, L, lot = MHE_SHAPES[tag]
+    return (f"-DDEM_MHE_SHAPE={tag}", f"-DDEM_MHE_S={S}", f"-DDEM_MHE_M={M}",
+            f"-DDEM_MHE_L={L}", f"-DDEM_MHE_LOT={lot}") + _unroll(S)
+
+
+def _mhe_unit(tag, suffix, real, con, pi, extra=()):
+    sym = f"dem_mhe_unit_{tag}{suffix}_" + {"float": "f32", "double": "f64"}[real]
+    return ("mhe", _mhe_shape_flags(tag) + (
+        f"-DDEM_MHE_UNIT={sym}", f"-DDEM_MHE_REAL={real}", f"-DDEM_MHE_CON={con}",
+        f"-DDEM_MHE_PI={pi}") + extra)
+
+
 def _mhe_units(tag, group):
     """csrc/mhe.cu for one shape and variant group: its entry point, then one
     unit per variant of the group and type."""
-    S, M, L, lot = MHE_SHAPES[tag]
-    shape = (f"-DDEM_MHE_SHAPE={tag}", f"-DDEM_MHE_S={S}", f"-DDEM_MHE_M={M}",
-             f"-DDEM_MHE_L={L}", f"-DDEM_MHE_LOT={lot}") + _unroll(S)
-    units = [("mhe", shape)]
+    units = [("mhe", _mhe_shape_flags(tag))]
     for pi, con, chol in MHE_GROUPS[group]:
         for real in ("float", "double"):
-            sym = (f"dem_mhe_unit_{tag}" + ("_pi" if pi else "") + ("_box" if con else "")
-                   + ("_chol" if chol else "") + "_" + {"float": "f32", "double": "f64"}[real])
-            units.append(("mhe", shape + (f"-DDEM_MHE_UNIT={sym}", f"-DDEM_MHE_REAL={real}",
-                                          f"-DDEM_MHE_CON={con}", f"-DDEM_MHE_PI={pi}")
-                          + (("-DDEM_MHE_CHOL=1",) if chol else ())))
+            suffix = ("_pi" if pi else "") + ("_box" if con else "") + ("_chol" if chol else "")
+            units.append(_mhe_unit(tag, suffix, real, con, pi,
+                                   ("-DDEM_MHE_CHOL=1",) if chol else ()))
     return tuple(units)
+
+
+def _mhe_abl_units(tag):
+    """csrc/mhe.cu's entry point, then the unit of each ablated stage and type
+    (symbol suffix ``_abl<k>``, k = 1..5 as in ``ABLATE_STAGES``)."""
+    return (("mhe", _mhe_shape_flags(tag)),) + tuple(
+        _mhe_unit(tag, f"_abl{k}", real, 0, 0, (f"-DDEM_MHE_ABL={k}",))
+        for k in range(1, len(ABLATE_STAGES) + 1) for real in ("float", "double"))
 
 
 # library -> its translation units (source, extra nvcc flags)
@@ -112,6 +135,7 @@ UNITS = {
     "ekf": (("ekf", ()),),
     **{mhe_library(*shape, group): _mhe_units(tag, group)
        for tag, shape in MHE_SHAPES.items() for group in MHE_GROUPS},
+    **{f"mhe_{tag}_abl": _mhe_abl_units(tag) for tag in MHE_ABL_SHAPES},
     **{f"admm_s{S}": (("admm", (f"-DDEM_ADMM_S={S}",) + _unroll(S)),) for S in SOLVE_SIZES},
 }
 LIBRARIES = tuple(UNITS)
@@ -124,10 +148,10 @@ _ARGTYPES = {
                 [_c_int, _c_int] + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
     "ekf": ("dem_ekf_stage",
             [_c_int, _c_void_p, _c_void_p] + [_c_int] * 8 + [_c_void_p]),
-    # is_double, con, pi, chol, S, M, L, lot, ptrs, nptrs, consts, ints, reals,
-    # N, B, Tn, t0, block, stream: one entry point for the five tick kernels
+    # is_double, con, pi, chol, ablate, S, M, L, lot, ptrs, nptrs, consts, ints,
+    # reals, N, B, Tn, t0, block, stream: one entry point for every tick kernel
     "mhe": ("dem_mhe_tick",
-            [_c_int] * 8 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int] * 5
+            [_c_int] * 9 + [_c_void_p, _c_int] + [_c_void_p] * 3 + [_c_int] * 5
             + [_c_void_p]),
     "admm": ("dem_admm_solve",
              [_c_int, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p]
@@ -279,7 +303,8 @@ def check_launch(err: int, what: str) -> None:
             f"{what}: this shape is not instantiated in the CUDA build (MHE tick: "
             + ", ".join(f"{t} s={v[0]}, m={v[1]}, L={v[2]}, leg_odom_type={v[3]}"
                         for t, v in MHE_SHAPES.items())
-            + f"; the Cholesky tail: unconstrained on the shared camera clock only; "
+            + f"; the Cholesky tail: unconstrained only; the stage ablation: unconstrained "
+            f"on the shared camera clock with the Gauss-Jordan tail, shapes {MHE_ABL_SHAPES}; "
             f"box-ADMM and tridiagonal solve: s in {SOLVE_SIZES}); see ROADMAP.md, "
             "'What is left to port'")
     if err != 0:

@@ -385,10 +385,12 @@ class _Patterns:
         self.PtQc_c, self.cam_vec_ops = _mm(PtQc, _full(3, 1))
 
 
-def _assembly_ops(p):
+def _assembly_ops(p, build=True):
     """Operations of one tick's assembly for one instance, the stance
     covariances apart: (per tick, per stance leg). The foot-position form
-    (lot 1) has no stance-dependent work."""
+    (lot 1) has no stance-dependent work. Without ``build`` (the stage
+    ablation "build") the fresh slot's dynamics, camera weight and
+    measurement are zeros that cost nothing; the cache updates still run."""
     R3 = _full(3, 3)
     # build_dynamics: dt·R, dt²/2·R, the two products with accel_s, then
     # C_pv = G C G^T by block and its 6x6 inverse
@@ -421,8 +423,12 @@ def _assembly_ops(p):
         # the weight R (J C J^T)^-1 R^T in the measurement
         foot = 2 * _mm(R3, R3)[1] + 9
         meas = _mm(R3, v3)[1] + 4 * _mm(R3, R3)[1] + _INV3
-        return dyn + qcam + upd + p.L * (foot + meas) + fresh + prev, 0
-    return dyn + qcam + upd + p.L * y_leg + fresh + prev, stance
+        built, stance = dyn + qcam + p.L * (foot + meas), 0
+    else:
+        built = dyn + qcam + p.L * y_leg
+    if not build:
+        return upd + fresh + prev, 0
+    return built + upd + fresh + prev, stance
 
 
 class _Tally:
@@ -528,20 +534,37 @@ def _solve_ops(p, N, n_states, cam, sweep=True, tail="gj"):
 _VO_EVENT, _VO_SETUP, _VO_NODE, _VO_WRITE = 4, 5 + 39, 4 + 18, 3
 
 
-def _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail="gj"):
+def _ablated_solve_ops(p, N, n_states, cam, ablate):
+    """The window work of a tick whose stage ``ablate`` is "assembly" (none:
+    x is the arrival cost's vector) or "solve" (the masked system, then per
+    slot column 0 of D and U added to r and the sum over the slots)."""
+    if ablate == "assembly":
+        return 0
+    s = p.s
+    return _solve_ops(p, N, n_states, cam, sweep=False) + N * 2 * s + (N - 1) * s
+
+
+def _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail="gj", ablate=""):
     """Operations of one MHE-tick call for ``groups`` of lanes, each
     ``(n_lanes, schedule)`` with its own schedule (see ``mhe_tick``)."""
     p = _Patterns(s, m, L, lot)
-    per_tick, stance = _assembly_ops(p)
+    per_tick, stance = _assembly_ops(p, build=ablate != "build")
     marg = {c: _marg_ops(p, c) for c in (False, True)}
     solve = {}
     ops = 0
     for n_lanes, schedule in groups:
         lane = 0
         for n_states, cam, marg_cam, vo in schedule:
+            if ablate == "ingest":      # no VO: no camera terms, no Bezier work
+                cam, vo = (False,) * N, None
+                marg_cam = None if marg_cam is None else False
+            if ablate == "marg":
+                marg_cam = None
             key = (n_states, cam)
             if key not in solve:
-                solve[key] = _solve_ops(p, N, n_states, cam, sweep=box is None, tail=tail)
+                solve[key] = (_ablated_solve_ops(p, N, n_states, cam, ablate)
+                              if ablate in ("assembly", "solve") else
+                              _solve_ops(p, N, n_states, cam, sweep=box is None, tail=tail))
             lane += per_tick + solve[key]
             if marg_cam is not None:
                 lane += marg[marg_cam]
@@ -557,8 +580,13 @@ def _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail="gj"):
     return ops + n_stance * stance
 
 
-def _mhe_bytes(N, s, m, L, B, Tn, itemsize, box):
-    per_tick_in = 9 + 3 + 3 + L * 3 + L * 9 + L * 3 + L + 3
+def _mhe_bytes(N, s, m, L, B, Tn, itemsize, box, ablate=""):
+    # per tick R, accel, omega, p_foot, J_foot, dq, contact, vo_inc; without
+    # the ingestion vo_inc is not read, without the build omega, p_foot,
+    # J_foot and dq are not
+    per_tick_in = (9 + 3 + 3 + L * 3 + L * 9 + L * 3 + L + 3
+                   - (3 if ablate == "ingest" else 0)
+                   - (3 + L * 15 if ablate == "build" else 0))
     state = (N * (m + m * m + 3 * s * s + 2 * s + 3 + 9 + 1 + s * s)
              + s * s + s + 12 + 3 + 9 + 3 + L)
     nbytes = itemsize * B * (Tn * (per_tick_in + s) + 2 * state)
@@ -567,7 +595,8 @@ def _mhe_bytes(N, s, m, L, B, Tn, itemsize, box):
     return nbytes
 
 
-def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0, tail="gj"):
+def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0, tail="gj",
+             ablate=""):
     """(bytes, operations) of one MHE-tick call over ``len(schedule)`` ticks
     starting at tick 1, on the fleet's shared camera clock, for the model
     shape (s, m, L, ``lot`` = leg_odom_type). ``schedule`` comes from
@@ -577,18 +606,25 @@ def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0, tail=
     iterations that were run: the Thomas sweep gives way to one box-ADMM per
     tick and instance, and the z/y warm starts, the bounds and the iteration
     counts join the bytes. ``tail`` is the unconstrained sweep's tail, "gj"
-    or "chol" (the box variant has none)."""
-    return (_mhe_bytes(N, s, m, L, B, len(schedule), itemsize, box),
-            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box, lot, tail))
+    or "chol" (the box variant has none). ``ablate`` (the unconstrained
+    Gauss-Jordan tick only) counts the work left once that stage is dropped:
+    "ingest" — no VO events, so no Bezier work and no camera terms anywhere,
+    and no ``vo_inc`` read; "marg" — no marginalization; "build" — no
+    dynamics, camera-weight or measurement build (the caches are still
+    updated), and the per-tick inputs only the build reads are not read;
+    "assembly" — no window work; "solve" — the masked system and the sum
+    that stands in for its solution, no sweep."""
+    return (_mhe_bytes(N, s, m, L, B, len(schedule), itemsize, box, ablate),
+            _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box, lot, tail, ablate))
 
 
-def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None, lot=0):
+def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None, lot=0, tail="gj"):
     """``mhe_tick`` with a camera clock per lane: ``groups`` from
     ``mhe_lane_schedules``. Each lane's camera terms and Bezier work follow
     its own schedule; the (Tn,B) VO metadata and the per-lane Bezier schedule
-    (read and written) join the bytes."""
+    (read and written) join the bytes. ``tail`` as in ``mhe_tick``."""
     B = sum(n for n, _ in groups)
     Tn = len(groups[0][1])
     nbytes = (_mhe_bytes(N, s, m, L, B, Tn, itemsize, box)
               + 4 * B * 3 * Tn + 2 * B * (4 * itemsize + 4))
-    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box, lot)
+    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail)

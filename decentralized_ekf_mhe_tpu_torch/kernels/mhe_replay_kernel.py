@@ -48,10 +48,18 @@ Every model shape the reference runs has its own instantiations, in one
 library per variant group, each built at its first use (``_build.MHE_SHAPES``,
 ``_build.MHE_GROUPS``): Go1 (s=9, m=12, L=4, leg_odom_type=0), Cassie (15, 6,
 2, 1: foot positions as states) and PogoX (9, 3, 1, 0), each with the shared
-camera clock, a clock per lane, and the Cholesky tail.
+camera clock, a clock per lane, and the Cholesky tail on either clock.
 
-Not ported (each raises ``NotImplementedError``): the Cholesky tail on
-per-lane camera clocks, and the ablation switches. ROADMAP.md lists them.
+The stage ablation (``ablate=``, the TPU kernel's ``ablate``; a timing
+diagnostic that ``tools/roofline.py --ablate`` drives) runs the unconstrained
+Gauss-Jordan tick on the shared clock with one stage skipped — "ingest",
+"marg", "build", "assembly" or "solve" (``csrc/mhe_body.cuh``, ``ABL``) —
+so that the time it saves is that stage's share; its output is wrong by
+construction. Its plain version skips the same stages on the logical window
+(``_step_ablated``). It is instantiated at Go1's shape only
+(``_build.MHE_ABL_SHAPES``); at another shape, with box consts, on per-lane
+clocks or with the Cholesky tail it raises ``NotImplementedError`` naming
+its ROADMAP.md row, on the CPU as on the card.
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -72,23 +80,29 @@ from decentralized_ekf_mhe_tpu_torch.kernels.admm_kernel import ADMMCoreStatic
 from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-BLOCK = 32
+BLOCK = 32       # threads per block of a launch unless the caller names ``block``
 # incremented where a CUDA kernel is launched, nowhere else: one count per
 # kernel — the unconstrained tick (mhe_kernel), the constrained one
 # (mhe_box_kernel), their per-lane-clock variants (mhe_pi_kernel,
-# mhe_pi_box_kernel) and the unconstrained tick with the Cholesky tail
-# (mhe_chol_kernel)
+# mhe_pi_box_kernel), the unconstrained tick with the Cholesky tail
+# (mhe_chol_kernel, mhe_pi_chol_kernel) and the stage ablation
+# (mhe_abl_kernel, one count per stage)
 launches = 0
 launches_box = 0
 launches_pi = 0
 launches_pi_box = 0
 launches_chol = 0
+launches_pi_chol = 0
+launches_abl_by_stage = dict.fromkeys(_build.ABLATE_STAGES, 0)
 # (constrained, per-lane clock, Cholesky tail) -> counter
 _COUNTER = {(False, False, False): "launches", (True, False, False): "launches_box",
             (False, True, False): "launches_pi", (True, True, False): "launches_pi_box",
-            (False, False, True): "launches_chol"}
+            (False, False, True): "launches_chol", (False, True, True): "launches_pi_chol"}
 
 MK_SOLVES = ("gj", "chol")     # the tails of the window solve
+ABLATE_STAGES = _build.ABLATE_STAGES
+# where ROADMAP.md lists what the stage ablation does not cover yet
+ABLATE_ROW = "ROADMAP.md, 'K2e at the Cassie and PogoX shapes'"
 
 # times the kernel call alone, apart from the wrapper's state copy
 timer = _build.KernelTimer()
@@ -150,21 +164,25 @@ def _pack_consts(kc: KernelConsts) -> np.ndarray:
     ]).astype(np.float64)
 
 
-def kernel_library(s, m, L, lot, per_lane_clock, chol=False):
+def kernel_library(s, m, L, lot, per_lane_clock, chol=False, ablate=""):
     """The library (``_build.UNITS``) whose kernels tick this shape and clock,
     with the Cholesky tail if ``chol`` (unconstrained ticks only: the box
-    kernels ignore the tail); raises ``NotImplementedError`` for what the
-    CUDA build does not instantiate — a shape outside ``_build.MHE_SHAPES``,
-    or the Cholesky tail on a camera clock per lane."""
-    if _build.mhe_library(s, m, L, lot) is None:
+    kernels ignore the tail), or with stage ``ablate`` skipped; raises
+    ``NotImplementedError`` for what the CUDA build does not instantiate — a
+    shape outside ``_build.MHE_SHAPES``, or the stage ablation at a shape
+    outside ``_build.MHE_ABL_SHAPES``."""
+    lib = _build.mhe_library(s, m, L, lot)
+    if lib is None:
         raise NotImplementedError(
             f"mhe_tick: no CUDA instantiation for s={s}, m={m}, L={L}, "
             f"leg_odom_type={lot} (shapes: {sorted(_build.MHE_SHAPES)})")
-    if chol and per_lane_clock:
-        raise NotImplementedError(
-            "mhe_tick: the Cholesky tail (DEM_MK_SOLVE=chol) on per-lane camera clocks is "
-            "not ported yet: ROADMAP.md, 'the Cholesky tail (K2d) on per-lane camera "
-            "clocks'; the Gauss-Jordan tail (mk_solve='gj') runs them")
+    if ablate:
+        if lib[len("mhe_"):] not in _build.MHE_ABL_SHAPES:
+            raise NotImplementedError(
+                f"mhe_tick: the stage ablation is instantiated at the shapes "
+                f"{_build.MHE_ABL_SHAPES} only, not s={s}, m={m}, L={L}, leg_odom_type={lot}: "
+                + ABLATE_ROW)
+        return _build.mhe_library(s, m, L, lot, "abl")
     return _build.mhe_library(s, m, L, lot, "chol" if chol else "pi" if per_lane_clock else "")
 
 
@@ -173,6 +191,35 @@ def check_mk_solve(mk_solve):
     Gauss-Jordan there without a word)."""
     if mk_solve not in MK_SOLVES:
         raise ValueError(f"mk_solve / DEM_MK_SOLVE: {mk_solve!r} is not one of {MK_SOLVES}")
+
+
+def check_ablate(c, ablate, per_lane_clock, mk_solve):
+    """Raise ``ValueError`` for a stage that does not exist and
+    ``NotImplementedError`` (naming the ROADMAP.md row) for an ablation the
+    port does not run: with box consts, on per-lane camera clocks, with the
+    Cholesky tail, or at a shape without an instantiation. ``ablate=""`` runs
+    the whole tick."""
+    if not ablate:
+        return
+    if ablate not in ABLATE_STAGES:
+        raise ValueError(f"ablate: {ablate!r} is not one of {ABLATE_STAGES} (or '')")
+    what = [w for w, on in (("box consts", c.x_lb is not None),
+                            ("per-lane camera clocks", per_lane_clock),
+                            ("the Cholesky tail", mk_solve == "chol")) if on]
+    if what:
+        raise NotImplementedError(
+            f"mhe_tick: the stage ablation with {' and '.join(what)} is not ported (it runs "
+            f"unconstrained on the shared clock with the Gauss-Jordan tail): {ABLATE_ROW}")
+    kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type), False,
+                   ablate=ablate)
+
+
+def _check_block(block):
+    """Threads per block of a launch: ``BLOCK`` when None, else 1..1024."""
+    block = BLOCK if block is None else int(block)
+    if not 1 <= block <= 1024:
+        raise ValueError(f"block: {block} threads per block, expected 1..1024")
+    return block
 
 
 class KernelState(NamedTuple):
@@ -274,10 +321,46 @@ def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
     )
 
 
-def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
+def _step_ablated(c, st: mhe_lanes.MHEStateL, R_sb, accel_b, omega_b, p_foot, J_foot, dq,
+                  contact, vo_active, vo_tick_pre, vo_tick_now, vo_inc, ablate):
+    """``mhe_lanes.step`` with stage ``ablate`` skipped, as the kernel's
+    ``ABL`` skips it (the plain version of K2e): "ingest" — no VO ingestion
+    and no Bezier carry; "marg" — no marginalization; "build" — the fresh
+    slot's dynamics, camera weight and measurement are zeros; "assembly" —
+    x = n_p after the shift; "solve" — x = Σ_j (D_j[:,0] + r_j + U_j[:,0])
+    over the masked system (U_{N-1} = 0) in place of its solution. Returns
+    (new state, x (s,B))."""
+    if ablate != "ingest" and bool(vo_active):
+        st = mhe_lanes._apply_vo(c, st, vo_inc, int(vo_tick_pre), int(vo_tick_now))
+    if ablate != "marg" and st.T + 1 >= c.N:
+        M_new, n_new = mhe_lanes._marginalize(c, st)
+    else:
+        M_new, n_new = st.M_p, st.n_p
+    if ablate == "build":
+        s, m, B = c.dim_state, c.dim_meas, accel_b.shape[-1]
+        z = lambda *sh: torch.zeros(sh + (B,), dtype=accel_b.dtype, device=accel_b.device)
+        fresh = (z(s, s), z(s), z(s, s), z(3, 3), z(m), z(m, m))
+    else:
+        fresh = mhe_lanes._fresh_slot(c, st, R_sb, omega_b, p_foot, J_foot, dq, contact)
+    st = mhe_lanes._shift_append(c, st, M_new, n_new, fresh, R_sb, accel_b, contact)
+    if ablate == "assembly":
+        return st, st.n_p
+    if ablate == "solve":
+        D, U, r = mhe_lanes._masked_system(c, st)
+        x = None
+        for j in range(c.N):
+            term = D[j, :, 0] + r[j]
+            if j < c.N - 1:
+                term = term + U[j, :, 0]
+            x = term if x is None else x + term
+        return st, x
+    return st, mhe_lanes.solve_window(c, st)[c.N - 1]
+
+
+def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc, ablate=""):
     """Plain PyTorch version of ``replay_ticks``: a Python loop over
-    ``mhe_lanes.step`` (per-instance ``vo``: ``step_per_instance_vo``) on the
-    logical (shift-by-roll) window."""
+    ``mhe_lanes.step`` (per-instance ``vo``: ``step_per_instance_vo``; with
+    ``ablate``, ``_step_ablated``) on the logical (shift-by-roll) window."""
     st = mhe_state_from_kernel(ks, c)
     Tn = data_l.accel_b.shape[0]
     if vo.active.ndim == 2:
@@ -290,11 +373,15 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
         step = mhe_lanes.step
     xs, its = [], []
     for i in range(Tn):
-        st, (x_T, _, it) = step(
-            c, st, data_l.R_sb[i], data_l.accel_b[i], data_l.omega_b[i],
-            data_l.p_foot[i], data_l.J_foot[i], data_l.dq[i],
-            data_l.contact[i], active[i], None, tick_pre[i], tick_now[i],
-            None, vo_inc=vo_inc[i])
+        d_i = (data_l.R_sb[i], data_l.accel_b[i], data_l.omega_b[i], data_l.p_foot[i],
+               data_l.J_foot[i], data_l.dq[i], data_l.contact[i])
+        if ablate:
+            st, x_T = _step_ablated(c, st, *d_i, active[i], tick_pre[i], tick_now[i],
+                                    vo_inc[i], ablate)
+            it = None
+        else:
+            st, (x_T, _, it) = step(c, st, *d_i, active[i], None, tick_pre[i], tick_now[i],
+                                    None, vo_inc=vo_inc[i])
         xs.append(x_T)
         its.append(it)
     s, B = c.dim_state, data_l.accel_b.shape[-1]
@@ -309,7 +396,7 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc):
 
 
 def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_flags=(),
-                 mk_solve="gj"):
+                 mk_solve="gj", ablate="", block=None):
     """Advance the window over the ticks handed in.
 
     Args:
@@ -333,9 +420,13 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     kernel instead (``_build.load``), e.g. ``("-fmad=false",)`` to compare
     builds. ``mk_solve`` is the tail of the unconstrained window solve, "gj"
     or "chol" (see the module docstring); the plain version and the box
-    kernels do not depend on it.
+    kernels do not depend on it. ``ablate`` skips one stage of the tick (see
+    the module docstring; "" runs it all). ``block`` is the launch's threads
+    per block (default ``BLOCK``); the plain version does not depend on it.
     """
     check_mk_solve(mk_solve)
+    check_ablate(c, ablate, vo.active.ndim == 2, mk_solve)
+    block = _check_block(block)
     device = resolve_device(device)
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     if N < 2:
@@ -386,23 +477,28 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
             + (" (a camera clock per lane needs a state from "
                "mhe_lanes.init(per_instance_vo=True))" if pi else ""))
     if dev.type == "cpu":
-        return replay_ticks_plain(c, ks, data_l, vo, vo_inc)
-    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds, nvcc_flags, mk_solve)
+        return replay_ticks_plain(c, ks, data_l, vo, vo_inc, ablate)
+    return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds, nvcc_flags, mk_solve,
+                   ablate, block)
 
 
-def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve="gj"):
+def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve="gj",
+            ablate="", block=BLOCK):
     """Copy the window state, launch the tick kernel through ``dem_mhe_tick``
     (constrained with ``bounds``, the (lb, ub) pair of (s,B) tensors; on a
     camera clock per lane when ``vo``'s metadata is (Tn,B); unconstrained
-    with the tail ``mk_solve``) on the current stream over all Tn ticks, count
-    the launch. ``inputs`` are the eight per-tick tensors in the kernel's
-    order (R, accel, omega, p_foot, J_foot, dq, contact, vo_inc)."""
+    with the tail ``mk_solve``; with stage ``ablate`` skipped) on the current
+    stream over all Tn ticks with ``block`` threads per block, count the
+    launch. ``inputs`` are the eight per-tick tensors in the kernel's order
+    (R, accel, omega, p_foot, J_foot, dq, contact, vo_inc); ``replay_ticks``
+    has checked the arguments, and ``kernel_library`` refuses a shape that
+    has no instantiation."""
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
     pi = vo.active.ndim == 2
     chol = mk_solve == "chol" and bounds is None
-    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi, chol)
+    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi, chol, ablate)
     kc = consts_from_mhe(c)
     # the kernel updates the window in place: work on copies
     state = [a.clone() for a in ks.arrays]
@@ -436,18 +532,23 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve
         stream = torch.cuda.current_stream()
         timer.record(stream)
         err = fn(int(dtype == torch.float64), int(bounds is not None), int(pi), int(chol),
-                 s, m, L, kc.lot, ptrs, len(tensors), consts.ctypes.data, *settings, N, B,
-                 Tn, ks.t + 1, BLOCK, stream.cuda_stream)
+                 ABLATE_STAGES.index(ablate) + 1 if ablate else 0, s, m, L, kc.lot, ptrs,
+                 len(tensors), consts.ctypes.data, *settings, N, B, Tn, ks.t + 1, block,
+                 stream.cuda_stream)
         timer.record(stream)
     _build.check_launch(err, "mhe_tick")
-    globals()[_COUNTER[bounds is not None, pi, chol]] += 1
+    if ablate:
+        launches_abl_by_stage[ablate] += 1
+    else:
+        globals()[_COUNTER[bounds is not None, pi, chol]] += 1
     if bounds is not None:
         admm_kernel.launches_core += 1
     return x, KernelState(arrays=tuple(state), bez_times=bez_times_out,
                           bez_count=bez_count_out, t=ks.t + Tn, iters=iters)
 
 
-def replay(c, data_l, vo, dtype=torch.float32, device="cuda", mk_solve=None):
+def replay(c, data_l, vo, dtype=torch.float32, device="cuda", mk_solve=None, ablate="",
+           block=None):
     """Full-log fleet MHE replay.
 
     Args:
@@ -464,7 +565,9 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda", mk_solve=None):
     its x is kept, so tick 1 warm-starts the ADMM from zeros. Ticks 1.. run
     in ``replay_ticks`` with the tail ``mk_solve``: "gj" or "chol", read from
     the environment variable ``DEM_MK_SOLVE`` (default "gj") at each call
-    when None, as the reference reads it.
+    when None, as the reference reads it, with stage ``ablate`` skipped
+    (timing only; tick 0 is not ablated, as in the reference) and ``block``
+    threads per block.
     """
     from decentralized_ekf_mhe_tpu_torch.ops import estimator
 
@@ -482,5 +585,6 @@ def replay(c, data_l, vo, dtype=torch.float32, device="cuda", mk_solve=None):
     rest = estimator.TickData(*(a[1:] for a in data_l))
     vo_rest = estimator.VOData(*(a[1:] for a in vo))
     x, _ = replay_ticks(c, kernel_state_from_mhe(st0, c), rest, vo_rest,
-                        vo_inc[1:], device=device, mk_solve=mk_solve)
+                        vo_inc[1:], device=device, mk_solve=mk_solve, ablate=ablate,
+                        block=block)
     return torch.cat([x0[None], x], dim=0)

@@ -419,14 +419,30 @@ def _tick_tail(c: MHEConsts, st: MHEStateL, R_sb, accel_b, omega_b, p_foot,
                J_foot, dq, contact):
     """Marginalize-if-full → shift/append → solve (the VO-independent tail
     of the tick)."""
-    N = c.N
-    p = _params_view(c)
-    T = st.T + 1
-    if T >= N:
+    if st.T + 1 >= c.N:
         M_new, n_new = _marginalize(c, st)
     else:
         M_new, n_new = st.M_p, st.n_p
+    fresh = _fresh_slot(c, st, R_sb, omega_b, p_foot, J_foot, dq, contact)
+    st = _shift_append(c, st, M_new, n_new, fresh, R_sb, accel_b, contact)
 
+    iters = None
+    if c.x_lb is not None:
+        res = _solve_window_admm(c, st)
+        x_window, iters = res.x, res.iters
+        st = st._replace(z_adm=res.z, y_adm=res.y)
+    else:
+        x_window = solve_window(c, st)
+    x_T = x_window[c.N - 1]
+    return st, (x_T, x_window, iters)
+
+
+def _fresh_slot(c: MHEConsts, st: MHEStateL, R_sb, omega_b, p_foot, J_foot, dq,
+                contact):
+    """What the tick appends: the dynamics of the interval that ends now
+    (A_d, b_d, Q_d, from the previous tick's inputs), its camera weight
+    Q_cam_new, and the newest measurement (y_T, Q_T)."""
+    p = _params_view(c)
     A_d, b_d, Q_d = assembly_lanes.build_dynamics(
         p, c.nc, st.prev_R, st.prev_accel_s, st.prev_contact
     )
@@ -434,9 +450,18 @@ def _tick_tail(c: MHEConsts, st: MHEStateL, R_sb, accel_b, omega_b, p_foot,
     y_T, Q_T = assembly_lanes.build_measurement(
         p, c.nc, R_sb, omega_b, p_foot, J_foot, dq, contact
     )
-    zero3 = torch.zeros_like(st.b_cam[0])
+    return A_d, b_d, Q_d, Q_cam_new, y_T, Q_T
 
-    st = MHEStateL(
+
+def _shift_append(c: MHEConsts, st: MHEStateL, M_new, n_new, fresh, R_sb, accel_b,
+                  contact) -> MHEStateL:
+    """The window one tick on: slots shifted by one, ``fresh``
+    (``_fresh_slot``) appended, the arrival cost (M_new, n_new) and this
+    tick's inputs for the next interval's dynamics set."""
+    N = c.N
+    A_d, b_d, Q_d, Q_cam_new, y_T, Q_T = fresh
+    zero3 = torch.zeros_like(st.b_cam[0])
+    return MHEStateL(
         y_meas=_shift_set(st.y_meas, {N - 1: y_T}),
         Q_meas=_shift_set(st.Q_meas, {N - 1: Q_T}),
         A_dyn=_shift_set(st.A_dyn, {N - 2: A_d, N - 1: torch.zeros_like(A_d)}),
@@ -449,7 +474,7 @@ def _tick_tail(c: MHEConsts, st: MHEStateL, R_sb, accel_b, omega_b, p_foot,
         cam_active=_shift_set(st.cam_active, {N - 2: False, N - 1: False}),
         M_p=M_new,
         n_p=n_new,
-        T=T,
+        T=st.T + 1,
         bez=st.bez,
         prev_R=R_sb,
         prev_accel_s=assembly_lanes.spatial_accel(R_sb, accel_b, c.nc),
@@ -461,13 +486,3 @@ def _tick_tail(c: MHEConsts, st: MHEStateL, R_sb, accel_b, omega_b, p_foot,
         y_adm=_shift_set(st.y_adm, {N - 1: st.y_adm[N - 1]})
         if c.x_lb is not None else st.y_adm,
     )
-
-    iters = None
-    if c.x_lb is not None:
-        res = _solve_window_admm(c, st)
-        x_window, iters = res.x, res.iters
-        st = st._replace(z_adm=res.z, y_adm=res.y)
-    else:
-        x_window = solve_window(c, st)
-    x_T = x_window[N - 1]
-    return st, (x_T, x_window, iters)

@@ -321,13 +321,14 @@ def test_admm_work_counts():
 def test_build_names_the_admm_sources():
     assert "admm" in _build.SOURCES and _build._ARGTYPES["admm"][0] == "dem_admm_solve"
     # the constrained tick is a unit of each shape's mhe library behind its one
-    # entry point, which takes (is_double, con, pi, chol, ...) and the ADMM settings
+    # entry point, which takes (is_double, con, pi, chol, ablate, ...) and the
+    # ADMM settings
     go1 = ("-DDEM_MHE_SHAPE=go1", "-DDEM_MHE_S=9", "-DDEM_MHE_M=12", "-DDEM_MHE_L=4",
            "-DDEM_MHE_LOT=0")
     assert ("mhe", go1 + ("-DDEM_MHE_UNIT=dem_mhe_unit_go1_box_f64", "-DDEM_MHE_REAL=double",
                           "-DDEM_MHE_CON=1", "-DDEM_MHE_PI=0")) in _build.UNITS["mhe_go1"]
     assert _build._ARGTYPES["mhe"][0] == "dem_mhe_tick"
-    assert len(_build._ARGTYPES["mhe"][1]) == 19
+    assert len(_build._ARGTYPES["mhe"][1]) == 20
     t = _build.KernelTimer()
     t.record(None)                       # off: records nothing, needs no device
     assert t.ms() == []

@@ -8,9 +8,9 @@ float64 on the CPU, for Go1, Cassie (foot positions as states, s=15) and
 PogoX: the Pallas kernel with the Cholesky tail in interpret mode against the
 port's ``mhe_replay_kernel.replay`` with the same tail (whose plain version is
 the tick loop both tails share), the environment variable through both
-packages' lanes runners, the port's refusals (an unknown tail, the tail on
-per-lane clocks on the card), its library map, and the operation counts of
-the tail's bound. Inputs are perturbed once on the JAX side and handed to
+packages' lanes runners, the port's refusals (an unknown tail; on per-lane
+clocks, where the tail runs, the stage ablation), its library map, and the
+operation counts of the tail's bound. Inputs are perturbed once on the JAX side and handed to
 both packages.
 """
 
@@ -179,28 +179,39 @@ def test_unknown_tail_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("model", MODELS)
-def test_chol_library_and_per_lane_clock_refusal(model):
-    """``kernel_library`` names the shape's Cholesky library and refuses the
-    tail on a camera clock per lane; the kernel route refuses it before it
-    builds or launches anything, while the plain version on the CPU runs it
-    (the tail does not change what the tick returns)."""
+def test_chol_library_and_per_lane_clock_refusal(model, monkeypatch):
+    """``kernel_library`` names the shape's Cholesky library on either camera
+    clock, whose units are the shared-clock and the per-lane-clock
+    instantiations of the tail (K2d, K2d-PI); on per-lane clocks the kernel
+    route refuses only the stage ablation (naming its ROADMAP row) before it
+    takes either route, so it builds and launches nothing, while the plain
+    version on the CPU runs the Cholesky tail there (the tail does not change
+    what the tick returns)."""
     s, m, L, lot = SHAPES[model]
     assert mrk.kernel_library(s, m, L, lot, False, chol=True) == f"mhe_{model}_chol"
+    assert mrk.kernel_library(s, m, L, lot, True, chol=True) == f"mhe_{model}_chol"
     assert mrk.kernel_library(s, m, L, lot, False) == f"mhe_{model}"
     assert mrk.kernel_library(s, m, L, lot, True) == f"mhe_{model}_pi"
-    assert [d for d in _build.UNITS[f"mhe_{model}_chol"][1][1] if "CHOL" in d] == [
-        "-DDEM_MHE_CHOL=1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mrk.kernel_library(s, m, L, lot, True, chol=True)
+    units = [[d for d in flags if d.startswith(("-DDEM_MHE_UNIT=", "-DDEM_MHE_PI=",
+                                                  "-DDEM_MHE_CHOL="))]
+             for _, flags in _build.UNITS[f"mhe_{model}_chol"][1:]]
+    assert units == [[f"-DDEM_MHE_UNIT=dem_mhe_unit_{model}{pi}_chol_{t}", f"-DDEM_MHE_PI={k}",
+                      "-DDEM_MHE_CHOL=1"] for k, pi in ((0, ""), (1, "_pi")) for t in ("f32", "f64")]
     tc, ks, d, v, i = _tick_inputs(model, per_lane_clock=True)
-    inputs = [d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq, d.contact, i]
-    before = (mrk.launches, mrk.launches_pi, mrk.launches_chol)
-    with pytest.raises(NotImplementedError, match="K2d"):
-        mrk._launch(tc, ks, inputs, v, None, (), "chol")
+    before = (mrk.launches, mrk.launches_pi, mrk.launches_chol, mrk.launches_pi_chol)
+
+    def route(*a, **k):
+        raise AssertionError("a refused ablation reached a route")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(mrk, "_launch", route)
+        mp.setattr(mrk, "replay_ticks_plain", route)
+        with pytest.raises(NotImplementedError, match="K2e at the Cassie and PogoX shapes"):
+            mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol", ablate="solve")
     x_chol, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol")
     x_gj, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu")
     assert torch.equal(x_chol, x_gj)
-    assert (mrk.launches, mrk.launches_pi, mrk.launches_chol) == before
+    assert (mrk.launches, mrk.launches_pi, mrk.launches_chol, mrk.launches_pi_chol) == before
 
 
 def test_work_counts_the_cholesky_tail():
