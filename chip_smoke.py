@@ -81,6 +81,15 @@ cell (s)): each ablated unit against its plain version at a small size
 ``decentralized_ekf_mhe_tpu_torch.tools.roofline.ablation`` on cell (a)'s
 fleet.
 
+The constrained tick runs its window solve on 16 threads per instance: the
+small checks also show that a launch it cannot take raises (a block that is
+no multiple of 16, shared memory beyond the card's), and a last phase prints
+its launch geometry at each shape, clock and type — threads, instances and
+dynamic shared memory per block, the blocks the card keeps resident per SM,
+the units' ptxas figures — and holds every float32 launch to at least 8
+instances per SM. The kernels line's rows of the constrained tick name the
+source of its window solve.
+
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
 lower priority while the Go1 phases run, in the order the phases need them,
@@ -931,6 +940,14 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
            for k in ("ekf_stage", "mhe_tick")})
 
 
+def mark_window_solve(kernels):
+    """The constrained tick's rows (K2c, K2c-PI at every shape) name the file
+    of their window solve, which runs on a group of threads per instance."""
+    for row in kernels:
+        if row["name"].split("[")[0] in ("mhe_tick_box", "mhe_tick_pi_box"):
+            row["window_solve_source"] = "decentralized_ekf_mhe_tpu_torch/csrc/admm_group.cuh"
+
+
 def kernel_rows(meta, works, counts, err, ms, plain_ms, **more):
     """One entry of the ``kernels`` line per kernel of ``meta`` (name ->
     (source, TPU kernel it replaces)); ``more`` adds per-kernel extra keys."""
@@ -1439,6 +1456,7 @@ def check_kernels_box():
     assert bool((x_pl[:, 3:6].abs().amax(dim=(0, 1)) <= lane_bound + 1e-3).all())
     errs["per_lane_bounds"] = max(e_pl[f] for f in "xzy")
     res["mhe_box_err"] = errs
+    res["refused"] = box_refusals(c, ks0, dA, vA, iA)
 
     # ---- K4 admm_solve on assembled windows
     cases = admm_cases(c, c_pl, ks0, ks_k, seg(data_l, vo_b, vo_inc, slice(1, 6)))
@@ -1451,6 +1469,66 @@ def check_kernels_box():
     res["admm_err"] = errs
     emit("kernels_box", dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK, B_ragged=B_RAGGED,
          tol=TOL_MHE, tol_adaptive_rho_iterates_over_max_abs=TOL_ADAPT, osqp_tol=1e-8,
+         **res)
+
+
+def box_refusals(c, ks0, d, v, i):
+    """The constrained tick refuses what it cannot launch: a block that is no
+    multiple of its threads per instance raises ValueError before a launch
+    (``box_geometry``), and a launch whose shared memory the card refuses
+    raises RuntimeError (the library returns the error; no other kernel and
+    no plain version runs instead). Returns the two messages."""
+    launched = mrk.launches_box
+    try:
+        mrk.replay_ticks(c, ks0, d, v, i, device=DEV, block=mrk.BOX_G + 8)
+    except ValueError as e:
+        by_wrapper = str(e)
+    else:
+        raise AssertionError("a block that is no multiple of BOX_G was taken")
+    bounds = admm.broadcast_bounds(c.x_lb, c.x_ub, c.dim_state, d.accel_b.shape[-1],
+                                   d.accel_b.dtype, d.accel_b.device)
+    try:
+        mrk._launch(c, ks0, [d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq,
+                             d.contact, i], v, bounds, block=1024)
+    except RuntimeError as e:
+        by_card = str(e)
+    else:
+        raise AssertionError("a launch beyond the card's shared memory was taken")
+    torch.cuda.synchronize()
+    assert mrk.launches_box == launched, "a refused launch was counted"
+    return {"block_not_a_multiple": by_wrapper, "shared_memory_beyond_the_card": by_card}
+
+
+def box_geometry_phase():
+    """The constrained tick's launch geometry at each robot's shape, on both
+    clocks, in both types: threads and instances per block and the dynamic
+    shared bytes (``mrk.box_geometry``, held equal to what the library
+    computes), the blocks the card keeps resident per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor through the library's C
+    entry point, ``mrk.box_occupancy``), registers and local bytes per thread,
+    and the ptxas figures of the units (registers, stack frame, spill stores,
+    spill loads). Every float32 launch keeps at least 8 instances resident
+    per SM, all B_MAIN instances on the card at once."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    for model, tag in (("go1", "go1"), ("pogox", "pogox"), ("cassie_bench", "cassie")):
+        p = box_params(model=model)
+        c = box_consts(p, F32, V_BOX, 20)
+        for pi in (False, True):
+            lib = mrk.kernel_library(p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type, pi)
+            figs = tick_ptxas(lib, "mhe_pi_box_kernel" if pi else "mhe_box_kernel")
+            for dtype, name in ((F32, "float"), (F64, "double")):
+                want = mrk.box_geometry(p.dim_state, dtype, None, N_WIN)
+                card = mrk.box_occupancy(c, dtype, pi)
+                assert (card["shared_bytes"], card["u_shared"], card["instances_per_block"]) == (
+                    want.shared_bytes, want.u_shared, want.instances_per_block), (tag, pi, card, want)
+                if dtype == F32:
+                    assert card["instances_per_sm"] >= 8, (tag, pi, card)
+                    assert card["instances_per_sm"] * n_sm >= B_MAIN, (tag, pi, card)
+                res[f"{tag} {'per-lane' if pi else 'shared'} clock {name}"] = dict(
+                    card, s=p.dim_state, ptxas=figs[name])
+    emit("box_geometry", threads_per_instance=mrk.BOX_G, sms=n_sm, N=N_WIN,
+         shared_per_block_max=mrk.SHARED_PER_BLOCK, shared_per_sm=mrk.SHARED_PER_SM,
          **res)
 
 
@@ -3233,6 +3311,8 @@ def main():
         kernels += legged_phases(model, builds, pool, kernels)
         done(model)
     pool.shutdown()
+    box_geometry_phase()
+    mark_window_solve(kernels)
     emit("script", seconds=time.time() - t_start, groups_s=group_s)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

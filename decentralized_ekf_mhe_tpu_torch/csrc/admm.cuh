@@ -2,9 +2,10 @@
 // a device function run by one thread per instance.
 //
 // Replaces pallas/admm_core.py::admm_box_solve (with factor_chain,
-// sweep_factored, t_apply, add_scalar_diag, add_diag). Two callers:
-// csrc/admm.cu (one whole solve per launch) and the constrained
-// instantiations of csrc/mhe_body.cuh (one solve per estimator tick).
+// sweep_factored, t_apply, add_scalar_diag, add_diag) in csrc/admm.cu (one
+// whole solve per launch). The constrained estimator tick (csrc/mhe_body.cuh)
+// runs the same solve on a group of 16 threads per instance,
+// admm_box_solve_group of csrc/admm_group.cuh, statement for statement.
 //
 //   min 1/2 x^T T x - r^T x   s.t.  lb <= x <= ub,
 //   T block tridiagonal: D (N,s,s), U (N-1,s,s).
@@ -28,8 +29,8 @@
 // of it is GLOBAL memory in the instance-minor layout (coalesced across the
 // warp), the chain and the sweep vectors in scratch the caller allocates.
 // Only one slot's s x s blocks are thread-private at a time. z and y are
-// addressed through a ring (slot (zbase + j) % N) so the estimator tick can
-// hand in its ring-carried warm starts without a gather.
+// addressed through a ring (slot (zbase + j) % N) so that a caller can hand
+// in ring-carried warm starts without a gather.
 //
 // Early exit. The TPU kernel computes converged lanes and masks their update;
 // here a converged thread leaves the loop. A frozen instance changes nothing,

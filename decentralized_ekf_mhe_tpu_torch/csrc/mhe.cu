@@ -47,6 +47,13 @@ extern "C" int DEM_MHE_UNIT(void* const* ptrs, const double* consts,
                          DEM_MHE_CON != 0, DEM_MHE_PI != 0, DEM_MHE_CHOL != 0, DEM_MHE_ABL>(
       ptrs, consts, box_ptrs, ints, reals, N, B, Tn, t0, block, stream);
 }
+#if DEM_MHE_CON
+// the constrained unit's launch geometry (mhe_box_geometry)
+extern "C" int DEM_CAT(DEM_MHE_UNIT, _geometry)(int N, int block, int* out) {
+  return dem::mhe_box_geometry<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
+                               DEM_MHE_PI != 0>(N, block, out);
+}
+#endif
 #endif
 
 #else
@@ -80,10 +87,16 @@ DEM_MHE_UNIT_DECL(_abl4_f32)
 DEM_MHE_UNIT_DECL(_abl4_f64)
 DEM_MHE_UNIT_DECL(_abl5_f32)
 DEM_MHE_UNIT_DECL(_abl5_f64)
+#define DEM_MHE_GEOMETRY_DECL(suffix) \
+  extern "C" __attribute__((weak)) int DEM_UNIT(suffix)(int N, int block, int* out);
+DEM_MHE_GEOMETRY_DECL(_box_f32_geometry)
+DEM_MHE_GEOMETRY_DECL(_box_f64_geometry)
+DEM_MHE_GEOMETRY_DECL(_pi_box_f32_geometry)
+DEM_MHE_GEOMETRY_DECL(_pi_box_f64_geometry)
 
 namespace {
 constexpr int MHE_NPTRS = 34;                 // MhePtrs
-constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 11; // MhePtrs, then MheBox
+constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 8;  // MhePtrs, then MheBox
 }  // namespace
 
 // The entry point returns cudaGetLastError() of the launch, or -1 for a
@@ -93,7 +106,7 @@ constexpr int MHE_BOX_NPTRS = MHE_NPTRS + 11; // MhePtrs, then MheBox
 // skipped (1 ingest, 2 marg, 3 build, 4 assembly, 5 solve; only unconstrained
 // on the shared clock with Gauss-Jordan; 0 none). ptrs: the 34
 // pointers of MhePtrs in declaration order (mhe_launch lists them); a
-// constrained tick takes the 11 of MheBox after them and the ADMM settings in
+// constrained tick takes the 8 of MheBox after them and the ADMM settings in
 // ints/reals (unread otherwise). A per-lane-clock tick takes the same
 // operands with (Tn,B) VO metadata and a (4,B)/(1,B) Bezier schedule.
 extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int ablate, int S,
@@ -127,6 +140,25 @@ extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int ablate
   if (!shape || !unit || nptrs != (con ? MHE_BOX_NPTRS : MHE_NPTRS)) return -1;
   return unit(ptrs, consts, con ? ptrs + MHE_NPTRS : nullptr, ints, reals, N, B,
               Tn, t0, block, stream);
+}
+
+// The launch geometry of the constrained tick of this shape and clock (pi) at
+// N slots and `block` threads per block: out[0..6] as mhe_box_geometry fills
+// them (instances and threads per block, dynamic shared bytes, blocks
+// resident per SM, registers and local bytes per thread, U in shared memory).
+// Returns 0, the CUDA error of a shape the card refuses, or -1 for a shape or
+// type this library does not link.
+extern "C" int dem_mhe_box_geometry(int is_double, int pi, int S, int M, int L, int lot,
+                                    int N, int block, int* out) {
+  using Geometry = int (*)(int, int, int*);
+  // [pi][is_double]
+  static const Geometry geometry[2][2] = {
+      {DEM_UNIT(_box_f32_geometry), DEM_UNIT(_box_f64_geometry)},
+      {DEM_UNIT(_pi_box_f32_geometry), DEM_UNIT(_pi_box_f64_geometry)}};
+  const Geometry g = geometry[pi != 0][is_double != 0];
+  if (S != DEM_MHE_S || M != DEM_MHE_M || L != DEM_MHE_L || lot != DEM_MHE_LOT || N < 2 || !g)
+    return -1;
+  return g(N, block, out);
 }
 
 #endif

@@ -1,4 +1,5 @@
-// mhe_tick — the whole MHE replay loop, one thread per instance: the kernel
+// mhe_tick — the whole MHE replay loop, one thread per instance (the constrained
+// tick: a group of 16, see below): the kernel
 // bodies, included by csrc/mhe.cu, which compiles each instantiation in a
 // translation unit of its own (see there). The model shape (s, m, L and the
 // leg-odometry form LOT) is a template parameter: Go1 (9, 12, 4, 0), Cassie
@@ -54,16 +55,29 @@
 //
 // The constrained variant (template parameter CON; the TPU kernel with
 // admm_ks set, mhe_replay_kernel.py:660-666, 722-731, 787-800). With state box
-// constraints the window solve is the box-ADMM of admm.cuh, which needs the
-// WHOLE masked system at once, not slot by slot. So the assembly loop writes
-// D_j, U_j, r_j to per-launch scratch in global memory (same instance-minor
-// layout; the wrapper allocates it) where the unconstrained variant runs its
-// Thomas step, and admm_box_solve then works on that scratch. The warm-start
-// iterates z, y are two more ring-indexed state tensors: the fresh slot copies
-// the previous newest iterate before the solve, and the solve updates them in
-// place through the ring. Per tick it also writes the iterations each instance
-// ran. The unconstrained, shared-clock instantiation compiles to what it was:
-// every constrained statement sits behind `if constexpr (CON)`, every
+// constraints the window solve is a box-ADMM, which needs the WHOLE masked
+// system at once, not slot by slot. So the assembly loop writes D_j, U_j, r_j
+// to per-launch scratch in global memory (same instance-minor layout; the
+// wrapper allocates it) where the unconstrained variant runs its Thomas step,
+// and the ADMM then works on that scratch. The warm-start iterates z, y are
+// two more ring-indexed state tensors: the fresh slot copies the previous
+// newest iterate before the solve, and the solve updates them through the
+// ring. Per tick it also writes the iterations each instance ran.
+// The constrained kernels run a group of BOX_G = 16 threads per instance
+// (csrc/admm_group.cuh), two instances per warp: lane 0 of the group runs
+// everything above with the statements of the one-thread tick, the other lanes
+// wait at the group's __syncwarp, and then the whole group runs the window
+// solve, admm_box_solve_group, with the factorization chain, the iterates and
+// the forward-sweep vectors in shared memory (U_j too at s=9; Cassie reads it
+// from the scratch, layout (a), which keeps 8 float32 instances per SM) and
+// every lane writes its element of x. What bounds the one-thread solve on this
+// card — a serial chain of s x s products re-reading its blocks from global
+// memory on 32 of the 132 SMs at B=1024 — and what the group does about it:
+// admm_group.cuh. The launch (mhe_launch) takes its threads per block in
+// multiples of 16 and the shared memory of its instances as dynamic shared
+// memory; a launch the card refuses returns its error. The unconstrained
+// instantiations compile to what they were: every constrained statement sits
+// behind `if constexpr (CON)` or a `lead` that is true without CON, every
 // per-lane-clock statement behind `if constexpr (PI)`, and every statement of
 // one leg-odometry form behind `if constexpr` on LOT.
 //
@@ -100,6 +114,7 @@
 // Gauss-Jordan tail only (mhe_abl_kernel), the configuration the tool times.
 #pragma once
 #include "admm.cuh"
+#include "admm_group.cuh"
 #include "smallmat.cuh"
 
 namespace dem {
@@ -184,14 +199,11 @@ struct MheBox {
   T* z_adm;      // (N,s,B) ADMM warm start, ring-indexed state
   T* y_adm;      // (N,s,B)
   int* iters;    // (Tn,B) out: ADMM iterations run per tick and instance
-  // per-launch scratch: the masked window system, the x iterate, the
-  // factorization chain, the forward-sweep vectors
+  // per-launch scratch: the masked window system (the solve keeps the rest
+  // of its data in shared memory, admm_group.cuh)
   T* Dw;         // (N,s,s,B)
   T* Uw;         // (N-1,s,s,B)
   T* rw;         // (N,s,B)
-  T* xw;         // (N,s,B)
-  T* Sinv;       // (N,s,s,B)
-  T* ys;         // (N,s,B)
   AdmmSettings<T> admm;
 };
 
@@ -420,13 +432,19 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
   constexpr int SS = S * S;
   constexpr int MM = M * M;
   const T dt = c.dt;
-  T lb[S], ub[S];
-  AdmmPtrs<T> w;
+  // CON: this lane's group, row and bounds; lane 0 (`lead`) runs the tick's
+  // one-thread statements, the group the window solve. Without CON every
+  // thread leads.
+  constexpr bool USH = box_u_shared<S>();
+  const bool lead = !CON || box_lane() == 0;
+  BoxGroup<T> grp{};
+  T lbi = T(0), ubi = T(0);
   if constexpr (CON) {
-    load<S>(lb, q->lb, 0, B, b);
-    load<S>(ub, q->ub, 0, B, b);
-    w.D = q->Dw; w.U = q->Uw; w.r = q->rw; w.x = q->xw;
-    w.z = q->z_adm; w.y = q->y_adm; w.Sinv = q->Sinv; w.ys = q->ys;
+    grp = box_group<T, S, USH>(N, B, b);
+    if (grp.ln < S) {
+      lbi = ld(q->lb, grp.ln, B, b);
+      ubi = ld(q->ub, grp.ln, B, b);
+    }
   }
 
   // private copy of the Bezier schedule: fleet-global, or this lane's own
@@ -449,7 +467,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     // ---- VO ingestion (mhe_lanes._apply_vo; per lane: _apply_vo_per_instance)
     // the schedule entry of this tick: the fleet's, or this lane's (PI)
     if constexpr (ABL == ABL_INGEST) {
-    } else if (PI ? p.vo_active[(size_t)i * B + b] != 0 : p.vo_active[i] != 0) {
+    } else if (lead && (PI ? p.vo_active[(size_t)i * B + b] != 0 : p.vo_active[i] != 0)) {
       const int tick_pre = PI ? p.vo_tick_pre[(size_t)i * B + b] : p.vo_tick_pre[i];
       const int tick_now = PI ? p.vo_tick_now[(size_t)i * B + b] : p.vo_tick_now[i];
       T p_acc[3], inc[3], pts[12];
@@ -505,7 +523,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
 
     // ---- marginalization (mhe_lanes._marginalize) -------------------------
     if constexpr (ABL == ABL_MARG) {
-    } else if (t >= N) {
+    } else if (lead && t >= N) {
       const int p0 = base_old;
       T A[SS], Qd[SS], AtQd[SS], Qc[9], PtQc[S * 3], PtQcP[SS];
       T bv[S], c0[3], Mp[SS], np_[S];
@@ -565,7 +583,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     // ---- shift + assembly of the two changed slots (mhe_lanes._tick_tail) --
     const int pN1 = base_old;                  // physical slot of logical N-1
     const int pN2 = (base_old + N - 1) % N;    // logical N-2 after the shift
-    {
+    if (lead) {
       T Rp[9], accp[3], A_d[SS], b_d[S], Q_d[SS], Qcn[9], tmp9[9];
       if constexpr (ABL == ABL_BUILD) {
         DEM_UNROLL
@@ -610,7 +628,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       for (int k = 0; k < S; ++k) curv[k] += tv[k];
       store<S>(p.routb, (size_t)pN2 * S, B, b, curv);
     }
-    {
+    if (lead) {
       T Rt[9], acc[3], om[3], pf[L * 3], Jf[L * 9], dqv[L * 3], ct[L];
       load<9>(Rt, p.R, (size_t)i * 9, B, b);
       load<3>(acc, p.accel, (size_t)i * 3, B, b);
@@ -661,11 +679,13 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     if constexpr (CON) {
       // warm-start shift: the fresh slot (new logical N-1 = physical pN1)
       // reuses the previous newest iterate (old logical N-1 = physical pN2)
-      T v[S];
-      load<S>(v, q->z_adm, (size_t)pN2 * S, B, b);
-      store<S>(q->z_adm, (size_t)pN1 * S, B, b, v);
-      load<S>(v, q->y_adm, (size_t)pN2 * S, B, b);
-      store<S>(q->y_adm, (size_t)pN1 * S, B, b, v);
+      if (lead) {
+        T v[S];
+        load<S>(v, q->z_adm, (size_t)pN2 * S, B, b);
+        store<S>(q->z_adm, (size_t)pN1 * S, B, b, v);
+        load<S>(v, q->y_adm, (size_t)pN2 * S, B, b);
+        store<S>(q->y_adm, (size_t)pN1 * S, B, b, v);
+      }
     }
 
     if constexpr (ABL == ABL_ASSEMBLY) {
@@ -683,8 +703,11 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     T Lc[CHOL ? S * (S + 1) / 2 : 1], rd[CHOL ? S : 1];   // the Cholesky tail's factor
     T abl_acc[ABL == ABL_SOLVE ? S : 1];   // ABL_SOLVE: the sum that stands in for x
     T Mp[SS], np_[S];
-    load<SS>(Mp, p.M_p, 0, B, b);
-    load<S>(np_, p.n_p, 0, B, b);
+    if (lead) {
+      load<SS>(Mp, p.M_p, 0, B, b);
+      load<S>(np_, p.n_p, 0, B, b);
+    }
+    if (lead)   // CON: lane 0 assembles the masked system for the group
     for (int j = 0; j < N; ++j) {
       const int pj = (base_new + j) % N;
       const bool valid = j >= first;
@@ -778,11 +801,18 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     }
     T xT[S];
     if constexpr (CON) {
-      // whole-window box-ADMM, warm-started from and written back to the
-      // z/y ring (logical slot j at physical (base_new + j) % N)
-      q->iters[(size_t)i * B + b] =
-          admm_box_solve<T, S>(w, q->admm, lb, ub, base_new, N, B, b);
-      load<S>(xT, q->xw, (size_t)(N - 1) * S, B, b);
+      // whole-window box-ADMM by the group, warm-started from and written
+      // back to the z/y ring (logical slot j at physical (base_new + j) % N),
+      // once lane 0 has assembled the system and shifted the ring
+      __syncwarp(grp.mask);
+      const int its = admm_box_solve_group<T, S, USH>(grp, q->Dw, q->Uw, q->rw, q->z_adm,
+                                                      q->y_adm, q->admm, lbi, ubi, base_new);
+      if (lead) q->iters[(size_t)i * B + b] = its;
+      if (grp.ln < S)   // x_{N-1}, each lane its element
+        st(p.x, (size_t)i * S + grp.ln, B, b,
+           grp.sm[BoxLayout<T, S, USH>::x(N) + (N - 1) * S + grp.ln]);
+      __syncwarp(grp.mask);   // the ring written back before lane 0's next tick
+      continue;
     } else if constexpr (CHOL) {
       T z[S];
       trsv_l<S>(Lc, rd, yv, z);
@@ -796,6 +826,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     store<S>(p.x, (size_t)i * S, B, b, xT);
   }
 
+  if (!lead) return;   // CON: the schedule is lane 0's
   if constexpr (PI) {
     store<4>(p.bez_times_out, 0, B, b, bt);
     p.bez_count_out[b] = bcount;
@@ -816,7 +847,8 @@ __global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, in
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                int N, int B, int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  // BOX_G threads per instance; a group beyond the fleet leaves whole
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, true, false>(p, c, &q, N, B, Tn, t0, b);
 }
@@ -832,7 +864,8 @@ __global__ void mhe_pi_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N,
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                   int N, int B, int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  // BOX_G threads per instance; a group beyond the fleet leaves whole
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, true, true>(p, c, &q, N, B, Tn, t0, b);
 }
@@ -863,6 +896,62 @@ __global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N
   mhe_body<T, S, M, L, LOT, false, false, false, ABL>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
+// The dynamic shared memory of a constrained launch of `block` threads:
+// block / BOX_G instances of BoxLayout::stride scalars (kernels/
+// mhe_replay_kernel.py's box_geometry computes the same bytes).
+template <typename T, int S>
+DEM_HHD size_t box_shared_bytes(int N, int block) {
+  return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
+}
+
+// the constrained kernel of a clock
+template <typename T, int S, int M, int L, int LOT, bool PI>
+auto mhe_box_entry() {
+  if constexpr (PI) return &mhe_pi_box_kernel<T, S, M, L, LOT>;
+  else return &mhe_box_kernel<T, S, M, L, LOT>;
+}
+
+// Check a constrained launch's shape and allow its dynamic shared memory:
+// 0, or the error of what the card refuses (cleared, so that it does not
+// surface at a later launch). *shmem = the bytes to launch with.
+template <typename K>
+int box_launch_shape(K kern, size_t bytes, int block, size_t* shmem) {
+  if (block < BOX_G || block > 1024 || block % BOX_G) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  *shmem = bytes;
+  return 0;
+}
+
+// The geometry of the constrained kernel of this instantiation at N slots and
+// `block` threads per block (csrc/mhe.cu's dem_mhe_box_geometry): out[0..6] =
+// instances per block, threads per block, dynamic shared bytes, blocks
+// resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
+// per thread, local bytes per thread, U in shared memory (1) or not (0).
+// Returns 0 or the CUDA error.
+template <typename T, int S, int M, int L, int LOT, bool PI>
+int mhe_box_geometry(int N, int block, int* out) {
+  const auto kern = mhe_box_entry<T, S, M, L, LOT, PI>();
+  size_t shmem = 0;
+  int err = box_launch_shape(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
+  if (err) return err;
+  int per_sm = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, shmem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  out[0] = block / BOX_G; out[1] = block; out[2] = (int)shmem; out[3] = per_sm;
+  out[4] = fa.numRegs; out[5] = (int)fa.localSizeBytes; out[6] = box_u_shared<S>() ? 1 : 0;
+  return 0;
+}
+
 // One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
 // constrained kernel, PI the per-lane camera clock, CHOL the Cholesky tail
 // (unconstrained only), ABL the stage ablation (unconstrained, shared clock,
@@ -871,7 +960,10 @@ __global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N
 // Q_vo_p, C_p, C_accel, Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro,
 // Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
-// the scratch Dw, Uw, rw, xw, Sinv, ys; ints/reals as admm_settings reads them.
+// the scratch Dw, Uw, rw; ints/reals as admm_settings reads them. The
+// constrained kernels take `block` threads per block, a multiple of BOX_G,
+// and box_shared_bytes of dynamic shared memory; the error of a launch the
+// card refuses (too many threads, too much shared memory) is returned.
 template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL,
           int ABL = ABL_NONE>
 int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
@@ -956,14 +1048,13 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     bx.Dw = (T*)box_ptrs[q++];
     bx.Uw = (T*)box_ptrs[q++];
     bx.rw = (T*)box_ptrs[q++];
-    bx.xw = (T*)box_ptrs[q++];
-    bx.Sinv = (T*)box_ptrs[q++];
-    bx.ys = (T*)box_ptrs[q++];
     bx.admm = admm_settings<T>(ints, reals);
-    if constexpr (PI)
-      mhe_pi_box_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
-    else
-      mhe_box_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
+    const auto kern = mhe_box_entry<T, S, M, L, LOT, PI>();
+    size_t shmem = 0;
+    const int err = box_launch_shape(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
+    if (err) return err;
+    const int ipb = block / BOX_G;
+    kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
   }
   return (int)cudaGetLastError();
 }

@@ -251,21 +251,32 @@ def build(extra_flags=(), libraries=LIBRARIES, ptxas=False, nice=0) -> str:
     return out_dir
 
 
+def library(name: str, extra_flags=()):
+    """Library ``name`` (a key of ``UNITS``) loaded with ctypes, built first
+    if it is not yet; ``extra_flags`` as in ``build``."""
+    key = name if not extra_flags else (name,) + tuple(extra_flags)
+    if key not in _libs:
+        out_dir = build(extra_flags=extra_flags, libraries=(name,))
+        _libs[key] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+    return _libs[key]
+
+
 def load(name: str, extra_flags=()):
     """The C entry point of library ``name`` (a key of ``UNITS``) with its
     argtypes set, built first if it is not yet. The wrappers load the
     standard build; ``extra_flags`` gives the entry point of a variant build
     (see ``build``) to a caller that compares two builds."""
-    key = name if not extra_flags else (name,) + tuple(extra_flags)
-    if key not in _libs:
-        out_dir = build(extra_flags=extra_flags, libraries=(name,))
-        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-        fn_name, argtypes = _ARGTYPES[UNITS[name][0][0]]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[key] = fn
-    return _libs[key]
+    fn_name, argtypes = _ARGTYPES[UNITS[name][0][0]]
+    return entry(name, fn_name, argtypes, extra_flags)
+
+
+def entry(name: str, fn_name: str, argtypes, extra_flags=()):
+    """The C function ``fn_name`` of library ``name`` with these argtypes and
+    an int result."""
+    fn = getattr(library(name, extra_flags), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 class KernelTimer:

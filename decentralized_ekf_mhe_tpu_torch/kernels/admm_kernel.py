@@ -3,11 +3,13 @@
 Replaces the reference's TPU kernel ``pallas/admm_kernel.py``
 (``solve_box_lanes`` → ``_solve_padded`` → ``_make_kernel``) with
 ``csrc/admm.cu``, whose body is the device function ``admm_box_solve`` of
-``csrc/admm.cuh`` — the port of ``pallas/admm_core.py::admm_box_solve`` that
-the constrained ``mhe_tick`` kernel (``csrc/mhe_body.cuh``) calls once per tick too.
-One CUDA thread per instance runs the ρ-epoch factorizations, the α-relaxed
-projection iterations, the converged-freeze, the adaptive-ρ updates and the
-active-set polish on operands in the instance-minor lanes layout.
+``csrc/admm.cuh`` — the port of ``pallas/admm_core.py::admm_box_solve``, which
+the constrained ``mhe_tick`` kernel (``csrc/mhe_body.cuh``) runs once per tick
+on a group of 16 threads per instance instead (``admm_box_solve_group``,
+``csrc/admm_group.cuh``, the same statements). Here one CUDA thread per
+instance runs the ρ-epoch factorizations, the α-relaxed projection
+iterations, the converged-freeze, the adaptive-ρ updates and the active-set
+polish on operands in the instance-minor lanes layout.
 
 What the TPU kernel keeps in its on-chip memory (the system, the
 factorization chain and the iterates: about 6k scalars per instance at N=20,
@@ -41,8 +43,9 @@ from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 BLOCK = 32       # threads per block: one warp, so a small fleet spreads over SMs
 launches = 0     # incremented where the CUDA kernel is launched, nowhere else
-# launches of any kernel that runs the device function admm_box_solve: this
-# module's admm_solve and the constrained mhe_tick (kernels/mhe_replay_kernel)
+# launches of any kernel that runs the box-ADMM solve (K3): this module's
+# admm_solve (admm_box_solve, one thread per instance) and the constrained
+# mhe_tick (kernels/mhe_replay_kernel; admm_box_solve_group, 16 per instance)
 launches_core = 0
 timer = _build.KernelTimer()   # times the kernel call alone
 

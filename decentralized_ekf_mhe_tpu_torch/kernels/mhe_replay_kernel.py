@@ -21,11 +21,16 @@ local memory. Nothing is done about occupancy yet.
 With state box constraints in the consts (``c.x_lb``) the constrained variant
 of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
 loop writes the whole masked window system to per-launch scratch in global
-memory instead of streaming the Thomas sweep, the box-ADMM device function of
-``csrc/admm.cuh`` solves it, and the warm-start iterates ``z_adm``/``y_adm``
-ride two more ring-indexed state tensors. The scratch (about 5.3k scalars per
-instance) is allocated by the wrapper and is not part of ``KernelState``. The
-ADMM iterations each instance ran per tick come back as ``KernelState.iters``.
+memory instead of streaming the Thomas sweep, the box-ADMM solves it, and the
+warm-start iterates ``z_adm``/``y_adm`` ride two more ring-indexed state
+tensors. That kernel runs ``BOX_G`` = 16 threads per instance
+(``csrc/admm_group.cuh``): lane 0 of each group runs the tick's one-thread
+statements up to the assembled system, then the group solves the window with
+the factorization chain, the iterates and the sweep vectors in shared memory
+(``box_geometry``: threads and instances per block, dynamic shared bytes).
+The scratch (the masked system, about 3.8k scalars per instance at s=9) is
+allocated by the wrapper and is not part of ``KernelState``. The ADMM
+iterations each instance ran per tick come back as ``KernelState.iters``.
 
 A per-instance ``VOData`` (active, tick_pre, tick_now (T,B): a camera clock
 per lane) runs the per-instance variant of either kernel (the TPU kernel with
@@ -81,6 +86,16 @@ from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 BLOCK = 32       # threads per block of a launch unless the caller names ``block``
+# the constrained tick: threads per instance (csrc/admm_group.cuh's BOX_G), and
+# its threads per block unless the caller names ``block``: eight instances, the
+# fastest of 2, 4, 5 and 8 at Go1's and Cassie's shapes in float32 in the sweep
+# of tools/roofline.py --box-layouts on the card (PERF.md §5), or as many as
+# fit a block's shared memory where eight do not (float64)
+BOX_G = 16
+BLOCK_BOX = 128
+# what one block may use of an SM's shared memory, and what an SM has for its
+# blocks, each of which reserves 1 KB more (H100: 227 KB and 228 KB)
+SHARED_PER_BLOCK, SHARED_PER_SM, SHARED_RESERVED_PER_BLOCK = 232448, 233472, 1024
 # incremented where a CUDA kernel is launched, nowhere else: one count per
 # kernel — the unconstrained tick (mhe_kernel), the constrained one
 # (mhe_box_kernel), their per-lane-clock variants (mhe_pi_kernel,
@@ -220,6 +235,88 @@ def _check_block(block):
     if not 1 <= block <= 1024:
         raise ValueError(f"block: {block} threads per block, expected 1..1024")
     return block
+
+
+def box_u_shared(s):
+    """Whether the constrained tick keeps U_j in shared memory (layout (b)) at
+    state size s, as ``csrc/admm_group.cuh``'s ``box_u_shared`` decides: at
+    s=9; at s=15 it reads U_j from the assembly's scratch (layout (a))."""
+    return s <= 9
+
+
+class BoxGeometry(NamedTuple):
+    """The launch of the constrained tick (``box_geometry``)."""
+
+    instances_per_block: int
+    threads_per_block: int
+    shared_bytes: int           # dynamic shared memory of one block
+    u_shared: bool              # U_j in shared memory (layout (b))
+    instances_per_sm: int       # as far as shared memory, threads and blocks allow
+
+
+def box_shared_scalars(s, N, u_shared):
+    """Scalars of one instance's shared memory (``BoxLayout``): Sinv N s², U
+    (N−1) s² in layout (b), x, z, y, the sweep vectors and r 5 N s, 6 s of
+    broadcast buffers."""
+    return N * s * s + (N - 1) * s * s * int(u_shared) + 5 * N * s + 6 * s
+
+
+def box_geometry(s, dtype, block=None, N=20):
+    """The launch geometry of the constrained tick at state size ``s``, element
+    type ``dtype``, ``block`` threads per block (default ``BLOCK_BOX``, capped
+    to the instances whose shared memory fits a block) and ``N`` slots:
+    ``BOX_G`` threads per instance, so ``block // BOX_G``
+    instances per block, each with ``box_shared_scalars`` padded to 16 mod 32
+    four-byte words (``BoxLayout::stride``, so that the two groups of a warp
+    use different banks); U_j sits in shared memory where
+    ``box_u_shared(s)``. Raises ``ValueError`` when ``block`` is not a
+    multiple of ``BOX_G`` in 16..1024, when s > ``BOX_G``, or when the block's
+    shared memory exceeds what a block may use (232,448 bytes)."""
+    if s > BOX_G:
+        raise ValueError(f"s={s}: the constrained tick runs at most {BOX_G} states")
+    u_shared = box_u_shared(s)
+    item = torch.empty((), dtype=dtype).element_size()
+    words = box_shared_scalars(s, N, u_shared) * item // 4
+    one = (words + (16 - words % 32) % 32) * 4      # bytes of one instance
+    if block is None:
+        block = min(BLOCK_BOX, BOX_G * (SHARED_PER_BLOCK // one))
+    block = _check_block(block)
+    if block % BOX_G or block < BOX_G:
+        raise ValueError(f"block: {block} threads per block is not a multiple of "
+                         f"{BOX_G}, the constrained tick's threads per instance")
+    ipb = block // BOX_G
+    shared = ipb * one
+    if shared > SHARED_PER_BLOCK:
+        raise ValueError(
+            f"constrained tick: {shared} bytes of shared memory for {ipb} instances per "
+            f"block (s={s}, {dtype}, N={N}), more than the {SHARED_PER_BLOCK} a block may use")
+    blocks = min(SHARED_PER_SM // (shared + SHARED_RESERVED_PER_BLOCK), 32, 2048 // block)
+    return BoxGeometry(ipb, block, shared, u_shared, blocks * ipb)
+
+
+def box_occupancy(c, dtype, per_lane_clock=False, block=None):
+    """The constrained tick's geometry as the card reports it for the consts
+    ``c`` (shape and N), through the library's C entry point
+    (``dem_mhe_box_geometry``, on the current device): instances and threads
+    per block, dynamic shared bytes, blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
+    bytes per thread, and whether U_j is in shared memory. Raises as a launch
+    would."""
+    if block is None:
+        block = box_geometry(c.dim_state, dtype, None, c.N).threads_per_block
+    lib = kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type),
+                         per_lane_clock)
+    fn = _build.entry(lib, "dem_mhe_box_geometry", [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 7)()
+    err = fn(int(dtype == torch.float64), int(per_lane_clock), c.dim_state, c.dim_meas,
+             c.num_legs, int(c.leg_odom_type), c.N, block, ctypes.cast(out, ctypes.c_void_p))
+    _build.check_launch(err, "mhe_tick (constrained) geometry")
+    keys = ("instances_per_block", "threads_per_block", "shared_bytes", "blocks_per_sm",
+            "registers_per_thread", "local_bytes_per_thread", "u_shared")
+    res = dict(zip(keys, list(out)))
+    res["u_shared"] = bool(res["u_shared"])
+    res["instances_per_sm"] = res["blocks_per_sm"] * res["instances_per_block"]
+    return res
 
 
 class KernelState(NamedTuple):
@@ -422,11 +519,14 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     or "chol" (see the module docstring); the plain version and the box
     kernels do not depend on it. ``ablate`` skips one stage of the tick (see
     the module docstring; "" runs it all). ``block`` is the launch's threads
-    per block (default ``BLOCK``); the plain version does not depend on it.
+    per block (default ``BLOCK``; with box consts ``BLOCK_BOX``, and then a
+    multiple of ``BOX_G`` whose shared memory fits, see ``box_geometry``, which
+    raises ``ValueError`` otherwise, on the CPU as on the card); the plain
+    version does not depend on it.
     """
     check_mk_solve(mk_solve)
     check_ablate(c, ablate, vo.active.ndim == 2, mk_solve)
-    block = _check_block(block)
+    constrained = c.x_lb is not None
     device = resolve_device(device)
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     if N < 2:
@@ -451,7 +551,10 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     ]
     for name, a, sh in inputs:
         _build.require_lanes(name, a, sh, dtype, dev)
-    constrained = c.x_lb is not None
+    if constrained:
+        block = box_geometry(s, dtype, block, N).threads_per_block
+    else:
+        block = _check_block(block)
     shapes = state_shapes(N, s, m, L, constrained)
     if len(ks.arrays) != len(shapes):
         raise ValueError(
@@ -492,7 +595,7 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve
     launch. ``inputs`` are the eight per-tick tensors in the kernel's order
     (R, accel, omega, p_foot, J_foot, dq, contact, vo_inc); ``replay_ticks``
     has checked the arguments, and ``kernel_library`` refuses a shape that
-    has no instantiation."""
+    has no instantiation; a launch the card refuses raises."""
     N, s, m, L = c.N, c.dim_state, c.dim_meas, c.num_legs
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
@@ -517,10 +620,9 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve
         iters = torch.empty((Tn, B), dtype=torch.int32, device=dev)
         ws = lambda *sh: torch.empty(sh + (B,), dtype=dtype, device=dev)
         # lb, ub, z_adm, y_adm, iters, then the per-launch scratch: the masked
-        # system Dw, Uw, rw, the x iterate, the factorization chain, ys
+        # system Dw, Uw, rw (the solve keeps the rest in shared memory)
         tensors += list(bounds) + state[18:] + [
-            iters, ws(N, s, s), ws(N - 1, s, s), ws(N, s), ws(N, s),
-            ws(N, s, s), ws(N, s)]
+            iters, ws(N, s, s), ws(N - 1, s, s), ws(N, s)]
         ints, reals = ADMMCoreStatic.from_settings(c.admm, N, s).pack()
         settings = (ints.ctypes.data, reals.ctypes.data)
     else:

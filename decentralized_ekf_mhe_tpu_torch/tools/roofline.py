@@ -9,8 +9,8 @@ never reach a tensor core). Operations and bytes come from
 ``kernels/_work.mhe_tick``, the rule every bound of this package follows.
 
     python -m decentralized_ekf_mhe_tpu_torch.tools.roofline [--ablate] [--sweep]
-        [--trace [--trace-out FILE]] [--constrained-sweep] [--rate TICKS_PER_S]
-        [--B 1024] [--T 200] [--device cuda]
+        [--trace [--trace-out FILE]] [--constrained-sweep]
+        [--model go1|cassie_bench] [--rate TICKS_PER_S] [--B 1024] [--T 200] [--device cuda]
 
 Modes (each prints a table to stderr and one JSON line to stdout):
 
@@ -30,15 +30,18 @@ Modes (each prints a table to stderr and one JSON line to stdout):
   the result says so.
 * ``--constrained-sweep`` (``constrained_sweep``): the constrained tick (K2c)
   at ADMM budgets 5, 10, 20, 40 with and without polish; the slope over the
-  budget is the cost of one ADMM iteration.
+  budget is the cost of one ADMM iteration. ``--model cassie_bench`` runs it
+  at Cassie's shape (s=15) at the bench's settings.
 
 The fleet is the reference bench's headline one (``bench.py``'s Go1
 parameters and perturbation: per-lane IMU/encoder noise, per-lane VO
 translation, one shared camera clock), drawn here with an explicit
-``torch.Generator``. Every entry point defaults to ``device="cuda"``; with
-``device="cpu"`` the wrappers take their plain versions and the times are the
-host's, which the results label as such (control flow only: no device figure
-comes from a CPU run).
+``torch.Generator``; "cassie_bench" is Cassie's shape at the bench's settings
+(two legs, foot positions as states, its log of seed 2, ``bench.py:455-460``).
+Every entry point defaults to ``device="cuda"``; with ``device="cpu"`` the
+wrappers take their plain versions and the times are the host's, which the
+results label as such (control flow only: no device figure comes from a CPU
+run).
 """
 
 from __future__ import annotations
@@ -79,15 +82,24 @@ def bench_params() -> EstimatorParams:
     )
 
 
-def bench_fleet(B, T, device="cuda", dtype=F32, seed=0):
+MODELS = ("go1", "cassie_bench")
+
+
+def bench_fleet(B, T, device="cuda", dtype=F32, seed=0, model="go1"):
     """The bench's headline fleet on ``device``: the Go1 log (seed 0) tiled
     into B perturbed instances — IMU/encoder noise (``perturb_log_batch``), the
     EKF blocks with per-lane VO quaternions, per-lane VO translation on the
-    shared camera clock — from one ``torch.Generator`` seeded with ``seed``.
-    Returns (params, data (T,B,...), EKF blocks, VOData)."""
+    shared camera clock — from one ``torch.Generator`` seeded with ``seed``;
+    ``model="cassie_bench"``: Cassie's shape at the bench's settings on its
+    own log. Returns (params, data (T,B,...), EKF blocks, VOData)."""
     device = resolve_device(device)
+    if model not in MODELS:
+        raise ValueError(f"model: {model!r} is not one of {MODELS}")
     p = bench_params()
-    log = synth.generate(synth.SynthConfig(T=T, seed=0))
+    if model == "cassie_bench":
+        p.num_legs, p.leg_odom_type = 2, 1
+    log = synth.generate(synth.SynthConfig(T=T, seed=0 if model == "go1" else 2,
+                                           num_legs=p.num_legs))
     g = torch.Generator(device=device).manual_seed(seed)
     data = estimator.tickdata_from_log(log, dtype=dtype, device=device)
     vo = estimator.vodata_from_log(log, dtype=dtype, device=device)
@@ -348,25 +360,32 @@ def trace_capture(B=1024, T=200, device="cuda", out_file=None):
     return out
 
 
-def constrained_sweep(B=1024, T=200, iters_list=(5, 10, 20, 40), device="cuda", reps=3):
+def bench_box(p, iters, device, polish=True):
+    """Constrained consts of the bench's box (``bench.py:371-417``): |v| <=
+    0.3, fixed rho 5000, OSQP tolerances 1e-6, ``iters`` ADMM iterations,
+    float32."""
+    s = p.dim_state
+    ub = np.full(s, np.inf)
+    ub[3:6] = 0.3
+    p.osqp.abs_tol = p.osqp.relative_tol = 1e-6
+    p.osqp.rho, p.osqp.adapt_rho, p.osqp.polish = 5000.0, False, polish
+    return mhe.make_consts(p, F32, x_lb=-ub, x_ub=ub, admm_iters=iters, use_pallas=True,
+                           device=device)
+
+
+def constrained_sweep(B=1024, T=200, iters_list=(5, 10, 20, 40), device="cuda", reps=3,
+                      model="go1"):
     """The constrained tick (K2c, float32, the bench's |v| <= 0.3 box, fixed
     rho 5000, OSQP tolerances 1e-6) at each ADMM budget, with and without
     polish, the kernel alone, best of ``reps``: per row the time, the time per tick
     and the mean iterations the instances ran; the least-squares slope over
     the budget without polish is the cost of one ADMM iteration."""
     device = resolve_device(device)
-    p, data_b, _, vo = bench_fleet(B, T, device)
-    s = p.dim_state
-    ub = np.full(s, np.inf)
-    ub[3:6] = 0.3
-    p.osqp.abs_tol = p.osqp.relative_tol = 1e-6
-    p.osqp.rho, p.osqp.adapt_rho = 5000.0, False
+    p, data_b, _, vo = bench_fleet(B, T, device, model=model)
     rows = []
     for polish in (True, False):
-        p.osqp.polish = polish
         for iters in iters_list:
-            c = mhe.make_consts(p, F32, x_lb=-ub, x_ub=ub, admm_iters=iters, use_pallas=True,
-                                device=device)
+            c = bench_box(p, iters, device, polish)
             ks, d, v, i = tick_inputs(c, data_b, vo)
             got = {}
 
@@ -380,7 +399,7 @@ def constrained_sweep(B=1024, T=200, iters_list=(5, 10, 20, 40), device="cuda", 
             print(f"polish={int(polish)} iters={iters:3d}: {ms:9.3f} ms, "
                   f"{rows[-1]['us_per_tick']:.2f} us per tick, "
                   f"{rows[-1]['iters_run_mean']:.2f} iterations run", file=sys.stderr)
-    out = {"B": B, "T": T, **device_info(device), "rows": rows}
+    out = {"B": B, "T": T, "model": model, **device_info(device), "rows": rows}
     free = [(r["iters"], r["us_per_tick"]) for r in rows if not r["polish"]]
     if len(free) >= 2:
         slope, intercept = np.polyfit(*zip(*free), 1)
@@ -400,6 +419,8 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None, help="keep the Chrome trace in this file")
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--constrained-sweep", action="store_true")
+    ap.add_argument("--model", default="go1", choices=MODELS,
+                    help="the shape of --constrained-sweep")
     ap.add_argument("--B", type=int, default=1024)
     ap.add_argument("--T", type=int, default=200)
     ap.add_argument("--device", default="cuda")
@@ -418,7 +439,8 @@ def main(argv=None):
         if a.ablate:
             results["ablation"] = ablation(B=a.B, T=a.T, device=a.device)
         if a.constrained_sweep:
-            results["constrained_sweep"] = constrained_sweep(B=a.B, T=a.T, device=a.device)
+            results["constrained_sweep"] = constrained_sweep(B=a.B, T=a.T, device=a.device,
+                                                             model=a.model)
         if not results:
             results["tick_model"] = tick_model()
     for mode, res in results.items():
