@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts' kernels on one card: every kernel's ptxas figures,
-the unconstrained ``mhe_tick`` kernel's time in turns, and the constrained
-tick's (K2c) time in turns and float64 results.
+the unconstrained tick's time in turns at Go1's and Cassie's shapes, the
+constrained tick's (K2c) time in turns, and both ticks' float64 results.
 
     python3 chip_ab_mhe_tick.py OTHER_CHECKOUT
 
@@ -10,25 +10,31 @@ Run from the root of this checkout on a machine with one NVIDIA GPU and nvcc.
 commit unpacked with ``git archive`` into a git-ignored directory). First both
 checkouts build all their libraries at once, each with ptxas' report, and
 the script prints, for every kernel the two have in common, whether its
-registers, stack frame and spill stores and loads are the same. Then, since
-two versions are only comparable within one run on one card, the timing
-turns go other, this, this, other; each turn is a fresh process that draws
-the headline fleet (T=2000, B=1024, float32, seed 0) and prints best-of-3
-device times of ``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three
-times. The constrained tick (the bench's box: |v| <= 0.3, rho=5000 fixed, 20
-iterations + polish, float32) is timed the same way, in turns other, this,
-this, other, on Go1's headline fleet (cell (b): the EKF kernel's orientation)
-and on Cassie's shape at the bench's settings (cell (k): the lanes runner's
-inputs), one run of the whole log per turn after a short warm-up. Last, each
-checkout runs the constrained tick in float64 on the first 120 ticks of
-those fleets (B=1024), on the shared camera clock and on 15 clocks per lane
-(K2c-PI), and the script prints, per run, whether x, the z/y rings and the
-iteration counts are bit-identical between the checkouts, and the largest
-difference in units of the limit rtol=atol=1e-8 where they are not.
+registers, stack frame and spill stores and loads are the same, and which of
+those that differ are not Cassie's unconstrained Gauss-Jordan tick (K2, K2b:
+``mhe_kernel`` and ``mhe_pi_kernel`` at s=15). Then, since two versions are
+only comparable within one run on one card, the timing turns go other, this,
+this, other; each turn is a fresh process. Go1's unconstrained tick (K2) on
+the headline fleet (T=2000, B=1024, float32, seed 0; the EKF kernel's
+orientation) prints best-of-3 device times of
+``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three times. Cassie's
+unconstrained tick at the bench's settings (cell (k): the lanes runner's
+inputs) and on its 15 clocks per lane (cell (l), K2b), and the constrained
+tick (the bench's box: |v| <= 0.3, rho=5000 fixed, 20 iterations + polish,
+float32) on Go1's headline fleet (cell (b)) and at cell (k), each run the
+whole log once per turn after a short warm-up. Last, each checkout runs
+Cassie's unconstrained tick on both clocks, and the constrained tick at Go1
+and at cell (k) on both clocks, in float64 on the first 120 ticks
+(B=1024), then Cassie's unconstrained tick on both clocks in float32 over the
+whole log, and the script prints, per run, whether x and the window state (the
+constrained tick: x, the z/y rings and the iteration counts) are
+bit-identical between the checkouts, and the largest difference in units of
+the limit rtol=atol=1e-8 where they are not.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,30 +61,32 @@ ms = [cs.timed(lambda: mrk.replay_ticks(c, ks, d, v, i, device=cs.DEV), reps=3)
 print(json.dumps({"mhe_tick_ms_best_of_3": ms}))
 '''
 
-# the constrained tick of one fleet: python -c BOX_TURN MODEL PI DTYPE T OUT|-
-# ("-": time one whole-log run after a warm-up and print it; else save x, the
-# z/y rings and the iteration counts of one run to OUT)
-BOX_TURN = r'''
+# one tick kernel on one fleet: python -c TICK_TURN MODEL CLOCK CON DTYPE T OUT|-
+# (CLOCK shared or pi, CON free or box; "-": time one whole-log run after a
+# warm-up and print it; else save x and the state of one run to OUT)
+TICK_TURN = r'''
 import json, sys
 import torch
 import chip_smoke as cs
 from decentralized_ekf_mhe_tpu_torch.config import EKFParams
 from decentralized_ekf_mhe_tpu_torch.kernels import ekf_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
-from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes
-model, pi, dtype, T, out = sys.argv[1], sys.argv[2] == "pi", sys.argv[3], int(sys.argv[4]), sys.argv[5]
+from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes, mhe
+model, pi, box, dtype = sys.argv[1], sys.argv[2] == "pi", sys.argv[3] == "box", sys.argv[4]
+T, out = int(sys.argv[5]), sys.argv[6]
 dtype = {"f32": cs.F32, "f64": cs.F64}[dtype]
 with torch.inference_mode():
     make = cs.make_clock_fleet if pi else cs.make_fleet
     _, *fleet = make(T, cs.B_MAIN, cs.F64, seed=0, model=model)
     fleet = tuple(cs.cast(nt, dtype) for nt in fleet)
-    c = cs.box_consts(cs.box_params(model=model), dtype, cs.V_BOX, 20)
+    c = (cs.box_consts(cs.box_params(model=model), dtype, cs.V_BOX, 20) if box
+         else mhe.make_consts(cs.robot_params(model)[0], dtype, device=cs.DEV))
     if model == "go1" and not pi:   # cell (b): the pipeline's EKF orientation
         pe = EKFParams()
         st = ekf_lanes.init_state(pe, cs.B_MAIN, cs.RING, dtype, device=cs.DEV)
         q, _ = ekf_kernel.replay(ekf_lanes.make_consts(pe, dtype), st, fleet[1], device=cs.DEV)
         _, ks, (d, v, i) = cs.window_inputs(c, fleet, ekf_lanes.to_rot(q), dtype, T)
-    else:                            # the lanes runner's inputs (cell (k))
+    else:                            # the lanes runner's inputs (cells (k), (l))
         ks, (d, v, i) = cs.clock_inputs(c, fleet, dtype)
     del fleet
     run = lambda n: mrk.replay_ticks(c, ks, *(type(a)(*(t[:n] for t in a)) if isinstance(a, tuple)
@@ -90,11 +98,15 @@ with torch.inference_mode():
         run(T - 1)
         e1.record()
         torch.cuda.synchronize()
-        print(json.dumps({"model": model, "T": T, "mhe_tick_box_ms": e0.elapsed_time(e1)}))
+        print(json.dumps({"model": model, "clock": sys.argv[2], "tick": sys.argv[3], "T": T,
+                          "ms": e0.elapsed_time(e1)}))
     else:
         x, k = run(T - 1)
-        torch.save({"x": x.cpu(), "z": k.arrays[18].cpu(), "y": k.arrays[19].cpu(),
-                    "iters": k.iters.cpu()}, out)
+        res = {"x": x.cpu(), "state": [a.cpu() for a in k.arrays[:18]],
+               "bez_times": k.bez_times.cpu(), "bez_count": k.bez_count.cpu()}
+        if box:
+            res.update(z=k.arrays[18].cpu(), y=k.arrays[19].cpu(), iters=k.iters.cpu())
+        torch.save(res, out)
 '''
 
 # build all of a checkout's libraries with ptxas' report: {kernel: figures}
@@ -126,14 +138,14 @@ def ptxas_both(other):
     common = sorted(set(figs[other]) & set(figs["."]))
     differ = {k: {"other": figs[other][k], "this": figs["."][k]} for k in common
               if figs[other][k] != figs["."][k]}
-    # the constrained tick's kernels (K2c, K2c-PI) are mhe_box_kernel and
-    # mhe_pi_box_kernel; every other kernel is listed apart
-    box = ("14mhe_box_kernel", "17mhe_pi_box_kernel")
+    # Cassie's unconstrained Gauss-Jordan kernels (K2, K2b at s=15) are the
+    # ones this comparison expects to differ; every other kernel is listed apart
+    redesigned = re.compile(r"(10mhe_kernel|13mhe_pi_kernel)I[fd]Li15E")
     print(json.dumps({"ptxas_registers_frame_spill_stores_loads": {
         "kernels_in_common": len(common), "identical": len(common) - len(differ),
         "differ": differ,
-        "differ_other_than_the_constrained_tick": sorted(
-            k for k in differ if not any(b in k for b in box)),
+        "differ_other_than_cassies_unconstrained_tick": sorted(
+            k for k in differ if not redesigned.search(k)),
         "only_in_this": sorted(set(figs["."]) - set(figs[other])),
         "only_in_other": sorted(set(figs[other]) - set(figs["."]))}}), flush=True)
 
@@ -149,44 +161,61 @@ def run_turn(tree, code, *args):
     return json.loads(lines[-1]) if lines else None
 
 
-def box_bits(other, T=120):
-    """The constrained tick in float64 in both checkouts: per fleet and clock,
-    whether x, z, y and the iteration counts are bit-identical, and where
-    not, the largest |this - other| / (1e-8 + 1e-8 |other|) and the count of
-    elements that differ."""
+# Cassie's unconstrained tick on both clocks (K2, K2b)
+CASSIE_FREE = [("cassie_bench", clock, "free") for clock in ("shared", "pi")]
+
+
+def tick_bits(other, T=120, dtype="f64", runs=None):
+    """The tick kernels in ``dtype`` in both checkouts over ticks 1..T-1
+    (``runs``: (model, clock, free|box); by default Cassie's unconstrained
+    tick at the bench's settings and the constrained tick at Go1 and at the
+    bench's Cassie, each on both clocks); per run, whether x, the window
+    state and the Bezier schedule (the constrained tick: x, z, y and the
+    iteration counts) are bit-identical, NaN where NaN, and where not, the
+    largest |this - other| / (1e-8 + 1e-8 |other|) and the count of elements
+    that differ."""
     import torch
 
+    runs = runs or CASSIE_FREE + [
+        (model, clock, "box") for model in ("go1", "cassie_bench") for clock in ("shared", "pi")]
     with tempfile.TemporaryDirectory() as tmp:
-        for model in ("go1", "cassie_bench"):
-            for clock in ("shared", "pi"):
-                res = {}
-                for tree in (other, "."):
-                    f = os.path.join(tmp, f"{'this' if tree == '.' else 'other'}.pt")
-                    run_turn(tree, BOX_TURN, model, clock, "f64", str(T), f)
-                    res[tree] = torch.load(f)
-                row = {}
-                for k in ("x", "z", "y", "iters"):
-                    a, b = res["."][k], res[other][k]
-                    row[k] = {"bit_identical": bool(torch.equal(a, b))}
-                    if not row[k]["bit_identical"]:
-                        row[k]["elements_differ"] = int((a != b).sum())
-                        if k != "iters":
-                            row[k]["over_tol_max"] = float(
-                                ((a - b).abs() / (1e-8 + 1e-8 * b.abs())).max())
-                print(json.dumps({"constrained_float64": {"model": model, "clock": clock,
-                                                          "T": T, "B": 1024, **row}}),
-                      flush=True)
+        for model, clock, con in runs:
+            res = {}
+            for tree in (other, "."):
+                f = os.path.join(tmp, f"{'this' if tree == '.' else 'other'}.pt")
+                run_turn(tree, TICK_TURN, model, clock, con, dtype, str(T), f)
+                res[tree] = torch.load(f)
+            keys = ("x", "z", "y", "iters") if con == "box" else (
+                "x", "bez_times", "bez_count", *(f"state{k}" for k in range(18)))
+            row = {}
+            for k in keys:
+                get = lambda r: r["state"][int(k[5:])] if k.startswith("state") else r[k]
+                a, b = get(res["."]), get(res[other])
+                row[k] = {"bit_identical": bool(torch.equal(a, b) or (
+                    a.dtype.is_floating_point and torch.equal(a.isnan(), b.isnan())
+                    and torch.equal(a[~a.isnan()], b[~b.isnan()])))}
+                if not row[k]["bit_identical"]:
+                    row[k]["elements_differ"] = int((a != b).sum())
+                    if a.dtype.is_floating_point:
+                        row[k]["over_tol_max"] = float(
+                            ((a - b).abs() / (1e-8 + 1e-8 * b.abs())).nan_to_num(0.0).max())
+            print(json.dumps({{"f64": "float64", "f32": "float32"}[dtype]: {
+                "model": model, "clock": clock, "tick": con, "T": T, "B": 1024,
+                "all_bit_identical": all(r["bit_identical"] for r in row.values()),
+                **row}}), flush=True)
 
 
 def main(other):
     ptxas_both(other)
     for tree in (other, ".", ".", other):
         print(json.dumps({"checkout": tree, **run_turn(tree, TURN)}), flush=True)
-    for model in ("go1", "cassie_bench"):
+    for model, clock, con in (("cassie_bench", "shared", "free"), ("cassie_bench", "pi", "free"),
+                              ("go1", "shared", "box"), ("cassie_bench", "shared", "box")):
         for tree in (other, ".", ".", other):
-            print(json.dumps({"checkout": tree, **run_turn(tree, BOX_TURN, model, "shared",
+            print(json.dumps({"checkout": tree, **run_turn(tree, TICK_TURN, model, clock, con,
                                                            "f32", "2000", "-")}), flush=True)
-    box_bits(other)
+    tick_bits(other)
+    tick_bits(other, T=2000, dtype="f32", runs=CASSIE_FREE)
 
 
 if __name__ == "__main__":

@@ -88,7 +88,11 @@ its launch geometry at each shape, clock and type — threads, instances and
 dynamic shared memory per block, the blocks the card keeps resident per SM,
 the units' ptxas figures — and holds every float32 launch to at least 8
 instances per SM. The kernels line's rows of the constrained tick name the
-source of its window solve.
+source of its window solve. At Cassie's shape the unconstrained tick (K2, K2b)
+runs the whole tick on 16 threads per instance: the ragged fleet of the small
+checks (1001 instances) ends each of its launches in a partial block, and a
+phase after the last prints its geometry beside the constrained tick's, which
+the kernels line's Cassie K2 and K2b rows carry.
 
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
@@ -133,8 +137,10 @@ F32, F64 = torch.float32, torch.float64
 N_WIN, T_MAIN, B_MAIN, RING = 20, 2000, 1024, 16
 SKIP = 100            # warm-up ticks left out of the RMSE
 # small size of the split-log, shared-quaternion and ragged-fleet checks (the
-# eager plain versions are Python loops of thousands of small launches)
-T_CHK, B_CHK, B_RAGGED, T_RAGGED = 48, 256, 1000, 24
+# eager plain versions are Python loops of thousands of small launches); the
+# ragged fleet is odd, divisible by no power of two up to 32, so that every
+# launch of a group of threads per instance ends in a partial block
+T_CHK, B_CHK, B_RAGGED, T_RAGGED = 48, 256, 1001, 24
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 3.35 TB/s,
 # 67 TFLOP/s float32 outside the tensor cores
@@ -948,6 +954,19 @@ def mark_window_solve(kernels):
             row["window_solve_source"] = "decentralized_ekf_mhe_tpu_torch/csrc/admm_group.cuh"
 
 
+def mark_tick_group(kernels, geometry):
+    """The rows of the unconstrained Gauss-Jordan tick at a shape where it runs
+    a group of threads per instance (K2, K2b at Cassie's) carry that launch's
+    geometry as the card reports it (``tick_geometry_phase``), float32, with
+    the units' ptxas figures."""
+    for row in kernels:
+        name, _, model = row["name"].partition("[")
+        key = (model.rstrip("]"), name == "mhe_tick_pi")
+        if name in ("mhe_tick", "mhe_tick_pi") and key in geometry:
+            row["threads_per_instance"] = mrk.BOX_G
+            row["group_geometry"] = geometry[key]
+
+
 def kernel_rows(meta, works, counts, err, ms, plain_ms, **more):
     """One entry of the ``kernels`` line per kernel of ``meta`` (name ->
     (source, TPU kernel it replaces)); ``more`` adds per-kernel extra keys."""
@@ -1530,6 +1549,41 @@ def box_geometry_phase():
     emit("box_geometry", threads_per_instance=mrk.BOX_G, sms=n_sm, N=N_WIN,
          shared_per_block_max=mrk.SHARED_PER_BLOCK, shared_per_sm=mrk.SHARED_PER_SM,
          **res)
+
+
+def tick_geometry_phase():
+    """The unconstrained Gauss-Jordan tick's launch where it runs a group of
+    threads per instance (``mrk.tick_group``: Cassie's shape), on both clocks,
+    in both types: threads and instances per block and the dynamic shared
+    bytes (``mrk.tick_geometry``, held equal to what the library computes),
+    the blocks the card keeps resident per SM, registers and local bytes per
+    thread (``mrk.tick_occupancy``) and the units' ptxas figures; every launch
+    keeps all B_MAIN instances resident at once. Returns the float32 figures
+    by (robot, per-lane clock) for the kernels line."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    res, rows = {}, {}
+    for model, tag in (("cassie_bench", "cassie"),):
+        p = robot_params(model)[0]
+        assert mrk.tick_group(p.dim_state)
+        c = mhe.make_consts(p, F32, device=DEV)
+        for pi in (False, True):
+            lib = mrk.kernel_library(p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type, pi)
+            figs = tick_ptxas(lib, "mhe_pi_kernel" if pi else "mhe_kernel")
+            for dtype, name in ((F32, "float"), (F64, "double")):
+                want = mrk.tick_geometry(p.dim_state, p.dim_meas, dtype)
+                card = mrk.tick_occupancy(c, dtype, pi)
+                assert (card["shared_bytes"], card["instances_per_block"],
+                        card["threads_per_block"]) == (
+                    want.shared_bytes, want.instances_per_block, want.threads_per_block), (
+                    tag, pi, card, want)
+                assert card["instances_per_sm"] * n_sm >= B_MAIN, (tag, pi, card)
+                res[f"{tag} {'per-lane' if pi else 'shared'} clock {name}"] = dict(
+                    card, s=p.dim_state, ptxas=figs[name])
+                if dtype == F32:
+                    rows[(tag, pi)] = dict(card, ptxas_registers_frame_spill_stores_loads=figs)
+    emit("tick_geometry", threads_per_instance=mrk.BOX_G, sms=n_sm,
+         shared_per_block_max=mrk.SHARED_PER_BLOCK, shared_per_sm=mrk.SHARED_PER_SM, **res)
+    return rows
 
 
 def box_path(model, fleet64, fleet32, gt_v):
@@ -3313,6 +3367,7 @@ def main():
     pool.shutdown()
     box_geometry_phase()
     mark_window_solve(kernels)
+    mark_tick_group(kernels, tick_geometry_phase())
     emit("script", seconds=time.time() - t_start, groups_s=group_s)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

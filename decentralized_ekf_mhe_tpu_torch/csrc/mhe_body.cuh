@@ -1,9 +1,9 @@
 // mhe_tick — the whole MHE replay loop, one thread per instance (the constrained
-// tick: a group of 16, see below): the kernel
-// bodies, included by csrc/mhe.cu, which compiles each instantiation in a
-// translation unit of its own (see there). The model shape (s, m, L and the
-// leg-odometry form LOT) is a template parameter: Go1 (9, 12, 4, 0), Cassie
-// (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
+// tick, and above s=9 the unconstrained Gauss-Jordan one: a group of 16, see
+// below): the kernel bodies, included by csrc/mhe.cu, which compiles each
+// instantiation in a translation unit of its own (see there). The model shape
+// (s, m, L and the leg-odometry form LOT) is a template parameter: Go1 (9, 12,
+// 4, 0), Cassie (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
 //
 // Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel (reached
 // through replay -> _replay_chunk), with the shared camera clock or a clock per
@@ -80,6 +80,34 @@
 // behind `if constexpr (CON)` or a `lead` that is true without CON, every
 // per-lane-clock statement behind `if constexpr (PI)`, and every statement of
 // one leg-odometry form behind `if constexpr` on LOT.
+//
+// The unconstrained Gauss-Jordan tick on a group (template parameter GRP; the
+// kernels mhe_kernel and mhe_pi_kernel set it where tick_group<S>() holds,
+// S > 9: Cassie's K2 and K2b; Go1's and PogoX's, K2d, K2d-PI and K2e keep
+// the one-thread body). At s=15 one thread per instance spilled its per-slot
+// working set (seven 15 x 15 matrices, 6.3 KB in float32) to local memory and
+// ran a serial chain of s x s products on 32 of the 132 SMs at B=1024. The
+// group runs BOX_G = 16 threads per instance, two instances per warp: lane r
+// (< s) owns row r of every s x s block and element r of every vector, so a
+// product is s dependent multiply-adds per lane on s lanes at once; a matrix
+// or vector that a product reads whole goes through the instance's shared
+// memory (TickLayout) between two __syncwarp of the group; the Gauss-Jordan
+// inverses run row-parallel (admm_group.cuh's gj_inv_rows). Lane 0 runs the
+// VO ingestion and the 3 x 3 builders (into shared memory), behind a
+// __syncwarp; the marginalization (marg_group), the shift with its cache
+// update (shift_group) and the assembly with the streaming sweep
+// (sweep_group) run on the group, and every lane writes its element of x.
+// Each element keeps the one-thread chain (acc = a0 v0; acc += a_k v_k over
+// k = 0, 1, ...), so the results are the one-thread body's bit for bit as far
+// as nvcc contracts the same expressions alike
+// (tests/test_torch_tick_group.py runs both bodies on the host). What bounds
+// it now: at B=1024 latency — 16 times the fleet takes 7.6 times the time
+// (PERF.md §5) — the chain of the sweep's 20 slots, each the assembly's global
+// loads, two row products and 15 pivot steps of two syncs. The window state is
+// read row by row (lane r reads row r of an instance's block), so a warp
+// touches 16 sectors where the one-thread body's 32 instances touched one: the
+// blocks are not staged through shared memory with loads coalesced across a
+// block's instances (PERF.md §7).
 //
 // Foot positions as states (LOT == 1; the TPU kernel's lot-1 branches,
 // mhe_replay_kernel.py:284-319, 349-355): the dynamics gain identity foot
@@ -425,18 +453,376 @@ DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd
   chol<S>(D_j, Lc, rd);
 }
 
+// ---- the unconstrained Gauss-Jordan tick on a group of BOX_G threads per
+// instance (GRP; see the note at the top). Lane r (< S) owns row r of every
+// s x s block and element r of every vector; lanes >= S take part in the
+// syncs and in gj_inv_rows only.
+
+// The route of the unconstrained Gauss-Jordan tick at state size S: a group
+// per instance above s=9 (Cassie), one thread per instance at s=9 (Go1,
+// PogoX; kernels/mhe_replay_kernel.py's tick_group says the same).
+template <int S>
+DEM_HHD constexpr bool tick_group() { return S > 9; }
+
+// One instance's shared memory in the group tick, in scalars: A_meas and
+// P_cam (copied once per launch), five matrix buffers, four vector buffers
+// and gj_inv_rows' pivot buffers (kept apart from the products' buffers);
+// padded as BoxLayout pads, so that the two groups of a warp touch different
+// banks. What each buffer holds in each stage: marg_group, shift_group,
+// sweep_group.
+template <typename T, int S, int M>
+struct TickLayout {
+  static constexpr int SS = S * S;
+  static constexpr int MX = SS > M * M ? SS : M * M;
+  static constexpr int V = S > M ? S : M;
+  static constexpr int H = 0;
+  static constexpr int PC = H + M * S;
+  static constexpr int MAT = PC + 3 * S;
+  static constexpr int VEC = MAT + 5 * MX;
+  static constexpr int PIV = VEC + 4 * V;
+  DEM_HHD static constexpr int mat(int k) { return MAT + k * MX; }
+  DEM_HHD static constexpr int vec(int k) { return VEC + k * V; }
+  DEM_HHD static constexpr int stride() {
+    constexpr int wpe = (int)sizeof(T) / 4;
+    constexpr int words = (PIV + 4 * S) * wpe;
+    return (words + (48 - words % 32) % 32) / wpe;
+  }
+};
+
+template <typename T, int S, int M>
+DEM_HD BoxGroup<T> tick_group_of(int N, int B, int b) {
+  BoxGroup<T> g;
+  g.ln = box_lane();
+  g.mask = ((int)threadIdx.x % 32) < BOX_G ? 0x0000ffffu : 0xffff0000u;
+  g.sm = reinterpret_cast<T*>(dem_box_smem) + (size_t)box_slot() * TickLayout<T, S, M>::stride();
+  g.N = N; g.B = B; g.b = b;
+  return g;
+}
+
+// One row of smallmat's products, with each element's chain as there
+// (acc = a0 v0; acc += a_k v_k for k = 1, 2, ...). row_mm: out = row a (K)
+// times Bm (K x J), a row of matmul. row_mm_tn: row i of matmul_tn<K,I,J>(A,
+// Bm), i.e. column i of A (K x I) times Bm. row_dot: a . v, an element of
+// matvec (a a row) or of matvec_t (a a column).
+template <int K, int J, typename T>
+DEM_HD void row_mm(const T* a, const T* Bm, T* out) {
+  DEM_UNROLL_UPTO(J, K)
+  for (int c = 0; c < J; ++c) {
+    T acc = a[0] * Bm[c];
+    DEM_UNROLL_UPTO(K, 1)
+    for (int k = 1; k < K; ++k) acc += a[k] * Bm[k * J + c];
+    out[c] = acc;
+  }
+}
+template <int K, int I, int J, typename T>
+DEM_HD void row_mm_tn(const T* A, int i, const T* Bm, T* out) {
+  T a[K];
+  DEM_UNROLL_UPTO(K, 1)
+  for (int k = 0; k < K; ++k) a[k] = A[k * I + i];
+  row_mm<K, J>(a, Bm, out);
+}
+template <int K, typename T>
+DEM_HD T row_dot(const T* a, const T* v) {
+  T acc = a[0] * v[0];
+  DEM_UNROLL_UPTO(K, 1)
+  for (int k = 1; k < K; ++k) acc += a[k] * v[k];
+  return acc;
+}
+
+// The arrival-cost marginalization of the oldest slot p0 on the group
+// (mhe_lanes._marginalize; the one-thread statements in mhe_body). Buffers:
+// mat 0-2 the slot's A, Q_dyn, Q_meas (then mat 0 Sinv C01), mat 3 C01,
+// mat 4 D1 (each lane its own row), vec 0-3 y_meas, b_dyn, l0, Sinv l0.
+template <typename T, int S, int M>
+DEM_HD void marg_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int p0) {
+  using Lay = TickLayout<T, S, M>;
+  constexpr int SS = S * S, MM = M * M;
+  const int ln = g.ln, B = g.B, b = g.b;
+  const T* H = g.sm + Lay::H;
+  const T* Pc = g.sm + Lay::PC;
+  T *sA = g.sm + Lay::mat(0), *sQ = g.sm + Lay::mat(1), *sR = g.sm + Lay::mat(2);
+  T *sC = g.sm + Lay::mat(3), *sD1 = g.sm + Lay::mat(4);
+  T *vy = g.sm + Lay::vec(0), *vb = g.sm + Lay::vec(1), *vl = g.sm + Lay::vec(2),
+    *vt = g.sm + Lay::vec(3);
+  T* pb = g.sm + Lay::PIV;
+  if (ln < S) {
+    load<S>(sA + ln * S, p.A_dyn, (size_t)p0 * SS + ln * S, B, b);
+    load<S>(sQ + ln * S, p.Q_dyn, (size_t)p0 * SS + ln * S, B, b);
+    vb[ln] = ld(p.b_dyn, (size_t)p0 * S + ln, B, b);
+  }
+  if (ln < M) {
+    load<M>(sR + ln * M, p.Q_meas, (size_t)p0 * MM + ln * M, B, b);
+    vy[ln] = ld(p.y_meas, (size_t)p0 * M + ln, B, b);
+  }
+  __syncwarp(g.mask);
+  T Sm[S], l1 = T(0);
+  if (ln < S) {
+    T Qc[9], c0[3], PtQc[3], PtQcP[S], AtQd[S], tS[S], HtR[M];
+    load<9>(Qc, p.Q_cam, (size_t)p0 * 9, B, b);
+    load<3>(c0, p.b_cam, (size_t)p0 * 3, B, b);
+    const T act = ld(p.cam_act, (size_t)p0, B, b);
+    row_mm_tn<3, S, 3>(Pc, ln, Qc, PtQc);
+    row_mm<3, S>(PtQc, Pc, PtQcP);
+    row_mm_tn<S, S, S>(sA, ln, sQ, AtQd);       // A^T Qd
+    row_mm_tn<M, S, M>(H, ln, sR, HtR);         // H^T R
+    row_mm<M, S>(HtR, H, tS);                   // H^T R H
+    const T tv2 = row_dot<M>(HtR, vy);          // H^T R y
+    row_mm<S, S>(AtQd, sA, Sm);                 // A^T Qd A
+    const T tv = row_dot<S>(AtQd, vb);          // A^T Qd b
+    const T tv3 = row_dot<3>(PtQc, c0);         // P^T Qc c0
+    const T Qdb = row_dot<S>(sQ + ln * S, vb);  // Qd b
+    DEM_UNROLL_UPTO(S, 4)
+    for (int k = 0; k < S; ++k) {
+      const T app = act * PtQcP[k];
+      Sm[k] = ld(p.M_p, (size_t)ln * S + k, B, b) + Sm[k] + tS[k] + app;
+      sC[ln * S + k] = -(AtQd[k] + app);
+      sD1[ln * S + k] = sQ[ln * S + k] + app;
+    }
+    vl[ln] = ld(p.n_p, ln, B, b) - tv - tv2 - act * tv3;
+    l1 = Qdb + act * tv3;
+  } else {
+    DEM_UNROLL
+    for (int k = 0; k < S; ++k) Sm[k] = T(0);
+  }
+  T Sinv[S];
+  gj_inv_rows<T, S>(Sm, Sinv, pb, pb + 2 * S, ln, g.mask);   // its syncs publish C01, l0
+  if (ln < S) {
+    row_mm<S, S>(Sinv, sC, sA + ln * S);        // Sinv C01
+    vt[ln] = row_dot<S>(Sinv, vl);              // Sinv l0
+  }
+  __syncwarp(g.mask);
+  if (ln < S) {
+    T Sm2[S], cc[S];
+    row_mm_tn<S, S, S>(sC, ln, sA, Sm2);        // C01^T Sinv C01
+    DEM_UNROLL_UPTO(S, 1)
+    for (int k = 0; k < S; ++k) st(p.M_p, (size_t)ln * S + k, B, b, sD1[ln * S + k] - Sm2[k]);
+    DEM_UNROLL_UPTO(S, 1)
+    for (int k = 0; k < S; ++k) cc[k] = sC[k * S + ln];
+    st(p.n_p, ln, B, b, l1 - row_dot<S>(cc, vt));   // l1 - C01^T Sinv l0
+  }
+  __syncwarp(g.mask);   // the slot read before the shift overwrites it
+}
+
+// The ring shift on the group (mhe_lanes._tick_tail; the one-thread
+// statements in mhe_body): lane 0 runs the 3 x 3 builders of the two changed
+// slots into shared memory (the dynamics of pN2 into mat 0 A, mat 1 Q, vec 0
+// b; the measurement of the fresh slot pN1 into mat 2 Q, vec 1 y) and the
+// scalar stores, then each lane writes its rows of both slots and of the
+// Dslot/Ub/routb caches.
+template <typename T, int S, int M, int L, int LOT>
+DEM_HD void shift_group(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
+                        const BoxGroup<T>& g, int i, int pN1, int pN2) {
+  using Lay = TickLayout<T, S, M>;
+  constexpr int SS = S * S, MM = M * M;
+  const int ln = g.ln, B = g.B, b = g.b;
+  const T* H = g.sm + Lay::H;
+  T *sA = g.sm + Lay::mat(0), *sQ = g.sm + Lay::mat(1), *sR = g.sm + Lay::mat(2);
+  T *vb = g.sm + Lay::vec(0), *vy = g.sm + Lay::vec(1);
+  if (ln == 0) {
+    T Rp[9], accp[3], Qcn[9], tmp9[9];
+    load<9>(Rp, p.prev_R, 0, B, b);
+    load<3>(accp, p.prev_acc, 0, B, b);
+    build_dynamics<T, S, M>(c, Rp, accp, sA, vb, sQ);
+    if constexpr (LOT == 1) {
+      T ctp[L];   // the previous tick's contact gates the foot noise
+      load<L>(ctp, p.prev_ct, 0, B, b);
+      add_foot_dynamics<T, S, M, L>(c, Rp, ctp, sA, sQ);
+    }
+    matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
+    matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
+    store<9>(p.Q_cam, (size_t)pN2 * 9, B, b, Qcn);
+    fill<3>(p.b_cam, (size_t)pN2 * 3, B, b, T(0));
+    st(p.cam_act, (size_t)pN2, B, b, T(0));
+
+    T Rt[9], acc[3], om[3], pf[L * 3], Jf[L * 9], dqv[L * 3], ct[L];
+    load<9>(Rt, p.R, (size_t)i * 9, B, b);
+    load<3>(acc, p.accel, (size_t)i * 3, B, b);
+    load<3>(om, p.omega, (size_t)i * 3, B, b);
+    load<L * 3>(pf, p.pfoot, (size_t)i * L * 3, B, b);
+    load<L * 9>(Jf, p.Jfoot, (size_t)i * L * 9, B, b);
+    load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
+    load<L>(ct, p.contact, (size_t)i * L, B, b);
+    if constexpr (LOT == 1) build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, vy, sR);
+    else build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, vy, sR);
+    fill<3>(p.b_cam, (size_t)pN1 * 3, B, b, T(0));
+    fill<9>(p.Q_cam, (size_t)pN1 * 9, B, b, T(0));
+    st(p.cam_act, (size_t)pN1, B, b, T(0));
+    T acc_s[3];
+    matvec<3, 3>(Rt, acc, acc_s);
+    DEM_UNROLL
+    for (int k = 0; k < 3; ++k) acc_s[k] += c.gravity[k];
+    store<9>(p.prev_R, 0, B, b, Rt);
+    store<3>(p.prev_acc, 0, B, b, acc_s);
+    store<L>(p.prev_ct, 0, B, b, ct);
+  }
+  __syncwarp(g.mask);
+  if (ln < S) {
+    const size_t r2 = (size_t)pN2 * SS + ln * S, r1 = (size_t)pN1 * SS + ln * S;
+    store<S>(p.A_dyn, r2, B, b, sA + ln * S);
+    st(p.b_dyn, (size_t)pN2 * S + ln, B, b, vb[ln]);
+    store<S>(p.Q_dyn, r2, B, b, sQ + ln * S);
+    // pN2's cache gains the fresh dynamics terms (its measurement terms were
+    // cached when it was the newest slot)
+    T AtQd[S], tS[S], HtR[M];
+    row_mm_tn<S, S, S>(sA, ln, sQ, AtQd);
+    row_mm<S, S>(AtQd, sA, tS);
+    DEM_UNROLL_UPTO(S, 1)
+    for (int k = 0; k < S; ++k) {
+      st(p.Dslot, r2 + k, B, b, ld(p.Dslot, r2 + k, B, b) + tS[k]);
+      st(p.Ub, r2 + k, B, b, -AtQd[k]);
+    }
+    const size_t e2 = (size_t)pN2 * S + ln;
+    st(p.routb, e2, B, b, ld(p.routb, e2, B, b) + row_dot<S>(AtQd, vb));
+    // the fresh slot pN1: no dynamics, measurement terms only in the cache
+    fill<S>(p.A_dyn, r1, B, b, T(0));
+    st(p.b_dyn, (size_t)pN1 * S + ln, B, b, T(0));
+    fill<S>(p.Q_dyn, r1, B, b, T(0));
+    row_mm_tn<M, S, M>(H, ln, sR, HtR);
+    row_mm<M, S>(HtR, H, tS);
+    store<S>(p.Dslot, r1, B, b, tS);
+    fill<S>(p.Ub, r1, B, b, T(0));
+    st(p.routb, (size_t)pN1 * S + ln, B, b, row_dot<M>(HtR, vy));
+  }
+  if (ln < M) {
+    store<M>(p.Q_meas, (size_t)pN1 * MM + ln * M, B, b, sR + ln * M);
+    st(p.y_meas, (size_t)pN1 * M + ln, B, b, vy[ln]);
+  }
+  __syncwarp(g.mask);   // the new slots in global memory before the sweep reads them whole
+}
+
+// The masked normal equations and the streaming forward block-Thomas sweep
+// on the group, then lane r writes x_{N-1}[r] of tick i (the one-thread
+// statements in mhe_body). Each lane assembles its row of D_j, U_j and
+// element of r_j; the Gauss-Jordan chain runs row-parallel: W = Sinv U_prev
+// (row r of W from row r of Sinv), D_j -= U_prev^T W (row r from column r of
+// U_prev), then gj_inv_rows. Buffers: mat 0, 1 U_j for even and odd j (the
+// next slot's U_prev), mat 2 W, mat 3 Sinv and mat 4 the previous slot's
+// Qd + P^T Qc P (each lane its own row), vec 0 Sinv yv, vec 1 yv. Two
+// __syncwarp per slot besides gj_inv_rows' own: after W and Sinv yv are
+// written, and after yv is.
+template <typename T, int S, int M>
+DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i, int t,
+                        int base_new) {
+  using Lay = TickLayout<T, S, M>;
+  constexpr int SS = S * S;
+  const int ln = g.ln, B = g.B, b = g.b;
+  const T* Pc = g.sm + Lay::PC;
+  T* sW = g.sm + Lay::mat(2);
+  T* sinv = g.sm + Lay::mat(3) + ln * S;
+  T* prevQ = g.sm + Lay::mat(4) + ln * S;
+  T *vt1 = g.sm + Lay::vec(0), *vyv = g.sm + Lay::vec(1);
+  T* pb = g.sm + Lay::PIV;
+  const int n_states = (t + 1 < N) ? t + 1 : N;
+  const int first = N - n_states;
+  T prev_rin = T(0);
+  for (int j = 0; j < N; ++j) {
+    const int pj = (base_new + j) % N;
+    const bool valid = j >= first;
+    const bool iv = valid && (j <= N - 2);
+    T* Uj = g.sm + Lay::mat(j & 1);
+    const T* Up = g.sm + Lay::mat((j + 1) & 1);
+    T D[S], r = T(0);
+    if (ln < S) {
+      const size_t row = (size_t)pj * SS + ln * S;
+      T Qd[S], bj[S], Qc[9], c0[3], PtQc[3], PtQcP[S];
+      load<S>(Qd, p.Q_dyn, row, B, b);
+      load<S>(bj, p.b_dyn, (size_t)pj * S, B, b);
+      load<9>(Qc, p.Q_cam, (size_t)pj * 9, B, b);
+      load<3>(c0, p.b_cam, (size_t)pj * 3, B, b);
+      const T act = iv ? ld(p.cam_act, (size_t)pj, B, b) : T(0);
+      row_mm_tn<3, S, 3>(Pc, ln, Qc, PtQc);
+      DEM_UNROLL
+      for (int k = 0; k < 3; ++k) PtQc[k] *= act;
+      row_mm<3, S>(PtQc, Pc, PtQcP);
+      if (!iv) {
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) Qd[k] = T(0);
+      }
+      const T Qd_b = row_dot<S>(Qd, bj);
+      const T PtQc_c = row_dot<3>(PtQc, c0);
+      load<S>(D, p.Dslot, row, B, b);
+      r = ld(p.routb, (size_t)pj * S + ln, B, b);
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) D[k] += PtQcP[k];
+      r += PtQc_c;
+      if (j > 0) {
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) D[k] += prevQ[k];
+        r -= prev_rin;
+      }
+      if (j == first) {
+        DEM_UNROLL_UPTO(S, 1)
+        for (int k = 0; k < S; ++k) D[k] += ld(p.M_p, (size_t)ln * S + k, B, b);
+        r -= ld(p.n_p, ln, B, b);
+      }
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) prevQ[k] = Qd[k] + PtQcP[k];
+      prev_rin = Qd_b + PtQc_c;
+      if (!valid) {
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) D[k] = k == ln ? T(1) : T(0);
+        r = T(0);
+      }
+      const bool u_on = iv && (j + 1 >= first);
+      DEM_UNROLL_UPTO(S, 1)
+      for (int k = 0; k < S; ++k)
+        Uj[ln * S + k] = u_on ? (ld(p.Ub, row + k, B, b) - PtQcP[k]) : T(0);
+    } else {
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) D[k] = T(0);
+    }
+    T yvi = r;
+    if (j > 0) {
+      if (ln < S) {
+        T si[S];
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) si[k] = sinv[k];
+        row_mm<S, S>(si, Up, sW + ln * S);       // W = Sinv U_prev
+        vt1[ln] = row_dot<S>(si, vyv);           // Sinv yv
+      }
+      __syncwarp(g.mask);
+      if (ln < S) {
+        T uc[S], UtW[S];
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) uc[k] = Up[k * S + ln];
+        row_mm<S, S>(uc, sW, UtW);               // U_prev^T W
+        DEM_UNROLL
+        for (int k = 0; k < S; ++k) D[k] -= UtW[k];
+        yvi = r - row_dot<S>(uc, vt1);          // r_j - U_prev^T Sinv yv
+      }
+    }
+    T inv[S];
+    gj_inv_rows<T, S>(D, inv, pb, pb + 2 * S, ln, g.mask);
+    if (ln < S) {
+      DEM_UNROLL
+      for (int k = 0; k < S; ++k) sinv[k] = inv[k];
+      vyv[ln] = yvi;
+    }
+    __syncwarp(g.mask);
+  }
+  if (ln < S) {   // logical N-1 = newest state
+    T si[S];
+    DEM_UNROLL
+    for (int k = 0; k < S; ++k) si[k] = sinv[k];
+    st(p.x, (size_t)i * S + ln, B, b, row_dot<S>(si, vyv));
+  }
+}
+
 template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL = false,
-          int ABL = ABL_NONE>
+          int ABL = ABL_NONE, bool GRP = false>
 DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
+  static_assert(!GRP || (!CON && !CHOL && ABL == ABL_NONE),
+                "the group tick is the unconstrained Gauss-Jordan one");
   constexpr int SS = S * S;
   constexpr int MM = M * M;
   const T dt = c.dt;
   // CON: this lane's group, row and bounds; lane 0 (`lead`) runs the tick's
-  // one-thread statements, the group the window solve. Without CON every
-  // thread leads.
+  // one-thread statements, the group the window solve. GRP: lane 0 runs the
+  // VO ingestion, the group the rest of the tick. Otherwise every thread
+  // leads.
   constexpr bool USH = box_u_shared<S>();
-  const bool lead = !CON || box_lane() == 0;
+  const bool lead = !(CON || GRP) || box_lane() == 0;
   BoxGroup<T> grp{};
   T lbi = T(0), ubi = T(0);
   if constexpr (CON) {
@@ -445,6 +831,12 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       lbi = ld(q->lb, grp.ln, B, b);
       ubi = ld(q->ub, grp.ln, B, b);
     }
+  }
+  if constexpr (GRP) {   // the group's copy of the constant blocks
+    using Lay = TickLayout<T, S, M>;
+    grp = tick_group_of<T, S, M>(N, B, b);
+    for (int e = grp.ln; e < M * S; e += BOX_G) grp.sm[Lay::H + e] = c.H[e];
+    for (int e = grp.ln; e < 3 * S; e += BOX_G) grp.sm[Lay::PC + e] = c.Pc[e];
   }
 
   // private copy of the Bezier schedule: fleet-global, or this lane's own
@@ -519,6 +911,16 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
           for (int a = 0; a < 3; ++a) node_prev[a] = node_k[a];
         }
       }
+    }
+
+    if constexpr (GRP) {
+      // the rest of the tick on the group, once lane 0 has ingested (and the
+      // group is done with the previous tick's buffers)
+      __syncwarp(grp.mask);
+      if (t >= N) marg_group<T, S, M>(p, grp, base_old);
+      shift_group<T, S, M, L, LOT>(p, c, grp, i, base_old, (base_old + N - 1) % N);
+      sweep_group<T, S, M>(p, grp, N, i, t, t % N);
+      continue;
     }
 
     // ---- marginalization (mhe_lanes._marginalize) -------------------------
@@ -826,7 +1228,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     store<S>(p.x, (size_t)i * S, B, b, xT);
   }
 
-  if (!lead) return;   // CON: the schedule is lane 0's
+  if (!lead) return;   // CON, GRP: the schedule is lane 0's
   if constexpr (PI) {
     store<4>(p.bez_times_out, 0, B, b, bt);
     p.bez_count_out[b] = bcount;
@@ -836,12 +1238,87 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
   }
 }
 
+// The tick's operands from the C entry point's arrays: ptrs, the 34 pointers
+// of MhePtrs in declaration order; consts (double), as mhe_launch lists them.
+template <typename T>
+MhePtrs<T> mhe_ptrs(void* const* ptrs) {
+  MhePtrs<T> p;
+  int q = 0;
+  p.vo_active = (const int*)ptrs[q++];
+  p.vo_tick_pre = (const int*)ptrs[q++];
+  p.vo_tick_now = (const int*)ptrs[q++];
+  p.bez_times_in = (const T*)ptrs[q++];
+  p.bez_count_in = (const int*)ptrs[q++];
+  p.R = (const T*)ptrs[q++];
+  p.accel = (const T*)ptrs[q++];
+  p.omega = (const T*)ptrs[q++];
+  p.pfoot = (const T*)ptrs[q++];
+  p.Jfoot = (const T*)ptrs[q++];
+  p.dq = (const T*)ptrs[q++];
+  p.contact = (const T*)ptrs[q++];
+  p.vo_inc = (const T*)ptrs[q++];
+  p.y_meas = (T*)ptrs[q++];
+  p.Q_meas = (T*)ptrs[q++];
+  p.A_dyn = (T*)ptrs[q++];
+  p.b_dyn = (T*)ptrs[q++];
+  p.Q_dyn = (T*)ptrs[q++];
+  p.b_cam = (T*)ptrs[q++];
+  p.Q_cam = (T*)ptrs[q++];
+  p.cam_act = (T*)ptrs[q++];
+  p.M_p = (T*)ptrs[q++];
+  p.n_p = (T*)ptrs[q++];
+  p.bez_pts = (T*)ptrs[q++];
+  p.p_accum = (T*)ptrs[q++];
+  p.prev_R = (T*)ptrs[q++];
+  p.prev_acc = (T*)ptrs[q++];
+  p.prev_ct = (T*)ptrs[q++];
+  p.Dslot = (T*)ptrs[q++];
+  p.Ub = (T*)ptrs[q++];
+  p.routb = (T*)ptrs[q++];
+  p.x = (T*)ptrs[q++];
+  p.bez_times_out = (T*)ptrs[q++];
+  p.bez_count_out = (int*)ptrs[q++];
+
+  return p;
+}
+
+template <typename T, int S, int M, int LOT>
+MheConstsFor<T, S, M, LOT> mhe_consts(const double* consts) {
+  MheConstsFor<T, S, M, LOT> c;
+  int k = 0;
+  c.dt = (T)consts[k++];
+  for (int i = 0; i < M * S; ++i) c.H[i] = (T)consts[k++];
+  for (int i = 0; i < 3 * S; ++i) c.Pc[i] = (T)consts[k++];
+  T* nine[8] = {c.Q_vo_p, c.C_p, c.C_accel, c.Q_accel_bias,
+                c.C_enc_pos, c.C_enc_vel, c.C_gyro, c.Q_foot_swing};
+  for (int a = 0; a < 8; ++a)
+    for (int i = 0; i < 9; ++i) nine[a][i] = (T)consts[k++];
+  for (int i = 0; i < 3; ++i) c.gravity[i] = (T)consts[k++];
+  if constexpr (LOT == 1)
+    for (int i = 0; i < 9; ++i) c.Q_foot_slide[i] = (T)consts[k++];
+  return c;
+}
+
+// The kernels and their launch need nvcc; a host build of the tick body
+// (tests/box_group_host/tick_harness.cpp) stops here.
+#ifdef __CUDACC__
+
+// The unconstrained Gauss-Jordan tick on either clock: above s=9 BOX_G
+// threads per instance (tick_group), a group beyond the fleet leaving whole;
+// else one thread per instance.
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                            int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  mhe_body<T, S, M, L, LOT, false, false>(p, c, nullptr, N, B, Tn, t0, b);
+  if constexpr (tick_group<S>()) {
+    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, false, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
+                                                                   b);
+  } else {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, false>(p, c, nullptr, N, B, Tn, t0, b);
+  }
 }
 
 template <typename T, int S, int M, int L, int LOT>
@@ -856,9 +1333,16 @@ __global__ void mhe_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBo
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                               int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  mhe_body<T, S, M, L, LOT, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+  if constexpr (tick_group<S>()) {
+    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, true, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
+                                                                  b);
+  } else {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+  }
 }
 
 template <typename T, int S, int M, int L, int LOT>
@@ -904,11 +1388,26 @@ DEM_HHD size_t box_shared_bytes(int N, int block) {
   return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
 }
 
+// ... and of the unconstrained group tick (tick_group): block / BOX_G
+// instances of TickLayout::stride scalars (mhe_replay_kernel.py's
+// tick_geometry computes the same bytes)
+template <typename T, int S, int M>
+DEM_HHD size_t tick_shared_bytes(int block) {
+  return (size_t)(block / BOX_G) * TickLayout<T, S, M>::stride() * sizeof(T);
+}
+
 // the constrained kernel of a clock
 template <typename T, int S, int M, int L, int LOT, bool PI>
 auto mhe_box_entry() {
   if constexpr (PI) return &mhe_pi_box_kernel<T, S, M, L, LOT>;
   else return &mhe_box_kernel<T, S, M, L, LOT>;
+}
+
+// the unconstrained Gauss-Jordan kernel of a clock
+template <typename T, int S, int M, int L, int LOT, bool PI>
+auto mhe_tick_entry() {
+  if constexpr (PI) return &mhe_pi_kernel<T, S, M, L, LOT>;
+  else return &mhe_kernel<T, S, M, L, LOT>;
 }
 
 // Check a constrained launch's shape and allow its dynamic shared memory:
@@ -927,17 +1426,15 @@ int box_launch_shape(K kern, size_t bytes, int block, size_t* shmem) {
   return 0;
 }
 
-// The geometry of the constrained kernel of this instantiation at N slots and
-// `block` threads per block (csrc/mhe.cu's dem_mhe_box_geometry): out[0..6] =
-// instances per block, threads per block, dynamic shared bytes, blocks
-// resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
-// per thread, local bytes per thread, U in shared memory (1) or not (0).
-// Returns 0 or the CUDA error.
-template <typename T, int S, int M, int L, int LOT, bool PI>
-int mhe_box_geometry(int N, int block, int* out) {
-  const auto kern = mhe_box_entry<T, S, M, L, LOT, PI>();
+// The geometry of a launch of `block` threads, BOX_G per instance, with
+// `bytes` of dynamic shared memory: out[0..5] = instances per block, threads
+// per block, dynamic shared bytes, blocks resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
+// local bytes per thread. Returns 0 or the CUDA error.
+template <typename K>
+int group_geometry(K kern, size_t bytes, int block, int* out) {
   size_t shmem = 0;
-  int err = box_launch_shape(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
+  int err = box_launch_shape(kern, bytes, block, &shmem);
   if (err) return err;
   int per_sm = 0;
   cudaFuncAttributes fa;
@@ -948,8 +1445,32 @@ int mhe_box_geometry(int N, int block, int* out) {
     return (int)e;
   }
   out[0] = block / BOX_G; out[1] = block; out[2] = (int)shmem; out[3] = per_sm;
-  out[4] = fa.numRegs; out[5] = (int)fa.localSizeBytes; out[6] = box_u_shared<S>() ? 1 : 0;
+  out[4] = fa.numRegs; out[5] = (int)fa.localSizeBytes;
   return 0;
+}
+
+// ... of the constrained kernel of this instantiation at N slots (csrc/mhe.cu's
+// dem_mhe_geometry), out[6] = U in shared memory (1) or not (0)
+template <typename T, int S, int M, int L, int LOT, bool PI>
+int mhe_box_geometry(int N, int block, int* out) {
+  const int err = group_geometry(mhe_box_entry<T, S, M, L, LOT, PI>(),
+                                 box_shared_bytes<T, S>(N, block), block, out);
+  if (!err) out[6] = box_u_shared<S>() ? 1 : 0;
+  return err;
+}
+
+// The same figures of the unconstrained group tick (out[6] = 0), or -1 where
+// this shape ticks one thread per instance.
+template <typename T, int S, int M, int L, int LOT, bool PI>
+int mhe_tick_geometry(int block, int* out) {
+  if constexpr (!tick_group<S>()) {
+    return -1;
+  } else {
+    const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI>(),
+                                   tick_shared_bytes<T, S, M>(block), block, out);
+    if (!err) out[6] = 0;
+    return err;
+  }
 }
 
 // One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
@@ -962,62 +1483,17 @@ int mhe_box_geometry(int N, int block, int* out) {
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw; ints/reals as admm_settings reads them. The
 // constrained kernels take `block` threads per block, a multiple of BOX_G,
-// and box_shared_bytes of dynamic shared memory; the error of a launch the
-// card refuses (too many threads, too much shared memory) is returned.
+// and box_shared_bytes of dynamic shared memory, the unconstrained
+// Gauss-Jordan ones above s=9 likewise with tick_shared_bytes; the error of a
+// launch the card refuses (too many threads, too much shared memory) is
+// returned.
 template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL,
           int ABL = ABL_NONE>
 int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
                const int* ints, const double* reals, int N, int B, int Tn,
                int t0, int block, void* stream) {
-  MhePtrs<T> p;
-  int q = 0;
-  p.vo_active = (const int*)ptrs[q++];
-  p.vo_tick_pre = (const int*)ptrs[q++];
-  p.vo_tick_now = (const int*)ptrs[q++];
-  p.bez_times_in = (const T*)ptrs[q++];
-  p.bez_count_in = (const int*)ptrs[q++];
-  p.R = (const T*)ptrs[q++];
-  p.accel = (const T*)ptrs[q++];
-  p.omega = (const T*)ptrs[q++];
-  p.pfoot = (const T*)ptrs[q++];
-  p.Jfoot = (const T*)ptrs[q++];
-  p.dq = (const T*)ptrs[q++];
-  p.contact = (const T*)ptrs[q++];
-  p.vo_inc = (const T*)ptrs[q++];
-  p.y_meas = (T*)ptrs[q++];
-  p.Q_meas = (T*)ptrs[q++];
-  p.A_dyn = (T*)ptrs[q++];
-  p.b_dyn = (T*)ptrs[q++];
-  p.Q_dyn = (T*)ptrs[q++];
-  p.b_cam = (T*)ptrs[q++];
-  p.Q_cam = (T*)ptrs[q++];
-  p.cam_act = (T*)ptrs[q++];
-  p.M_p = (T*)ptrs[q++];
-  p.n_p = (T*)ptrs[q++];
-  p.bez_pts = (T*)ptrs[q++];
-  p.p_accum = (T*)ptrs[q++];
-  p.prev_R = (T*)ptrs[q++];
-  p.prev_acc = (T*)ptrs[q++];
-  p.prev_ct = (T*)ptrs[q++];
-  p.Dslot = (T*)ptrs[q++];
-  p.Ub = (T*)ptrs[q++];
-  p.routb = (T*)ptrs[q++];
-  p.x = (T*)ptrs[q++];
-  p.bez_times_out = (T*)ptrs[q++];
-  p.bez_count_out = (int*)ptrs[q++];
-
-  MheConstsFor<T, S, M, LOT> c;
-  int k = 0;
-  c.dt = (T)consts[k++];
-  for (int i = 0; i < M * S; ++i) c.H[i] = (T)consts[k++];
-  for (int i = 0; i < 3 * S; ++i) c.Pc[i] = (T)consts[k++];
-  T* nine[8] = {c.Q_vo_p, c.C_p, c.C_accel, c.Q_accel_bias,
-                c.C_enc_pos, c.C_enc_vel, c.C_gyro, c.Q_foot_swing};
-  for (int a = 0; a < 8; ++a)
-    for (int i = 0; i < 9; ++i) nine[a][i] = (T)consts[k++];
-  for (int i = 0; i < 3; ++i) c.gravity[i] = (T)consts[k++];
-  if constexpr (LOT == 1)
-    for (int i = 0; i < 9; ++i) c.Q_foot_slide[i] = (T)consts[k++];
+  const MhePtrs<T> p = mhe_ptrs<T>(ptrs);
+  const MheConstsFor<T, S, M, LOT> c = mhe_consts<T, S, M, LOT>(consts);
   const int grid = (B + block - 1) / block;
   static_assert(!CHOL || !CON, "the Cholesky tail runs unconstrained");
   static_assert(ABL == ABL_NONE || (!CON && !PI && !CHOL),
@@ -1032,6 +1508,13 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     else
       mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn,
                                                                                  t0);
+  } else if constexpr (!CON && tick_group<S>()) {
+    const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI>();
+    size_t shmem = 0;
+    const int err = box_launch_shape(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
+    if (err) return err;
+    const int ipb = block / BOX_G;
+    kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else if constexpr (!CON) {
     if constexpr (PI)
       mhe_pi_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
@@ -1039,7 +1522,7 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
       mhe_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else {
     MheBox<T> bx;
-    q = 0;
+    int q = 0;
     bx.lb = (const T*)box_ptrs[q++];
     bx.ub = (const T*)box_ptrs[q++];
     bx.z_adm = (T*)box_ptrs[q++];
@@ -1058,5 +1541,7 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   }
   return (int)cudaGetLastError();
 }
+
+#endif  // __CUDACC__
 
 }  // namespace dem

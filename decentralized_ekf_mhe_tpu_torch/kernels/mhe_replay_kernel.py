@@ -16,7 +16,14 @@ state per instance stay in global memory in the instance-minor layout
 (coalesced; L2-resident at B=1024 in float32), addressed by the physical ring
 slot. What bounds it: operations, and in practice the serial dependency chain
 of one instance with B/32 warps in flight and the s×s temporaries spilling to
-local memory. Nothing is done about occupancy yet.
+local memory. Above s=9 (Cassie's shape, ``tick_group``) the unconstrained
+Gauss-Jordan tick runs ``BOX_G`` = 16 threads per instance instead: lane 0
+ingests the VO and runs the 3×3 builders, the group the marginalization, the
+shift with its cache update and the streaming sweep, each lane a row of every
+s×s block, with the blocks that a product reads whole in shared memory
+(``tick_geometry``: threads and instances per block, dynamic shared bytes;
+``tick_occupancy``: what the card keeps resident). The route is fixed by the
+shape; no switch restores the one-thread body there.
 
 With state box constraints in the consts (``c.x_lb``) the constrained variant
 of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
@@ -93,11 +100,16 @@ BLOCK = 32       # threads per block of a launch unless the caller names ``block
 # fit a block's shared memory where eight do not (float64)
 BOX_G = 16
 BLOCK_BOX = 128
+# the unconstrained Gauss-Jordan tick above s=9 (Cassie) runs BOX_G threads
+# per instance too (``tick_group``); its threads per block unless the caller
+# names ``block``
+BLOCK_TICK = 128
 # what one block may use of an SM's shared memory, and what an SM has for its
 # blocks, each of which reserves 1 KB more (H100: 227 KB and 228 KB)
 SHARED_PER_BLOCK, SHARED_PER_SM, SHARED_RESERVED_PER_BLOCK = 232448, 233472, 1024
 # incremented where a CUDA kernel is launched, nowhere else: one count per
-# kernel — the unconstrained tick (mhe_kernel), the constrained one
+# kernel — the unconstrained tick (mhe_kernel; at Cassie's shape on a group of
+# threads per instance, as mhe_pi_kernel), the constrained one
 # (mhe_box_kernel), their per-lane-clock variants (mhe_pi_kernel,
 # mhe_pi_box_kernel), the unconstrained tick with the Cholesky tail
 # (mhe_chol_kernel, mhe_pi_chol_kernel) and the stage ablation
@@ -254,6 +266,33 @@ class BoxGeometry(NamedTuple):
     instances_per_sm: int       # as far as shared memory, threads and blocks allow
 
 
+def _group_launch(scalars, dtype, block, what):
+    """(instances per block, threads per block, shared bytes of a block,
+    instances per SM as far as shared memory, threads and blocks allow) of a
+    launch of ``block`` threads, ``BOX_G`` per instance, each instance with
+    ``scalars`` of shared memory padded to 16 mod 32 four-byte words (so that
+    the two groups of a warp use different banks). Raises ``ValueError`` for
+    a block that is no multiple of ``BOX_G`` in 16..1024 or whose shared
+    memory exceeds what a block may use."""
+    item = torch.empty((), dtype=dtype).element_size()
+    words = scalars * item // 4
+    one = (words + (16 - words % 32) % 32) * 4      # bytes of one instance
+    if block is None:
+        block = min(BLOCK_BOX, BOX_G * (SHARED_PER_BLOCK // one))
+    block = _check_block(block)
+    if block % BOX_G or block < BOX_G:
+        raise ValueError(f"block: {block} threads per block is not a multiple of "
+                         f"{BOX_G}, the {what}'s threads per instance")
+    ipb = block // BOX_G
+    shared = ipb * one
+    if shared > SHARED_PER_BLOCK:
+        raise ValueError(
+            f"{what}: {shared} bytes of shared memory for {ipb} instances per block "
+            f"({dtype}), more than the {SHARED_PER_BLOCK} a block may use")
+    blocks = min(SHARED_PER_SM // (shared + SHARED_RESERVED_PER_BLOCK), 32, 2048 // block)
+    return ipb, block, shared, blocks * ipb
+
+
 def box_shared_scalars(s, N, u_shared):
     """Scalars of one instance's shared memory (``BoxLayout``): Sinv N s², U
     (N−1) s² in layout (b), x, z, y, the sweep vectors and r 5 N s, 6 s of
@@ -275,47 +314,92 @@ def box_geometry(s, dtype, block=None, N=20):
     if s > BOX_G:
         raise ValueError(f"s={s}: the constrained tick runs at most {BOX_G} states")
     u_shared = box_u_shared(s)
-    item = torch.empty((), dtype=dtype).element_size()
-    words = box_shared_scalars(s, N, u_shared) * item // 4
-    one = (words + (16 - words % 32) % 32) * 4      # bytes of one instance
-    if block is None:
-        block = min(BLOCK_BOX, BOX_G * (SHARED_PER_BLOCK // one))
-    block = _check_block(block)
-    if block % BOX_G or block < BOX_G:
-        raise ValueError(f"block: {block} threads per block is not a multiple of "
-                         f"{BOX_G}, the constrained tick's threads per instance")
-    ipb = block // BOX_G
-    shared = ipb * one
-    if shared > SHARED_PER_BLOCK:
-        raise ValueError(
-            f"constrained tick: {shared} bytes of shared memory for {ipb} instances per "
-            f"block (s={s}, {dtype}, N={N}), more than the {SHARED_PER_BLOCK} a block may use")
-    blocks = min(SHARED_PER_SM // (shared + SHARED_RESERVED_PER_BLOCK), 32, 2048 // block)
-    return BoxGeometry(ipb, block, shared, u_shared, blocks * ipb)
+    ipb, block, shared, per_sm = _group_launch(
+        box_shared_scalars(s, N, u_shared), dtype, block, f"constrained tick (s={s}, N={N})")
+    return BoxGeometry(ipb, block, shared, u_shared, per_sm)
+
+
+def tick_group(s):
+    """Whether the unconstrained Gauss-Jordan tick runs a group of ``BOX_G``
+    threads per instance at state size ``s`` (``csrc/mhe_body.cuh``'s
+    ``tick_group``, fixed by the shape): above s=9 (Cassie); at s=9 (Go1,
+    PogoX) one thread per instance. The Cholesky tail, the stage ablation and
+    the constrained tick's prelude stay on one thread."""
+    return s > 9
+
+
+class TickGeometry(NamedTuple):
+    """The launch of the unconstrained group tick (``tick_geometry``)."""
+
+    instances_per_block: int
+    threads_per_block: int
+    shared_bytes: int           # dynamic shared memory of one block
+    instances_per_sm: int       # as far as shared memory, threads and blocks allow
+
+
+def tick_shared_scalars(s, m):
+    """Scalars of one instance's shared memory in the group tick
+    (``TickLayout``): A_meas m s and P_cam 3 s, five matrix buffers of
+    max(s², m²), four vectors of max(s, m) and the pivot buffers 4 s."""
+    return m * s + 3 * s + 5 * max(s * s, m * m) + 4 * max(s, m) + 4 * s
+
+
+def tick_geometry(s, m, dtype, block=None):
+    """The launch geometry of the unconstrained Gauss-Jordan tick at state
+    size ``s`` > 9 (``tick_group``), ``m`` measurements, element type
+    ``dtype`` and ``block`` threads per block (default ``BLOCK_TICK``):
+    ``BOX_G`` threads per instance, so ``block // BOX_G`` instances per
+    block, each with ``tick_shared_scalars`` padded to 16 mod 32 four-byte
+    words. Raises ``ValueError`` at s <= 9 (one thread per instance there),
+    for a block that is no multiple of ``BOX_G`` in 16..1024, or for more
+    shared memory than a block may use."""
+    if not tick_group(s):
+        raise ValueError(f"s={s}: the unconstrained tick runs one thread per instance at s <= 9")
+    return TickGeometry(*_group_launch(tick_shared_scalars(s, m), dtype,
+                                       BLOCK_TICK if block is None else block,
+                                       f"unconstrained tick (s={s}, m={m})"))
+
+
+def _occupancy(c, dtype, constrained, per_lane_clock, block):
+    """A group launch's geometry as the card reports it (``dem_mhe_geometry``,
+    on the current device)."""
+    lib = kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type),
+                         per_lane_clock)
+    fn = _build.entry(lib, "dem_mhe_geometry", [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 7)()
+    err = fn(int(dtype == torch.float64), int(constrained), int(per_lane_clock), c.dim_state,
+             c.dim_meas, c.num_legs, int(c.leg_odom_type), c.N, block,
+             ctypes.cast(out, ctypes.c_void_p))
+    _build.check_launch(err, f"mhe_tick ({'constrained' if constrained else 'group'}) geometry")
+    keys = ("instances_per_block", "threads_per_block", "shared_bytes", "blocks_per_sm",
+            "registers_per_thread", "local_bytes_per_thread", "u_shared")
+    res = dict(zip(keys, list(out)))
+    res["instances_per_sm"] = res["blocks_per_sm"] * res["instances_per_block"]
+    return res
 
 
 def box_occupancy(c, dtype, per_lane_clock=False, block=None):
     """The constrained tick's geometry as the card reports it for the consts
     ``c`` (shape and N), through the library's C entry point
-    (``dem_mhe_box_geometry``, on the current device): instances and threads
+    (``dem_mhe_geometry``, on the current device): instances and threads
     per block, dynamic shared bytes, blocks resident per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
     bytes per thread, and whether U_j is in shared memory. Raises as a launch
     would."""
     if block is None:
         block = box_geometry(c.dim_state, dtype, None, c.N).threads_per_block
-    lib = kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type),
-                         per_lane_clock)
-    fn = _build.entry(lib, "dem_mhe_box_geometry", [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    out = (ctypes.c_int * 7)()
-    err = fn(int(dtype == torch.float64), int(per_lane_clock), c.dim_state, c.dim_meas,
-             c.num_legs, int(c.leg_odom_type), c.N, block, ctypes.cast(out, ctypes.c_void_p))
-    _build.check_launch(err, "mhe_tick (constrained) geometry")
-    keys = ("instances_per_block", "threads_per_block", "shared_bytes", "blocks_per_sm",
-            "registers_per_thread", "local_bytes_per_thread", "u_shared")
-    res = dict(zip(keys, list(out)))
+    res = _occupancy(c, dtype, True, per_lane_clock, block)
     res["u_shared"] = bool(res["u_shared"])
-    res["instances_per_sm"] = res["blocks_per_sm"] * res["instances_per_block"]
+    return res
+
+
+def tick_occupancy(c, dtype, per_lane_clock=False, block=None):
+    """The same figures of the unconstrained group tick (``tick_group``) for
+    the consts ``c``, without ``u_shared``."""
+    if block is None:
+        block = tick_geometry(c.dim_state, c.dim_meas, dtype).threads_per_block
+    res = _occupancy(c, dtype, False, per_lane_clock, block)
+    del res["u_shared"]
     return res
 
 
@@ -521,8 +605,9 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     the module docstring; "" runs it all). ``block`` is the launch's threads
     per block (default ``BLOCK``; with box consts ``BLOCK_BOX``, and then a
     multiple of ``BOX_G`` whose shared memory fits, see ``box_geometry``, which
-    raises ``ValueError`` otherwise, on the CPU as on the card); the plain
-    version does not depend on it.
+    raises ``ValueError`` otherwise, on the CPU as on the card; likewise for
+    the unconstrained Gauss-Jordan tick above s=9, default ``BLOCK_TICK``, see
+    ``tick_geometry``); the plain version does not depend on it.
     """
     check_mk_solve(mk_solve)
     check_ablate(c, ablate, vo.active.ndim == 2, mk_solve)
@@ -553,6 +638,8 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
         _build.require_lanes(name, a, sh, dtype, dev)
     if constrained:
         block = box_geometry(s, dtype, block, N).threads_per_block
+    elif mk_solve == "gj" and not ablate and tick_group(s):
+        block = tick_geometry(s, m, dtype, block).threads_per_block
     else:
         block = _check_block(block)
     shapes = state_shapes(N, s, m, L, constrained)

@@ -23,6 +23,7 @@ Modes (each prints a table to stderr and one JSON line to stdout):
 * ``--sweep`` (``sweep``): the kernel's threads per block (32, 64, 128, 256)
   against the fleet size (1024, 4096, 16384) — the port has no chunk to sweep
   (one launch replays the whole log), so the block is its launch knob.
+  ``--model cassie_bench`` sweeps Cassie's tick, 16 threads per instance.
 * ``--trace`` (``trace_capture``): a ``torch.profiler`` capture of the Go1
   pipeline runner (EKF kernel, K5 at tick 0, the tick kernel): device time by
   kernel, the device's busy and idle share, the host time per launch; where
@@ -250,14 +251,17 @@ def ablation(B=1024, T=200, device="cuda", fleet=None, reps=3):
     return out
 
 
-def sweep(Bs=(1024, 4096, 16384), blocks=(32, 64, 128, 256), T=200, device="cuda", reps=3):
+def sweep(Bs=(1024, 4096, 16384), blocks=(32, 64, 128, 256), T=200, device="cuda", reps=3,
+          model="go1"):
     """The tick kernel's time against its threads per block and the fleet
-    size, float32, the kernel alone, best of ``reps``: rows of {B, block, ms,
-    ticks_per_s, roofline}."""
+    size, float32, the kernel alone, best of ``reps``, on ``model``'s fleet
+    (at Cassie's shape the tick runs 16 threads per instance, so every block
+    is a multiple of 16 there): rows of {B, block, ms, ticks_per_s,
+    roofline}."""
     device = resolve_device(device)
     rows = []
     for B in Bs:
-        p, data_b, _, vo = bench_fleet(B, T, device)
+        p, data_b, _, vo = bench_fleet(B, T, device, model=model)
         c = mhe.make_consts(p, F32, device=device)
         ks, d, v, i = tick_inputs(c, data_b, vo)
         del data_b
@@ -269,11 +273,12 @@ def sweep(Bs=(1024, 4096, 16384), blocks=(32, 64, 128, 256), T=200, device="cuda
             print(f"B={B:6d} block={block:4d}: {ms:9.3f} ms, {rate:,.0f} ticks/s",
                   file=sys.stderr)
             rows.append({"B": B, "block": block, "ms": ms, "ticks_per_s": rate,
-                         "roofline": report(rate), **bound(work)})
+                         "roofline": report(rate, s=c.dim_state, m=c.dim_meas, L=c.num_legs,
+                                             lot=int(c.leg_odom_type)), **bound(work)})
         del ks, d, v, i
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    return {"T": T, **device_info(device), "rows": rows}
+    return {"T": T, "model": model, **device_info(device), "rows": rows}
 
 
 def _union_us(intervals):
@@ -420,7 +425,7 @@ def main(argv=None):
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--constrained-sweep", action="store_true")
     ap.add_argument("--model", default="go1", choices=MODELS,
-                    help="the shape of --constrained-sweep")
+                    help="the shape of --sweep and --constrained-sweep")
     ap.add_argument("--B", type=int, default=1024)
     ap.add_argument("--T", type=int, default=200)
     ap.add_argument("--device", default="cuda")
@@ -432,7 +437,7 @@ def main(argv=None):
         if a.rate:
             results["report"] = report(a.rate)
         if a.sweep:
-            results["sweep"] = sweep(T=a.T, device=a.device)
+            results["sweep"] = sweep(T=a.T, device=a.device, model=a.model)
         if a.trace:
             results["trace"] = trace_capture(B=a.B, T=a.T, device=a.device,
                                              out_file=a.trace_out)

@@ -1,0 +1,216 @@
+"""The unconstrained tick on a group of threads per instance (Cassie's shape).
+
+Above s=9 the unconstrained Gauss-Jordan tick (K2, K2b) runs ``BOX_G`` = 16
+threads per instance: ``tick_geometry`` gives the launch (threads and
+instances per block, dynamic shared bytes), and the wrapper on CPU tensors
+still takes the plain version, with a block that must be a multiple of 16.
+Without a card, ``tests/box_group_host/tick_harness.cpp`` builds the tick body
+of ``csrc/mhe_body.cuh`` with g++ and runs it on the group (each instance's 16
+lanes as host threads) and on one thread per instance, from plain-path states
+of the bench's Cassie fleet, for 24 ticks (the window full from tick 20, so
+the marginalization runs), in float64 and float32, on the shared camera clock
+and on a clock per lane with a VO-free lane: x, every window-state tensor and
+the Bezier schedule must agree bit for bit, and the float64 result must match
+the plain version (the window's weights on their diagonal scale).
+"""
+
+import os
+import shutil
+import struct
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from decentralized_ekf_mhe_tpu_torch.io import synth
+from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
+from decentralized_ekf_mhe_tpu_torch.ops import estimator, mhe
+
+torch.set_num_threads(1)
+
+F64 = torch.float64
+TOL = dict(rtol=1e-8, atol=1e-8)
+HOST = os.path.join(os.path.dirname(__file__), "box_group_host")
+CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "decentralized_ekf_mhe_tpu_torch",
+                    "csrc")
+B_HOST, T_HOST = 5, 25       # ticks 1..24 in the harness
+
+
+def _layout_bytes(s, m, item):
+    """csrc/mhe_body.cuh's TickLayout: A_meas and P_cam, five matrix buffers
+    of max(s², m²), four vectors of max(s, m), the pivot buffers 4 s; padded
+    to 16 mod 32 four-byte words."""
+    words = (m * s + 3 * s + 5 * max(s * s, m * m) + 4 * max(s, m) + 4 * s) * item // 4
+    return (words + (16 - words % 32) % 32) * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_tick_geometry(dtype):
+    """At s=15 (Cassie) the unconstrained tick launches 16 threads per
+    instance, BLOCK_TICK threads per block by default, with the layout's
+    shared bytes per instance; any multiple of 16 up to 256 fits a block; a
+    block that is no multiple of 16 raises, and so does a shape that ticks
+    one thread per instance."""
+    item = torch.empty((), dtype=dtype).element_size()
+    per = _layout_bytes(15, 6, item)
+    assert per % 128 == 64 and per == {4: 5568, 8: 11072}[item]
+    assert mrk.tick_group(15) and not mrk.tick_group(9)
+    g = mrk.tick_geometry(15, 6, dtype)
+    assert g.threads_per_block == mrk.BLOCK_TICK
+    assert g.instances_per_block == mrk.BLOCK_TICK // mrk.BOX_G
+    assert g.shared_bytes == g.instances_per_block * per
+    assert 132 * g.instances_per_sm >= 1024
+    for block in (16, 32, 64, 128, 256):
+        g = mrk.tick_geometry(15, 6, dtype, block)
+        assert (g.instances_per_block, g.threads_per_block, g.shared_bytes) == (
+            block // 16, block, block // 16 * per)
+    for block in (8, 24, 40, 1000, 2048):
+        with pytest.raises(ValueError, match="block"):
+            mrk.tick_geometry(15, 6, dtype, block)
+    with pytest.raises(ValueError, match="one thread per instance"):
+        mrk.tick_geometry(9, 12, dtype)
+
+
+def _fleet(per_lane, B=B_HOST, T=T_HOST):
+    """Consts and replay_ticks' inputs of the bench's Cassie fleet (float64,
+    the plain path's tick-0 state): on its shared camera clock, or with lane b
+    on a clock of a frame every 3 + b % 3 ticks, 1 + b % 2 ticks late, and
+    the last lane VO-free."""
+    from decentralized_ekf_mhe_tpu_torch.tools import roofline
+
+    p, data_b, _, vo = roofline.bench_fleet(B, T, device="cpu", dtype=F64, model="cassie_bench")
+    c = mhe.make_consts(p, F64, device="cpu")
+    if per_lane:
+        vos = [estimator.vodata_from_log(synth.generate(synth.SynthConfig(
+            T=T, seed=2, num_legs=p.num_legs, vo_every=3 + b % 3, vo_latency=1 + b % 2)),
+            dtype=F64, device="cpu") for b in range(B)]
+        lanes = lambda f: torch.stack([getattr(v, f) for v in vos], dim=-1)
+        active = lanes("active")
+        active[:, -1] = False
+        vo = estimator.VOData(active=active, dp_body=lanes("dp_body") * active[:, None, :],
+                              tick_pre=lanes("tick_pre"), tick_now=lanes("tick_now"))
+    return (c,) + tuple(roofline.tick_inputs(c, data_b, vo))
+
+
+STATE = ("y_meas", "Q_meas", "A_dyn", "b_dyn", "Q_dyn", "b_cam", "Q_cam", "cam_act", "M_p",
+         "n_p", "bez_pts", "p_accum", "prev_R", "prev_accel_s", "prev_contact", "Dslot", "Ub",
+         "routb")
+
+
+def _state_scales(arrays):
+    """The scale each window-state entry is held to: its magnitude, and in the
+    symmetric weights and the cache D at least the diagonal scale
+    sqrt(|W_ii W_jj|), in the cache U = -AᵀQd at least sqrt(|D_ii| |Q_dyn_jj|)
+    (a 4e10 position weight leaves rounding of its size in the entries beside
+    it; chip_smoke.py's state_scales)."""
+    w = dict(zip(STATE, arrays))
+    diag = lambda a: torch.diagonal(a, dim1=-3, dim2=-2).abs().movedim(-1, -2)
+    out = {n: a.abs() for n, a in w.items()}
+    for n in ("Q_meas", "Q_dyn", "Q_cam", "M_p", "Dslot"):
+        out[n] = torch.maximum(out[n], torch.sqrt(diag(w[n])[..., :, None, :]
+                                                  * diag(w[n])[..., None, :, :]))
+    out["Ub"] = torch.maximum(out["Ub"], torch.sqrt(diag(w["Dslot"])[..., :, None, :]
+                                                    * diag(w["Q_dyn"])[..., None, :, :]))
+    return [out[n] for n in STATE]
+
+
+def _write_case(path, c, ks, d, v, i):
+    """One case for tick_harness.cpp: N, B, Tn, t0, per-lane clock; the
+    packed consts; the VO metadata and Bezier count (int32); the Bezier
+    times, the tick inputs and the window state (float64, lanes layout)."""
+    Tn, B = d.accel_b.shape[0], d.accel_b.shape[-1]
+    pi = v.active.ndim == 2
+    ints = lambda a: np.ascontiguousarray(a.numpy().astype(np.int32)).tobytes()
+    f64 = lambda a: np.ascontiguousarray(a.double().numpy()).tobytes()
+    with open(path, "wb") as f:
+        f.write(struct.pack("5i", c.N, B, Tn, ks.t + 1, int(pi)))
+        f.write(mrk._pack_consts(mrk.consts_from_mhe(c)).tobytes())
+        for a in (v.active, v.tick_pre, v.tick_now, ks.bez_count):
+            f.write(ints(a))
+        f.write(f64(ks.bez_times))
+        for a in (d.R_sb, d.accel_b, d.omega_b, d.p_foot, d.J_foot, d.dq, d.contact, i):
+            f.write(f64(a))
+        for a in ks.arrays:
+            f.write(f64(a))
+
+
+@pytest.fixture(scope="module")
+def tick_harness(tmp_path_factory):
+    """tick_harness.cpp built once with g++ (no FMA contraction)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host harness")
+    exe = str(tmp_path_factory.mktemp("tick_host") / "tick_harness")
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
+                    f"-I{CSRC}", f"-I{HOST}", os.path.join(HOST, "tick_harness.cpp"), "-o", exe],
+                   check=True, capture_output=True, text=True)
+    return exe
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared_clock", "per_lane_clocks"])
+def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, per_lane):
+    """mhe_body on the group (GRP: the marginalization, the shift with its
+    cache update and the streaming sweep row-parallel, lane 0 the VO
+    ingestion and the 3 x 3 builders) gives the one-thread body's x, window
+    state and Bezier schedule bit for bit over 24 ticks, in float64 and
+    float32; on per-lane clocks with a lane that never ingests. Its float64 x
+    and state are the plain version's. A lane that leaves a sync alone hangs
+    the barrier, which the time limit turns into a failure."""
+    c, ks, d, v, i = _fleet(per_lane)
+    if per_lane:
+        assert not bool(v.active[:, -1].any()) and int(v.active[:, 0].sum()) >= 4
+    case, out = str(tmp_path / "case.bin"), str(tmp_path / "out.bin")
+    _write_case(case, c, ks, d, v, i)
+    run = subprocess.run([tick_harness, case, out], capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
+    lines = run.stdout.splitlines()
+    assert lines[-1] == "ALL BIT-IDENTICAL" and len(lines) == 3, run.stdout
+
+    # the group's float64 x and state against the plain version
+    xp, ksp = mrk.replay_ticks_plain(c, ks, d, v, i)
+    got = torch.from_numpy(np.fromfile(out, dtype=np.float64))
+    n = xp.numel()
+    torch.testing.assert_close(got[:n].reshape(xp.shape), xp, **TOL)
+    k, arrays = n, []
+    for a in ksp.arrays:
+        arrays.append(got[k:k + a.numel()].reshape(a.shape))
+        k += a.numel()
+    for name, a, b, scale in zip(STATE, arrays, ksp.arrays, _state_scales(ksp.arrays)):
+        assert bool(((a - b).abs() <= TOL["atol"] + TOL["rtol"] * scale).all()), name
+    assert torch.equal(got[k:].reshape(ksp.bez_times.shape), ksp.bez_times)
+    assert ksp.t == T_HOST - 1 >= c.N
+
+
+def test_unconstrained_wrapper_takes_the_plain_version_on_the_cpu():
+    """On CPU tensors the unconstrained ``replay_ticks`` at Cassie's shape is
+    its plain version at any block the group launch takes; a block that is no
+    multiple of 16 raises here too, while the Cholesky tail, on one thread
+    per instance at every shape, takes it."""
+    c, ks, d, v, i = _fleet(False, B=2, T=6)
+    before = mrk.launches
+    x, st = mrk.replay_ticks(c, ks, d, v, i, device="cpu")
+    x48, _ = mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=48)
+    xp, stp = mrk.replay_ticks_plain(c, ks, d, v, i)
+    assert mrk.launches == before
+    assert torch.equal(x, xp) and torch.equal(x48, xp)
+    assert all(torch.equal(a, b) for a, b in zip(st.arrays, stp.arrays))
+    with pytest.raises(ValueError, match="multiple of"):
+        mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=40)
+    # the Cholesky tail stays on one thread per instance at this shape
+    xc, _ = mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=40, mk_solve="chol")
+    assert torch.equal(xc, xp)
+
+
+def test_tool_cassie_sweep_on_the_cpu():
+    """tools/roofline.py's --sweep at Cassie's shape (``model=``) runs at a
+    tiny size on the CPU (the plain versions; control flow only), at blocks
+    that are multiples of 16; one that is not raises before a launch."""
+    from decentralized_ekf_mhe_tpu_torch.tools import roofline
+
+    sw = roofline.sweep(Bs=(2,), blocks=(32, 48), T=6, device="cpu", reps=1,
+                        model="cassie_bench")
+    assert sw["model"] == "cassie_bench" and sw["device"] == "cpu"
+    assert [r["block"] for r in sw["rows"]] == [32, 48]
+    assert sw["rows"][0]["roofline"]["model"]["s"] == 15
+    with pytest.raises(ValueError, match="multiple of"):
+        roofline.sweep(Bs=(2,), blocks=(40,), T=6, device="cpu", reps=1, model="cassie_bench")
