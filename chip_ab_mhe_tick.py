@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts' kernels on one card: every kernel's ptxas figures,
-the unconstrained tick's time in turns at Go1's and Cassie's shapes, the
-constrained tick's (K2c) time in turns, and both ticks' float64 results.
+the unconstrained tick's time in turns at Go1's and Cassie's shapes with
+either tail, the constrained tick's (K2c) time in turns, and both ticks'
+float64 results.
 
     python3 chip_ab_mhe_tick.py OTHER_CHECKOUT
 
@@ -11,8 +12,9 @@ commit unpacked with ``git archive`` into a git-ignored directory). First both
 checkouts build all their libraries at once, each with ptxas' report, and
 the script prints, for every kernel the two have in common, whether its
 registers, stack frame and spill stores and loads are the same, and which of
-those that differ are not Cassie's unconstrained Gauss-Jordan tick (K2, K2b:
-``mhe_kernel`` and ``mhe_pi_kernel`` at s=15). Then, since two versions are
+those that differ are not Cassie's unconstrained tick with the Cholesky tail
+(K2d, K2d-PI: ``mhe_chol_kernel`` and ``mhe_pi_chol_kernel`` at s=15). Then,
+since two versions are
 only comparable within one run on one card, the timing turns go other, this,
 this, other; each turn is a fresh process. Go1's unconstrained tick (K2) on
 the headline fleet (T=2000, B=1024, float32, seed 0; the EKF kernel's
@@ -21,15 +23,18 @@ orientation) prints best-of-3 device times of
 unconstrained tick at the bench's settings (cell (k): the lanes runner's
 inputs) and on its 15 clocks per lane (cell (l), K2b), and the constrained
 tick (the bench's box: |v| <= 0.3, rho=5000 fixed, 20 iterations + polish,
-float32) on Go1's headline fleet (cell (b)) and at cell (k), each run the
-whole log once per turn after a short warm-up. Last, each checkout runs
-Cassie's unconstrained tick on both clocks, and the constrained tick at Go1
-and at cell (k) on both clocks, in float64 on the first 120 ticks
-(B=1024), then Cassie's unconstrained tick on both clocks in float32 over the
-whole log, and the script prints, per run, whether x and the window state (the
+float32) on Go1's headline fleet (cell (b)) and at cell (k), and the
+unconstrained tick with the Cholesky tail on Go1's headline fleet (cell (p))
+and at Cassie's cells (p) and (r), each run the whole log once per turn after
+a short warm-up. Last, each checkout runs Cassie's unconstrained tick on both
+clocks with either tail, and the constrained tick at Go1 and at cell (k) on
+both clocks, in float64 on the first 120 ticks (B=1024), then Cassie's
+unconstrained tick on both clocks with either tail in float32 over the whole
+log, and the script prints, per run, whether x and the window state (the
 constrained tick: x, the z/y rings and the iteration counts) are
 bit-identical between the checkouts, and the largest difference in units of
-the limit rtol=atol=1e-8 where they are not.
+the limit rtol=atol=1e-8 where they are not, and each checkout's first tick
+whose x is not finite.
 """
 
 import json
@@ -62,8 +67,9 @@ print(json.dumps({"mhe_tick_ms_best_of_3": ms}))
 '''
 
 # one tick kernel on one fleet: python -c TICK_TURN MODEL CLOCK CON DTYPE T OUT|-
-# (CLOCK shared or pi, CON free or box; "-": time one whole-log run after a
-# warm-up and print it; else save x and the state of one run to OUT)
+# (CLOCK shared or pi, CON free, box or chol — unconstrained with the Cholesky
+# tail; "-": time one whole-log run after a warm-up and print it; else save x
+# and the state of one run to OUT)
 TICK_TURN = r'''
 import json, sys
 import torch
@@ -73,6 +79,7 @@ from decentralized_ekf_mhe_tpu_torch.kernels import ekf_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
 from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes, mhe
 model, pi, box, dtype = sys.argv[1], sys.argv[2] == "pi", sys.argv[3] == "box", sys.argv[4]
+tail = "chol" if sys.argv[3] == "chol" else "gj"
 T, out = int(sys.argv[5]), sys.argv[6]
 dtype = {"f32": cs.F32, "f64": cs.F64}[dtype]
 with torch.inference_mode():
@@ -90,7 +97,8 @@ with torch.inference_mode():
         ks, (d, v, i) = cs.clock_inputs(c, fleet, dtype)
     del fleet
     run = lambda n: mrk.replay_ticks(c, ks, *(type(a)(*(t[:n] for t in a)) if isinstance(a, tuple)
-                                             else a[:n] for a in (d, v, i)), device=cs.DEV)
+                                             else a[:n] for a in (d, v, i)), device=cs.DEV,
+                                     mk_solve=tail)
     if out == "-":
         run(50)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -138,13 +146,14 @@ def ptxas_both(other):
     common = sorted(set(figs[other]) & set(figs["."]))
     differ = {k: {"other": figs[other][k], "this": figs["."][k]} for k in common
               if figs[other][k] != figs["."][k]}
-    # Cassie's unconstrained Gauss-Jordan kernels (K2, K2b at s=15) are the
-    # ones this comparison expects to differ; every other kernel is listed apart
-    redesigned = re.compile(r"(10mhe_kernel|13mhe_pi_kernel)I[fd]Li15E")
+    # Cassie's unconstrained Cholesky-tail kernels (K2d, K2d-PI at s=15) are
+    # the ones this comparison expects to differ; every other kernel is listed
+    # apart
+    redesigned = re.compile(r"(15mhe_chol_kernel|18mhe_pi_chol_kernel)I[fd]Li15E")
     print(json.dumps({"ptxas_registers_frame_spill_stores_loads": {
         "kernels_in_common": len(common), "identical": len(common) - len(differ),
         "differ": differ,
-        "differ_other_than_cassies_unconstrained_tick": sorted(
+        "differ_other_than_cassies_cholesky_tick": sorted(
             k for k in differ if not redesigned.search(k)),
         "only_in_this": sorted(set(figs["."]) - set(figs[other])),
         "only_in_other": sorted(set(figs[other]) - set(figs["."]))}}), flush=True)
@@ -161,19 +170,23 @@ def run_turn(tree, code, *args):
     return json.loads(lines[-1]) if lines else None
 
 
-# Cassie's unconstrained tick on both clocks (K2, K2b)
-CASSIE_FREE = [("cassie_bench", clock, "free") for clock in ("shared", "pi")]
+# Cassie's unconstrained tick on both clocks with either tail (K2, K2b, K2d,
+# K2d-PI)
+CASSIE_FREE = [("cassie_bench", clock, tail) for tail in ("free", "chol")
+               for clock in ("shared", "pi")]
 
 
 def tick_bits(other, T=120, dtype="f64", runs=None):
     """The tick kernels in ``dtype`` in both checkouts over ticks 1..T-1
-    (``runs``: (model, clock, free|box); by default Cassie's unconstrained
-    tick at the bench's settings and the constrained tick at Go1 and at the
-    bench's Cassie, each on both clocks); per run, whether x, the window
+    (``runs``: (model, clock, free|box|chol); by default Cassie's
+    unconstrained tick at the bench's settings with either tail and the
+    constrained tick at Go1 and at the bench's Cassie, each on both clocks);
+    per run, whether x, the window
     state and the Bezier schedule (the constrained tick: x, z, y and the
     iteration counts) are bit-identical, NaN where NaN, and where not, the
     largest |this - other| / (1e-8 + 1e-8 |other|) and the count of elements
-    that differ."""
+    that differ; and each checkout's first tick whose x is not finite (None
+    where every x is)."""
     import torch
 
     runs = runs or CASSIE_FREE + [
@@ -199,10 +212,21 @@ def tick_bits(other, T=120, dtype="f64", runs=None):
                     if a.dtype.is_floating_point:
                         row[k]["over_tol_max"] = float(
                             ((a - b).abs() / (1e-8 + 1e-8 * b.abs())).nan_to_num(0.0).max())
+            bad = {("this" if tree == "." else "other"): first_nonfinite_tick(res[tree]["x"])
+                   for tree in (other, ".")}
             print(json.dumps({{"f64": "float64", "f32": "float32"}[dtype]: {
                 "model": model, "clock": clock, "tick": con, "T": T, "B": 1024,
                 "all_bit_identical": all(r["bit_identical"] for r in row.values()),
-                **row}}), flush=True)
+                "first_nonfinite_tick": bad, **row}}), flush=True)
+
+
+def first_nonfinite_tick(x):
+    """The first tick (x (T-1, s, B) holds ticks 1..T-1) at which some
+    element of x is not finite, or None."""
+    import torch
+
+    bad = (~torch.isfinite(x)).flatten(1).any(1).nonzero()
+    return int(bad[0]) + 1 if len(bad) else None
 
 
 def main(other):
@@ -210,7 +234,9 @@ def main(other):
     for tree in (other, ".", ".", other):
         print(json.dumps({"checkout": tree, **run_turn(tree, TURN)}), flush=True)
     for model, clock, con in (("cassie_bench", "shared", "free"), ("cassie_bench", "pi", "free"),
-                              ("go1", "shared", "box"), ("cassie_bench", "shared", "box")):
+                              ("go1", "shared", "box"), ("cassie_bench", "shared", "box"),
+                              ("go1", "shared", "chol"), ("cassie_bench", "shared", "chol"),
+                              ("cassie_bench", "pi", "chol")):
         for tree in (other, ".", ".", other):
             print(json.dumps({"checkout": tree, **run_turn(tree, TICK_TURN, model, clock, con,
                                                            "f32", "2000", "-")}), flush=True)

@@ -88,11 +88,13 @@ its launch geometry at each shape, clock and type — threads, instances and
 dynamic shared memory per block, the blocks the card keeps resident per SM,
 the units' ptxas figures — and holds every float32 launch to at least 8
 instances per SM. The kernels line's rows of the constrained tick name the
-source of its window solve. At Cassie's shape the unconstrained tick (K2, K2b)
-runs the whole tick on 16 threads per instance: the ragged fleet of the small
-checks (1001 instances) ends each of its launches in a partial block, and a
-phase after the last prints its geometry beside the constrained tick's, which
-the kernels line's Cassie K2 and K2b rows carry.
+source of its window solve. At Cassie's shape the unconstrained tick, with
+either tail (K2, K2b, K2d, K2d-PI), runs the whole tick on 16 threads per
+instance: the ragged fleet of the small checks (1001 instances) ends each of
+its launches in a partial block, the Cholesky phases print their units'
+launch, and a phase after the last prints the geometry of all four beside the
+constrained tick's, which the kernels line's Cassie K2, K2b, K2d and K2d-PI
+rows carry.
 
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
@@ -954,15 +956,20 @@ def mark_window_solve(kernels):
             row["window_solve_source"] = "decentralized_ekf_mhe_tpu_torch/csrc/admm_group.cuh"
 
 
+# the rows of the unconstrained tick: (per-lane clock, tail) by name
+TICK_ROWS = {"mhe_tick": (False, "gj"), "mhe_tick_pi": (True, "gj"),
+             "mhe_tick_chol": (False, "chol"), "mhe_tick_pi_chol": (True, "chol")}
+
+
 def mark_tick_group(kernels, geometry):
-    """The rows of the unconstrained Gauss-Jordan tick at a shape where it runs
-    a group of threads per instance (K2, K2b at Cassie's) carry that launch's
-    geometry as the card reports it (``tick_geometry_phase``), float32, with
-    the units' ptxas figures."""
+    """The rows of the unconstrained tick at a shape where it runs a group of
+    threads per instance (K2, K2b, K2d, K2d-PI at Cassie's) carry that
+    launch's geometry as the card reports it (``tick_geometry_phase``),
+    float32, with the units' ptxas figures."""
     for row in kernels:
         name, _, model = row["name"].partition("[")
-        key = (model.rstrip("]"), name == "mhe_tick_pi")
-        if name in ("mhe_tick", "mhe_tick_pi") and key in geometry:
+        key = (model.rstrip("]"), *TICK_ROWS.get(name, (None, None)))
+        if key in geometry:
             row["threads_per_instance"] = mrk.BOX_G
             row["group_geometry"] = geometry[key]
 
@@ -1551,37 +1558,53 @@ def box_geometry_phase():
          **res)
 
 
-def tick_geometry_phase():
-    """The unconstrained Gauss-Jordan tick's launch where it runs a group of
-    threads per instance (``mrk.tick_group``: Cassie's shape), on both clocks,
-    in both types: threads and instances per block and the dynamic shared
-    bytes (``mrk.tick_geometry``, held equal to what the library computes),
-    the blocks the card keeps resident per SM, registers and local bytes per
-    thread (``mrk.tick_occupancy``) and the units' ptxas figures; every launch
-    keeps all B_MAIN instances resident at once. Returns the float32 figures
-    by (robot, per-lane clock) for the kernels line."""
+def tick_group_figures(p, pi, tail):
+    """The unconstrained tick's group launch at ``p``'s shape on a clock
+    (``pi``) with a tail, in both types, as the card reports it: threads and
+    instances per block and the dynamic shared bytes (``mrk.tick_geometry``,
+    held equal to what the library computes), the blocks the card keeps
+    resident per SM, registers and local bytes per thread
+    (``mrk.tick_occupancy`` of the unit that runs) and the unit's ptxas
+    figures; every launch keeps all B_MAIN instances resident at once.
+    {"float": ..., "double": ...}."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert mrk.tick_group(p.dim_state)
+    c = mhe.make_consts(p, F32, device=DEV)
+    lib = mrk.kernel_library(p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type, pi,
+                             tail == "chol")
+    figs = tick_ptxas(lib, "mhe_" + "pi_" * pi + "chol_" * (tail == "chol") + "kernel")
+    res = {}
+    for dtype, name in ((F32, "float"), (F64, "double")):
+        want = mrk.tick_geometry(p.dim_state, p.dim_meas, dtype)
+        card = mrk.tick_occupancy(c, dtype, pi, mk_solve=tail)
+        assert (card["shared_bytes"], card["instances_per_block"],
+                card["threads_per_block"]) == (
+            want.shared_bytes, want.instances_per_block, want.threads_per_block), (
+            p.dim_state, pi, tail, card, want)
+        assert card["instances_per_sm"] * n_sm >= B_MAIN, (p.dim_state, pi, tail, card)
+        res[name] = dict(card, ptxas=figs[name])
+    return res
+
+
+def tick_geometry_phase():
+    """The unconstrained tick's launch where it runs a group of threads per
+    instance (``mrk.tick_group``: Cassie's shape), on both clocks, with both
+    tails, in both types (``tick_group_figures``). Returns the float32
+    figures by (robot, per-lane clock, tail) for the kernels line."""
     res, rows = {}, {}
     for model, tag in (("cassie_bench", "cassie"),):
         p = robot_params(model)[0]
-        assert mrk.tick_group(p.dim_state)
-        c = mhe.make_consts(p, F32, device=DEV)
         for pi in (False, True):
-            lib = mrk.kernel_library(p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type, pi)
-            figs = tick_ptxas(lib, "mhe_pi_kernel" if pi else "mhe_kernel")
-            for dtype, name in ((F32, "float"), (F64, "double")):
-                want = mrk.tick_geometry(p.dim_state, p.dim_meas, dtype)
-                card = mrk.tick_occupancy(c, dtype, pi)
-                assert (card["shared_bytes"], card["instances_per_block"],
-                        card["threads_per_block"]) == (
-                    want.shared_bytes, want.instances_per_block, want.threads_per_block), (
-                    tag, pi, card, want)
-                assert card["instances_per_sm"] * n_sm >= B_MAIN, (tag, pi, card)
-                res[f"{tag} {'per-lane' if pi else 'shared'} clock {name}"] = dict(
-                    card, s=p.dim_state, ptxas=figs[name])
-                if dtype == F32:
-                    rows[(tag, pi)] = dict(card, ptxas_registers_frame_spill_stores_loads=figs)
-    emit("tick_geometry", threads_per_instance=mrk.BOX_G, sms=n_sm,
+            for tail in ("gj", "chol"):
+                figs = tick_group_figures(p, pi, tail)
+                for name, card in figs.items():
+                    res[f"{tag} {'per-lane' if pi else 'shared'} clock {tail} {name}"] = dict(
+                        card, s=p.dim_state)
+                f32 = {k: v for k, v in figs["float"].items() if k != "ptxas"}
+                rows[(tag, pi, tail)] = dict(f32, ptxas_registers_frame_spill_stores_loads={
+                    name: card["ptxas"] for name, card in figs.items()})
+    emit("tick_geometry", threads_per_instance=mrk.BOX_G,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count,
          shared_per_block_max=mrk.SHARED_PER_BLOCK, shared_per_sm=mrk.SHARED_PER_SM, **res)
     return rows
 
@@ -2616,8 +2639,13 @@ def check_kernels_chol(model):
     except ValueError as e:
         unknown = str(e)
     assert unknown, "an unknown tail must raise"
+    # above s=9 both units run a group of threads per instance: their launch
+    group = ({clock: tick_group_figures(p, pi, "chol")
+              for clock, pi in (("shared", False), ("per_lane", True))}
+             if mrk.tick_group(p.dim_state) else None)
     emit("kernels_chol", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
-         leg_odom_type=p.leg_odom_type, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
+         leg_odom_type=p.leg_odom_type, threads_per_instance=mrk.BOX_G if group else 1,
+         group_launch=group, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
          tol=TOL_MHE, tol_vs_gauss_jordan=TOL_CHOL_VS_GJ, tol_uniform_vs_shared=1e-12,
          mhe_tick_chol_err=errs, clocks=N_CLOCKS, vo_free_lanes=B_CHK // VO_FREE_EVERY,
          mhe_tick_pi_chol_err=pi_errs, unknown_tail_refused=unknown)
@@ -2712,6 +2740,8 @@ def chol_path(model, fleet64, fleet32, gt_v, k2_ms=None):
     emit("chol_path", model=model, config=f"{model} N={N_WIN} s={s} m={p.dim_meas} "
          f"L={p.num_legs} leg_odom_type={p.leg_odom_type}, DEM_MK_SOLVE=chol, "
          + ("lanes runner" if lanes else "pipeline runner"),
+         group_launch_f32=(tick_group_figures(p, False, "chol")["float"]
+                           if mrk.tick_group(s) else None),
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
          pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
          rmse_vs_ground_truth=rmse, rmse_f64=r64, rmse_f64_all_ticks=r64_all, rmse_gate=gate,
@@ -2982,6 +3012,8 @@ def pi_chol_cell(model, clocks64, clocks32, gt_v, k2b_ms=None):
     emit(f"{tag}_pi_chol",
          config=f"{model} N={N_WIN} s={s} m={m} L={L} leg_odom_type={lot}, 15 camera clocks, "
          "every 64th lane VO-free, DEM_MK_SOLVE=chol, lanes runner",
+         group_launch_f32=(tick_group_figures(p, True, "chol")["float"]
+                           if mrk.tick_group(s) else None),
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
          wall_from="the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
          tick_kernel_only_ms=k_only, rmse_vs_ground_truth=rmse, rmse_gate=gate,

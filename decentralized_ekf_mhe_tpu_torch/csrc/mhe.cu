@@ -53,13 +53,13 @@ extern "C" int DEM_CAT(DEM_MHE_UNIT, _geometry)(int N, int block, int* out) {
   return dem::mhe_box_geometry<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
                                DEM_MHE_PI != 0>(N, block, out);
 }
-#elif !DEM_MHE_CHOL && !DEM_MHE_ABL
-// the unconstrained Gauss-Jordan unit's: that of its group launch above s=9
+#elif !DEM_MHE_ABL
+// the unconstrained unit's (either tail): that of its group launch above s=9
 // (mhe_tick_geometry), -1 where it ticks one thread per instance
 extern "C" int DEM_CAT(DEM_MHE_UNIT, _geometry)(int N, int block, int* out) {
   (void)N;
   return dem::mhe_tick_geometry<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
-                                DEM_MHE_PI != 0>(block, out);
+                                DEM_MHE_PI != 0, DEM_MHE_CHOL != 0>(block, out);
 }
 #endif
 #endif
@@ -105,6 +105,10 @@ DEM_MHE_GEOMETRY_DECL(_pi_f32_geometry)
 DEM_MHE_GEOMETRY_DECL(_pi_f64_geometry)
 DEM_MHE_GEOMETRY_DECL(_pi_box_f32_geometry)
 DEM_MHE_GEOMETRY_DECL(_pi_box_f64_geometry)
+DEM_MHE_GEOMETRY_DECL(_chol_f32_geometry)
+DEM_MHE_GEOMETRY_DECL(_chol_f64_geometry)
+DEM_MHE_GEOMETRY_DECL(_pi_chol_f32_geometry)
+DEM_MHE_GEOMETRY_DECL(_pi_chol_f64_geometry)
 
 namespace {
 constexpr int MHE_NPTRS = 34;                 // MhePtrs
@@ -155,15 +159,16 @@ extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int ablate
 }
 
 // The launch geometry of a tick that runs a group of threads per instance —
-// the constrained tick (con) or, above s=9, the unconstrained Gauss-Jordan
-// one — of this shape and clock (pi) at N slots and `block` threads per
-// block: out[0..6] as mhe_box_geometry and mhe_tick_geometry fill them
-// (instances and threads per block, dynamic shared bytes, blocks resident per
-// SM, registers and local bytes per thread, U in shared memory). Returns 0,
-// the CUDA error of a shape the card refuses, or -1 for a shape, type or
-// variant this library does not link or that ticks one thread per instance.
-extern "C" int dem_mhe_geometry(int is_double, int con, int pi, int S, int M, int L, int lot,
-                                int N, int block, int* out) {
+// the constrained tick (con) or, above s=9, the unconstrained one with the
+// Gauss-Jordan or (chol) the Cholesky tail — of this shape and clock (pi) at
+// N slots and `block` threads per block: out[0..6] as mhe_box_geometry and
+// mhe_tick_geometry fill them (instances and threads per block, dynamic
+// shared bytes, blocks resident per SM, registers and local bytes per thread,
+// U in shared memory). Returns 0, the CUDA error of a shape the card refuses,
+// or -1 for a shape, type or variant this library does not link or that
+// ticks one thread per instance.
+extern "C" int dem_mhe_geometry(int is_double, int con, int pi, int chol, int S, int M, int L,
+                                int lot, int N, int block, int* out) {
   using Geometry = int (*)(int, int, int*);
   // [pi][con][is_double]
   static const Geometry geometry[2][2][2] = {
@@ -171,7 +176,12 @@ extern "C" int dem_mhe_geometry(int is_double, int con, int pi, int S, int M, in
        {DEM_UNIT(_box_f32_geometry), DEM_UNIT(_box_f64_geometry)}},
       {{DEM_UNIT(_pi_f32_geometry), DEM_UNIT(_pi_f64_geometry)},
        {DEM_UNIT(_pi_box_f32_geometry), DEM_UNIT(_pi_box_f64_geometry)}}};
-  const Geometry g = geometry[pi != 0][con != 0][is_double != 0];
+  // [pi][is_double]
+  static const Geometry chol_geometry[2][2] = {
+      {DEM_UNIT(_chol_f32_geometry), DEM_UNIT(_chol_f64_geometry)},
+      {DEM_UNIT(_pi_chol_f32_geometry), DEM_UNIT(_pi_chol_f64_geometry)}};
+  const Geometry g = !chol ? geometry[pi != 0][con != 0][is_double != 0]
+                     : !con ? chol_geometry[pi != 0][is_double != 0] : nullptr;
   if (S != DEM_MHE_S || M != DEM_MHE_M || L != DEM_MHE_L || lot != DEM_MHE_LOT || N < 2 || !g)
     return -1;
   return g(N, block, out);

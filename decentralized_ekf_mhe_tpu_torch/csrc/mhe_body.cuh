@@ -81,22 +81,27 @@
 // per-lane-clock statement behind `if constexpr (PI)`, and every statement of
 // one leg-odometry form behind `if constexpr` on LOT.
 //
-// The unconstrained Gauss-Jordan tick on a group (template parameter GRP; the
-// kernels mhe_kernel and mhe_pi_kernel set it where tick_group<S>() holds,
-// S > 9: Cassie's K2 and K2b; Go1's and PogoX's, K2d, K2d-PI and K2e keep
-// the one-thread body). At s=15 one thread per instance spilled its per-slot
-// working set (seven 15 x 15 matrices, 6.3 KB in float32) to local memory and
-// ran a serial chain of s x s products on 32 of the 132 SMs at B=1024. The
-// group runs BOX_G = 16 threads per instance, two instances per warp: lane r
-// (< s) owns row r of every s x s block and element r of every vector, so a
-// product is s dependent multiply-adds per lane on s lanes at once; a matrix
-// or vector that a product reads whole goes through the instance's shared
-// memory (TickLayout) between two __syncwarp of the group; the Gauss-Jordan
-// inverses run row-parallel (admm_group.cuh's gj_inv_rows). Lane 0 runs the
-// VO ingestion and the 3 x 3 builders (into shared memory), behind a
-// __syncwarp; the marginalization (marg_group), the shift with its cache
-// update (shift_group) and the assembly with the streaming sweep
-// (sweep_group) run on the group, and every lane writes its element of x.
+// The unconstrained tick on a group (template parameter GRP; the kernels
+// mhe_kernel, mhe_pi_kernel, mhe_chol_kernel and mhe_pi_chol_kernel set it
+// where tick_group<S>() holds, S > 9: Cassie's K2, K2b, K2d and K2d-PI; Go1's
+// and PogoX's ticks and K2e keep the one-thread body). At s=15 one thread per
+// instance spilled its per-slot working set (seven 15 x 15 matrices, 6.3 KB in
+// float32) to local memory and ran a serial chain of s x s products on 32 of
+// the 132 SMs at B=1024. The group runs BOX_G = 16 threads per instance, two
+// instances per warp: lane r (< s) owns row r of every s x s block and element
+// r of every vector, so a product is s dependent multiply-adds per lane on s
+// lanes at once; a matrix or vector that a product reads whole goes through
+// the instance's shared memory (TickLayout) between two __syncwarp of the
+// group; the Gauss-Jordan inverses run row-parallel (admm_group.cuh's
+// gj_inv_rows). Lane 0 runs the VO ingestion and build_dynamics /
+// build_measurement (into shared memory), behind a __syncwarp; the
+// marginalization (marg_group), the shift with its cache update
+// (shift_group) and the assembly with the streaming sweep (sweep_group) run
+// on the group, and every lane writes its element of x. With the Cholesky
+// tail (CHOL) the sweep keeps the same assembly and runs chol_slot_group in
+// place of the Gauss-Jordan step — W = L^-1 U_prev column-parallel, S_j and
+// yv row-parallel, the factor column by column with one sync per column —
+// and the spare lane s solves for x.
 // Each element keeps the one-thread chain (acc = a0 v0; acc += a_k v_k over
 // k = 0, 1, ...), so the results are the one-thread body's bit for bit as far
 // as nvcc contracts the same expressions alike
@@ -117,11 +122,12 @@
 //
 // The Cholesky tail (template parameter CHOL; the TPU kernel with
 // mk_solve='chol', mhe_replay_kernel.py:743-772, 801-802): the same forward
-// sweep as a factor-and-substitute chain, chol_step below, and
-// x_{N-1} = L^-T L^-1 y. It keeps a packed triangle and the reciprocal pivots
-// (s(s+1)/2 + s scalars) where the Gauss-Jordan tail keeps S^-1 (s^2), and
-// does about 1.3 s^3 multiplies per slot against about 4 s^3. The Gauss-Jordan
-// statements are untouched; the Cholesky ones sit behind `if constexpr (CHOL)`.
+// sweep as a factor-and-substitute chain, chol_step below (on a group:
+// chol_slot_group), and x_{N-1} = L^-T L^-1 y. It keeps a packed triangle and
+// the reciprocal pivots (s(s+1)/2 + s scalars) where the Gauss-Jordan tail
+// keeps S^-1 (s^2), and does about 1.3 s^3 multiplies per slot against about
+// 4 s^3. The Gauss-Jordan statements are untouched; the Cholesky ones sit
+// behind `if constexpr (CHOL)`.
 // With box constraints the tail is never reached (the ADMM solves the
 // window), as in the TPU kernel, so CHOL is an unconstrained instantiation
 // only: on the shared clock (mhe_chol_kernel) or a clock per lane
@@ -458,7 +464,7 @@ DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd
 // s x s block and element r of every vector; lanes >= S take part in the
 // syncs and in gj_inv_rows only.
 
-// The route of the unconstrained Gauss-Jordan tick at state size S: a group
+// The route of the unconstrained tick, either tail, at state size S: a group
 // per instance above s=9 (Cassie), one thread per instance at s=9 (Go1,
 // PogoX; kernels/mhe_replay_kernel.py's tick_group says the same).
 template <int S>
@@ -690,6 +696,96 @@ DEM_HD void shift_group(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c
   __syncwarp(g.mask);   // the new slots in global memory before the sweep reads them whole
 }
 
+// The Cholesky factor of an S x S SPD matrix on the group (chol's chain per
+// element, smallmat.cuh): lane r (< S) holds row r of A (its lower triangle
+// is read) and forms row r of L; Lp (packed by rows) and rd (the reciprocal
+// pivots) are in shared memory. Column k: lane k finishes its pivot from its
+// own row, clamps it at 1e-30 and publishes L_kk and rd_k; after one
+// __syncwarp the lanes below form L_ik from row k, which lane k wrote in the
+// earlier columns. S syncs; the last one publishes the whole factor.
+template <typename T, int S>
+DEM_HD void chol_rows(const T* A, T* Lp, T* rd, int ln, unsigned mask) {
+  T Lr[S];   // row ln of L
+  DEM_UNROLL
+  for (int k = 0; k < S; ++k) {
+    if (ln == k) {
+      T d = A[k];
+      DEM_UNROLL
+      for (int m = 0; m < k; ++m) d -= Lr[m] * Lr[m];
+      d = sqrt(d < T(1e-30) ? T(1e-30) : d);   // NaN passes, as in chol
+      Lp[tri(k) + k] = d;
+      rd[k] = T(1) / d;
+    }
+    __syncwarp(mask);
+    if (ln > k && ln < S) {
+      T e = A[k];
+      DEM_UNROLL
+      for (int m = 0; m < k; ++m) e -= Lr[m] * Lp[tri(k) + m];
+      Lr[k] = e * rd[k];
+      Lp[tri(ln) + k] = Lr[k];
+    }
+  }
+}
+
+// One slot of the Cholesky tail on the group (chol_step's statements, each
+// element with its one-thread chain): D (lane r: row r of D_j, which becomes
+// S_j) and r_j's element r as assembled; Up the previous slot's U in shared
+// memory. For j > 0 lane a (< S) forms column a of W = L^-1 U_prev by
+// trsm_l's chain, keeps it in registers and writes it to mat 2 by columns, and
+// the spare lane S forms z = L^-1 yv (trsv_l) into vec 0; one __syncwarp; then
+// lane r forms row r of S_j = D_j - W^T W (lower triangle only; the chain
+// starts with mul_rn, as chol_step's rolled loop rounds its first product)
+// and yv_r = r_r - (W^T z)_r (matvec_t's chain) from its own column of W; then
+// chol_rows. Buffers: mat 3 the packed factor and rd (s(s+1)/2 + s scalars),
+// vec 1 yv. The sync after W separates this slot's reads of L from the
+// factor that rewrites it; the factor's syncs separate the reads of W, z and
+// U_prev from the next slot's writes.
+template <typename T, int S, int M>
+DEM_HD void chol_slot_group(const BoxGroup<T>& g, int j, T* D, T r, const T* Up) {
+  static_assert(S < BOX_G, "the spare lane S solves for z");
+  using Lay = TickLayout<T, S, M>;
+  const int ln = g.ln;
+  T* Lp = g.sm + Lay::mat(3);
+  T* rd = Lp + S * (S + 1) / 2;
+  T* sWc = g.sm + Lay::mat(2);
+  T *vz = g.sm + Lay::vec(0), *vyv = g.sm + Lay::vec(1);
+  if (j > 0) {
+    T w[S];   // column ln of W
+    if (ln < S) {
+      DEM_UNROLL
+      for (int i = 0; i < S; ++i) {
+        T acc = Up[i * S + ln];
+        DEM_UNROLL
+        for (int m = 0; m < i; ++m) acc -= Lp[tri(i) + m] * w[m];
+        w[i] = acc * rd[i];
+        sWc[ln * S + i] = w[i];
+      }
+    } else if (ln == S) {
+      trsv_l<S>(Lp, rd, vyv, vz);
+    }
+    __syncwarp(g.mask);
+    if (ln < S) {
+      DEM_UNROLL
+      for (int a = 0; a < S; ++a) {
+        if (a <= ln) {
+          const T* wa = sWc + a * S;
+          T acc = mul_rn(wa[0], w[0]);   // chol_step's rolled chain rounds it first
+          DEM_UNROLL
+          for (int i = 1; i < S; ++i) acc += wa[i] * w[i];
+          D[a] -= acc;
+        }
+      }
+      T wz = w[0] * vz[0];
+      DEM_UNROLL
+      for (int k = 1; k < S; ++k) wz += w[k] * vz[k];
+      vyv[ln] = r - wz;
+    }
+  } else if (ln < S) {
+    vyv[ln] = r;
+  }
+  chol_rows<T, S>(D, Lp, rd, ln, g.mask);
+}
+
 // The masked normal equations and the streaming forward block-Thomas sweep
 // on the group, then lane r writes x_{N-1}[r] of tick i (the one-thread
 // statements in mhe_body). Each lane assembles its row of D_j, U_j and
@@ -699,8 +795,11 @@ DEM_HD void shift_group(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c
 // next slot's U_prev), mat 2 W, mat 3 Sinv and mat 4 the previous slot's
 // Qd + P^T Qc P (each lane its own row), vec 0 Sinv yv, vec 1 yv. Two
 // __syncwarp per slot besides gj_inv_rows' own: after W and Sinv yv are
-// written, and after yv is.
-template <typename T, int S, int M>
+// written, and after yv is. With the Cholesky tail (CHOL) each slot after
+// the assembly is chol_slot_group, and after the last one the spare lane S
+// forms x_{N-1} = L^-T L^-1 yv (trsv_l, trsv_lt, through vec 0 and 2) and
+// writes it.
+template <typename T, int S, int M, bool CHOL = false>
 DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i, int t,
                         int base_new) {
   using Lay = TickLayout<T, S, M>;
@@ -771,6 +870,10 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
       DEM_UNROLL
       for (int k = 0; k < S; ++k) D[k] = T(0);
     }
+    if constexpr (CHOL) {
+      chol_slot_group<T, S, M>(g, j, D, r, Up);
+      continue;
+    }
     T yvi = r;
     if (j > 0) {
       if (ln < S) {
@@ -800,7 +903,16 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
     }
     __syncwarp(g.mask);
   }
-  if (ln < S) {   // logical N-1 = newest state
+  if constexpr (CHOL) {
+    if (ln == S) {
+      const T *Lp = g.sm + Lay::mat(3), *rd = Lp + S * (S + 1) / 2;
+      T *vz = g.sm + Lay::vec(0), *vx = g.sm + Lay::vec(2);
+      trsv_l<S>(Lp, rd, vyv, vz);
+      trsv_lt<S>(Lp, rd, vz, vx);
+      DEM_UNROLL_UPTO(S, 1)
+      for (int k = 0; k < S; ++k) st(p.x, (size_t)i * S + k, B, b, vx[k]);
+    }
+  } else if (ln < S) {   // logical N-1 = newest state
     T si[S];
     DEM_UNROLL
     for (int k = 0; k < S; ++k) si[k] = sinv[k];
@@ -812,8 +924,8 @@ template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL
           int ABL = ABL_NONE, bool GRP = false>
 DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
-  static_assert(!GRP || (!CON && !CHOL && ABL == ABL_NONE),
-                "the group tick is the unconstrained Gauss-Jordan one");
+  static_assert(!GRP || (!CON && ABL == ABL_NONE),
+                "the group tick is the unconstrained one, with either tail");
   constexpr int SS = S * S;
   constexpr int MM = M * M;
   const T dt = c.dt;
@@ -919,7 +1031,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       __syncwarp(grp.mask);
       if (t >= N) marg_group<T, S, M>(p, grp, base_old);
       shift_group<T, S, M, L, LOT>(p, c, grp, i, base_old, (base_old + N - 1) % N);
-      sweep_group<T, S, M>(p, grp, N, i, t, t % N);
+      sweep_group<T, S, M, CHOL>(p, grp, N, i, t, t % N);
       continue;
     }
 
@@ -1303,7 +1415,7 @@ MheConstsFor<T, S, M, LOT> mhe_consts(const double* consts) {
 // (tests/box_group_host/tick_harness.cpp) stops here.
 #ifdef __CUDACC__
 
-// The unconstrained Gauss-Jordan tick on either clock: above s=9 BOX_G
+// The unconstrained ticks on either clock, with either tail: above s=9 BOX_G
 // threads per instance (tick_group), a group beyond the fleet leaving whole;
 // else one thread per instance.
 template <typename T, int S, int M, int L, int LOT>
@@ -1357,17 +1469,31 @@ __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, Mh
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                 int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  mhe_body<T, S, M, L, LOT, false, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+  if constexpr (tick_group<S>()) {
+    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, false, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
+                                                                  b);
+  } else {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, false, true>(p, c, nullptr, N, B, Tn, t0, b);
+  }
 }
 
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                    int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  mhe_body<T, S, M, L, LOT, false, true, true>(p, c, nullptr, N, B, Tn, t0, b);
+  if constexpr (tick_group<S>()) {
+    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, true, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
+                                                                 b);
+  } else {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= B) return;
+    mhe_body<T, S, M, L, LOT, false, true, true>(p, c, nullptr, N, B, Tn, t0, b);
+  }
 }
 
 // the stage ablation: the unconstrained Gauss-Jordan tick on the shared clock
@@ -1388,7 +1514,7 @@ DEM_HHD size_t box_shared_bytes(int N, int block) {
   return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
 }
 
-// ... and of the unconstrained group tick (tick_group): block / BOX_G
+// ... and of the unconstrained group tick (tick_group; either tail): block / BOX_G
 // instances of TickLayout::stride scalars (mhe_replay_kernel.py's
 // tick_geometry computes the same bytes)
 template <typename T, int S, int M>
@@ -1403,10 +1529,12 @@ auto mhe_box_entry() {
   else return &mhe_box_kernel<T, S, M, L, LOT>;
 }
 
-// the unconstrained Gauss-Jordan kernel of a clock
-template <typename T, int S, int M, int L, int LOT, bool PI>
+// the unconstrained kernel of a clock and a tail
+template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
 auto mhe_tick_entry() {
-  if constexpr (PI) return &mhe_pi_kernel<T, S, M, L, LOT>;
+  if constexpr (CHOL && PI) return &mhe_pi_chol_kernel<T, S, M, L, LOT>;
+  else if constexpr (CHOL) return &mhe_chol_kernel<T, S, M, L, LOT>;
+  else if constexpr (PI) return &mhe_pi_kernel<T, S, M, L, LOT>;
   else return &mhe_kernel<T, S, M, L, LOT>;
 }
 
@@ -1459,14 +1587,14 @@ int mhe_box_geometry(int N, int block, int* out) {
   return err;
 }
 
-// The same figures of the unconstrained group tick (out[6] = 0), or -1 where
-// this shape ticks one thread per instance.
-template <typename T, int S, int M, int L, int LOT, bool PI>
+// The same figures of the unconstrained group tick with its tail (out[6] =
+// 0), or -1 where this shape ticks one thread per instance.
+template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
 int mhe_tick_geometry(int block, int* out) {
   if constexpr (!tick_group<S>()) {
     return -1;
   } else {
-    const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI>(),
+    const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>(),
                                    tick_shared_bytes<T, S, M>(block), block, out);
     if (!err) out[6] = 0;
     return err;
@@ -1483,8 +1611,8 @@ int mhe_tick_geometry(int block, int* out) {
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw; ints/reals as admm_settings reads them. The
 // constrained kernels take `block` threads per block, a multiple of BOX_G,
-// and box_shared_bytes of dynamic shared memory, the unconstrained
-// Gauss-Jordan ones above s=9 likewise with tick_shared_bytes; the error of a
+// and box_shared_bytes of dynamic shared memory, the unconstrained ones
+// (either tail) above s=9 likewise with tick_shared_bytes; the error of a
 // launch the card refuses (too many threads, too much shared memory) is
 // returned.
 template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL,
@@ -1501,6 +1629,13 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   if constexpr (ABL != ABL_NONE) {
     mhe_abl_kernel<T, S, M, L, LOT, ABL><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B,
                                                                                   Tn, t0);
+  } else if constexpr (!CON && tick_group<S>()) {
+    const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>();
+    size_t shmem = 0;
+    const int err = box_launch_shape(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
+    if (err) return err;
+    const int ipb = block / BOX_G;
+    kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else if constexpr (CHOL) {
     if constexpr (PI)
       mhe_pi_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B,
@@ -1508,13 +1643,6 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     else
       mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn,
                                                                                  t0);
-  } else if constexpr (!CON && tick_group<S>()) {
-    const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI>();
-    size_t shmem = 0;
-    const int err = box_launch_shape(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
-    if (err) return err;
-    const int ipb = block / BOX_G;
-    kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else if constexpr (!CON) {
     if constexpr (PI)
       mhe_pi_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);

@@ -58,6 +58,22 @@ DEM_HD void fill(T* dst, size_t e0, int B, int b, T v) {
   for (int i = 0; i < n; ++i) st(dst, e0 + i, B, b, v);
 }
 
+// a * b rounded on its own: nvcc never contracts it into a multiply-add
+// (__fmul_rn, __dmul_rn). A chain acc = a0 b0; acc += a_k b_k (k = 1, 2, ...)
+// that runs as a rolled loop rounds its first product before the loop and
+// contracts each later one; fully unrolled, nvcc may contract the first
+// product instead of the second. A chain that must round as its rolled twin
+// does starts with mul_rn.
+template <typename T>
+DEM_HD T mul_rn(T a, T b) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) return __fmul_rn(a, b);
+  else return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
 // ---- products; all sums run k = 0, 1, ... like the plain versions --------
 // C (I x J) = A (I x K) * Bm (K x J)
 template <int I, int K, int J, typename T>

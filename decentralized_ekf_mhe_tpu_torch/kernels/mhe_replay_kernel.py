@@ -17,13 +17,14 @@ state per instance stay in global memory in the instance-minor layout
 slot. What bounds it: operations, and in practice the serial dependency chain
 of one instance with B/32 warps in flight and the s×s temporaries spilling to
 local memory. Above s=9 (Cassie's shape, ``tick_group``) the unconstrained
-Gauss-Jordan tick runs ``BOX_G`` = 16 threads per instance instead: lane 0
-ingests the VO and runs the 3×3 builders, the group the marginalization, the
-shift with its cache update and the streaming sweep, each lane a row of every
-s×s block, with the blocks that a product reads whole in shared memory
-(``tick_geometry``: threads and instances per block, dynamic shared bytes;
-``tick_occupancy``: what the card keeps resident). The route is fixed by the
-shape; no switch restores the one-thread body there.
+tick, with either tail, runs ``BOX_G`` = 16 threads per instance instead:
+lane 0 ingests the VO and builds the two changed slots, the group the
+marginalization, the shift with its cache update and the streaming sweep, each
+lane a row of every s×s block (with the Cholesky tail: a column of L⁻¹U_prev,
+then a row of the factor), with the blocks that a product reads whole in
+shared memory (``tick_geometry``: threads and instances per block, dynamic
+shared bytes; ``tick_occupancy``: what the card keeps resident). The route is
+fixed by the shape; no switch restores the one-thread body there.
 
 With state box constraints in the consts (``c.x_lb``) the constrained variant
 of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
@@ -100,7 +101,7 @@ BLOCK = 32       # threads per block of a launch unless the caller names ``block
 # fit a block's shared memory where eight do not (float64)
 BOX_G = 16
 BLOCK_BOX = 128
-# the unconstrained Gauss-Jordan tick above s=9 (Cassie) runs BOX_G threads
+# the unconstrained tick (either tail) above s=9 (Cassie) runs BOX_G threads
 # per instance too (``tick_group``); its threads per block unless the caller
 # names ``block``
 BLOCK_TICK = 128
@@ -109,10 +110,11 @@ BLOCK_TICK = 128
 SHARED_PER_BLOCK, SHARED_PER_SM, SHARED_RESERVED_PER_BLOCK = 232448, 233472, 1024
 # incremented where a CUDA kernel is launched, nowhere else: one count per
 # kernel — the unconstrained tick (mhe_kernel; at Cassie's shape on a group of
-# threads per instance, as mhe_pi_kernel), the constrained one
-# (mhe_box_kernel), their per-lane-clock variants (mhe_pi_kernel,
-# mhe_pi_box_kernel), the unconstrained tick with the Cholesky tail
-# (mhe_chol_kernel, mhe_pi_chol_kernel) and the stage ablation
+# threads per instance, as mhe_pi_kernel, mhe_chol_kernel and
+# mhe_pi_chol_kernel), the constrained one (mhe_box_kernel), their
+# per-lane-clock variants (mhe_pi_kernel, mhe_pi_box_kernel), the
+# unconstrained tick with the Cholesky tail (mhe_chol_kernel,
+# mhe_pi_chol_kernel) and the stage ablation
 # (mhe_abl_kernel, one count per stage)
 launches = 0
 launches_box = 0
@@ -320,11 +322,11 @@ def box_geometry(s, dtype, block=None, N=20):
 
 
 def tick_group(s):
-    """Whether the unconstrained Gauss-Jordan tick runs a group of ``BOX_G``
-    threads per instance at state size ``s`` (``csrc/mhe_body.cuh``'s
-    ``tick_group``, fixed by the shape): above s=9 (Cassie); at s=9 (Go1,
-    PogoX) one thread per instance. The Cholesky tail, the stage ablation and
-    the constrained tick's prelude stay on one thread."""
+    """Whether the unconstrained tick, with the Gauss-Jordan or the Cholesky
+    tail, runs a group of ``BOX_G`` threads per instance at state size ``s``
+    (``csrc/mhe_body.cuh``'s ``tick_group``, fixed by the shape): above s=9
+    (Cassie); at s=9 (Go1, PogoX) one thread per instance. The stage ablation
+    and the constrained tick's prelude stay on one thread."""
     return s > 9
 
 
@@ -345,7 +347,7 @@ def tick_shared_scalars(s, m):
 
 
 def tick_geometry(s, m, dtype, block=None):
-    """The launch geometry of the unconstrained Gauss-Jordan tick at state
+    """The launch geometry of the unconstrained tick (either tail) at state
     size ``s`` > 9 (``tick_group``), ``m`` measurements, element type
     ``dtype`` and ``block`` threads per block (default ``BLOCK_TICK``):
     ``BOX_G`` threads per instance, so ``block // BOX_G`` instances per
@@ -360,15 +362,15 @@ def tick_geometry(s, m, dtype, block=None):
                                        f"unconstrained tick (s={s}, m={m})"))
 
 
-def _occupancy(c, dtype, constrained, per_lane_clock, block):
+def _occupancy(c, dtype, constrained, per_lane_clock, block, chol=False):
     """A group launch's geometry as the card reports it (``dem_mhe_geometry``,
-    on the current device)."""
+    on the current device), of the unit with the Cholesky tail if ``chol``."""
     lib = kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type),
-                         per_lane_clock)
-    fn = _build.entry(lib, "dem_mhe_geometry", [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                         per_lane_clock, chol)
+    fn = _build.entry(lib, "dem_mhe_geometry", [ctypes.c_int] * 10 + [ctypes.c_void_p])
     out = (ctypes.c_int * 7)()
-    err = fn(int(dtype == torch.float64), int(constrained), int(per_lane_clock), c.dim_state,
-             c.dim_meas, c.num_legs, int(c.leg_odom_type), c.N, block,
+    err = fn(int(dtype == torch.float64), int(constrained), int(per_lane_clock), int(chol),
+             c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type), c.N, block,
              ctypes.cast(out, ctypes.c_void_p))
     _build.check_launch(err, f"mhe_tick ({'constrained' if constrained else 'group'}) geometry")
     keys = ("instances_per_block", "threads_per_block", "shared_bytes", "blocks_per_sm",
@@ -393,12 +395,14 @@ def box_occupancy(c, dtype, per_lane_clock=False, block=None):
     return res
 
 
-def tick_occupancy(c, dtype, per_lane_clock=False, block=None):
-    """The same figures of the unconstrained group tick (``tick_group``) for
-    the consts ``c``, without ``u_shared``."""
+def tick_occupancy(c, dtype, per_lane_clock=False, block=None, mk_solve="gj"):
+    """The same figures of the unconstrained group tick (``tick_group``) with
+    the tail ``mk_solve`` for the consts ``c``, without ``u_shared``: those
+    of the unit that runs."""
+    check_mk_solve(mk_solve)
     if block is None:
         block = tick_geometry(c.dim_state, c.dim_meas, dtype).threads_per_block
-    res = _occupancy(c, dtype, False, per_lane_clock, block)
+    res = _occupancy(c, dtype, False, per_lane_clock, block, mk_solve == "chol")
     del res["u_shared"]
     return res
 
@@ -606,8 +610,8 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     per block (default ``BLOCK``; with box consts ``BLOCK_BOX``, and then a
     multiple of ``BOX_G`` whose shared memory fits, see ``box_geometry``, which
     raises ``ValueError`` otherwise, on the CPU as on the card; likewise for
-    the unconstrained Gauss-Jordan tick above s=9, default ``BLOCK_TICK``, see
-    ``tick_geometry``); the plain version does not depend on it.
+    the unconstrained tick with either tail above s=9, default ``BLOCK_TICK``,
+    see ``tick_geometry``); the plain version does not depend on it.
     """
     check_mk_solve(mk_solve)
     check_ablate(c, ablate, vo.active.ndim == 2, mk_solve)
@@ -638,7 +642,7 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
         _build.require_lanes(name, a, sh, dtype, dev)
     if constrained:
         block = box_geometry(s, dtype, block, N).threads_per_block
-    elif mk_solve == "gj" and not ablate and tick_group(s):
+    elif not ablate and tick_group(s):
         block = tick_geometry(s, m, dtype, block).threads_per_block
     else:
         block = _check_block(block)

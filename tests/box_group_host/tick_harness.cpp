@@ -1,7 +1,8 @@
 // The unconstrained MHE tick on the host: mhe_body (csrc/mhe_body.cuh) at
 // Cassie's shape (s=15, m=6, L=2, foot positions as states) on a group of
 // BOX_G lanes per instance (GRP; each instance's 16 lanes as std::threads,
-// prelude.h's barrier for __syncwarp) against the one-thread body, on window
+// prelude.h's barrier for __syncwarp) against the one-thread body, with the
+// Gauss-Jordan or the Cholesky tail (CHOL) as the case names it, on window
 // states and tick inputs that tests/test_torch_tick_group.py writes from the
 // plain path. Each case runs in float64 and float32; x, the 18 window-state
 // tensors and the Bezier schedule must agree bit for bit. Built without FMA
@@ -34,11 +35,11 @@ static int st_size(int k, int N) {
   return sz[k];
 }
 
-// a case file: N, B, Tn, t0, pi; the consts; the VO metadata (Tn or Tn*B
+// a case file: N, B, Tn, t0, pi, chol; the consts; the VO metadata (Tn or Tn*B
 // each) and the Bezier count (1 or B) as ints; the Bezier times (4 or 4B),
 // the inputs and the state as float64, in the lanes layout
 struct Case {
-  int N, B, Tn, t0, pi;
+  int N, B, Tn, t0, pi, chol;
   std::vector<double> consts, times, in[NIN], st[NST];
   std::vector<int> active, pre, now, count;
 };
@@ -47,9 +48,9 @@ static Case read_case(const char* path) {
   Case c;
   FILE* f = fopen(path, "rb");
   if (!f) { perror(path); exit(2); }
-  int h[5];
-  bool ok = fread(h, sizeof(int), 5, f) == 5;
-  c.N = h[0]; c.B = h[1]; c.Tn = h[2]; c.t0 = h[3]; c.pi = h[4];
+  int h[6];
+  bool ok = fread(h, sizeof(int), 6, f) == 6;
+  c.N = h[0]; c.B = h[1]; c.Tn = h[2]; c.t0 = h[3]; c.pi = h[4]; c.chol = h[5];
   auto rd = [&](auto& v, size_t n) {
     v.resize(n);
     ok = ok && fread(v.data(), sizeof(v[0]), n, f) == n;
@@ -75,7 +76,7 @@ template <typename T> struct Out {
   std::vector<int> count;
 };
 
-template <typename T, bool PI, bool GRP>
+template <typename T, bool PI, bool CHOL, bool GRP>
 static Out<T> run(const Case& cs) {
   const int N = cs.N, B = cs.B, Tn = cs.Tn, nb = PI ? B : 1;
   Out<T> o;
@@ -96,7 +97,7 @@ static Out<T> run(const Case& cs) {
   if constexpr (!GRP) {
     threadIdx.x = 0;
     for (int b = 0; b < B; ++b)
-      mhe_body<T, S, M, L, LOT, false, PI>(p, c, nullptr, N, B, Tn, cs.t0, b);
+      mhe_body<T, S, M, L, LOT, false, PI, CHOL>(p, c, nullptr, N, B, Tn, cs.t0, b);
   } else {
     std::barrier<> bar(BOX_G);
     g_bar = &bar;
@@ -105,8 +106,8 @@ static Out<T> run(const Case& cs) {
       for (int l = 0; l < BOX_G; ++l)
         th.emplace_back([&, l] {
           threadIdx.x = l;
-          mhe_body<T, S, M, L, LOT, false, PI, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn,
-                                                                      cs.t0, b);
+          mhe_body<T, S, M, L, LOT, false, PI, CHOL, ABL_NONE, true>(p, c, nullptr, N, B, Tn,
+                                                                     cs.t0, b);
         });
       for (auto& t : th) t.join();
     }
@@ -125,9 +126,9 @@ static int cmp(const char* f, const std::vector<T>& a, const std::vector<T>& b) 
   return n;
 }
 
-template <typename T, bool PI>
+template <typename T, bool PI, bool CHOL>
 static int check(const Case& cs, const char* tag, FILE* out) {
-  const Out<T> one = run<T, PI, false>(cs), grp = run<T, PI, true>(cs);
+  const Out<T> one = run<T, PI, CHOL, false>(cs), grp = run<T, PI, CHOL, true>(cs);
   int nx = cmp("x", one.x, grp.x), ns = 0, nb = cmp("bez_times", one.times, grp.times);
   for (int k = 0; k < NST; ++k) {
     char name[16];
@@ -137,14 +138,21 @@ static int check(const Case& cs, const char* tag, FILE* out) {
   for (size_t k = 0; k < one.count.size(); ++k) nb += one.count[k] != grp.count[k];
   double xmax = 0;
   for (auto v : one.x) xmax = std::fmax(xmax, std::fabs((double)v));
-  printf("%s %s %s: x %d state %d schedule %d differ; max|x|=%g\n", tag,
-         sizeof(T) == 8 ? "f64" : "f32", PI ? "per-lane" : "shared", nx, ns, nb, xmax);
+  printf("%s %s %s %s: x %d state %d schedule %d differ; max|x|=%g\n", tag,
+         sizeof(T) == 8 ? "f64" : "f32", PI ? "per-lane" : "shared", CHOL ? "chol" : "gj", nx,
+         ns, nb, xmax);
   if (out) {
     fwrite(grp.x.data(), sizeof(T), grp.x.size(), out);
     for (int k = 0; k < NST; ++k) fwrite(grp.st[k].data(), sizeof(T), grp.st[k].size(), out);
     fwrite(grp.times.data(), sizeof(T), grp.times.size(), out);
   }
   return nx + ns + nb;
+}
+
+// both types of a case, on its clock with its tail
+template <bool PI, bool CHOL>
+static int both(const Case& cs, const char* tag, FILE* out) {
+  return check<double, PI, CHOL>(cs, tag, out) + check<float, PI, CHOL>(cs, tag, nullptr);
 }
 
 int main(int argc, char** argv) {
@@ -157,8 +165,9 @@ int main(int argc, char** argv) {
     const Case cs = read_case(argv[a]);
     FILE* out = fopen(argv[a + 1], "wb");
     if (!out) { perror(argv[a + 1]); return 2; }
-    fails += cs.pi ? check<double, true>(cs, argv[a], out) + check<float, true>(cs, argv[a], nullptr)
-                   : check<double, false>(cs, argv[a], out) + check<float, false>(cs, argv[a], nullptr);
+    const char* tag = argv[a];
+    fails += cs.pi ? (cs.chol ? both<true, true>(cs, tag, out) : both<true, false>(cs, tag, out))
+                   : (cs.chol ? both<false, true>(cs, tag, out) : both<false, false>(cs, tag, out));
     fclose(out);
   }
   printf(fails ? "FAIL\n" : "ALL BIT-IDENTICAL\n");

@@ -1,17 +1,19 @@
 """The unconstrained tick on a group of threads per instance (Cassie's shape).
 
-Above s=9 the unconstrained Gauss-Jordan tick (K2, K2b) runs ``BOX_G`` = 16
-threads per instance: ``tick_geometry`` gives the launch (threads and
-instances per block, dynamic shared bytes), and the wrapper on CPU tensors
-still takes the plain version, with a block that must be a multiple of 16.
-Without a card, ``tests/box_group_host/tick_harness.cpp`` builds the tick body
-of ``csrc/mhe_body.cuh`` with g++ and runs it on the group (each instance's 16
-lanes as host threads) and on one thread per instance, from plain-path states
-of the bench's Cassie fleet, for 24 ticks (the window full from tick 20, so
-the marginalization runs), in float64 and float32, on the shared camera clock
-and on a clock per lane with a VO-free lane: x, every window-state tensor and
-the Bezier schedule must agree bit for bit, and the float64 result must match
-the plain version (the window's weights on their diagonal scale).
+Above s=9 the unconstrained tick runs ``BOX_G`` = 16 threads per instance,
+with the Gauss-Jordan tail (K2, K2b) and with the Cholesky tail (K2d, K2d-PI):
+``tick_geometry`` gives the launch (threads and instances per block, dynamic
+shared bytes), and the wrapper on CPU tensors still takes the plain version,
+with a block that must be a multiple of 16. Without a card,
+``tests/box_group_host/tick_harness.cpp`` builds the tick body of
+``csrc/mhe_body.cuh`` with g++ and runs it on the group (each instance's 16
+lanes as host threads) and on one thread per instance, with either tail, from
+plain-path states of the bench's Cassie fleet, for 24 ticks (the window full
+from tick 20, so the marginalization runs), in float64 and float32, on the
+shared camera clock and on a clock per lane with a VO-free lane: x, every
+window-state tensor and the Bezier schedule must agree bit for bit, and the
+float64 result must match the plain version (the window's weights on their
+diagonal scale).
 """
 
 import os
@@ -47,14 +49,19 @@ def _layout_bytes(s, m, item):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_tick_geometry(dtype):
-    """At s=15 (Cassie) the unconstrained tick launches 16 threads per
-    instance, BLOCK_TICK threads per block by default, with the layout's
-    shared bytes per instance; any multiple of 16 up to 256 fits a block; a
-    block that is no multiple of 16 raises, and so does a shape that ticks
-    one thread per instance."""
+    """At s=15 (Cassie) the unconstrained tick, with either tail, launches 16
+    threads per instance, BLOCK_TICK threads per block by default, with the
+    layout's shared bytes per instance (the Cholesky tail keeps its packed
+    factor and reciprocal pivots, s(s+1)/2 + s scalars, in a matrix buffer of
+    max(s², m²), and z, yv, x in three of the four vectors); any multiple of
+    16 up to 256 fits a block; a block that is no multiple of 16 raises, and
+    so does a shape that ticks one thread per instance or an unknown tail."""
     item = torch.empty((), dtype=dtype).element_size()
     per = _layout_bytes(15, 6, item)
     assert per % 128 == 64 and per == {4: 5568, 8: 11072}[item]
+    assert 15 * 16 // 2 + 15 <= max(15 * 15, 6 * 6) and 15 < mrk.BOX_G   # a spare lane
+    with pytest.raises(ValueError, match="mk_solve"):
+        mrk.tick_occupancy(None, dtype, mk_solve="cholesky")
     assert mrk.tick_group(15) and not mrk.tick_group(9)
     g = mrk.tick_geometry(15, 6, dtype)
     assert g.threads_per_block == mrk.BLOCK_TICK
@@ -115,16 +122,16 @@ def _state_scales(arrays):
     return [out[n] for n in STATE]
 
 
-def _write_case(path, c, ks, d, v, i):
-    """One case for tick_harness.cpp: N, B, Tn, t0, per-lane clock; the
-    packed consts; the VO metadata and Bezier count (int32); the Bezier
+def _write_case(path, c, ks, d, v, i, chol=False):
+    """One case for tick_harness.cpp: N, B, Tn, t0, per-lane clock, Cholesky
+    tail; the packed consts; the VO metadata and Bezier count (int32); the Bezier
     times, the tick inputs and the window state (float64, lanes layout)."""
     Tn, B = d.accel_b.shape[0], d.accel_b.shape[-1]
     pi = v.active.ndim == 2
     ints = lambda a: np.ascontiguousarray(a.numpy().astype(np.int32)).tobytes()
     f64 = lambda a: np.ascontiguousarray(a.double().numpy()).tobytes()
     with open(path, "wb") as f:
-        f.write(struct.pack("5i", c.N, B, Tn, ks.t + 1, int(pi)))
+        f.write(struct.pack("6i", c.N, B, Tn, ks.t + 1, int(pi), int(chol)))
         f.write(mrk._pack_consts(mrk.consts_from_mhe(c)).tobytes())
         for a in (v.active, v.tick_pre, v.tick_now, ks.bez_count):
             f.write(ints(a))
@@ -147,24 +154,32 @@ def tick_harness(tmp_path_factory):
     return exe
 
 
-@pytest.mark.parametrize("per_lane", [False, True], ids=["shared_clock", "per_lane_clocks"])
-def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, per_lane):
+@pytest.mark.parametrize("tail,per_lane", [
+    pytest.param("gj", False, id="shared_clock"),
+    pytest.param("gj", True, id="per_lane_clocks"),
+    pytest.param("chol", False, id="chol-shared_clock"),
+    pytest.param("chol", True, id="chol-per_lane_clocks")])
+def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, tail, per_lane):
     """mhe_body on the group (GRP: the marginalization, the shift with its
     cache update and the streaming sweep row-parallel, lane 0 the VO
-    ingestion and the 3 x 3 builders) gives the one-thread body's x, window
-    state and Bezier schedule bit for bit over 24 ticks, in float64 and
-    float32; on per-lane clocks with a lane that never ingests. Its float64 x
-    and state are the plain version's. A lane that leaves a sync alone hangs
-    the barrier, which the time limit turns into a failure."""
+    ingestion and the fresh slots' blocks; with the Cholesky tail W column-parallel,
+    S_j row-parallel and the factor column by column) gives the one-thread
+    body's x, window state and Bezier schedule bit for bit over 24 ticks, in
+    float64 and float32, with the Gauss-Jordan tail ("gj") and the Cholesky
+    tail ("chol"); on per-lane clocks with a lane that never ingests. Its
+    float64 x and state are the plain version's (the plain version does not
+    depend on the tail). A lane that leaves a sync alone hangs the barrier,
+    which the time limit turns into a failure."""
     c, ks, d, v, i = _fleet(per_lane)
     if per_lane:
         assert not bool(v.active[:, -1].any()) and int(v.active[:, 0].sum()) >= 4
     case, out = str(tmp_path / "case.bin"), str(tmp_path / "out.bin")
-    _write_case(case, c, ks, d, v, i)
+    _write_case(case, c, ks, d, v, i, chol=tail == "chol")
     run = subprocess.run([tick_harness, case, out], capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
     lines = run.stdout.splitlines()
     assert lines[-1] == "ALL BIT-IDENTICAL" and len(lines) == 3, run.stdout
+    assert all(f" {tail}: x 0 state 0 schedule 0 differ" in ln for ln in lines[:2]), run.stdout
 
     # the group's float64 x and state against the plain version
     xp, ksp = mrk.replay_ticks_plain(c, ks, d, v, i)
@@ -183,9 +198,8 @@ def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, p
 
 def test_unconstrained_wrapper_takes_the_plain_version_on_the_cpu():
     """On CPU tensors the unconstrained ``replay_ticks`` at Cassie's shape is
-    its plain version at any block the group launch takes; a block that is no
-    multiple of 16 raises here too, while the Cholesky tail, on one thread
-    per instance at every shape, takes it."""
+    its plain version at any block the group launch takes, with either tail;
+    a block that is no multiple of 16 raises here too, with either tail."""
     c, ks, d, v, i = _fleet(False, B=2, T=6)
     before = mrk.launches
     x, st = mrk.replay_ticks(c, ks, d, v, i, device="cpu")
@@ -196,9 +210,11 @@ def test_unconstrained_wrapper_takes_the_plain_version_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(st.arrays, stp.arrays))
     with pytest.raises(ValueError, match="multiple of"):
         mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=40)
-    # the Cholesky tail stays on one thread per instance at this shape
-    xc, _ = mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=40, mk_solve="chol")
-    assert torch.equal(xc, xp)
+    # the Cholesky tail runs on the group at this shape too
+    xc, _ = mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=48, mk_solve="chol")
+    assert torch.equal(xc, xp) and mrk.launches_chol == 0
+    with pytest.raises(ValueError, match="multiple of"):
+        mrk.replay_ticks(c, ks, d, v, i, device="cpu", block=40, mk_solve="chol")
 
 
 def test_tool_cassie_sweep_on_the_cpu():
