@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Compare two checkouts' kernels on one card: every kernel's ptxas figures,
-the unconstrained tick's time in turns at Go1's and Cassie's shapes with
-either tail, the constrained tick's (K2c) time in turns, and both ticks'
-float64 results.
+the unconstrained tick's time in turns at Go1's and PogoX's shapes (s=9) with
+either tail, and its float64 results.
 
-    python3 chip_ab_mhe_tick.py OTHER_CHECKOUT
+    python3 chip_ab_mhe_tick.py OTHER_CHECKOUT [--turns-only | --bits-only]
 
 Run from the root of this checkout on a machine with one NVIDIA GPU and nvcc.
 ``OTHER_CHECKOUT`` is the root of a second checkout (for instance the parent
@@ -12,29 +11,29 @@ commit unpacked with ``git archive`` into a git-ignored directory). First both
 checkouts build all their libraries at once, each with ptxas' report, and
 the script prints, for every kernel the two have in common, whether its
 registers, stack frame and spill stores and loads are the same, and which of
-those that differ are not Cassie's unconstrained tick with the Cholesky tail
-(K2d, K2d-PI: ``mhe_chol_kernel`` and ``mhe_pi_chol_kernel`` at s=15). Then,
-since two versions are
-only comparable within one run on one card, the timing turns go other, this,
-this, other; each turn is a fresh process. Go1's unconstrained tick (K2) on
-the headline fleet (T=2000, B=1024, float32, seed 0; the EKF kernel's
-orientation) prints best-of-3 device times of
-``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three times. Cassie's
-unconstrained tick at the bench's settings (cell (k): the lanes runner's
-inputs) and on its 15 clocks per lane (cell (l), K2b), and the constrained
-tick (the bench's box: |v| <= 0.3, rho=5000 fixed, 20 iterations + polish,
-float32) on Go1's headline fleet (cell (b)) and at cell (k), and the
-unconstrained tick with the Cholesky tail on Go1's headline fleet (cell (p))
-and at Cassie's cells (p) and (r), each run the whole log once per turn after
-a short warm-up. Last, each checkout runs Cassie's unconstrained tick on both
-clocks with either tail, and the constrained tick at Go1 and at cell (k) on
-both clocks, in float64 on the first 120 ticks (B=1024), then Cassie's
-unconstrained tick on both clocks with either tail in float32 over the whole
-log, and the script prints, per run, whether x and the window state (the
-constrained tick: x, the z/y rings and the iteration counts) are
+those that differ are outside the set this comparison expects to change
+(``CHANGED``: the unconstrained Gauss-Jordan tick at s=9, ``mhe_kernel`` and
+``mhe_pi_kernel``, and the stage ablation's ``mhe_abl_kernel``). Then, since
+two versions are only comparable within one run on one card, the timing turns
+go other, this, this, other; each turn is a fresh process. Go1's
+unconstrained tick (K2) on the headline fleet (cell (a): T=2000, B=1024,
+float32, seed 0; the EKF kernel's orientation) prints best-of-3 device times
+of ``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three times. Go1's
+tick on its 15 clocks per lane (cell (c), K2b), PogoX's on its fleet (cell
+(i)'s, the lanes runner's inputs) and on its 15 clocks (cell (n), K2b), and,
+as the control, the same four fleets with the Cholesky tail (K2d, K2d-PI:
+cells (p), (r)), each run the whole log once per turn after a short warm-up.
+``--turns-only`` stops after cell (a)'s turns. Last, each checkout runs Go1's
+and PogoX's unconstrained Gauss-Jordan tick on both clocks in float64 on the
+first 120 ticks (B=1024), then in float32 over the whole log, and the script
+prints, per run, whether x, the window state and the Bezier schedule are
 bit-identical between the checkouts, and the largest difference in units of
-the limit rtol=atol=1e-8 where they are not, and each checkout's first tick
-whose x is not finite.
+the limit rtol=atol=1e-8 and the count of elements that differ where they are
+not, and each checkout's first tick whose x is not finite. A run that is not
+bit-identical runs once more in both checkouts with their tick's library
+built without FMA contraction (``-fmad=false``, ``FMAD_OFF``): identical there,
+the difference is nvcc's contraction of the same operations.
+``--bits-only`` runs this last part alone.
 """
 
 import json
@@ -66,10 +65,11 @@ ms = [cs.timed(lambda: mrk.replay_ticks(c, ks, d, v, i, device=cs.DEV), reps=3)
 print(json.dumps({"mhe_tick_ms_best_of_3": ms}))
 '''
 
-# one tick kernel on one fleet: python -c TICK_TURN MODEL CLOCK CON DTYPE T OUT|-
+# one tick kernel on one fleet: python -c TICK_TURN MODEL CLOCK CON DTYPE T OUT|- [FLAGS]
 # (CLOCK shared or pi, CON free, box or chol — unconstrained with the Cholesky
 # tail; "-": time one whole-log run after a warm-up and print it; else save x
-# and the state of one run to OUT)
+# and the state of one run to OUT; FLAGS: further nvcc flags, one string, for a
+# variant build of the tick's library)
 TICK_TURN = r'''
 import json, sys
 import torch
@@ -81,6 +81,7 @@ from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes, mhe
 model, pi, box, dtype = sys.argv[1], sys.argv[2] == "pi", sys.argv[3] == "box", sys.argv[4]
 tail = "chol" if sys.argv[3] == "chol" else "gj"
 T, out = int(sys.argv[5]), sys.argv[6]
+flags = tuple(sys.argv[7].split()) if len(sys.argv) > 7 else ()
 dtype = {"f32": cs.F32, "f64": cs.F64}[dtype]
 with torch.inference_mode():
     make = cs.make_clock_fleet if pi else cs.make_fleet
@@ -88,17 +89,17 @@ with torch.inference_mode():
     fleet = tuple(cs.cast(nt, dtype) for nt in fleet)
     c = (cs.box_consts(cs.box_params(model=model), dtype, cs.V_BOX, 20) if box
          else mhe.make_consts(cs.robot_params(model)[0], dtype, device=cs.DEV))
-    if model == "go1" and not pi:   # cell (b): the pipeline's EKF orientation
+    if model == "go1" and not pi:   # cells (a), (b), (p): the pipeline's EKF orientation
         pe = EKFParams()
         st = ekf_lanes.init_state(pe, cs.B_MAIN, cs.RING, dtype, device=cs.DEV)
         q, _ = ekf_kernel.replay(ekf_lanes.make_consts(pe, dtype), st, fleet[1], device=cs.DEV)
         _, ks, (d, v, i) = cs.window_inputs(c, fleet, ekf_lanes.to_rot(q), dtype, T)
-    else:                            # the lanes runner's inputs (cells (k), (l))
+    else:                            # the lanes runner's inputs (cells (c), (i), (n), (r))
         ks, (d, v, i) = cs.clock_inputs(c, fleet, dtype)
     del fleet
     run = lambda n: mrk.replay_ticks(c, ks, *(type(a)(*(t[:n] for t in a)) if isinstance(a, tuple)
                                              else a[:n] for a in (d, v, i)), device=cs.DEV,
-                                     mk_solve=tail)
+                                     mk_solve=tail, nvcc_flags=flags)
     if out == "-":
         run(50)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -146,15 +147,10 @@ def ptxas_both(other):
     common = sorted(set(figs[other]) & set(figs["."]))
     differ = {k: {"other": figs[other][k], "this": figs["."][k]} for k in common
               if figs[other][k] != figs["."][k]}
-    # Cassie's unconstrained Cholesky-tail kernels (K2d, K2d-PI at s=15) are
-    # the ones this comparison expects to differ; every other kernel is listed
-    # apart
-    redesigned = re.compile(r"(15mhe_chol_kernel|18mhe_pi_chol_kernel)I[fd]Li15E")
     print(json.dumps({"ptxas_registers_frame_spill_stores_loads": {
         "kernels_in_common": len(common), "identical": len(common) - len(differ),
-        "differ": differ,
-        "differ_other_than_cassies_cholesky_tick": sorted(
-            k for k in differ if not redesigned.search(k)),
+        "differ": differ, "expected_to_change": CHANGED.pattern,
+        "differ_outside_the_expected": sorted(k for k in differ if not CHANGED.search(k)),
         "only_in_this": sorted(set(figs["."]) - set(figs[other])),
         "only_in_other": sorted(set(figs[other]) - set(figs["."]))}}), flush=True)
 
@@ -170,33 +166,33 @@ def run_turn(tree, code, *args):
     return json.loads(lines[-1]) if lines else None
 
 
-# Cassie's unconstrained tick on both clocks with either tail (K2, K2b, K2d,
-# K2d-PI)
-CASSIE_FREE = [("cassie_bench", clock, tail) for tail in ("free", "chol")
-               for clock in ("shared", "pi")]
+# the kernels this comparison expects to change ptxas figures: the
+# unconstrained Gauss-Jordan tick at s=9 (K2, K2b at Go1's and PogoX's shapes,
+# now on a group per instance) and the stage ablation (K2e, on the group)
+CHANGED = re.compile(r"(10mhe_kernel|13mhe_pi_kernel)I[fd]Li9E|14mhe_abl_kernel")
+FMAD_OFF = "-fmad=false"
+# Go1's and PogoX's unconstrained Gauss-Jordan tick on both clocks (K2, K2b)
+S9_FREE = [(model, clock, "free") for model in ("go1", "pogox") for clock in ("shared", "pi")]
 
 
-def tick_bits(other, T=120, dtype="f64", runs=None):
+def tick_bits(other, runs, T=120, dtype="f64", flags=""):
     """The tick kernels in ``dtype`` in both checkouts over ticks 1..T-1
-    (``runs``: (model, clock, free|box|chol); by default Cassie's
-    unconstrained tick at the bench's settings with either tail and the
-    constrained tick at Go1 and at the bench's Cassie, each on both clocks);
-    per run, whether x, the window
+    (``runs``: (model, clock, free|box|chol); ``flags``: further nvcc flags
+    of both checkouts' tick libraries); per run, whether x, the window
     state and the Bezier schedule (the constrained tick: x, z, y and the
     iteration counts) are bit-identical, NaN where NaN, and where not, the
     largest |this - other| / (1e-8 + 1e-8 |other|) and the count of elements
     that differ; and each checkout's first tick whose x is not finite (None
-    where every x is)."""
+    where every x is). Returns the runs that are not bit-identical."""
     import torch
 
-    runs = runs or CASSIE_FREE + [
-        (model, clock, "box") for model in ("go1", "cassie_bench") for clock in ("shared", "pi")]
+    differ = []
     with tempfile.TemporaryDirectory() as tmp:
         for model, clock, con in runs:
             res = {}
             for tree in (other, "."):
                 f = os.path.join(tmp, f"{'this' if tree == '.' else 'other'}.pt")
-                run_turn(tree, TICK_TURN, model, clock, con, dtype, str(T), f)
+                run_turn(tree, TICK_TURN, model, clock, con, dtype, str(T), f, flags)
                 res[tree] = torch.load(f)
             keys = ("x", "z", "y", "iters") if con == "box" else (
                 "x", "bez_times", "bez_count", *(f"state{k}" for k in range(18)))
@@ -214,10 +210,14 @@ def tick_bits(other, T=120, dtype="f64", runs=None):
                             ((a - b).abs() / (1e-8 + 1e-8 * b.abs())).nan_to_num(0.0).max())
             bad = {("this" if tree == "." else "other"): first_nonfinite_tick(res[tree]["x"])
                    for tree in (other, ".")}
+            same = all(r["bit_identical"] for r in row.values())
+            if not same:
+                differ.append((model, clock, con))
             print(json.dumps({{"f64": "float64", "f32": "float32"}[dtype]: {
                 "model": model, "clock": clock, "tick": con, "T": T, "B": 1024,
-                "all_bit_identical": all(r["bit_identical"] for r in row.values()),
+                "nvcc_flags": flags, "all_bit_identical": same,
                 "first_nonfinite_tick": bad, **row}}), flush=True)
+    return differ
 
 
 def first_nonfinite_tick(x):
@@ -229,22 +229,30 @@ def first_nonfinite_tick(x):
     return int(bad[0]) + 1 if len(bad) else None
 
 
-def main(other):
-    ptxas_both(other)
-    for tree in (other, ".", ".", other):
-        print(json.dumps({"checkout": tree, **run_turn(tree, TURN)}), flush=True)
-    for model, clock, con in (("cassie_bench", "shared", "free"), ("cassie_bench", "pi", "free"),
-                              ("go1", "shared", "box"), ("cassie_bench", "shared", "box"),
-                              ("go1", "shared", "chol"), ("cassie_bench", "shared", "chol"),
-                              ("cassie_bench", "pi", "chol")):
+def main(other, mode=""):
+    if not mode:
+        ptxas_both(other)
+    if mode != "--bits-only":
         for tree in (other, ".", ".", other):
-            print(json.dumps({"checkout": tree, **run_turn(tree, TICK_TURN, model, clock, con,
-                                                           "f32", "2000", "-")}), flush=True)
-    tick_bits(other)
-    tick_bits(other, T=2000, dtype="f32", runs=CASSIE_FREE)
+            print(json.dumps({"checkout": tree, **run_turn(tree, TURN)}), flush=True)
+    if mode == "--turns-only":
+        return
+    if not mode:
+        for model, clock, con in (("go1", "pi", "free"), ("pogox", "shared", "free"),
+                                  ("pogox", "pi", "free"), ("go1", "shared", "chol"),
+                                  ("go1", "pi", "chol"), ("pogox", "shared", "chol"),
+                                  ("pogox", "pi", "chol")):
+            for tree in (other, ".", ".", other):
+                print(json.dumps({"checkout": tree, **run_turn(
+                    tree, TICK_TURN, model, clock, con, "f32", "2000", "-")}), flush=True)
+    for T, dtype in ((120, "f64"), (2000, "f32")):
+        differ = tick_bits(other, S9_FREE, T=T, dtype=dtype)
+        if differ:   # the same runs without FMA contraction in either checkout
+            tick_bits(other, differ, T=T, dtype=dtype, flags=FMAD_OFF)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
+            [], ["--turns-only"], ["--bits-only"]):
         raise SystemExit(__doc__)
-    main(sys.argv[1])
+    main(*sys.argv[1:])

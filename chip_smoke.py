@@ -76,10 +76,11 @@ kernel state, a ragged fleet through the lanes runner with DEM_MK_SOLVE=chol);
 then each robot's 15-clock fleet through the lanes runner at full width with
 DEM_MK_SOLVE=chol against a float64 run, element-wise against its plain
 version, and timed against K2b. And the stage ablation of the tick (K2e,
-cell (s)): each ablated unit against its plain version at a small size
+cell (s)) at Go1's and PogoX's shapes, on 16 threads per instance as the tick
+it ablates: each ablated unit against its plain version at a small size
 (float64, the same positions of non-finite values), then the stage table of
-``decentralized_ekf_mhe_tpu_torch.tools.roofline.ablation`` on cell (a)'s
-fleet.
+``decentralized_ekf_mhe_tpu_torch.tools.roofline.ablation`` on the shape's
+headline fleet ((a), (i)), printed for each.
 
 The constrained tick runs its window solve on 16 threads per instance: the
 small checks also show that a launch it cannot take raises (a block that is
@@ -88,13 +89,13 @@ its launch geometry at each shape, clock and type — threads, instances and
 dynamic shared memory per block, the blocks the card keeps resident per SM,
 the units' ptxas figures — and holds every float32 launch to at least 8
 instances per SM. The kernels line's rows of the constrained tick name the
-source of its window solve. At Cassie's shape the unconstrained tick, with
-either tail (K2, K2b, K2d, K2d-PI), runs the whole tick on 16 threads per
-instance: the ragged fleet of the small checks (1001 instances) ends each of
-its launches in a partial block, the Cholesky phases print their units'
-launch, and a phase after the last prints the geometry of all four beside the
-constrained tick's, which the kernels line's Cassie K2, K2b, K2d and K2d-PI
-rows carry.
+source of its window solve. The unconstrained tick with the Gauss-Jordan
+tail (K2, K2b) at every shape, and with the Cholesky tail (K2d, K2d-PI) at
+Cassie's, runs the whole tick on 16 threads per instance: the ragged fleet of
+the small checks (1001 instances) ends each of its launches in a partial
+block, the Cassie Cholesky phases print their units' launch, and a phase
+after the last prints the geometry of each such unit beside the constrained
+tick's, which the kernels line's rows of those kernels carry.
 
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
@@ -260,7 +261,7 @@ T_F64_CHK = 300
 # size that cancel to a few hundred or to rounding noise, so no limit on the
 # value separates rounding from a wrong sum (the kernel read 41 times TOL_MHE
 # there, PERF.md §7). It is held to ATOL_SOLVE + RTOL_SOLVE times the
-# magnitude of its elementary products (``solve_scales``' terms: the normal
+# magnitude of its elementary products (``mrk.solve_stage_scales``' terms: the normal
 # equations of the absolute values), the scale of the rounding that the
 # kernel's and the plain version's orders of summation leave in it: 900 eps,
 # where the sound kernel reads up to 6.3e-14 (280 eps) of it; the readings
@@ -286,7 +287,7 @@ T_START = time.time()
 # (CASSIE_LATE_BUILDS), while the GPU runs bench_route's long Cassie ticks
 GO1_LIBRARIES = ("tridiag_s9", "ekf", "mhe_go1", "admm_s9")
 LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF), "mhe_go1_abl",
-                "mhe_pogox", "mhe_pogox_chol", "mhe_pogox_pi",
+                "mhe_pogox", "mhe_pogox_abl", "mhe_pogox_chol", "mhe_pogox_pi",
                 "tridiag_s15", "admm_s15", "mhe_cassie", ("mhe_cassie", FMAD_OFF))
 CASSIE_LATE_BUILDS = ("mhe_cassie_chol", "mhe_cassie_pi")
 BUILDS_AT_ONCE = 4
@@ -962,8 +963,8 @@ TICK_ROWS = {"mhe_tick": (False, "gj"), "mhe_tick_pi": (True, "gj"),
 
 
 def mark_tick_group(kernels, geometry):
-    """The rows of the unconstrained tick at a shape where it runs a group of
-    threads per instance (K2, K2b, K2d, K2d-PI at Cassie's) carry that
+    """The rows of the unconstrained tick where it runs a group of threads per
+    instance (K2, K2b at every shape, K2d, K2d-PI at Cassie's) carry that
     launch's geometry as the card reports it (``tick_geometry_phase``),
     float32, with the units' ptxas figures."""
     for row in kernels:
@@ -1568,14 +1569,14 @@ def tick_group_figures(p, pi, tail):
     figures; every launch keeps all B_MAIN instances resident at once.
     {"float": ..., "double": ...}."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    assert mrk.tick_group(p.dim_state)
+    assert mrk.tick_group(p.dim_state, tail)
     c = mhe.make_consts(p, F32, device=DEV)
     lib = mrk.kernel_library(p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type, pi,
                              tail == "chol")
     figs = tick_ptxas(lib, "mhe_" + "pi_" * pi + "chol_" * (tail == "chol") + "kernel")
     res = {}
     for dtype, name in ((F32, "float"), (F64, "double")):
-        want = mrk.tick_geometry(p.dim_state, p.dim_meas, dtype)
+        want = mrk.tick_geometry(p.dim_state, p.dim_meas, dtype, mk_solve=tail)
         card = mrk.tick_occupancy(c, dtype, pi, mk_solve=tail)
         assert (card["shared_bytes"], card["instances_per_block"],
                 card["threads_per_block"]) == (
@@ -1588,18 +1589,20 @@ def tick_group_figures(p, pi, tail):
 
 def tick_geometry_phase():
     """The unconstrained tick's launch where it runs a group of threads per
-    instance (``mrk.tick_group``: Cassie's shape), on both clocks, with both
-    tails, in both types (``tick_group_figures``). Returns the float32
-    figures by (robot, per-lane clock, tail) for the kernels line."""
+    instance (``mrk.tick_group``: the Gauss-Jordan tail at Go1's, PogoX's and
+    Cassie's shapes, the Cholesky tail at Cassie's), on both clocks, in both
+    types (``tick_group_figures``). Returns the float32 figures by (the
+    robot's tag in the kernels line's names, per-lane clock, tail) for the
+    kernels line."""
     res, rows = {}, {}
-    for model, tag in (("cassie_bench", "cassie"),):
+    for model, tag in (("go1", ""), ("pogox", "pogox"), ("cassie_bench", "cassie")):
         p = robot_params(model)[0]
         for pi in (False, True):
-            for tail in ("gj", "chol"):
+            for tail in (t for t in mrk.MK_SOLVES if mrk.tick_group(p.dim_state, t)):
                 figs = tick_group_figures(p, pi, tail)
                 for name, card in figs.items():
-                    res[f"{tag} {'per-lane' if pi else 'shared'} clock {tail} {name}"] = dict(
-                        card, s=p.dim_state)
+                    res[f"{tag or model} {'per-lane' if pi else 'shared'} clock {tail} "
+                        f"{name}"] = dict(card, s=p.dim_state, m=p.dim_meas)
                 f32 = {k: v for k, v in figs["float"].items() if k != "ptxas"}
                 rows[(tag, pi, tail)] = dict(f32, ptxas_registers_frame_spill_stores_loads={
                     name: card["ptxas"] for name, card in figs.items()})
@@ -2642,7 +2645,7 @@ def check_kernels_chol(model):
     # above s=9 both units run a group of threads per instance: their launch
     group = ({clock: tick_group_figures(p, pi, "chol")
               for clock, pi in (("shared", False), ("per_lane", True))}
-             if mrk.tick_group(p.dim_state) else None)
+             if mrk.tick_group(p.dim_state, "chol") else None)
     emit("kernels_chol", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
          leg_odom_type=p.leg_odom_type, threads_per_instance=mrk.BOX_G if group else 1,
          group_launch=group, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
@@ -2741,7 +2744,7 @@ def chol_path(model, fleet64, fleet32, gt_v, k2_ms=None):
          f"L={p.num_legs} leg_odom_type={p.leg_odom_type}, DEM_MK_SOLVE=chol, "
          + ("lanes runner" if lanes else "pipeline runner"),
          group_launch_f32=(tick_group_figures(p, False, "chol")["float"]
-                           if mrk.tick_group(s) else None),
+                           if mrk.tick_group(s, "chol") else None),
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
          pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
          rmse_vs_ground_truth=rmse, rmse_f64=r64, rmse_f64_all_ticks=r64_all, rmse_gate=gate,
@@ -3013,7 +3016,7 @@ def pi_chol_cell(model, clocks64, clocks32, gt_v, k2b_ms=None):
          config=f"{model} N={N_WIN} s={s} m={m} L={L} leg_odom_type={lot}, 15 camera clocks, "
          "every 64th lane VO-free, DEM_MK_SOLVE=chol, lanes runner",
          group_launch_f32=(tick_group_figures(p, True, "chol")["float"]
-                           if mrk.tick_group(s) else None),
+                           if mrk.tick_group(s, "chol") else None),
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
          wall_from="the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
          tick_kernel_only_ms=k_only, rmse_vs_ground_truth=rmse, rmse_gate=gate,
@@ -3044,53 +3047,6 @@ def pi_chol_cell(model, clocks64, clocks32, gt_v, k2b_ms=None):
 
 
 # ------------------------------------------------- the stage ablation (K2e)
-
-
-def solve_scales(c, ks, d, v, i):
-    """Per tick and state of the "solve" stage's result x = Σ_j (D_j[:,0] +
-    r_j + U_j[:,0]): ``terms``, the same sum over the magnitudes of its
-    elementary products (the normal equations assembled from the absolute
-    values of every operand, each difference a sum), the scale of the
-    rounding that two orders of summation leave in x; ``system``, the sum of
-    the magnitudes of the masked system's own entries Σ_j (|D_j[:,0]| + |r_j|
-    + |U_j[:,0]|); and ``r_sum``, Σ_j r_j, what a sum without r would miss.
-    Each (Tn, s, B), from the plain version's ticks (``mrk._step_ablated``)."""
-    from decentralized_ekf_mhe_tpu_torch.ops import lanes
-
-    N = c.N
-    H, P = c.A_meas.abs(), c.P_cam.abs()
-    st = mrk.mhe_state_from_kernel(ks, c)
-    act, pre, now = v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist()
-    out = {"terms": [], "system": [], "r_sum": []}
-    for t in range(d.accel_b.shape[0]):
-        st, _ = mrk._step_ablated(c, st, d.R_sb[t], d.accel_b[t], d.omega_b[t], d.p_foot[t],
-                                  d.J_foot[t], d.dq[t], d.contact[t], act[t], pre[t], now[t],
-                                  i[t], "solve")
-        Ds, Us, rs = mhe_lanes._masked_system(c, st)
-        out["system"].append(Ds[:, :, 0].abs().sum(0) + rs.abs().sum(0) + Us[:, :, 0].abs().sum(0))
-        out["r_sum"].append(rs.sum(0))
-        first = N - min(st.T + 1, N)
-        j = torch.arange(N, device=DEV)
-        iv = ((j >= first) & (j <= N - 2)).to(F64)[:, None, None, None]
-        cam = (st.cam_active.to(F64)[:, None, None, :] * iv)
-        A, Qd, b = st.A_dyn.abs(), st.Q_dyn.abs() * iv, st.b_dyn.abs()
-        AtQd = lanes.mm_tn(A, Qd)
-        PtQc = lanes.cmm_t(P, st.Q_cam.abs()) * cam
-        PtQcP = lanes.mmc(PtQc, P)
-        HtR = lanes.cmm_t(H, st.Q_meas.abs())
-        pc = lanes.mv(PtQc, st.b_cam.abs())
-        shift = lambda a: torch.cat([torch.zeros_like(a[:1]), a[:-1]])
-        D = lanes.mmc(HtR, H) + lanes.mm(AtQd, A) + PtQcP + shift(Qd + PtQcP)
-        r = (lanes.mv(HtR, st.y_meas.abs()) + lanes.mv(AtQd, b) + pc
-             + shift(lanes.mv(Qd, b) + pc))
-        D[first] += st.M_p.abs()
-        r[first] += st.n_p.abs()
-        valid = (j >= first).to(F64)
-        out["terms"].append((D[:, :, 0] * valid[:, None, None] + (1 - valid)[:, None, None]
-                             * (j[:, None] == 0).to(F64)[..., None]).sum(0)
-                            + (r * valid[:, None, None]).sum(0)
-                            + ((AtQd + PtQcP)[:-1, :, 0] * valid[:-1, None, None]).sum(0))
-    return {k: torch.stack(a) for k, a in out.items()}
 
 
 # the tensors of KernelState.arrays, in mrk.state_shapes' order
@@ -3141,16 +3097,18 @@ def check_state(ks_k, ks_p, tag):
     return read
 
 
-def check_ablation():
-    """Each unit of the stage ablation (K2e, ``mrk.ABLATE_STAGES``, Go1's
-    shape) against its plain version over T_ABL ticks of a B_ABL-instance
-    fleet, float64, the EKF kernel's orientation: x with the same non-finite
-    positions and its finite entries within TOL_MHE (the "solve" stage's
-    within ATOL_SOLVE + RTOL_SOLVE of its terms, see T_ABL), and the window
-    state it leaves (``check_state``); then the refusals on the card.
+def check_ablation(model):
+    """Each unit of the stage ablation (K2e, ``mrk.ABLATE_STAGES``) at
+    ``model``'s shape (Go1, PogoX) against its plain version over T_ABL ticks
+    of a B_ABL-instance fleet, float64, the EKF kernel's orientation: x with
+    the same non-finite positions and its finite entries within TOL_MHE (the
+    "solve" stage's within ATOL_SOLVE + RTOL_SOLVE of its terms, see T_ABL),
+    and the window state it leaves (``check_state``); then the refusals on the
+    card: box consts, per-lane clocks, the Cholesky tail and Cassie's shape.
     Returns ({stage: readings}, {stage: plain ms}, {refusal: message})."""
-    p = go1_params()
-    data_b, _, vo = ekf_oriented("go1", make_fleet(T_ABL, B_ABL, F64, seed=1)[1:], F64)
+    p = robot_params(model)[0]
+    data_b, _, vo = ekf_oriented(model, make_fleet(T_ABL, B_ABL, F64, seed=1,
+                                                   model=model)[1:], F64)
     c = mhe.make_consts(p, F64, device=DEV)
     ks0, (d, v, i) = clock_inputs(c, (data_b, None, vo), F64)
     assert int(v.active.sum()) > 0 and T_ABL > N_WIN
@@ -3175,7 +3133,7 @@ def check_ablation():
                        "state_over_tol": check_state(ks_k, ks_p, ("ablated mhe_tick", stage))}
         ok = same_nan and same_inf
         if stage == "solve":
-            sc = solve_scales(c, ks0, d, v, i)
+            sc = mrk.solve_stage_scales(c, ks0, d, v, i)
             tol = dict(rtol=RTOL_SOLVE, atol=ATOL_SOLVE)
             errs[stage].update(
                 x_over_tol_of_terms=over(sc["terms"], tol),
@@ -3191,14 +3149,16 @@ def check_ablation():
         assert ok, ("ablated mhe_tick vs plain", stage, errs[stage])
     refused = {}
     pi_vo = uniform_clock(v, B_ABL)
-    box = box_consts(box_params(), F64, V_BOX, 20)
+    box = box_consts(box_params(model=model), F64, V_BOX, 20)
+    cassie = mhe.make_consts(robot_params("cassie")[0], F64, device=DEV)
     for what, call in (
             ("box consts", lambda: mrk.replay_ticks(box, ks0, d, v, i, device=DEV,
                                                     ablate="solve")),
             ("per-lane clocks", lambda: mrk.replay_ticks(c, ks0, d, pi_vo, i, device=DEV,
                                                          ablate="marg")),
             ("Cholesky tail", lambda: mrk.replay_ticks(c, ks0, d, v, i, device=DEV,
-                                                       mk_solve="chol", ablate="build"))):
+                                                       mk_solve="chol", ablate="build")),
+            ("Cassie's shape", lambda: mrk.check_ablate(cassie, "ingest", False, "gj"))):
         try:
             call()
             refused[what] = None
@@ -3208,15 +3168,17 @@ def check_ablation():
     return errs, plain_ms, refused
 
 
-def ablation_phase(fleet32):
-    """Cell (s), the stage ablation of the tick: ``check_ablation``, then
-    the stage table of ``roofline.ablation`` on the first T_ABL_TABLE ticks
-    of cell (a)'s float32 fleet ``fleet32`` (K2 and the five units, each
-    alone, best of 3), whose launches are counted. Returns the units' entries
-    of the last-but-one line."""
-    errs, plain_ms, refused = check_ablation()
-    # the stage table on cell (a)'s fleet, the tool's code path
-    fleet = (go1_params(), *head(fleet32, T_ABL_TABLE))
+def ablation_phase(model, fleet32):
+    """Cell (s), the stage ablation of the tick at ``model``'s shape (Go1,
+    PogoX): ``check_ablation``, then the stage table of ``roofline.ablation``
+    on the first T_ABL_TABLE ticks of its headline float32 fleet ``fleet32``
+    (cell (a), (i); K2 and the five units, each alone, best of 3), whose
+    launches are counted. Returns the units' entries of the last-but-one
+    line."""
+    errs, plain_ms, refused = check_ablation(model)
+    # the stage table on the headline fleet, the tool's code path
+    p = robot_params(model)[0]
+    fleet = (p, *head(fleet32, T_ABL_TABLE))
     reset_counts()
     table = roofline.ablation(device=DEV, fleet=fleet)
     counts = read_counts()
@@ -3224,29 +3186,35 @@ def ablation_phase(fleet32):
     assert counts == dict(NO_LAUNCH, mhe_tick=4, mhe_tick_abl=20), counts
     assert all(n == 4 for n in by_stage.values()), by_stage
     ptxas = {}     # by stage and type: the units' kernels differ in their last template argument
-    for _, text, _ in _build.report["mhe_go1_abl"]["units"]:
+    for _, text, _ in _build.report[f"mhe_{model}_abl"]["units"]:
         for kern, fig in ptxas_figures(text).items():
             m = re.search(r"14mhe_abl_kernelI([fd])(?:Li\d+E){4}Li(\d)E", kern)
             if m:
                 ptxas[f"{mrk.ABLATE_STAGES[int(m.group(2)) - 1]} "
                       f"{ {'f': 'float', 'd': 'double'}[m.group(1)]}"] = fig
-    emit("ablation", config="Go1 N=20 s=9 m=12 L=4, the tick with one stage skipped, "
-         "roofline.ablation on cell (a)'s fleet", check={"T": T_ABL, "B": B_ABL,
-                                                         "dtype": "float64", "tol": TOL_MHE,
-                                                         "tol_solve_of_terms": dict(
-                                                             rtol=RTOL_SOLVE, atol=ATOL_SOLVE),
-                                                         "errors": errs},
+    emit("ablation", model=model,
+         config=f"{model} N={N_WIN} s={p.dim_state} m={p.dim_meas} L={p.num_legs}, the tick "
+         f"with one stage skipped on {mrk.BOX_G} threads per instance, roofline.ablation on "
+         "the headline fleet", check={"T": T_ABL, "B": B_ABL, "dtype": "float64", "tol": TOL_MHE,
+                                      "tol_solve_of_terms": dict(rtol=RTOL_SOLVE,
+                                                                 atol=ATOL_SOLVE),
+                                      "errors": errs},
          plain_f64_ms=plain_ms, refused=refused, table=table, launches=counts,
          launches_by_stage=by_stage, ptxas_registers_frame_spill_stores_loads=ptxas)
+    print(f"stage table, {model} (full - ablated over full; float32, T={table['T']}, "
+          f"B={table['B']}): full {table['full']['ms']:.3f} ms; " + "; ".join(
+              f"{stage} {row['ms']:.3f} ms, {100 * row['share']:.1f} %"
+              for stage, row in table["stages"].items()), flush=True)
     rows = []
     for stage, row in table["stages"].items():
-        name = f"mhe_tick_abl[{stage}]"
+        name = f"mhe_tick_abl[{stage}]" if model == "go1" else f"mhe_tick_abl[{model} {stage}]"
         rows += kernel_rows({name: (
             "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
             f"decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (ablate='{stage}')")},
             {name: (row["bytes"], row["operations"])}, {name: by_stage[stage]},
             {name: errs[stage]["max_abs_err"]}, {name: row["ms"]}, {name: plain_ms[stage]},
-            **{name: {"shape": {"T": table["T"], "B": table["B"], "N": N_WIN},
+            **{name: {"shape": {"T": table["T"], "B": table["B"], "N": N_WIN}, "model": model,
+                      "threads_per_instance": mrk.BOX_G,
                       "ms_how": "roofline.ablation: the kernel alone (CUDA events), best of 3",
                       "share_of_the_tick": row["share"], "full_tick_ms": table["full"]["ms"],
                       "max_abs_err_shape": {"T": T_ABL, "B": B_ABL},
@@ -3288,6 +3256,9 @@ def legged_phases(model, builds, pool, rows):
     box_counts, _, _, box_tick = box_path(model, f64, f32, gt)
     kernels = legged_full_width(model, f64, f32, q64, counts, box_counts, tick_ms, box_tick)
     del q64, box_tick
+    if model in _build.MHE_ABL_SHAPES:   # cell (s) at this shape, on its fleet (i)
+        need(builds, f"mhe_{model}_abl")
+        kernels += ablation_phase(model, f32)
     if err_std is not None:
         # K5's standard-layout route at this state size: held against its
         # plain version at the small size only; its row is the s=9 route's
@@ -3379,7 +3350,7 @@ def main():
     done("go1_cholesky")
     # cell (s): the stage ablation on cell (a)'s fleet
     need(builds, "mhe_go1_abl")
-    kernels += ablation_phase(fleet32)
+    kernels += ablation_phase("go1", fleet32)
     done("go1_ablation")
     need(builds, "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF))
     check_kernels_pi()

@@ -15,8 +15,8 @@
 // The units of one shape are grouped into shared libraries by variant: the
 // shared clock (libmhe_<tag>.so: unconstrained and constrained), the clock per
 // lane (libmhe_<tag>_pi.so), the Cholesky tail (libmhe_<tag>_chol.so, on
-// either clock) and, at Go1's shape only, the stage ablation
-// (libmhe_go1_abl.so), each built at its first use. Each library has this file once more, without
+// either clock) and, at Go1's and PogoX's shapes, the stage ablation
+// (libmhe_<tag>_abl.so), each built at its first use. Each library has this file once more, without
 // DEM_MHE_UNIT, for the one entry point below, which declares every unit of
 // its shape weak: a unit the library does not link is null there.
 //
@@ -54,8 +54,9 @@ extern "C" int DEM_CAT(DEM_MHE_UNIT, _geometry)(int N, int block, int* out) {
                                DEM_MHE_PI != 0>(N, block, out);
 }
 #elif !DEM_MHE_ABL
-// the unconstrained unit's (either tail): that of its group launch above s=9
-// (mhe_tick_geometry), -1 where it ticks one thread per instance
+// the unconstrained unit's (either tail): that of its group launch where
+// tick_group holds (mhe_tick_geometry), -1 where it ticks one thread per
+// instance
 extern "C" int DEM_CAT(DEM_MHE_UNIT, _geometry)(int N, int block, int* out) {
   (void)N;
   return dem::mhe_tick_geometry<DEM_MHE_REAL, DEM_MHE_S, DEM_MHE_M, DEM_MHE_L, DEM_MHE_LOT,
@@ -159,8 +160,8 @@ extern "C" int dem_mhe_tick(int is_double, int con, int pi, int chol, int ablate
 }
 
 // The launch geometry of a tick that runs a group of threads per instance —
-// the constrained tick (con) or, above s=9, the unconstrained one with the
-// Gauss-Jordan or (chol) the Cholesky tail — of this shape and clock (pi) at
+// the constrained tick (con) or the unconstrained one with the Gauss-Jordan
+// tail or, above s=9, (chol) the Cholesky tail — of this shape and clock (pi) at
 // N slots and `block` threads per block: out[0..6] as mhe_box_geometry and
 // mhe_tick_geometry fill them (instances and threads per block, dynamic
 // shared bytes, blocks resident per SM, registers and local bytes per thread,

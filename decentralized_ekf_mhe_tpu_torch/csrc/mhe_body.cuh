@@ -1,6 +1,7 @@
-// mhe_tick — the whole MHE replay loop, one thread per instance (the constrained
-// tick, and above s=9 the unconstrained Gauss-Jordan one: a group of 16, see
-// below): the kernel bodies, included by csrc/mhe.cu, which compiles each
+// mhe_tick — the whole MHE replay loop, one thread per instance (the
+// constrained tick's prelude, and the Cholesky tail at s=9; the unconstrained
+// tick otherwise runs a group of 16, see below): the kernel bodies, included
+// by csrc/mhe.cu, which compiles each
 // instantiation in a translation unit of its own (see there). The model shape
 // (s, m, L and the leg-odometry form LOT) is a template parameter: Go1 (9, 12,
 // 4, 0), Cassie (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
@@ -82,37 +83,41 @@
 // one leg-odometry form behind `if constexpr` on LOT.
 //
 // The unconstrained tick on a group (template parameter GRP; the kernels
-// mhe_kernel, mhe_pi_kernel, mhe_chol_kernel and mhe_pi_chol_kernel set it
-// where tick_group<S>() holds, S > 9: Cassie's K2, K2b, K2d and K2d-PI; Go1's
-// and PogoX's ticks and K2e keep the one-thread body). At s=15 one thread per
-// instance spilled its per-slot working set (seven 15 x 15 matrices, 6.3 KB in
-// float32) to local memory and ran a serial chain of s x s products on 32 of
-// the 132 SMs at B=1024. The group runs BOX_G = 16 threads per instance, two
-// instances per warp: lane r (< s) owns row r of every s x s block and element
-// r of every vector, so a product is s dependent multiply-adds per lane on s
-// lanes at once; a matrix or vector that a product reads whole goes through
-// the instance's shared memory (TickLayout) between two __syncwarp of the
-// group; the Gauss-Jordan inverses run row-parallel (admm_group.cuh's
-// gj_inv_rows). Lane 0 runs the VO ingestion and build_dynamics /
-// build_measurement (into shared memory), behind a __syncwarp; the
-// marginalization (marg_group), the shift with its cache update
-// (shift_group) and the assembly with the streaming sweep (sweep_group) run
-// on the group, and every lane writes its element of x. With the Cholesky
-// tail (CHOL) the sweep keeps the same assembly and runs chol_slot_group in
-// place of the Gauss-Jordan step — W = L^-1 U_prev column-parallel, S_j and
-// yv row-parallel, the factor column by column with one sync per column —
-// and the spare lane s solves for x.
-// Each element keeps the one-thread chain (acc = a0 v0; acc += a_k v_k over
-// k = 0, 1, ...), so the results are the one-thread body's bit for bit as far
-// as nvcc contracts the same expressions alike
-// (tests/test_torch_tick_group.py runs both bodies on the host). What bounds
-// it now: at B=1024 latency — 16 times the fleet takes 7.6 times the time
-// (PERF.md §5) — the chain of the sweep's 20 slots, each the assembly's global
-// loads, two row products and 15 pivot steps of two syncs. The window state is
-// read row by row (lane r reads row r of an instance's block), so a warp
-// touches 16 sectors where the one-thread body's 32 instances touched one: the
-// blocks are not staged through shared memory with loads coalesced across a
-// block's instances (PERF.md §7).
+// mhe_kernel, mhe_pi_kernel, mhe_chol_kernel, mhe_pi_chol_kernel and
+// mhe_abl_kernel set it where tick_group<S, CHOL>() holds: K2, K2b and K2e at
+// every shape, K2d and K2d-PI at Cassie's, s=15; Go1's and PogoX's K2d and
+// K2d-PI keep the one-thread body, which the host harness also runs as the
+// reference of the group's). At s=15 one thread per instance spilled its
+// per-slot working set (seven 15 x 15 matrices, 6.3 KB in float32) to local
+// memory; at s=9 it ran on registers but as one serial chain of s x s products
+// per instance; at either size on 32 of the 132 SMs at B=1024 (three quarters
+// of Go1's tick the sweep's inverse chain, PERF.md §5). The group runs BOX_G =
+// 16 threads per instance, two instances per warp: lane r (< s) owns row r of
+// every s x s block and element r of every vector, so a product is s dependent
+// multiply-adds per lane on s lanes at once; a matrix or vector that a product
+// reads whole goes through the instance's shared memory (TickLayout) between
+// two __syncwarp of the group; the Gauss-Jordan inverses run row-parallel
+// (admm_group.cuh's gj_inv_rows); lanes >= S own the rows of the measurement
+// blocks beyond S (Go1: M = 12). Lane 0 runs the VO ingestion; build_dynamics
+// and build_measurement run into shared memory behind a __syncwarp, in the
+// velocity form one lane per leg (shift_group); the marginalization
+// (marg_group), the shift with its cache update (shift_group) and the assembly
+// with the streaming sweep (sweep_group) run on the group, and every lane
+// writes its element of x. With the Cholesky tail (CHOL) the sweep keeps the
+// same assembly and runs chol_slot_group in place of the Gauss-Jordan step — W
+// = L^-1 U_prev column-parallel, S_j and yv row-parallel, the factor column by
+// column with one sync per column — and the spare lane s solves for x. Each
+// element keeps the one-thread chain (acc = a0 v0; acc += a_k v_k over k = 0,
+// 1, ...), so the results are the one-thread body's bit for bit as far as nvcc
+// contracts the same expressions alike (tests/test_torch_tick_group.py runs
+// both bodies on the host at each shape). What bounds it now: at B=1024 latency
+// — at Cassie's shape 16 times the fleet takes 7.6 times the time (PERF.md §5)
+// — the chain of the sweep's 20 slots, each the assembly's global loads, two
+// row products and s pivot steps of two syncs. The window state is read row by
+// row (lane r reads row r of an instance's block), so a warp touches 16 sectors
+// where the one-thread body's 32 instances touched one: the blocks are not
+// staged through shared memory with loads coalesced across a block's instances
+// (PERF.md §7).
 //
 // Foot positions as states (LOT == 1; the TPU kernel's lot-1 branches,
 // mhe_replay_kernel.py:284-319, 349-355): the dynamics gain identity foot
@@ -135,17 +140,20 @@
 // mk_solve='chol': the per-lane ingestion above, then this tail).
 //
 // The stage ablation (template parameter ABL; the TPU kernel's ablate,
-// mhe_replay_kernel.py:375-394; driven by tools/roofline.py --ablate) skips
-// one stage of the tick so that the time it saves is that stage's share. The
-// output is wrong by construction. ABL_INGEST: no VO ingestion and no Bezier
-// carry; ABL_MARG: no marginalization; ABL_BUILD: the fresh slot's dynamics,
-// camera weight and measurement are zeros (the caches are still updated from
-// them); ABL_ASSEMBLY: x = n_p after the shift and the cache update, no
-// normal equations; ABL_SOLVE: the masked system is assembled and
-// x = sum_j (D_j[:,0] + r_j + U_j[:,0]) replaces the inverse chain. Every skip
-// sits behind `if constexpr` on ABL, so ABL == ABL_NONE compiles to the tick
-// above; ABL is instantiated unconstrained, on the shared clock, with the
-// Gauss-Jordan tail only (mhe_abl_kernel), the configuration the tool times.
+// mhe_replay_kernel.py:375-394; driven by tools/roofline.py --ablate) skips one
+// stage of the tick so that the time it saves is that stage's share. The output
+// is wrong by construction. ABL_INGEST: no VO ingestion and no Bezier carry;
+// ABL_MARG: no marg_group; ABL_BUILD: shift_group gives the fresh slot's
+// dynamics, camera weight and measurement as zeros (the caches are still
+// updated from them); ABL_ASSEMBLY: no sweep_group, each lane writes its
+// element of x = n_p after the shift and the cache update; ABL_SOLVE:
+// sweep_group assembles the masked system and lane r sums D_j[r,0] + r_j[r] +
+// U_j[r,0] over the slots into x[r] in place of the inverse chain. It runs on
+// the group as the tick it ablates, so that full minus ablated subtracts one
+// body from itself. Every skip sits behind `if constexpr` on ABL, so ABL ==
+// ABL_NONE compiles to the tick above; ABL is instantiated unconstrained, on
+// the shared clock, with the Gauss-Jordan tail only (mhe_abl_kernel), the
+// configuration the tool times.
 #pragma once
 #include "admm.cuh"
 #include "admm_group.cuh"
@@ -464,11 +472,13 @@ DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd
 // s x s block and element r of every vector; lanes >= S take part in the
 // syncs and in gj_inv_rows only.
 
-// The route of the unconstrained tick, either tail, at state size S: a group
-// per instance above s=9 (Cassie), one thread per instance at s=9 (Go1,
-// PogoX; kernels/mhe_replay_kernel.py's tick_group says the same).
-template <int S>
-DEM_HHD constexpr bool tick_group() { return S > 9; }
+// The route of the unconstrained tick at state size S with its tail: a group
+// per instance with the Gauss-Jordan tail at every shape, and with the
+// Cholesky tail above s=9 (Cassie); the Cholesky tail at s=9 (Go1, PogoX) one
+// thread per instance (kernels/mhe_replay_kernel.py's tick_group says the
+// same).
+template <int S, bool CHOL>
+DEM_HHD constexpr bool tick_group() { return !CHOL || S > 9; }
 
 // One instance's shared memory in the group tick, in scalars: A_meas and
 // P_cam (copied once per launch), five matrix buffers, four vector buffers
@@ -609,47 +619,99 @@ DEM_HD void marg_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int p0) {
   __syncwarp(g.mask);   // the slot read before the shift overwrites it
 }
 
-// The ring shift on the group (mhe_lanes._tick_tail; the one-thread
-// statements in mhe_body): lane 0 runs the 3 x 3 builders of the two changed
-// slots into shared memory (the dynamics of pN2 into mat 0 A, mat 1 Q, vec 0
-// b; the measurement of the fresh slot pN1 into mat 2 Q, vec 1 y) and the
-// scalar stores, then each lane writes its rows of both slots and of the
-// Dslot/Ub/routb caches.
-template <typename T, int S, int M, int L, int LOT>
+// The ring shift on the group (mhe_lanes._tick_tail; the one-thread statements
+// in mhe_body): build_dynamics and build_measurement of the two changed slots
+// run into shared memory (the dynamics of pN2 into mat 0 A, mat 1 Q, vec 0 b;
+// the measurement of the fresh slot pN1 into mat 2 Q, vec 1 y) with the scalar
+// stores, then each lane writes its rows of both slots and of the
+// Dslot/Ub/routb caches. With foot positions as states (LOT == 1) lane 0 runs
+// them all. In the velocity form (LEGS) the legs' measurement blocks are
+// independent, so lane k (< L) builds leg k's rows (build_measurement of that
+// leg alone: each element keeps its chain) and lane L the rest, what lane 0
+// runs otherwise. ABL_BUILD: their blocks are zeros.
+template <typename T, int S, int M, int L, int LOT, int ABL>
 DEM_HD void shift_group(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                         const BoxGroup<T>& g, int i, int pN1, int pN2) {
   using Lay = TickLayout<T, S, M>;
   constexpr int SS = S * S, MM = M * M;
+  constexpr bool LEGS = LOT == 0;      // a lane per leg
+  constexpr int DYN = LEGS ? L : 0;    // the lane of the dynamics and the stores
+  static_assert(!LEGS || (M == 3 * L && L < BOX_G), "three measurement rows per leg");
   const int ln = g.ln, B = g.B, b = g.b;
   const T* H = g.sm + Lay::H;
   T *sA = g.sm + Lay::mat(0), *sQ = g.sm + Lay::mat(1), *sR = g.sm + Lay::mat(2);
   T *vb = g.sm + Lay::vec(0), *vy = g.sm + Lay::vec(1);
-  if (ln == 0) {
-    T Rp[9], accp[3], Qcn[9], tmp9[9];
-    load<9>(Rp, p.prev_R, 0, B, b);
-    load<3>(accp, p.prev_acc, 0, B, b);
-    build_dynamics<T, S, M>(c, Rp, accp, sA, vb, sQ);
-    if constexpr (LOT == 1) {
-      T ctp[L];   // the previous tick's contact gates the foot noise
-      load<L>(ctp, p.prev_ct, 0, B, b);
-      add_foot_dynamics<T, S, M, L>(c, Rp, ctp, sA, sQ);
+  if constexpr (LEGS) {
+    if (ln < L) {   // leg ln's rows 3 ln .. 3 ln + 2 of Q and y
+      T Rt[9], om[3], pf[3], Jf[9], dqv[3], ct, yl[M], Ql[MM];
+      if constexpr (ABL == ABL_BUILD) {
+        DEM_UNROLL
+        for (int k = 0; k < 3; ++k) yl[k] = T(0);
+        DEM_UNROLL
+        for (int k = 0; k < MM; ++k) Ql[k] = T(0);
+      } else {
+        load<9>(Rt, p.R, (size_t)i * 9, B, b);
+        load<3>(om, p.omega, (size_t)i * 3, B, b);
+        load<3>(pf, p.pfoot, ((size_t)i * L + ln) * 3, B, b);
+        load<9>(Jf, p.Jfoot, ((size_t)i * L + ln) * 9, B, b);
+        load<3>(dqv, p.dq, ((size_t)i * L + ln) * 3, B, b);
+        ct = ld(p.contact, (size_t)i * L + ln, B, b);
+        build_measurement<T, S, M, 1>(c, Rt, om, pf, Jf, dqv, &ct, yl, Ql);
+      }
+      DEM_UNROLL
+      for (int r = 0; r < 3; ++r) {
+        T* row = sR + (3 * ln + r) * M;
+        DEM_UNROLL
+        for (int k = 0; k < M; ++k) row[k] = T(0);
+        DEM_UNROLL
+        for (int k = 0; k < 3; ++k) row[3 * ln + k] = Ql[r * M + k];
+        vy[3 * ln + r] = yl[r];
+      }
     }
-    matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
-    matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
+  }
+  if (ln == DYN) {
+    T Qcn[9];
+    if constexpr (ABL == ABL_BUILD) {
+      for (int k = 0; k < SS; ++k) { sA[k] = T(0); sQ[k] = T(0); }
+      for (int k = 0; k < S; ++k) vb[k] = T(0);
+      DEM_UNROLL
+      for (int k = 0; k < 9; ++k) Qcn[k] = T(0);
+    } else {
+      T Rp[9], accp[3], tmp9[9];
+      load<9>(Rp, p.prev_R, 0, B, b);
+      load<3>(accp, p.prev_acc, 0, B, b);
+      build_dynamics<T, S, M>(c, Rp, accp, sA, vb, sQ);
+      if constexpr (LOT == 1) {
+        T ctp[L];   // the previous tick's contact gates the foot noise
+        load<L>(ctp, p.prev_ct, 0, B, b);
+        add_foot_dynamics<T, S, M, L>(c, Rp, ctp, sA, sQ);
+      }
+      matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
+      matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
+    }
     store<9>(p.Q_cam, (size_t)pN2 * 9, B, b, Qcn);
     fill<3>(p.b_cam, (size_t)pN2 * 3, B, b, T(0));
     st(p.cam_act, (size_t)pN2, B, b, T(0));
 
-    T Rt[9], acc[3], om[3], pf[L * 3], Jf[L * 9], dqv[L * 3], ct[L];
+    T Rt[9], acc[3], ct[L];
     load<9>(Rt, p.R, (size_t)i * 9, B, b);
     load<3>(acc, p.accel, (size_t)i * 3, B, b);
-    load<3>(om, p.omega, (size_t)i * 3, B, b);
-    load<L * 3>(pf, p.pfoot, (size_t)i * L * 3, B, b);
-    load<L * 9>(Jf, p.Jfoot, (size_t)i * L * 9, B, b);
-    load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
-    load<L>(ct, p.contact, (size_t)i * L, B, b);
-    if constexpr (LOT == 1) build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, vy, sR);
-    else build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, vy, sR);
+    if constexpr (!LEGS) {
+      T om[3], pf[L * 3], Jf[L * 9], dqv[L * 3];
+      load<3>(om, p.omega, (size_t)i * 3, B, b);
+      load<L * 3>(pf, p.pfoot, (size_t)i * L * 3, B, b);
+      load<L * 9>(Jf, p.Jfoot, (size_t)i * L * 9, B, b);
+      load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
+      load<L>(ct, p.contact, (size_t)i * L, B, b);
+      if constexpr (ABL == ABL_BUILD) {
+        for (int k = 0; k < MM; ++k) sR[k] = T(0);
+        for (int k = 0; k < M; ++k) vy[k] = T(0);
+      } else {
+        build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, vy, sR);
+      }
+    } else {
+      load<L>(ct, p.contact, (size_t)i * L, B, b);
+    }
     fill<3>(p.b_cam, (size_t)pN1 * 3, B, b, T(0));
     fill<9>(p.Q_cam, (size_t)pN1 * 9, B, b, T(0));
     st(p.cam_act, (size_t)pN1, B, b, T(0));
@@ -798,8 +860,9 @@ DEM_HD void chol_slot_group(const BoxGroup<T>& g, int j, T* D, T r, const T* Up)
 // written, and after yv is. With the Cholesky tail (CHOL) each slot after
 // the assembly is chol_slot_group, and after the last one the spare lane S
 // forms x_{N-1} = L^-T L^-1 yv (trsv_l, trsv_lt, through vec 0 and 2) and
-// writes it.
-template <typename T, int S, int M, bool CHOL = false>
+// writes it. ABL_SOLVE: the assembly alone, and lane r sums
+// D_j[r,0] + r_j[r] + U_j[r,0] over the slots into x[r], with no sync.
+template <typename T, int S, int M, bool CHOL, int ABL>
 DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i, int t,
                         int base_new) {
   using Lay = TickLayout<T, S, M>;
@@ -814,6 +877,7 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
   const int n_states = (t + 1 < N) ? t + 1 : N;
   const int first = N - n_states;
   T prev_rin = T(0);
+  T abl_acc = T(0);   // ABL_SOLVE: the sum that stands in for x
   for (int j = 0; j < N; ++j) {
     const int pj = (base_new + j) % N;
     const bool valid = j >= first;
@@ -873,6 +937,13 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
     if constexpr (CHOL) {
       chol_slot_group<T, S, M>(g, j, D, r, Up);
       continue;
+    } else if constexpr (ABL == ABL_SOLVE) {
+      // keep the assembled system live, skip the inverse chain
+      if (ln < S) {
+        const T term = D[0] + r + Uj[ln * S];
+        abl_acc = j == 0 ? term : abl_acc + term;
+      }
+      continue;
     }
     T yvi = r;
     if (j > 0) {
@@ -912,6 +983,8 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
       DEM_UNROLL_UPTO(S, 1)
       for (int k = 0; k < S; ++k) st(p.x, (size_t)i * S + k, B, b, vx[k]);
     }
+  } else if constexpr (ABL == ABL_SOLVE) {
+    if (ln < S) st(p.x, (size_t)i * S + ln, B, b, abl_acc);
   } else if (ln < S) {   // logical N-1 = newest state
     T si[S];
     DEM_UNROLL
@@ -924,8 +997,9 @@ template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL
           int ABL = ABL_NONE, bool GRP = false>
 DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
-  static_assert(!GRP || (!CON && ABL == ABL_NONE),
-                "the group tick is the unconstrained one, with either tail");
+  static_assert(!GRP || !CON, "the group tick is the unconstrained one, with either tail");
+  static_assert(ABL == ABL_NONE || (GRP && !CHOL),
+                "the stage ablation runs on the group with the Gauss-Jordan tail");
   constexpr int SS = S * S;
   constexpr int MM = M * M;
   const T dt = c.dt;
@@ -1029,15 +1103,23 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       // the rest of the tick on the group, once lane 0 has ingested (and the
       // group is done with the previous tick's buffers)
       __syncwarp(grp.mask);
-      if (t >= N) marg_group<T, S, M>(p, grp, base_old);
-      shift_group<T, S, M, L, LOT>(p, c, grp, i, base_old, (base_old + N - 1) % N);
-      sweep_group<T, S, M, CHOL>(p, grp, N, i, t, t % N);
+      if constexpr (ABL == ABL_MARG) {
+      } else if (t >= N) {
+        marg_group<T, S, M>(p, grp, base_old);
+      }
+      shift_group<T, S, M, L, LOT, ABL>(p, c, grp, i, base_old, (base_old + N - 1) % N);
+      if constexpr (ABL == ABL_ASSEMBLY) {
+        // no normal equations: the arrival cost's vector stands in for x (each
+        // lane reads the element it wrote in marg_group)
+        if (grp.ln < S) st(p.x, (size_t)i * S + grp.ln, B, b, ld(p.n_p, grp.ln, B, b));
+      } else {
+        sweep_group<T, S, M, CHOL, ABL>(p, grp, N, i, t, t % N);
+      }
       continue;
     }
 
     // ---- marginalization (mhe_lanes._marginalize) -------------------------
-    if constexpr (ABL == ABL_MARG) {
-    } else if (lead && t >= N) {
+    if (lead && t >= N) {
       const int p0 = base_old;
       T A[SS], Qd[SS], AtQd[SS], Qc[9], PtQc[S * 3], PtQcP[SS];
       T bv[S], c0[3], Mp[SS], np_[S];
@@ -1099,25 +1181,16 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     const int pN2 = (base_old + N - 1) % N;    // logical N-2 after the shift
     if (lead) {
       T Rp[9], accp[3], A_d[SS], b_d[S], Q_d[SS], Qcn[9], tmp9[9];
-      if constexpr (ABL == ABL_BUILD) {
-        DEM_UNROLL
-        for (int k = 0; k < SS; ++k) { A_d[k] = T(0); Q_d[k] = T(0); }
-        DEM_UNROLL
-        for (int k = 0; k < S; ++k) b_d[k] = T(0);
-        DEM_UNROLL
-        for (int k = 0; k < 9; ++k) Qcn[k] = T(0);
-      } else {
-        load<9>(Rp, p.prev_R, 0, B, b);
-        load<3>(accp, p.prev_acc, 0, B, b);
-        build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
-        if constexpr (LOT == 1) {
-          T ctp[L];   // the previous tick's contact gates the foot noise
-          load<L>(ctp, p.prev_ct, 0, B, b);
-          add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
-        }
-        matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
-        matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
+      load<9>(Rp, p.prev_R, 0, B, b);
+      load<3>(accp, p.prev_acc, 0, B, b);
+      build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
+      if constexpr (LOT == 1) {
+        T ctp[L];   // the previous tick's contact gates the foot noise
+        load<L>(ctp, p.prev_ct, 0, B, b);
+        add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
       }
+      matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
+      matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
 
       store<SS>(p.A_dyn, (size_t)pN2 * SS, B, b, A_d);
       store<S>(p.b_dyn, (size_t)pN2 * S, B, b, b_d);
@@ -1152,12 +1225,7 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
       load<L>(ct, p.contact, (size_t)i * L, B, b);
       T y_T[M], Q_T[MM];
-      if constexpr (ABL == ABL_BUILD) {
-        DEM_UNROLL
-        for (int k = 0; k < M; ++k) y_T[k] = T(0);
-        DEM_UNROLL
-        for (int k = 0; k < MM; ++k) Q_T[k] = T(0);
-      } else if constexpr (LOT == 1) {
+      if constexpr (LOT == 1) {
         build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, y_T, Q_T);
       } else {
         build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, y_T, Q_T);
@@ -1202,20 +1270,11 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       }
     }
 
-    if constexpr (ABL == ABL_ASSEMBLY) {
-      // no normal equations: the arrival cost's vector stands in for x
-      T np_[S];
-      load<S>(np_, p.n_p, 0, B, b);
-      store<S>(p.x, (size_t)i * S, B, b, np_);
-      continue;
-    }
-
     // ---- masked normal equations + streaming forward block-Thomas ---------
     const int n_states = (t + 1 < N) ? t + 1 : N;
     const int first = N - n_states;
     T Sinv[SS], yv[S], U_prev[SS], prev_QdPP[SS], prev_rin[S];
     T Lc[CHOL ? S * (S + 1) / 2 : 1], rd[CHOL ? S : 1];   // the Cholesky tail's factor
-    T abl_acc[ABL == ABL_SOLVE ? S : 1];   // ABL_SOLVE: the sum that stands in for x
     T Mp[SS], np_[S];
     if (lead) {
       load<SS>(Mp, p.M_p, 0, B, b);
@@ -1285,13 +1344,6 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
         if (j < N - 1) store<SS>(q->Uw, (size_t)j * SS, B, b, U_j);
       } else if constexpr (CHOL) {
         chol_step<T, S>(j, D_j, r_j, U_prev, Lc, rd, yv);
-      } else if constexpr (ABL == ABL_SOLVE) {
-        // keep the assembled system live, skip the inverse chain
-        DEM_UNROLL
-        for (int k = 0; k < S; ++k) {
-          const T term = D_j[k * S] + r_j[k] + U_j[k * S];
-          abl_acc[k] = j == 0 ? term : abl_acc[k] + term;
-        }
       } else if (j == 0) {
         gj_inv<S>(D_j, Sinv);
         DEM_UNROLL
@@ -1331,9 +1383,6 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       T z[S];
       trsv_l<S>(Lc, rd, yv, z);
       trsv_lt<S>(Lc, rd, z, xT);
-    } else if constexpr (ABL == ABL_SOLVE) {
-      DEM_UNROLL
-      for (int k = 0; k < S; ++k) xT[k] = abl_acc[k];
     } else {
       matvec<S, S>(Sinv, yv, xT);   // logical N-1 = newest state
     }
@@ -1415,22 +1464,16 @@ MheConstsFor<T, S, M, LOT> mhe_consts(const double* consts) {
 // (tests/box_group_host/tick_harness.cpp) stops here.
 #ifdef __CUDACC__
 
-// The unconstrained ticks on either clock, with either tail: above s=9 BOX_G
-// threads per instance (tick_group), a group beyond the fleet leaving whole;
-// else one thread per instance.
+// The unconstrained ticks on either clock, with either tail: BOX_G threads
+// per instance where tick_group holds (the Gauss-Jordan tail, as here, at
+// every shape; the Cholesky tail above s=9), a group beyond the fleet leaving
+// whole; else one thread per instance.
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                            int Tn, int t0) {
-  if constexpr (tick_group<S>()) {
-    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, false, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
-                                                                   b);
-  } else {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, false>(p, c, nullptr, N, B, Tn, t0, b);
-  }
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, false, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
 template <typename T, int S, int M, int L, int LOT>
@@ -1445,16 +1488,9 @@ __global__ void mhe_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBo
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                               int Tn, int t0) {
-  if constexpr (tick_group<S>()) {
-    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, true, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
-                                                                  b);
-  } else {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, true>(p, c, nullptr, N, B, Tn, t0, b);
-  }
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, true, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
 template <typename T, int S, int M, int L, int LOT>
@@ -1469,7 +1505,7 @@ __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, Mh
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                 int Tn, int t0) {
-  if constexpr (tick_group<S>()) {
+  if constexpr (tick_group<S, true>()) {
     const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
     if (b >= B) return;
     mhe_body<T, S, M, L, LOT, false, false, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
@@ -1484,7 +1520,7 @@ __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int 
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                    int Tn, int t0) {
-  if constexpr (tick_group<S>()) {
+  if constexpr (tick_group<S, true>()) {
     const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
     if (b >= B) return;
     mhe_body<T, S, M, L, LOT, false, true, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
@@ -1497,13 +1533,13 @@ __global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, i
 }
 
 // the stage ablation: the unconstrained Gauss-Jordan tick on the shared clock
-// with stage ABL skipped
+// with stage ABL skipped, on the group as mhe_kernel
 template <typename T, int S, int M, int L, int LOT, int ABL>
 __global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                int Tn, int t0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
   if (b >= B) return;
-  mhe_body<T, S, M, L, LOT, false, false, false, ABL>(p, c, nullptr, N, B, Tn, t0, b);
+  mhe_body<T, S, M, L, LOT, false, false, false, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
 
 // The dynamic shared memory of a constrained launch of `block` threads:
@@ -1514,7 +1550,7 @@ DEM_HHD size_t box_shared_bytes(int N, int block) {
   return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
 }
 
-// ... and of the unconstrained group tick (tick_group; either tail): block / BOX_G
+// ... and of the unconstrained group tick (tick_group): block / BOX_G
 // instances of TickLayout::stride scalars (mhe_replay_kernel.py's
 // tick_geometry computes the same bytes)
 template <typename T, int S, int M>
@@ -1529,10 +1565,11 @@ auto mhe_box_entry() {
   else return &mhe_box_kernel<T, S, M, L, LOT>;
 }
 
-// the unconstrained kernel of a clock and a tail
-template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
+// the unconstrained kernel of a clock and a tail, or with stage ABL skipped
+template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL, int ABL = ABL_NONE>
 auto mhe_tick_entry() {
-  if constexpr (CHOL && PI) return &mhe_pi_chol_kernel<T, S, M, L, LOT>;
+  if constexpr (ABL != ABL_NONE) return &mhe_abl_kernel<T, S, M, L, LOT, ABL>;
+  else if constexpr (CHOL && PI) return &mhe_pi_chol_kernel<T, S, M, L, LOT>;
   else if constexpr (CHOL) return &mhe_chol_kernel<T, S, M, L, LOT>;
   else if constexpr (PI) return &mhe_pi_kernel<T, S, M, L, LOT>;
   else return &mhe_kernel<T, S, M, L, LOT>;
@@ -1588,10 +1625,10 @@ int mhe_box_geometry(int N, int block, int* out) {
 }
 
 // The same figures of the unconstrained group tick with its tail (out[6] =
-// 0), or -1 where this shape ticks one thread per instance.
+// 0), or -1 where this shape ticks one thread per instance with it.
 template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
 int mhe_tick_geometry(int block, int* out) {
-  if constexpr (!tick_group<S>()) {
+  if constexpr (!tick_group<S, CHOL>()) {
     return -1;
   } else {
     const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>(),
@@ -1604,17 +1641,17 @@ int mhe_tick_geometry(int block, int* out) {
 // One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
 // constrained kernel, PI the per-lane camera clock, CHOL the Cholesky tail
 // (unconstrained only), ABL the stage ablation (unconstrained, shared clock,
-// Gauss-Jordan tail only). ptrs: the 34 pointers of
+// Gauss-Jordan tail only, on the group). ptrs: the 34 pointers of
 // MhePtrs in declaration order. consts (double): dt, H[m*s], Pc[3*s], then
 // Q_vo_p, C_p, C_accel, Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro,
 // Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw; ints/reals as admm_settings reads them. The
 // constrained kernels take `block` threads per block, a multiple of BOX_G,
-// and box_shared_bytes of dynamic shared memory, the unconstrained ones
-// (either tail) above s=9 likewise with tick_shared_bytes; the error of a
-// launch the card refuses (too many threads, too much shared memory) is
-// returned.
+// and box_shared_bytes of dynamic shared memory, the unconstrained ones where
+// tick_group holds, ablated or not, likewise with tick_shared_bytes; the
+// error of a launch the card refuses (too many threads, too much shared
+// memory) is returned.
 template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL,
           int ABL = ABL_NONE>
 int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
@@ -1626,11 +1663,8 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   static_assert(!CHOL || !CON, "the Cholesky tail runs unconstrained");
   static_assert(ABL == ABL_NONE || (!CON && !PI && !CHOL),
                 "the stage ablation runs unconstrained on the shared clock with Gauss-Jordan");
-  if constexpr (ABL != ABL_NONE) {
-    mhe_abl_kernel<T, S, M, L, LOT, ABL><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B,
-                                                                                  Tn, t0);
-  } else if constexpr (!CON && tick_group<S>()) {
-    const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>();
+  if constexpr (!CON && tick_group<S, CHOL>()) {
+    const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI, CHOL, ABL>();
     size_t shmem = 0;
     const int err = box_launch_shape(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
     if (err) return err;
@@ -1643,11 +1677,6 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     else
       mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn,
                                                                                  t0);
-  } else if constexpr (!CON) {
-    if constexpr (PI)
-      mhe_pi_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
-    else
-      mhe_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else {
     MheBox<T> bx;
     int q = 0;

@@ -10,7 +10,8 @@ and each model shape of ``MHE_SHAPES`` has one library per variant group of
 ``MHE_GROUPS`` (``libmhe_go1.so``: the shared camera clock,
 ``libmhe_go1_pi.so``: a clock per lane, ``libmhe_go1_chol.so``: the Cholesky
 tail on either clock; likewise ``cassie`` and ``pogox``; and
-``libmhe_go1_abl.so``, the stage ablation, at Go1's shape only), so a fleet
+``libmhe_go1_abl.so`` and ``libmhe_pogox_abl.so``, the stage ablation, at
+Go1's and PogoX's shapes), so a fleet
 builds only what it launches; likewise ``csrc/tridiag.cu`` and
 ``csrc/admm.cu`` are one library per state size (``libtridiag_s9.so``,
 ``libadmm_s15.so``, ...). ``load`` builds a library at its first use, all its
@@ -64,7 +65,7 @@ MHE_GROUPS = {
 # unconstrained on the shared clock with the Gauss-Jordan tail, float and
 # double: one library, mhe_<tag>_abl, for each shape of MHE_ABL_SHAPES
 ABLATE_STAGES = ("ingest", "marg", "build", "assembly", "solve")
-MHE_ABL_SHAPES = ("go1",)
+MHE_ABL_SHAPES = ("go1", "pogox")
 
 
 def _unroll(S):

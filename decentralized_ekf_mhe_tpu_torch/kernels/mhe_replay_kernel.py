@@ -1,30 +1,33 @@
 """The MHE replay loop: hand-written CUDA kernel + plain version.
 
 Replaces the reference's TPU mega-kernel ``pallas/mhe_replay_kernel.py``
-(``replay`` → ``_replay_chunk`` → ``_make_kernel``) with ``csrc/mhe_body.cuh`` (C entry points
-in ``csrc/mhe.cu``): one CUDA thread per instance loops over the ticks handed
-to it, each tick being VO ingestion + Bezier carry, arrival-cost
-marginalization, ring shift + assembly of the two changed slots, the
-incremental ``Dslot/Ub/routb`` cache update, and the masked normal equations
-with a streaming forward block-Thomas sweep.
+(``replay`` → ``_replay_chunk`` → ``_make_kernel``) with ``csrc/mhe_body.cuh``
+(C entry points in ``csrc/mhe.cu``): one CUDA thread, or a group of 16, per
+instance loops over the ticks handed to it, each tick being VO ingestion +
+Bezier carry, arrival-cost marginalization, ring shift + assembly of the two
+changed slots, the incremental ``Dslot/Ub/routb`` cache update, and the masked
+normal equations with a streaming forward block-Thomas sweep.
 
 Design on an H100 (details in ``csrc/mhe_body.cuh``): parallelism is the
-instance axis only; time is a loop inside ONE launch per ``replay_ticks`` call (the
-TPU wrapper's chunking and its 128-instance tiles do not carry over — any B
-works, the ragged edge is masked in the kernel); the ~10.3k scalars of window
-state per instance stay in global memory in the instance-minor layout
+instance axis only; time is a loop inside ONE launch per ``replay_ticks`` call
+(the TPU wrapper's chunking and its 128-instance tiles do not carry over — any
+B works, the ragged edge is masked in the kernel); the ~10.3k scalars of
+window state per instance stay in global memory in the instance-minor layout
 (coalesced; L2-resident at B=1024 in float32), addressed by the physical ring
 slot. What bounds it: operations, and in practice the serial dependency chain
-of one instance with B/32 warps in flight and the s×s temporaries spilling to
-local memory. Above s=9 (Cassie's shape, ``tick_group``) the unconstrained
-tick, with either tail, runs ``BOX_G`` = 16 threads per instance instead:
-lane 0 ingests the VO and builds the two changed slots, the group the
+of one instance with B/32 warps in flight (and at s=15 the s×s temporaries
+spilling to local memory). So the unconstrained tick with the Gauss-Jordan
+tail at every shape, and with the Cholesky tail above s=9 (Cassie's shape;
+``tick_group``), runs ``BOX_G`` = 16 threads per instance instead: lane 0
+ingests the VO, the 3×3 blocks of the two changed slots are built on lane 0 or
+(the velocity form: Go1, PogoX) one lane per leg, the group the
 marginalization, the shift with its cache update and the streaming sweep, each
 lane a row of every s×s block (with the Cholesky tail: a column of L⁻¹U_prev,
 then a row of the factor), with the blocks that a product reads whole in
 shared memory (``tick_geometry``: threads and instances per block, dynamic
 shared bytes; ``tick_occupancy``: what the card keeps resident). The route is
-fixed by the shape; no switch restores the one-thread body there.
+fixed by the shape and the tail; no switch restores the one-thread body there.
+The Cholesky tail at s=9 (Go1, PogoX) keeps one thread per instance.
 
 With state box constraints in the consts (``c.x_lb``) the constrained variant
 of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
@@ -68,11 +71,12 @@ diagnostic that ``tools/roofline.py --ablate`` drives) runs the unconstrained
 Gauss-Jordan tick on the shared clock with one stage skipped — "ingest",
 "marg", "build", "assembly" or "solve" (``csrc/mhe_body.cuh``, ``ABL``) —
 so that the time it saves is that stage's share; its output is wrong by
-construction. Its plain version skips the same stages on the logical window
-(``_step_ablated``). It is instantiated at Go1's shape only
-(``_build.MHE_ABL_SHAPES``); at another shape, with box consts, on per-lane
-clocks or with the Cholesky tail it raises ``NotImplementedError`` naming
-its ROADMAP.md row, on the CPU as on the card.
+construction. It runs on the group as the tick it ablates. Its plain version
+skips the same stages on the logical window (``_step_ablated``). It is
+instantiated at Go1's and PogoX's shapes (``_build.MHE_ABL_SHAPES``); at
+Cassie's, with box consts, on per-lane clocks or with the Cholesky tail it
+raises ``NotImplementedError`` naming its ROADMAP.md row, on the CPU as on
+the card.
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -93,7 +97,7 @@ from decentralized_ekf_mhe_tpu_torch.kernels.admm_kernel import ADMMCoreStatic
 from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-BLOCK = 32       # threads per block of a launch unless the caller names ``block``
+BLOCK = 32       # threads per block of a one-thread launch unless the caller names ``block``
 # the constrained tick: threads per instance (csrc/admm_group.cuh's BOX_G), and
 # its threads per block unless the caller names ``block``: eight instances, the
 # fastest of 2, 4, 5 and 8 at Go1's and Cassie's shapes in float32 in the sweep
@@ -101,16 +105,16 @@ BLOCK = 32       # threads per block of a launch unless the caller names ``block
 # fit a block's shared memory where eight do not (float64)
 BOX_G = 16
 BLOCK_BOX = 128
-# the unconstrained tick (either tail) above s=9 (Cassie) runs BOX_G threads
-# per instance too (``tick_group``); its threads per block unless the caller
-# names ``block``
+# the unconstrained tick where ``tick_group`` holds (the Gauss-Jordan tail at
+# every shape, the Cholesky tail above s=9) runs BOX_G threads per instance
+# too; its threads per block unless the caller names ``block``
 BLOCK_TICK = 128
 # what one block may use of an SM's shared memory, and what an SM has for its
 # blocks, each of which reserves 1 KB more (H100: 227 KB and 228 KB)
 SHARED_PER_BLOCK, SHARED_PER_SM, SHARED_RESERVED_PER_BLOCK = 232448, 233472, 1024
 # incremented where a CUDA kernel is launched, nowhere else: one count per
-# kernel — the unconstrained tick (mhe_kernel; at Cassie's shape on a group of
-# threads per instance, as mhe_pi_kernel, mhe_chol_kernel and
+# kernel — the unconstrained tick (mhe_kernel, on a group of threads per
+# instance, as mhe_pi_kernel and, at Cassie's shape, mhe_chol_kernel and
 # mhe_pi_chol_kernel), the constrained one (mhe_box_kernel), their
 # per-lane-clock variants (mhe_pi_kernel, mhe_pi_box_kernel), the
 # unconstrained tick with the Cholesky tail (mhe_chol_kernel,
@@ -131,7 +135,7 @@ _COUNTER = {(False, False, False): "launches", (True, False, False): "launches_b
 MK_SOLVES = ("gj", "chol")     # the tails of the window solve
 ABLATE_STAGES = _build.ABLATE_STAGES
 # where ROADMAP.md lists what the stage ablation does not cover yet
-ABLATE_ROW = "ROADMAP.md, 'K2e at the Cassie and PogoX shapes'"
+ABLATE_ROW = "ROADMAP.md, 'K2e at Cassie; on per-lane clocks, the Cholesky tail and box consts'"
 
 # times the kernel call alone, apart from the wrapper's state copy
 timer = _build.KernelTimer()
@@ -321,13 +325,15 @@ def box_geometry(s, dtype, block=None, N=20):
     return BoxGeometry(ipb, block, shared, u_shared, per_sm)
 
 
-def tick_group(s):
-    """Whether the unconstrained tick, with the Gauss-Jordan or the Cholesky
-    tail, runs a group of ``BOX_G`` threads per instance at state size ``s``
-    (``csrc/mhe_body.cuh``'s ``tick_group``, fixed by the shape): above s=9
-    (Cassie); at s=9 (Go1, PogoX) one thread per instance. The stage ablation
-    and the constrained tick's prelude stay on one thread."""
-    return s > 9
+def tick_group(s, mk_solve="gj"):
+    """Whether the unconstrained tick with the tail ``mk_solve`` runs a group
+    of ``BOX_G`` threads per instance at state size ``s`` (``csrc/mhe_body.cuh``'s
+    ``tick_group``, fixed by the shape and the tail): with the Gauss-Jordan
+    tail (and its stage ablation) at every shape, with the Cholesky tail above
+    s=9 (Cassie); the Cholesky tail at s=9 (Go1, PogoX) and the constrained
+    tick's prelude stay on one thread."""
+    check_mk_solve(mk_solve)
+    return mk_solve == "gj" or s > 9
 
 
 class TickGeometry(NamedTuple):
@@ -346,17 +352,19 @@ def tick_shared_scalars(s, m):
     return m * s + 3 * s + 5 * max(s * s, m * m) + 4 * max(s, m) + 4 * s
 
 
-def tick_geometry(s, m, dtype, block=None):
-    """The launch geometry of the unconstrained tick (either tail) at state
-    size ``s`` > 9 (``tick_group``), ``m`` measurements, element type
-    ``dtype`` and ``block`` threads per block (default ``BLOCK_TICK``):
-    ``BOX_G`` threads per instance, so ``block // BOX_G`` instances per
-    block, each with ``tick_shared_scalars`` padded to 16 mod 32 four-byte
-    words. Raises ``ValueError`` at s <= 9 (one thread per instance there),
-    for a block that is no multiple of ``BOX_G`` in 16..1024, or for more
-    shared memory than a block may use."""
-    if not tick_group(s):
-        raise ValueError(f"s={s}: the unconstrained tick runs one thread per instance at s <= 9")
+def tick_geometry(s, m, dtype, block=None, mk_solve="gj"):
+    """The launch geometry of the unconstrained tick with the tail
+    ``mk_solve`` where it runs on a group (``tick_group``) at state size
+    ``s``, ``m`` measurements, element type ``dtype`` and ``block`` threads
+    per block (default ``BLOCK_TICK``): ``BOX_G`` threads per instance, so
+    ``block // BOX_G`` instances per block, each with ``tick_shared_scalars``
+    padded to 16 mod 32 four-byte words. Raises ``ValueError`` for the
+    Cholesky tail at s <= 9 (one thread per instance there), for a block that
+    is no multiple of ``BOX_G`` in 16..1024, or for more shared memory than a
+    block may use."""
+    if not tick_group(s, mk_solve):
+        raise ValueError(f"s={s}: the unconstrained tick with the Cholesky tail runs one "
+                         "thread per instance at s <= 9")
     return TickGeometry(*_group_launch(tick_shared_scalars(s, m), dtype,
                                        BLOCK_TICK if block is None else block,
                                        f"unconstrained tick (s={s}, m={m})"))
@@ -401,7 +409,7 @@ def tick_occupancy(c, dtype, per_lane_clock=False, block=None, mk_solve="gj"):
     of the unit that runs."""
     check_mk_solve(mk_solve)
     if block is None:
-        block = tick_geometry(c.dim_state, c.dim_meas, dtype).threads_per_block
+        block = tick_geometry(c.dim_state, c.dim_meas, dtype, mk_solve=mk_solve).threads_per_block
     res = _occupancy(c, dtype, False, per_lane_clock, block, mk_solve == "chol")
     del res["u_shared"]
     return res
@@ -542,6 +550,52 @@ def _step_ablated(c, st: mhe_lanes.MHEStateL, R_sb, accel_b, omega_b, p_foot, J_
     return st, mhe_lanes.solve_window(c, st)[c.N - 1]
 
 
+def solve_stage_scales(c, ks: KernelState, d, v, i):
+    """Per tick and state of the "solve" stage's result x = Σ_j (D_j[:,0] +
+    r_j + U_j[:,0]): ``terms``, the same sum over the magnitudes of its
+    elementary products (the normal equations assembled from the absolute
+    values of every operand, each difference a sum), the scale of the
+    rounding that two orders of summation leave in x; ``system``, the sum of
+    the magnitudes of the masked system's own entries Σ_j (|D_j[:,0]| + |r_j|
+    + |U_j[:,0]|); and ``r_sum``, Σ_j r_j, what a sum without r would miss.
+    Each (Tn, s, B), from the plain version's ticks (``_step_ablated``), on
+    the inputs of ``replay_ticks`` (shared clock)."""
+    N, real, dev = c.N, d.accel_b.dtype, d.accel_b.device
+    H, P = c.A_meas.abs(), c.P_cam.abs()
+    st = mhe_state_from_kernel(ks, c)
+    act, pre, now = v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist()
+    out = {"terms": [], "system": [], "r_sum": []}
+    for t in range(d.accel_b.shape[0]):
+        st, _ = _step_ablated(c, st, d.R_sb[t], d.accel_b[t], d.omega_b[t], d.p_foot[t],
+                              d.J_foot[t], d.dq[t], d.contact[t], act[t], pre[t], now[t], i[t],
+                              "solve")
+        Ds, Us, rs = mhe_lanes._masked_system(c, st)
+        out["system"].append(Ds[:, :, 0].abs().sum(0) + rs.abs().sum(0) + Us[:, :, 0].abs().sum(0))
+        out["r_sum"].append(rs.sum(0))
+        first = N - min(st.T + 1, N)
+        j = torch.arange(N, device=dev)
+        iv = ((j >= first) & (j <= N - 2)).to(real)[:, None, None, None]
+        cam = (st.cam_active.to(real)[:, None, None, :] * iv)
+        A, Qd, b = st.A_dyn.abs(), st.Q_dyn.abs() * iv, st.b_dyn.abs()
+        AtQd = lanes.mm_tn(A, Qd)
+        PtQc = lanes.cmm_t(P, st.Q_cam.abs()) * cam
+        PtQcP = lanes.mmc(PtQc, P)
+        HtR = lanes.cmm_t(H, st.Q_meas.abs())
+        pc = lanes.mv(PtQc, st.b_cam.abs())
+        shift = lambda a: torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+        D = lanes.mmc(HtR, H) + lanes.mm(AtQd, A) + PtQcP + shift(Qd + PtQcP)
+        r = (lanes.mv(HtR, st.y_meas.abs()) + lanes.mv(AtQd, b) + pc
+             + shift(lanes.mv(Qd, b) + pc))
+        D[first] += st.M_p.abs()
+        r[first] += st.n_p.abs()
+        valid = (j >= first).to(real)
+        out["terms"].append((D[:, :, 0] * valid[:, None, None] + (1 - valid)[:, None, None]
+                             * (j[:, None] == 0).to(real)[..., None]).sum(0)
+                            + (r * valid[:, None, None]).sum(0)
+                            + ((AtQd + PtQcP)[:-1, :, 0] * valid[:-1, None, None]).sum(0))
+    return {k: torch.stack(a) for k, a in out.items()}
+
+
 def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc, ablate=""):
     """Plain PyTorch version of ``replay_ticks``: a Python loop over
     ``mhe_lanes.step`` (per-instance ``vo``: ``step_per_instance_vo``; with
@@ -610,8 +664,10 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     per block (default ``BLOCK``; with box consts ``BLOCK_BOX``, and then a
     multiple of ``BOX_G`` whose shared memory fits, see ``box_geometry``, which
     raises ``ValueError`` otherwise, on the CPU as on the card; likewise for
-    the unconstrained tick with either tail above s=9, default ``BLOCK_TICK``,
-    see ``tick_geometry``); the plain version does not depend on it.
+    the unconstrained tick where it runs on a group (``tick_group``: the
+    Gauss-Jordan tail and its ablation at every shape, the Cholesky tail above
+    s=9), default ``BLOCK_TICK``, see ``tick_geometry``); the plain version
+    does not depend on it.
     """
     check_mk_solve(mk_solve)
     check_ablate(c, ablate, vo.active.ndim == 2, mk_solve)
@@ -642,8 +698,8 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
         _build.require_lanes(name, a, sh, dtype, dev)
     if constrained:
         block = box_geometry(s, dtype, block, N).threads_per_block
-    elif not ablate and tick_group(s):
-        block = tick_geometry(s, m, dtype, block).threads_per_block
+    elif tick_group(s, mk_solve):
+        block = tick_geometry(s, m, dtype, block, mk_solve).threads_per_block
     else:
         block = _check_block(block)
     shapes = state_shapes(N, s, m, L, constrained)

@@ -10,7 +10,8 @@ never reach a tensor core). Operations and bytes come from
 
     python -m decentralized_ekf_mhe_tpu_torch.tools.roofline [--ablate] [--sweep]
         [--trace [--trace-out FILE]] [--constrained-sweep]
-        [--model go1|cassie_bench] [--rate TICKS_PER_S] [--B 1024] [--T 200] [--device cuda]
+        [--model go1|cassie_bench|pogox_bench] [--rate TICKS_PER_S] [--B 1024] [--T 200]
+        [--device cuda]
 
 Modes (each prints a table to stderr and one JSON line to stdout):
 
@@ -20,10 +21,13 @@ Modes (each prints a table to stderr and one JSON line to stdout):
   ablations (K2e: ingest, marg, build, assembly, solve) at B=1024, T=200, each
   timed alone with CUDA events, best of 3; full minus ablated is the stage's
   share. The ablated outputs are wrong by construction (timing only).
+  ``--model pogox_bench`` ablates PogoX's tick.
 * ``--sweep`` (``sweep``): the kernel's threads per block (32, 64, 128, 256)
   against the fleet size (1024, 4096, 16384) — the port has no chunk to sweep
   (one launch replays the whole log), so the block is its launch knob.
-  ``--model cassie_bench`` sweeps Cassie's tick, 16 threads per instance.
+  The unconstrained tick runs 16 threads per instance, so every block is a
+  multiple of 16. ``--model cassie_bench`` (``pogox_bench``) sweeps Cassie's
+  (PogoX's) tick.
 * ``--trace`` (``trace_capture``): a ``torch.profiler`` capture of the Go1
   pipeline runner (EKF kernel, K5 at tick 0, the tick kernel): device time by
   kernel, the device's busy and idle share, the host time per launch; where
@@ -38,7 +42,8 @@ The fleet is the reference bench's headline one (``bench.py``'s Go1
 parameters and perturbation: per-lane IMU/encoder noise, per-lane VO
 translation, one shared camera clock), drawn here with an explicit
 ``torch.Generator``; "cassie_bench" is Cassie's shape at the bench's settings
-(two legs, foot positions as states, its log of seed 2, ``bench.py:455-460``).
+(two legs, foot positions as states, its log of seed 2, ``bench.py:455-460``)
+and "pogox_bench" PogoX's (one leg, the velocity form, its log of seed 2).
 Every entry point defaults to ``device="cuda"``; with ``device="cpu"`` the
 wrappers take their plain versions and the times are the host's, which the
 results label as such (control flow only: no device figure comes from a CPU
@@ -83,7 +88,9 @@ def bench_params() -> EstimatorParams:
     )
 
 
-MODELS = ("go1", "cassie_bench")
+MODELS = ("go1", "cassie_bench", "pogox_bench")
+# the bench's legged shapes (bench.py:455-460): model -> (legs, leg_odom_type)
+LEGGED = {"cassie_bench": (2, 1), "pogox_bench": (1, 0)}
 
 
 def bench_fleet(B, T, device="cuda", dtype=F32, seed=0, model="go1"):
@@ -91,14 +98,15 @@ def bench_fleet(B, T, device="cuda", dtype=F32, seed=0, model="go1"):
     into B perturbed instances — IMU/encoder noise (``perturb_log_batch``), the
     EKF blocks with per-lane VO quaternions, per-lane VO translation on the
     shared camera clock — from one ``torch.Generator`` seeded with ``seed``;
-    ``model="cassie_bench"``: Cassie's shape at the bench's settings on its
-    own log. Returns (params, data (T,B,...), EKF blocks, VOData)."""
+    ``model="cassie_bench"`` (``"pogox_bench"``): Cassie's (PogoX's) shape at
+    the bench's settings on its own log. Returns (params, data (T,B,...), EKF
+    blocks, VOData)."""
     device = resolve_device(device)
     if model not in MODELS:
         raise ValueError(f"model: {model!r} is not one of {MODELS}")
     p = bench_params()
-    if model == "cassie_bench":
-        p.num_legs, p.leg_odom_type = 2, 1
+    if model in LEGGED:
+        p.num_legs, p.leg_odom_type = LEGGED[model]
     log = synth.generate(synth.SynthConfig(T=T, seed=0 if model == "go1" else 2,
                                            num_legs=p.num_legs))
     g = torch.Generator(device=device).manual_seed(seed)
@@ -216,15 +224,15 @@ def report(rate_ticks_per_s, file=sys.stderr, **shape):
             "bound_by": bound_by, "model": mdl}
 
 
-def ablation(B=1024, T=200, device="cuda", fleet=None, reps=3):
+def ablation(B=1024, T=200, device="cuda", fleet=None, reps=3, model="go1"):
     """Per-stage time of the tick by ablation: the tick kernel (K2, float32)
     and each of its stage ablations (K2e) on the same inputs, the kernel
     alone, best of ``reps`` after a warm-up; ``full − ablated`` over ``full``
-    is the stage's share. ``fleet`` (params, data, EKF blocks, VOData) replaces the
-    bench fleet of B instances over T ticks. Returns {"full": {...},
-    "stages": {stage: {"ms", "share", "bound_ms", ...}}, ...}."""
+    is the stage's share. ``fleet`` (params, data, EKF blocks, VOData) replaces
+    ``model``'s bench fleet of B instances over T ticks. Returns {"full":
+    {...}, "stages": {stage: {"ms", "share", "bound_ms", ...}}, ...}."""
     device = resolve_device(device)
-    p, data_b, _, vo = fleet if fleet is not None else bench_fleet(B, T, device)
+    p, data_b, _, vo = fleet if fleet is not None else bench_fleet(B, T, device, model=model)
     B, T = data_b.accel_b.shape[1], data_b.accel_b.shape[0]
     c = mhe.make_consts(p, data_b.accel_b.dtype, device=device)
     ks, d, v, i = tick_inputs(c, data_b, vo)
@@ -232,11 +240,11 @@ def ablation(B=1024, T=200, device="cuda", fleet=None, reps=3):
     run = lambda ablate: mrk.replay_ticks(c, ks, d, v, i, device=device, ablate=ablate)
     full = best_ms(lambda: run(""), device, reps)
     work = tick_work(c, ks, d, v, itemsize)
-    out = {"B": B, "T": T, **device_info(device),
+    out = {"B": B, "T": T, "s": c.dim_state, "m": c.dim_meas, **device_info(device),
            "full": {"ms": full, "ticks_per_s": B * (T - 1) / (full / 1e3), **bound(work),
                     "bytes": work[0], "operations": work[1]},
            "stages": {}}
-    print(f"ablation (B={B}, T={T}): full {full:.3f} ms -> "
+    print(f"ablation (s={c.dim_state}, m={c.dim_meas}, B={B}, T={T}): full {full:.3f} ms -> "
           f"{B * (T - 1) / (full / 1e3):,.0f} ticks/s", file=sys.stderr)
     for stage in mrk.ABLATE_STAGES:
         t = best_ms(lambda: run(stage), device, reps)
@@ -255,9 +263,8 @@ def sweep(Bs=(1024, 4096, 16384), blocks=(32, 64, 128, 256), T=200, device="cuda
           model="go1"):
     """The tick kernel's time against its threads per block and the fleet
     size, float32, the kernel alone, best of ``reps``, on ``model``'s fleet
-    (at Cassie's shape the tick runs 16 threads per instance, so every block
-    is a multiple of 16 there): rows of {B, block, ms, ticks_per_s,
-    roofline}."""
+    (the tick runs 16 threads per instance, so every block is a multiple of
+    16): rows of {B, block, ms, ticks_per_s, roofline}."""
     device = resolve_device(device)
     rows = []
     for B in Bs:
@@ -425,7 +432,7 @@ def main(argv=None):
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--constrained-sweep", action="store_true")
     ap.add_argument("--model", default="go1", choices=MODELS,
-                    help="the shape of --sweep and --constrained-sweep")
+                    help="the shape of --sweep, --ablate and --constrained-sweep")
     ap.add_argument("--B", type=int, default=1024)
     ap.add_argument("--T", type=int, default=200)
     ap.add_argument("--device", default="cuda")
@@ -442,7 +449,7 @@ def main(argv=None):
             results["trace"] = trace_capture(B=a.B, T=a.T, device=a.device,
                                              out_file=a.trace_out)
         if a.ablate:
-            results["ablation"] = ablation(B=a.B, T=a.T, device=a.device)
+            results["ablation"] = ablation(B=a.B, T=a.T, device=a.device, model=a.model)
         if a.constrained_sweep:
             results["constrained_sweep"] = constrained_sweep(B=a.B, T=a.T, device=a.device,
                                                              model=a.model)

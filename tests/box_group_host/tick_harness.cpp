@@ -1,12 +1,15 @@
-// The unconstrained MHE tick on the host: mhe_body (csrc/mhe_body.cuh) at
-// Cassie's shape (s=15, m=6, L=2, foot positions as states) on a group of
-// BOX_G lanes per instance (GRP; each instance's 16 lanes as std::threads,
-// prelude.h's barrier for __syncwarp) against the one-thread body, with the
-// Gauss-Jordan or the Cholesky tail (CHOL) as the case names it, on window
-// states and tick inputs that tests/test_torch_tick_group.py writes from the
-// plain path. Each case runs in float64 and float32; x, the 18 window-state
-// tensors and the Bezier schedule must agree bit for bit. Built without FMA
-// contraction, so both bodies round every operation alike.
+// The unconstrained MHE tick on the host: mhe_body (csrc/mhe_body.cuh) on a
+// group of BOX_G lanes per instance (GRP; each instance's 16 lanes as
+// std::threads, prelude.h's barrier for __syncwarp) against the one-thread
+// body, at the shape the case names — Go1 (9, 12, 4, 0), PogoX (9, 3, 1, 0)
+// or Cassie (15, 6, 2, 1: foot positions as states) — with the Gauss-Jordan
+// or (Cassie) the Cholesky tail (CHOL), on window states and tick inputs that
+// tests/test_torch_tick_group.py writes from the plain path. Each case runs in
+// float64 and float32; x, the 18 window-state tensors and the Bezier schedule
+// must agree bit for bit. A case that names a stage of the ablation (ABL,
+// 1..5, Go1's shape) runs the group's ablated body alone, in float64, for the
+// test to hold against the plain version. Built without FMA contraction, so
+// both bodies round every operation alike.
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -pthread -I<csrc> tick_harness.cpp -o tick_harness
 //   ./tick_harness case.bin out.bin ...   (exit 0: every case bit for bit)
@@ -22,48 +25,60 @@
 namespace dem { alignas(16) unsigned char dem_box_smem[1 << 20]; }
 using namespace dem;
 
-constexpr int S = 15, M = 6, L = 2, LOT = 1;
-constexpr int NCONST = 1 + M * S + 3 * S + 8 * 9 + 3 + 9;   // mhe_consts reads them
 constexpr int NIN = 8;      // R, accel, omega, pfoot, Jfoot, dq, contact, vo_inc
 constexpr int NST = 18;     // the window state (mhe_replay_kernel.state_shapes)
 
-// per tick and instance: the inputs' sizes; per instance: the state's
-static const int IN_SIZE[NIN] = {9, 3, 3, L * 3, L * 9, L * 3, L, 3};
-static int st_size(int k, int N) {
-  const int sz[NST] = {N * M, N * M * M, N * S * S, N * S, N * S * S, N * 3, N * 9, N,
-                       S * S, S, 12, 3, 9, 3, L, N * S * S, N * S * S, N * S};
-  return sz[k];
-}
+// the sizes of one model shape: per tick and instance the inputs', per
+// instance the state's, and the packed consts (mhe_replay_kernel._pack_consts:
+// Q_foot_slide last, which mhe_consts reads for LOT == 1)
+template <int S, int M, int L, int LOT>
+struct Shape {
+  static constexpr int NCONST = 1 + M * S + 3 * S + 8 * 9 + 3 + 9;
+  static int in_size(int k) {
+    const int sz[NIN] = {9, 3, 3, L * 3, L * 9, L * 3, L, 3};
+    return sz[k];
+  }
+  static int st_size(int k, int N) {
+    const int sz[NST] = {N * M, N * M * M, N * S * S, N * S, N * S * S, N * 3, N * 9, N,
+                         S * S, S, 12, 3, 9, 3, L, N * S * S, N * S * S, N * S};
+    return sz[k];
+  }
+};
 
-// a case file: N, B, Tn, t0, pi, chol; the consts; the VO metadata (Tn or Tn*B
-// each) and the Bezier count (1 or B) as ints; the Bezier times (4 or 4B),
-// the inputs and the state as float64, in the lanes layout
+// a case file: N, B, Tn, t0, pi, chol, abl, S, M, L, LOT; the consts; the VO
+// metadata (Tn or Tn*B each) and the Bezier count (1 or B) as ints; the Bezier
+// times (4 or 4B), the inputs and the state as float64, in the lanes layout
 struct Case {
-  int N, B, Tn, t0, pi, chol;
+  int N, B, Tn, t0, pi, chol, abl, S, M, L, LOT;
   std::vector<double> consts, times, in[NIN], st[NST];
   std::vector<int> active, pre, now, count;
 };
 
-static Case read_case(const char* path) {
-  Case c;
+static FILE* open_case(const char* path, Case& c) {
   FILE* f = fopen(path, "rb");
   if (!f) { perror(path); exit(2); }
-  int h[6];
-  bool ok = fread(h, sizeof(int), 6, f) == 6;
-  c.N = h[0]; c.B = h[1]; c.Tn = h[2]; c.t0 = h[3]; c.pi = h[4]; c.chol = h[5];
+  int h[11];
+  if (fread(h, sizeof(int), 11, f) != 11) { fprintf(stderr, "%s: short file\n", path); exit(2); }
+  c.N = h[0]; c.B = h[1]; c.Tn = h[2]; c.t0 = h[3]; c.pi = h[4]; c.chol = h[5]; c.abl = h[6];
+  c.S = h[7]; c.M = h[8]; c.L = h[9]; c.LOT = h[10];
+  return f;
+}
+
+template <typename Sh>
+static void read_body(FILE* f, const char* path, Case& c) {
+  bool ok = true;
   auto rd = [&](auto& v, size_t n) {
     v.resize(n);
     ok = ok && fread(v.data(), sizeof(v[0]), n, f) == n;
   };
   const size_t nb = c.pi ? c.B : 1, Tn = c.Tn, B = c.B;
-  rd(c.consts, NCONST);
+  rd(c.consts, Sh::NCONST);
   rd(c.active, Tn * nb); rd(c.pre, Tn * nb); rd(c.now, Tn * nb); rd(c.count, nb);
   rd(c.times, 4 * nb);
-  for (int k = 0; k < NIN; ++k) rd(c.in[k], Tn * IN_SIZE[k] * B);
-  for (int k = 0; k < NST; ++k) rd(c.st[k], (size_t)st_size(k, c.N) * B);
+  for (int k = 0; k < NIN; ++k) rd(c.in[k], Tn * Sh::in_size(k) * B);
+  for (int k = 0; k < NST; ++k) rd(c.st[k], (size_t)Sh::st_size(k, c.N) * B);
   fclose(f);
   if (!ok) { fprintf(stderr, "%s: short file\n", path); exit(2); }
-  return c;
 }
 
 template <typename T> static std::vector<T> cv(const std::vector<double>& v) {
@@ -76,7 +91,7 @@ template <typename T> struct Out {
   std::vector<int> count;
 };
 
-template <typename T, bool PI, bool CHOL, bool GRP>
+template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL, bool GRP, int ABL>
 static Out<T> run(const Case& cs) {
   const int N = cs.N, B = cs.B, Tn = cs.Tn, nb = PI ? B : 1;
   Out<T> o;
@@ -106,8 +121,8 @@ static Out<T> run(const Case& cs) {
       for (int l = 0; l < BOX_G; ++l)
         th.emplace_back([&, l] {
           threadIdx.x = l;
-          mhe_body<T, S, M, L, LOT, false, PI, CHOL, ABL_NONE, true>(p, c, nullptr, N, B, Tn,
-                                                                     cs.t0, b);
+          mhe_body<T, S, M, L, LOT, false, PI, CHOL, ABL, true>(p, c, nullptr, N, B, Tn, cs.t0,
+                                                               b);
         });
       for (auto& t : th) t.join();
     }
@@ -126,9 +141,17 @@ static int cmp(const char* f, const std::vector<T>& a, const std::vector<T>& b) 
   return n;
 }
 
-template <typename T, bool PI, bool CHOL>
+template <typename T>
+static void write_out(FILE* out, const Out<T>& o) {
+  fwrite(o.x.data(), sizeof(T), o.x.size(), out);
+  for (int k = 0; k < NST; ++k) fwrite(o.st[k].data(), sizeof(T), o.st[k].size(), out);
+  fwrite(o.times.data(), sizeof(T), o.times.size(), out);
+}
+
+template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
 static int check(const Case& cs, const char* tag, FILE* out) {
-  const Out<T> one = run<T, PI, CHOL, false>(cs), grp = run<T, PI, CHOL, true>(cs);
+  const Out<T> one = run<T, S, M, L, LOT, PI, CHOL, false, ABL_NONE>(cs),
+               grp = run<T, S, M, L, LOT, PI, CHOL, true, ABL_NONE>(cs);
   int nx = cmp("x", one.x, grp.x), ns = 0, nb = cmp("bez_times", one.times, grp.times);
   for (int k = 0; k < NST; ++k) {
     char name[16];
@@ -138,21 +161,55 @@ static int check(const Case& cs, const char* tag, FILE* out) {
   for (size_t k = 0; k < one.count.size(); ++k) nb += one.count[k] != grp.count[k];
   double xmax = 0;
   for (auto v : one.x) xmax = std::fmax(xmax, std::fabs((double)v));
-  printf("%s %s %s %s: x %d state %d schedule %d differ; max|x|=%g\n", tag,
+  printf("%s s=%d m=%d %s %s %s: x %d state %d schedule %d differ; max|x|=%g\n", tag, S, M,
          sizeof(T) == 8 ? "f64" : "f32", PI ? "per-lane" : "shared", CHOL ? "chol" : "gj", nx,
          ns, nb, xmax);
-  if (out) {
-    fwrite(grp.x.data(), sizeof(T), grp.x.size(), out);
-    for (int k = 0; k < NST; ++k) fwrite(grp.st[k].data(), sizeof(T), grp.st[k].size(), out);
-    fwrite(grp.times.data(), sizeof(T), grp.times.size(), out);
-  }
+  if (out) write_out(out, grp);
   return nx + ns + nb;
 }
 
 // both types of a case, on its clock with its tail
-template <bool PI, bool CHOL>
+template <int S, int M, int L, int LOT, bool PI, bool CHOL>
 static int both(const Case& cs, const char* tag, FILE* out) {
-  return check<double, PI, CHOL>(cs, tag, out) + check<float, PI, CHOL>(cs, tag, nullptr);
+  return check<double, S, M, L, LOT, PI, CHOL>(cs, tag, out) +
+         check<float, S, M, L, LOT, PI, CHOL>(cs, tag, nullptr);
+}
+
+// the group's float64 tick with stage ABL skipped (shared clock, Gauss-Jordan)
+template <int S, int M, int L, int LOT, int ABL>
+static int ablated(const Case& cs, const char* tag, FILE* out) {
+  write_out(out, run<double, S, M, L, LOT, false, false, true, ABL>(cs));
+  printf("%s s=%d m=%d f64 shared gj ablation %d: written\n", tag, S, M, ABL);
+  return 0;
+}
+
+template <int S, int M, int L, int LOT>
+static int run_case(const char* path, FILE* f, Case& cs, FILE* out) {
+  read_body<Shape<S, M, L, LOT>>(f, path, cs);
+  if (cs.abl) {
+    if (cs.pi || cs.chol) { fprintf(stderr, "%s: the ablation runs shared-clock gj\n", path); exit(2); }
+    if constexpr (S == 9 && M == 12) {   // Go1's units
+      switch (cs.abl) {
+        case ABL_INGEST: return ablated<S, M, L, LOT, ABL_INGEST>(cs, path, out);
+        case ABL_MARG: return ablated<S, M, L, LOT, ABL_MARG>(cs, path, out);
+        case ABL_BUILD: return ablated<S, M, L, LOT, ABL_BUILD>(cs, path, out);
+        case ABL_ASSEMBLY: return ablated<S, M, L, LOT, ABL_ASSEMBLY>(cs, path, out);
+        case ABL_SOLVE: return ablated<S, M, L, LOT, ABL_SOLVE>(cs, path, out);
+      }
+    }
+    fprintf(stderr, "%s: no ablated unit %d at s=%d m=%d\n", path, cs.abl, S, M);
+    exit(2);
+  }
+  if (cs.chol) {
+    if constexpr (S > 9) {   // the Cholesky tail runs on a group above s=9 only
+      return cs.pi ? both<S, M, L, LOT, true, true>(cs, path, out)
+                   : both<S, M, L, LOT, false, true>(cs, path, out);
+    }
+    fprintf(stderr, "%s: the Cholesky tail ticks one thread per instance at s=%d\n", path, S);
+    exit(2);
+  }
+  return cs.pi ? both<S, M, L, LOT, true, false>(cs, path, out)
+               : both<S, M, L, LOT, false, false>(cs, path, out);
 }
 
 int main(int argc, char** argv) {
@@ -162,12 +219,18 @@ int main(int argc, char** argv) {
   }
   int fails = 0;
   for (int a = 1; a < argc; a += 2) {
-    const Case cs = read_case(argv[a]);
+    Case cs;
+    FILE* f = open_case(argv[a], cs);
     FILE* out = fopen(argv[a + 1], "wb");
     if (!out) { perror(argv[a + 1]); return 2; }
-    const char* tag = argv[a];
-    fails += cs.pi ? (cs.chol ? both<true, true>(cs, tag, out) : both<true, false>(cs, tag, out))
-                   : (cs.chol ? both<false, true>(cs, tag, out) : both<false, false>(cs, tag, out));
+    const int shape[4] = {cs.S, cs.M, cs.L, cs.LOT};
+    auto is = [&](int s, int m, int l, int lot) {
+      return shape[0] == s && shape[1] == m && shape[2] == l && shape[3] == lot;
+    };
+    if (is(9, 12, 4, 0)) fails += run_case<9, 12, 4, 0>(argv[a], f, cs, out);
+    else if (is(9, 3, 1, 0)) fails += run_case<9, 3, 1, 0>(argv[a], f, cs, out);
+    else if (is(15, 6, 2, 1)) fails += run_case<15, 6, 2, 1>(argv[a], f, cs, out);
+    else { fprintf(stderr, "%s: no instantiation for this shape\n", argv[a]); return 2; }
     fclose(out);
   }
   printf(fails ? "FAIL\n" : "ALL BIT-IDENTICAL\n");

@@ -5,13 +5,14 @@ The JAX mega-kernel's ``ablate`` skips one stage of every tick — "ingest",
 "marg", "build", "assembly" or "solve" — so that the time saved is that
 stage's share (``tools/roofline.py --ablate``); its output is wrong by
 construction. The port has the same switch on ``mhe_replay_kernel.replay``
-(a CUDA unit per stage at Go1's shape, and a plain version that skips the
-same stages on the logical window). At float64 on the CPU, Go1, N=5, T=18,
-B=3: each stage against the Pallas kernel with the same ``ablate`` in
-interpret mode, with equal positions of non-finite values (the "build" stage
-zeros the fresh data and makes the window singular); ``ablate=""`` against the
-unablated route; the refusals; the launch-size knob; the operation counts of
-the ablated ticks; and every mode of the port's
+(a CUDA unit per stage at Go1's and PogoX's shapes, and a plain version that
+skips the same stages on the logical window). At float64 on the CPU, N=5,
+T=18, B=3: each stage at Go1's and PogoX's shapes against the Pallas kernel
+with the same ``ablate`` in interpret mode, with equal positions of
+non-finite values (the "build" stage zeros the fresh data and makes the
+window singular); ``ablate=""`` against the unablated route; the refusals;
+the launch-size knob; the operation counts of the ablated ticks; and every
+mode of the port's
 ``decentralized_ekf_mhe_tpu_torch.tools.roofline`` at a tiny size with
 ``device="cpu"``, for its control flow only. Inputs are perturbed once on the
 JAX side and handed to both packages.
@@ -46,24 +47,25 @@ TOL = dict(rtol=1e-8, atol=1e-8)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_WIN, T_LOG, B_LANES = 5, 18, 3
 STAGES = ("ingest", "marg", "build", "assembly", "solve")
-ROW = "K2e at the Cassie and PogoX shapes"
+ROW = "K2e at Cassie; on per-lane clocks, the Cholesky tail and box consts"
+LEGS = {"go1": 4, "pogox": 1}   # the velocity form's shapes: s=9, m = 3 legs
 
 
-def _params():
-    """(JAX params, port params): Go1 at window N_WIN, as the JAX package's
-    own mega-kernel tests set it."""
-    kw = dict(num_legs=4, leg_odom_type=0, rate=200, N=N_WIN)
+def _params(legs=4):
+    """(JAX params, port params): Go1 (``legs`` 4) or PogoX's shape (1) at
+    window N_WIN, as the JAX package's own mega-kernel tests set it."""
+    kw = dict(num_legs=legs, leg_odom_type=0, rate=200, N=N_WIN)
     return jconfig.EstimatorParams(**kw), config.EstimatorParams(**kw)
 
 
 @functools.lru_cache(maxsize=None)
-def _fleet():
-    """Go1's synthetic log (seed 2; a VO frame every 3 ticks, so the short log
-    reaches the Bezier increments) as a JAX-perturbed fleet on the shared
-    camera clock: (JAX lanes TickData, JAX VOData, port lanes TickData, port
-    VOData)."""
-    jp = _params()[0]
-    log = jsynth.generate(jsynth.SynthConfig(T=T_LOG, seed=2, num_legs=4, vo_every=3,
+def _fleet(legs=4):
+    """The synthetic log of a robot with ``legs`` legs (seed 2; a VO frame
+    every 3 ticks, so the short log reaches the Bezier increments) as a
+    JAX-perturbed fleet on the shared camera clock: (JAX lanes TickData, JAX
+    VOData, port lanes TickData, port VOData)."""
+    jp = _params(legs)[0]
+    log = jsynth.generate(jsynth.SynthConfig(T=T_LOG, seed=2, num_legs=legs, vo_every=3,
                                              vo_latency=1))
     data_l = jbatch.tickdata_to_lanes(jbatch.to_time_leading(jbatch.perturb_log_batch(
         jest.tickdata_from_log(log, dtype=DT), B_LANES, jax.random.PRNGKey(0), jp, dtype=DT)))
@@ -85,16 +87,19 @@ def _tick_inputs(c, tdata, tvo):
             estimator.VOData(*(a[1:] for a in tvo)), inc[1:])
 
 
-@pytest.mark.parametrize("stage", STAGES)
-def test_stage_matches_pallas_interpret(stage):
+@pytest.mark.parametrize("model,stage", [pytest.param("go1", st, id=st) for st in STAGES]
+                         + [pytest.param("pogox", st, id=f"pogox-{st}") for st in STAGES])
+def test_stage_matches_pallas_interpret(model, stage):
     """``replay(..., ablate=stage)`` on the CPU (the plain version of the K2e
     unit) against the Pallas kernel with the same ``ablate`` in interpret
-    mode: the same positions of non-finite values, the finite ones to
-    rtol/atol 1e-8; the stage changes the estimate."""
-    data_l, vo, tdata, tvo = _fleet()
-    jx = np.asarray(jmrk.replay(jmhe.make_consts(_params()[0], DT), data_l, vo, dtype=DT,
+    mode, at Go1's and PogoX's shapes: the same positions of non-finite
+    values, the finite ones to rtol/atol 1e-8; the stage changes the
+    estimate."""
+    legs = LEGS[model]
+    data_l, vo, tdata, tvo = _fleet(legs)
+    jx = np.asarray(jmrk.replay(jmhe.make_consts(_params(legs)[0], DT), data_l, vo, dtype=DT,
                                 interpret=True, ablate=stage))
-    tc = mhe.make_consts(_params()[1], F64, device="cpu")
+    tc = mhe.make_consts(_params(legs)[1], F64, device="cpu")
     tx = mrk.replay(tc, tdata, tvo, dtype=F64, device="cpu", ablate=stage).numpy()
     assert tx.shape == jx.shape == (T_LOG, 9, B_LANES)
     np.testing.assert_array_equal(np.isnan(tx), np.isnan(jx))
@@ -110,7 +115,10 @@ def test_stage_matches_pallas_interpret(stage):
 
 def test_no_ablation_is_the_tick_bit_for_bit():
     """``ablate=""`` (the default) is the unablated route, bit for bit, on
-    either tail; the launch-size knob does not change the plain version."""
+    either tail; the launch-size knob does not change the plain version. The
+    tick, ablated or not, runs 16 threads per instance, so a block is a
+    multiple of 16 whose shared memory fits (1024 threads of Go1's tick do
+    not), on the CPU as on the card."""
     _, _, tdata, tvo = _fleet()
     tc = mhe.make_consts(_params()[1], F64, device="cpu")
     for tail in ("gj", "chol"):
@@ -119,21 +127,22 @@ def test_no_ablation_is_the_tick_bit_for_bit():
                                       ablate=""), x)
     ks, d, v, i = _tick_inputs(tc, tdata, tvo)
     x, st = mrk.replay_ticks(tc, ks, d, v, i, device="cpu")
-    for block in (None, 32, 64, 1024):
+    for block in (None, 32, 64, 256):
         xb, stb = mrk.replay_ticks(tc, ks, d, v, i, device="cpu", ablate="", block=block)
         assert torch.equal(xb, x) and all(torch.equal(a, b) for a, b in zip(stb.arrays,
                                                                              st.arrays))
-    for block in (0, 1025):
-        with pytest.raises(ValueError, match="block"):
-            mrk.replay_ticks(tc, ks, d, v, i, device="cpu", block=block)
+    for block in (0, 40, 1024, 1025):
+        for ablate in ("", "solve"):
+            with pytest.raises(ValueError, match="block|shared memory"):
+                mrk.replay_ticks(tc, ks, d, v, i, device="cpu", ablate=ablate, block=block)
 
 
 def test_refusals_name_the_roadmap_row(monkeypatch):
     """An unknown stage raises ``ValueError``; the ablation with box consts,
-    on per-lane camera clocks, with the Cholesky tail or at a shape other
-    than Go1's raises ``NotImplementedError`` naming its ROADMAP.md row, on
-    the CPU as on the card (``replay_ticks`` refuses before it takes either
-    route, so the kernel route builds and launches nothing)."""
+    on per-lane camera clocks, with the Cholesky tail or at Cassie's shape
+    raises ``NotImplementedError`` naming its ROADMAP.md row, on the CPU as on
+    the card (``replay_ticks`` refuses before it takes either route, so the
+    kernel route builds and launches nothing); PogoX's shape is taken."""
     _, _, tdata, tvo = _fleet()
     tp = _params()[1]
     tc = mhe.make_consts(tp, F64, device="cpu")
@@ -159,8 +168,14 @@ def test_refusals_name_the_roadmap_row(monkeypatch):
         tpm = config.load_yaml_params(os.path.join(REPO, "configs",
                                                    f"parameters_{model}.yaml"))[0]
         tpm.N = N_WIN
+        cm = mhe.make_consts(tpm, F64, device="cpu")
+        if model == "pogox":
+            mrk.check_ablate(cm, "build", False, "gj")
+            assert mrk.kernel_library(*_build.MHE_SHAPES[model], False,
+                                      ablate="build") == "mhe_pogox_abl"
+            continue
         with pytest.raises(NotImplementedError, match=ROW):
-            mrk.check_ablate(mhe.make_consts(tpm, F64, device="cpu"), "build", False, "gj")
+            mrk.check_ablate(cm, "build", False, "gj")
         with pytest.raises(NotImplementedError, match=ROW):
             mrk.kernel_library(*_build.MHE_SHAPES[model], False, ablate="build")
     def route(*a, **k):
@@ -173,22 +188,24 @@ def test_refusals_name_the_roadmap_row(monkeypatch):
 
 
 def test_ablation_library():
-    """One library, ``mhe_go1_abl``, holds a unit per stage and type with the
-    stage's index in ``DEM_MHE_ABL`` (the order of ``ABLATE_STAGES``),
-    unconstrained on the shared clock; every unit of the existing libraries
-    keeps its defines."""
-    assert mrk.ABLATE_STAGES == STAGES and _build.MHE_ABL_SHAPES == ("go1",)
-    for stage in STAGES:
-        assert mrk.kernel_library(9, 12, 4, 0, False, ablate=stage) == "mhe_go1_abl"
-    units = _build.UNITS["mhe_go1_abl"]
-    assert units[0] == ("mhe", _build._mhe_shape_flags("go1"))
-    got = [(f[5].split("=")[1], f[6:]) for _, f in units[1:]]
-    assert got == [(f"dem_mhe_unit_go1_abl{k}_{sym}",
-                    (f"-DDEM_MHE_REAL={real}", "-DDEM_MHE_CON=0", "-DDEM_MHE_PI=0",
-                     f"-DDEM_MHE_ABL={k}"))
-                   for k in range(1, 6) for real, sym in (("float", "f32"), ("double", "f64"))]
-    assert not any("ABL" in d for lib, us in _build.UNITS.items() if lib != "mhe_go1_abl"
-                   for _, f in us for d in f)
+    """One library per shape, ``mhe_go1_abl`` and ``mhe_pogox_abl``, holds a
+    unit per stage and type with the stage's index in ``DEM_MHE_ABL`` (the
+    order of ``ABLATE_STAGES``), unconstrained on the shared clock; every unit
+    of the other libraries keeps its defines."""
+    assert mrk.ABLATE_STAGES == STAGES and _build.MHE_ABL_SHAPES == ("go1", "pogox")
+    for tag in _build.MHE_ABL_SHAPES:
+        for stage in STAGES:
+            assert mrk.kernel_library(*_build.MHE_SHAPES[tag], False,
+                                      ablate=stage) == f"mhe_{tag}_abl"
+        units = _build.UNITS[f"mhe_{tag}_abl"]
+        assert units[0] == ("mhe", _build._mhe_shape_flags(tag))
+        got = [(f[5].split("=")[1], f[6:]) for _, f in units[1:]]
+        assert got == [(f"dem_mhe_unit_{tag}_abl{k}_{sym}",
+                        (f"-DDEM_MHE_REAL={real}", "-DDEM_MHE_CON=0", "-DDEM_MHE_PI=0",
+                         f"-DDEM_MHE_ABL={k}"))
+                       for k in range(1, 6) for real, sym in (("float", "f32"), ("double", "f64"))]
+    assert not any("ABL" in d for lib, us in _build.UNITS.items()
+                   if lib not in ("mhe_go1_abl", "mhe_pogox_abl") for _, f in us for d in f)
 
 
 def test_work_counts_what_each_stage_leaves():

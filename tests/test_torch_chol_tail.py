@@ -206,7 +206,7 @@ def test_chol_library_and_per_lane_clock_refusal(model, monkeypatch):
     with monkeypatch.context() as mp:
         mp.setattr(mrk, "_launch", route)
         mp.setattr(mrk, "replay_ticks_plain", route)
-        with pytest.raises(NotImplementedError, match="K2e at the Cassie and PogoX shapes"):
+        with pytest.raises(NotImplementedError, match="K2e at Cassie; on per-lane clocks, the Cholesky tail and box consts"):
             mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol", ablate="solve")
     x_chol, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol")
     x_gj, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu")

@@ -334,12 +334,15 @@ def test_library_map_has_every_variant_group_at_every_shape():
             assert reals == (["-DDEM_MHE_REAL=double"] * len(want)
                              + ["-DDEM_MHE_REAL=float"] * len(want))
         # the tail on per-lane clocks is a unit of the Cholesky library; the
-        # stage ablation exists at Go1's shape alone, elsewhere it names its row
+        # stage ablation exists at Go1's and PogoX's shapes, at Cassie's it
+        # names its row
         assert mrk.kernel_library(s, m, L, lot, per_lane_clock=True, chol=True) == (
             f"mhe_{model}_chol")
-        if model != "go1":
+        if model == "cassie":
             with pytest.raises(NotImplementedError, match="ROADMAP.md.*K2e"):
                 mrk.kernel_library(s, m, L, lot, False, ablate="solve")
+        else:
+            assert mrk.kernel_library(s, m, L, lot, False, ablate="solve") == f"mhe_{model}_abl"
     with pytest.raises(NotImplementedError):
         mrk.kernel_library(12, 6, 1, 1, False)
     assert _build.mhe_library(12, 6, 1, 1) is None

@@ -1,19 +1,21 @@
-"""The unconstrained tick on a group of threads per instance (Cassie's shape).
+"""The unconstrained tick on a group of threads per instance.
 
-Above s=9 the unconstrained tick runs ``BOX_G`` = 16 threads per instance,
-with the Gauss-Jordan tail (K2, K2b) and with the Cholesky tail (K2d, K2d-PI):
-``tick_geometry`` gives the launch (threads and instances per block, dynamic
-shared bytes), and the wrapper on CPU tensors still takes the plain version,
-with a block that must be a multiple of 16. Without a card,
-``tests/box_group_host/tick_harness.cpp`` builds the tick body of
-``csrc/mhe_body.cuh`` with g++ and runs it on the group (each instance's 16
-lanes as host threads) and on one thread per instance, with either tail, from
-plain-path states of the bench's Cassie fleet, for 24 ticks (the window full
-from tick 20, so the marginalization runs), in float64 and float32, on the
-shared camera clock and on a clock per lane with a VO-free lane: x, every
-window-state tensor and the Bezier schedule must agree bit for bit, and the
-float64 result must match the plain version (the window's weights on their
-diagonal scale).
+The unconstrained tick runs ``BOX_G`` = 16 threads per instance with the
+Gauss-Jordan tail (K2, K2b) at every shape (Go1, PogoX, Cassie), and with the
+Cholesky tail (K2d, K2d-PI) above s=9 (Cassie): ``tick_geometry`` gives the
+launch (threads and instances per block, dynamic shared bytes), and the
+wrapper on CPU tensors still takes the plain version, with a block that must
+be a multiple of 16. Without a card, ``tests/box_group_host/tick_harness.cpp``
+builds the tick body of ``csrc/mhe_body.cuh`` with g++ and runs it on the
+group (each instance's 16 lanes as host threads) and on one thread per
+instance, from plain-path states of the bench's Go1, PogoX and Cassie fleets
+(Cassie with either tail), for 24 ticks (the window full from tick 20, so the
+marginalization runs), in float64 and float32, on the shared camera clock and
+on a clock per lane with a VO-free lane: x, every window-state tensor and the
+Bezier schedule must agree bit for bit, and the float64 result must match the
+plain version (the window's weights on their diagonal scale). The group's
+units of the stage ablation (K2e) at Go1's shape run there too, in float64,
+against the plain version that skips the same stage.
 """
 
 import os
@@ -37,6 +39,9 @@ HOST = os.path.join(os.path.dirname(__file__), "box_group_host")
 CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "decentralized_ekf_mhe_tpu_torch",
                     "csrc")
 B_HOST, T_HOST = 5, 25       # ticks 1..24 in the harness
+# the "solve" stage's x against ATOL_SOLVE + RTOL_SOLVE times the magnitude of
+# its elementary products, as chip_smoke.py's check_ablation holds it
+RTOL_SOLVE, ATOL_SOLVE = 2e-13, 1e-8
 
 
 def _layout_bytes(s, m, item):
@@ -55,14 +60,28 @@ def test_tick_geometry(dtype):
     factor and reciprocal pivots, s(s+1)/2 + s scalars, in a matrix buffer of
     max(s², m²), and z, yv, x in three of the four vectors); any multiple of
     16 up to 256 fits a block; a block that is no multiple of 16 raises, and
-    so does a shape that ticks one thread per instance or an unknown tail."""
+    so does an unknown tail. At s=9 the Gauss-Jordan tick launches the same
+    way with Go1's and PogoX's layouts (8 instances per block at B=1024 fill
+    128 of the 132 SMs), and the Cholesky tail, one thread per instance
+    there, raises."""
     item = torch.empty((), dtype=dtype).element_size()
     per = _layout_bytes(15, 6, item)
     assert per % 128 == 64 and per == {4: 5568, 8: 11072}[item]
     assert 15 * 16 // 2 + 15 <= max(15 * 15, 6 * 6) and 15 < mrk.BOX_G   # a spare lane
     with pytest.raises(ValueError, match="mk_solve"):
         mrk.tick_occupancy(None, dtype, mk_solve="cholesky")
-    assert mrk.tick_group(15) and not mrk.tick_group(9)
+    with pytest.raises(ValueError, match="mk_solve"):
+        mrk.tick_group(9, "cholesky")
+    assert mrk.tick_group(15) and mrk.tick_group(9)
+    assert mrk.tick_group(15, "chol") and not mrk.tick_group(9, "chol")
+    for m, want in ((12, {4: 3776, 8: 7616}), (3, {4: 2240, 8: 4288})):   # Go1, PogoX
+        g = mrk.tick_geometry(9, m, dtype)
+        assert _layout_bytes(9, m, item) == want[item] and want[item] % 128 == 64
+        assert (g.instances_per_block, g.threads_per_block, g.shared_bytes) == (
+            8, mrk.BLOCK_TICK, 8 * want[item])
+        assert -(-1024 // g.instances_per_block) == 128
+        with pytest.raises(ValueError, match="block"):
+            mrk.tick_geometry(9, m, dtype, 40)
     g = mrk.tick_geometry(15, 6, dtype)
     assert g.threads_per_block == mrk.BLOCK_TICK
     assert g.instances_per_block == mrk.BLOCK_TICK // mrk.BOX_G
@@ -75,18 +94,19 @@ def test_tick_geometry(dtype):
     for block in (8, 24, 40, 1000, 2048):
         with pytest.raises(ValueError, match="block"):
             mrk.tick_geometry(15, 6, dtype, block)
-    with pytest.raises(ValueError, match="one thread per instance"):
-        mrk.tick_geometry(9, 12, dtype)
+    for m in (12, 3):
+        with pytest.raises(ValueError, match="one thread per instance"):
+            mrk.tick_geometry(9, m, dtype, mk_solve="chol")
 
 
-def _fleet(per_lane, B=B_HOST, T=T_HOST):
-    """Consts and replay_ticks' inputs of the bench's Cassie fleet (float64,
-    the plain path's tick-0 state): on its shared camera clock, or with lane b
-    on a clock of a frame every 3 + b % 3 ticks, 1 + b % 2 ticks late, and
-    the last lane VO-free."""
+def _fleet(per_lane, B=B_HOST, T=T_HOST, model="cassie_bench"):
+    """Consts and replay_ticks' inputs of the bench's fleet of ``model``
+    ("go1", "pogox_bench", "cassie_bench"; float64, the plain path's tick-0
+    state): on its shared camera clock, or with lane b on a clock of a frame
+    every 3 + b % 3 ticks, 1 + b % 2 ticks late, and the last lane VO-free."""
     from decentralized_ekf_mhe_tpu_torch.tools import roofline
 
-    p, data_b, _, vo = roofline.bench_fleet(B, T, device="cpu", dtype=F64, model="cassie_bench")
+    p, data_b, _, vo = roofline.bench_fleet(B, T, device="cpu", dtype=F64, model=model)
     c = mhe.make_consts(p, F64, device="cpu")
     if per_lane:
         vos = [estimator.vodata_from_log(synth.generate(synth.SynthConfig(
@@ -122,16 +142,20 @@ def _state_scales(arrays):
     return [out[n] for n in STATE]
 
 
-def _write_case(path, c, ks, d, v, i, chol=False):
+def _write_case(path, c, ks, d, v, i, chol=False, ablate=""):
     """One case for tick_harness.cpp: N, B, Tn, t0, per-lane clock, Cholesky
-    tail; the packed consts; the VO metadata and Bezier count (int32); the Bezier
-    times, the tick inputs and the window state (float64, lanes layout)."""
+    tail, ablated stage (0 none, else 1 + its index in ``mrk.ABLATE_STAGES``),
+    the shape (s, m, L, leg_odom_type); the packed consts; the VO metadata and
+    Bezier count (int32); the Bezier times, the tick inputs and the window
+    state (float64, lanes layout)."""
     Tn, B = d.accel_b.shape[0], d.accel_b.shape[-1]
     pi = v.active.ndim == 2
+    abl = mrk.ABLATE_STAGES.index(ablate) + 1 if ablate else 0
     ints = lambda a: np.ascontiguousarray(a.numpy().astype(np.int32)).tobytes()
     f64 = lambda a: np.ascontiguousarray(a.double().numpy()).tobytes()
     with open(path, "wb") as f:
-        f.write(struct.pack("6i", c.N, B, Tn, ks.t + 1, int(pi), int(chol)))
+        f.write(struct.pack("11i", c.N, B, Tn, ks.t + 1, int(pi), int(chol), abl, c.dim_state,
+                            c.dim_meas, c.num_legs, int(c.leg_odom_type)))
         f.write(mrk._pack_consts(mrk.consts_from_mhe(c)).tobytes())
         for a in (v.active, v.tick_pre, v.tick_now, ks.bez_count):
             f.write(ints(a))
@@ -144,7 +168,8 @@ def _write_case(path, c, ks, d, v, i, chol=False):
 
 @pytest.fixture(scope="module")
 def tick_harness(tmp_path_factory):
-    """tick_harness.cpp built once with g++ (no FMA contraction)."""
+    """tick_harness.cpp built once with g++ (no FMA contraction): the
+    instantiations of Go1's, PogoX's and Cassie's shapes in one executable."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host harness")
     exe = str(tmp_path_factory.mktemp("tick_host") / "tick_harness")
@@ -154,46 +179,103 @@ def tick_harness(tmp_path_factory):
     return exe
 
 
-@pytest.mark.parametrize("tail,per_lane", [
-    pytest.param("gj", False, id="shared_clock"),
-    pytest.param("gj", True, id="per_lane_clocks"),
-    pytest.param("chol", False, id="chol-shared_clock"),
-    pytest.param("chol", True, id="chol-per_lane_clocks")])
-def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, tail, per_lane):
+def _run_harness(exe, case, out):
+    run = subprocess.run([exe, case, out], capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
+    return run.stdout.splitlines()
+
+
+def _read_out(out, xp, ksp):
+    """The harness's float64 x, window state and Bezier times, shaped as the
+    plain version's."""
+    got = torch.from_numpy(np.fromfile(out, dtype=np.float64))
+    k, arrays = xp.numel(), []
+    for a in ksp.arrays:
+        arrays.append(got[k:k + a.numel()].reshape(a.shape))
+        k += a.numel()
+    return got[:xp.numel()].reshape(xp.shape), arrays, got[k:].reshape(ksp.bez_times.shape)
+
+
+def _hold_state(arrays, ksp):
+    """The window state against the plain version's: the same non-finite
+    positions, the finite entries within TOL of their scale."""
+    for name, a, b, scale in zip(STATE, arrays, ksp.arrays, _state_scales(ksp.arrays)):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a)) and torch.equal(b.isnan(), a.isnan()), name
+        assert bool(((a - b).abs()[fin] <= TOL["atol"] + TOL["rtol"] * scale[fin]).all()), name
+
+
+@pytest.mark.parametrize("model,tail,per_lane", [
+    pytest.param("cassie_bench", "gj", False, id="shared_clock"),
+    pytest.param("cassie_bench", "gj", True, id="per_lane_clocks"),
+    pytest.param("cassie_bench", "chol", False, id="chol-shared_clock"),
+    pytest.param("cassie_bench", "chol", True, id="chol-per_lane_clocks"),
+    pytest.param("go1", "gj", False, id="go1-shared_clock"),
+    pytest.param("go1", "gj", True, id="go1-per_lane_clocks"),
+    pytest.param("pogox_bench", "gj", False, id="pogox-shared_clock"),
+    pytest.param("pogox_bench", "gj", True, id="pogox-per_lane_clocks")])
+def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, model, tail,
+                                                       per_lane):
     """mhe_body on the group (GRP: the marginalization, the shift with its
     cache update and the streaming sweep row-parallel, lane 0 the VO
     ingestion and the fresh slots' blocks; with the Cholesky tail W column-parallel,
     S_j row-parallel and the factor column by column) gives the one-thread
     body's x, window state and Bezier schedule bit for bit over 24 ticks, in
-    float64 and float32, with the Gauss-Jordan tail ("gj") and the Cholesky
-    tail ("chol"); on per-lane clocks with a lane that never ingests. Its
+    float64 and float32, at Cassie's shape with the Gauss-Jordan tail ("gj")
+    and the Cholesky tail ("chol"), at Go1's and PogoX's (s=9) with the
+    Gauss-Jordan tail; on per-lane clocks with a lane that never ingests. Its
     float64 x and state are the plain version's (the plain version does not
     depend on the tail). A lane that leaves a sync alone hangs the barrier,
     which the time limit turns into a failure."""
-    c, ks, d, v, i = _fleet(per_lane)
+    c, ks, d, v, i = _fleet(per_lane, model=model)
     if per_lane:
         assert not bool(v.active[:, -1].any()) and int(v.active[:, 0].sum()) >= 4
     case, out = str(tmp_path / "case.bin"), str(tmp_path / "out.bin")
     _write_case(case, c, ks, d, v, i, chol=tail == "chol")
-    run = subprocess.run([tick_harness, case, out], capture_output=True, text=True, timeout=120)
-    assert run.returncode == 0, run.stdout + run.stderr
-    lines = run.stdout.splitlines()
-    assert lines[-1] == "ALL BIT-IDENTICAL" and len(lines) == 3, run.stdout
-    assert all(f" {tail}: x 0 state 0 schedule 0 differ" in ln for ln in lines[:2]), run.stdout
+    lines = _run_harness(tick_harness, case, out)
+    assert lines[-1] == "ALL BIT-IDENTICAL" and len(lines) == 3, lines
+    shape = f" s={c.dim_state} m={c.dim_meas} "
+    assert all(shape in ln and f" {tail}: x 0 state 0 schedule 0 differ" in ln
+               for ln in lines[:2]), lines
 
     # the group's float64 x and state against the plain version
     xp, ksp = mrk.replay_ticks_plain(c, ks, d, v, i)
-    got = torch.from_numpy(np.fromfile(out, dtype=np.float64))
-    n = xp.numel()
-    torch.testing.assert_close(got[:n].reshape(xp.shape), xp, **TOL)
-    k, arrays = n, []
-    for a in ksp.arrays:
-        arrays.append(got[k:k + a.numel()].reshape(a.shape))
-        k += a.numel()
-    for name, a, b, scale in zip(STATE, arrays, ksp.arrays, _state_scales(ksp.arrays)):
-        assert bool(((a - b).abs() <= TOL["atol"] + TOL["rtol"] * scale).all()), name
-    assert torch.equal(got[k:].reshape(ksp.bez_times.shape), ksp.bez_times)
+    x, arrays, times = _read_out(out, xp, ksp)
+    torch.testing.assert_close(x, xp, **TOL)
+    _hold_state(arrays, ksp)
+    assert torch.equal(times, ksp.bez_times)
     assert ksp.t == T_HOST - 1 >= c.N
+
+
+@pytest.mark.parametrize("stage", mrk.ABLATE_STAGES)
+def test_group_ablation_matches_the_plain_version_on_the_host(tick_harness, tmp_path, stage):
+    """The group's float64 tick with one stage skipped (K2e: ABL on the group,
+    Go1's shape, the shared clock) against ``replay_ticks_plain(...,
+    ablate=stage)`` over 24 ticks, as chip_smoke.py's check_ablation holds it:
+    x with the same non-finite positions and its finite entries within TOL
+    (the "solve" stage's within ATOL_SOLVE + RTOL_SOLVE of its elementary
+    products' magnitude, ``mrk.solve_stage_scales``), the window state it
+    leaves with the same non-finite positions and within TOL of its scale."""
+    c, ks, d, v, i = _fleet(False, model="go1")
+    assert int(v.active.sum()) > 0
+    case, out = str(tmp_path / "case.bin"), str(tmp_path / "out.bin")
+    _write_case(case, c, ks, d, v, i, ablate=stage)
+    lines = _run_harness(tick_harness, case, out)
+    assert lines == [f"{case} s=9 m=12 f64 shared gj ablation "
+                     f"{mrk.ABLATE_STAGES.index(stage) + 1}: written", "ALL BIT-IDENTICAL"], lines
+    xp, ksp = mrk.replay_ticks_plain(c, ks, d, v, i, ablate=stage)
+    x, arrays, times = _read_out(out, xp, ksp)
+    fin = torch.isfinite(xp)
+    assert torch.equal(fin, torch.isfinite(x)) and torch.equal(xp.isnan(), x.isnan())
+    assert bool(fin.any()) == (stage != "build")   # zeroed fresh data: a singular window
+    if stage == "solve":
+        scale, tol = mrk.solve_stage_scales(c, ks, d, v, i)["terms"], dict(rtol=RTOL_SOLVE,
+                                                                          atol=ATOL_SOLVE)
+    else:
+        scale, tol = xp.abs(), TOL
+    assert bool(((x - xp).abs()[fin] <= tol["atol"] + tol["rtol"] * scale[fin]).all())
+    _hold_state(arrays, ksp)
+    assert torch.equal(times, ksp.bez_times)
 
 
 def test_unconstrained_wrapper_takes_the_plain_version_on_the_cpu():
