@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts' kernels on one card: every kernel's ptxas figures,
 the unconstrained tick's time in turns at Go1's and PogoX's shapes (s=9) with
-either tail, and its float64 results.
+either tail, and the Cholesky tick's float64 and float32 results there.
 
     python3 chip_ab_mhe_tick.py OTHER_CHECKOUT [--turns-only | --bits-only]
 
@@ -12,19 +12,21 @@ checkouts build all their libraries at once, each with ptxas' report, and
 the script prints, for every kernel the two have in common, whether its
 registers, stack frame and spill stores and loads are the same, and which of
 those that differ are outside the set this comparison expects to change
-(``CHANGED``: the unconstrained Gauss-Jordan tick at s=9, ``mhe_kernel`` and
-``mhe_pi_kernel``, and the stage ablation's ``mhe_abl_kernel``). Then, since
+(``CHANGED``: the unconstrained Cholesky tick at s=9, ``mhe_chol_kernel`` and
+``mhe_pi_chol_kernel``). Then, since
 two versions are only comparable within one run on one card, the timing turns
 go other, this, this, other; each turn is a fresh process. Go1's
 unconstrained tick (K2) on the headline fleet (cell (a): T=2000, B=1024,
 float32, seed 0; the EKF kernel's orientation) prints best-of-3 device times
-of ``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three times. Go1's
-tick on its 15 clocks per lane (cell (c), K2b), PogoX's on its fleet (cell
-(i)'s, the lanes runner's inputs) and on its 15 clocks (cell (n), K2b), and,
-as the control, the same four fleets with the Cholesky tail (K2d, K2d-PI:
-cells (p), (r)), each run the whole log once per turn after a short warm-up.
+of ``mhe_replay_kernel.replay_ticks`` over ticks 1..T-1, three times, as the
+control. Then the subject, the four fleets with the Cholesky tail (K2d,
+K2d-PI: Go1's cells (p), (r), and PogoX's fleet (cell (i)'s, the lanes
+runner's inputs) and its 15 clocks), and Go1's Gauss-Jordan tick on its 15
+clocks per lane (cell (c), K2b) and PogoX's on its fleets (cells (i), (n))
+as controls, each run the whole log once per turn after a short warm-up,
+the kernel alone (``mrk.timer``).
 ``--turns-only`` stops after cell (a)'s turns. Last, each checkout runs Go1's
-and PogoX's unconstrained Gauss-Jordan tick on both clocks in float64 on the
+and PogoX's unconstrained Cholesky tick on both clocks in float64 on the
 first 120 ticks (B=1024), then in float32 over the whole log, and the script
 prints, per run, whether x, the window state and the Bezier schedule are
 bit-identical between the checkouts, and the largest difference in units of
@@ -102,13 +104,12 @@ with torch.inference_mode():
                                      mk_solve=tail, nvcc_flags=flags)
     if out == "-":
         run(50)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
+        mrk.timer.on = True
         run(T - 1)
-        e1.record()
-        torch.cuda.synchronize()
+        mrk.timer.on = False
+        (ms,) = mrk.timer.ms()
         print(json.dumps({"model": model, "clock": sys.argv[2], "tick": sys.argv[3], "T": T,
-                          "ms": e0.elapsed_time(e1)}))
+                          "kernel_alone_ms": ms}))
     else:
         x, k = run(T - 1)
         res = {"x": x.cpu(), "state": [a.cpu() for a in k.arrays[:18]],
@@ -118,12 +119,15 @@ with torch.inference_mode():
         torch.save(res, out)
 '''
 
-# build all of a checkout's libraries with ptxas' report: {kernel: figures}
+# build a checkout's libraries with ptxas' report, but those whose name
+# matches the pattern argv[1] (units the other checkout has not): {kernel:
+# figures}
 BUILD = r'''
-import json
+import json, re, sys
 import chip_smoke as cs
 from decentralized_ekf_mhe_tpu_torch.kernels import _build
-_build.build(ptxas=True)
+_build.build(ptxas=True, libraries=[n for n in _build.LIBRARIES
+                                    if not re.search(sys.argv[1], n)])
 figs = {}
 for report in _build.report.values():
     for _, out, _ in report["units"]:
@@ -135,7 +139,8 @@ print(json.dumps(figs))
 def ptxas_both(other):
     """Both checkouts' builds at once; prints the comparison of the kernels
     they have in common."""
-    procs = {tree: subprocess.Popen([sys.executable, "-c", BUILD], cwd=tree, text=True,
+    procs = {tree: subprocess.Popen([sys.executable, "-c", BUILD, NEW_LIBRARIES], cwd=tree,
+                                    text=True,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for tree in (other, ".")}
     figs = {}
@@ -167,12 +172,16 @@ def run_turn(tree, code, *args):
 
 
 # the kernels this comparison expects to change ptxas figures: the
-# unconstrained Gauss-Jordan tick at s=9 (K2, K2b at Go1's and PogoX's shapes,
-# now on a group per instance) and the stage ablation (K2e, on the group)
-CHANGED = re.compile(r"(10mhe_kernel|13mhe_pi_kernel)I[fd]Li9E|14mhe_abl_kernel")
+# unconstrained Cholesky tick at s=9 (K2d, K2d-PI at Go1's and PogoX's
+# shapes, now on a group per instance)
+CHANGED = re.compile(r"(15mhe_chol_kernel|18mhe_pi_chol_kernel)I[fd]Li9E")
+# the libraries of the stage ablation's compositions that a checkout before
+# them does not have (per-lane clocks, the Cholesky tail, box consts; Cassie's
+# shape): not built for the comparison
+NEW_LIBRARIES = r"^mhe_\w+_abl_(pi|chol|box)_|^mhe_cassie_abl"
 FMAD_OFF = "-fmad=false"
-# Go1's and PogoX's unconstrained Gauss-Jordan tick on both clocks (K2, K2b)
-S9_FREE = [(model, clock, "free") for model in ("go1", "pogox") for clock in ("shared", "pi")]
+# Go1's and PogoX's unconstrained Cholesky tick on both clocks (K2d, K2d-PI)
+S9_CHOL = [(model, clock, "chol") for model in ("go1", "pogox") for clock in ("shared", "pi")]
 
 
 def tick_bits(other, runs, T=120, dtype="f64", flags=""):
@@ -238,15 +247,13 @@ def main(other, mode=""):
     if mode == "--turns-only":
         return
     if not mode:
-        for model, clock, con in (("go1", "pi", "free"), ("pogox", "shared", "free"),
-                                  ("pogox", "pi", "free"), ("go1", "shared", "chol"),
-                                  ("go1", "pi", "chol"), ("pogox", "shared", "chol"),
-                                  ("pogox", "pi", "chol")):
+        for model, clock, con in (*S9_CHOL, ("go1", "pi", "free"), ("pogox", "shared", "free"),
+                                  ("pogox", "pi", "free")):
             for tree in (other, ".", ".", other):
                 print(json.dumps({"checkout": tree, **run_turn(
                     tree, TICK_TURN, model, clock, con, "f32", "2000", "-")}), flush=True)
     for T, dtype in ((120, "f64"), (2000, "f32")):
-        differ = tick_bits(other, S9_FREE, T=T, dtype=dtype)
+        differ = tick_bits(other, S9_CHOL, T=T, dtype=dtype)
         if differ:   # the same runs without FMA contraction in either checkout
             tick_bits(other, differ, T=T, dtype=dtype, flags=FMAD_OFF)
 

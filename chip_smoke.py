@@ -75,12 +75,16 @@ shared-clock Cholesky tick at the small size (split log, plain version from a
 kernel state, a ragged fleet through the lanes runner with DEM_MK_SOLVE=chol);
 then each robot's 15-clock fleet through the lanes runner at full width with
 DEM_MK_SOLVE=chol against a float64 run, element-wise against its plain
-version, and timed against K2b. And the stage ablation of the tick (K2e,
-cell (s)) at Go1's and PogoX's shapes, on 16 threads per instance as the tick
-it ablates: each ablated unit against its plain version at a small size
-(float64, the same positions of non-finite values), then the stage table of
-``decentralized_ekf_mhe_tpu_torch.tools.roofline.ablation`` on the shape's
-headline fleet ((a), (i)), printed for each.
+version, and timed against K2b. And, last, the stage ablation of the tick
+(K2e, cell (s)) at Go1's, PogoX's and Cassie's shapes, at every composition
+— either clock, either tail, box consts — in the tick it ablates (the group,
+or the constrained tick's one-thread prelude): each of its 72 float64 units
+against its plain version at a small size (the same positions of non-finite
+values; with box consts z, y and the iteration counts too), then the stage
+tables of
+``decentralized_ekf_mhe_tpu_torch.tools.roofline.ablation`` on the headline
+fleets ((a), (i), (k)): the Gauss-Jordan tick at each shape, the Cholesky
+tick and the constrained tick at Go1's and Cassie's, printed for each.
 
 The constrained tick runs its window solve on 16 threads per instance: the
 small checks also show that a launch it cannot take raises (a block that is
@@ -89,18 +93,18 @@ its launch geometry at each shape, clock and type — threads, instances and
 dynamic shared memory per block, the blocks the card keeps resident per SM,
 the units' ptxas figures — and holds every float32 launch to at least 8
 instances per SM. The kernels line's rows of the constrained tick name the
-source of its window solve. The unconstrained tick with the Gauss-Jordan
-tail (K2, K2b) at every shape, and with the Cholesky tail (K2d, K2d-PI) at
-Cassie's, runs the whole tick on 16 threads per instance: the ragged fleet of
-the small checks (1001 instances) ends each of its launches in a partial
-block, the Cassie Cholesky phases print their units' launch, and a phase
-after the last prints the geometry of each such unit beside the constrained
-tick's, which the kernels line's rows of those kernels carry.
+source of its window solve. The unconstrained tick with either tail (K2,
+K2b, K2d, K2d-PI) at every shape runs the whole tick on 16 threads per
+instance: the ragged fleet of the small checks (1001 instances) ends each of
+its launches in a partial block, the Cholesky phases print their units'
+launch, and a phase after the last prints the geometry of each such unit
+beside the constrained tick's, which the kernels line's rows of those
+kernels carry.
 
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
-lower priority while the Go1 phases run, in the order the phases need them,
-and each phase waits for its own libraries only.
+lower priority while the phases run, in the order the phases need them (the
+stage ablation's last), and each phase waits for its own libraries only.
 
 Any failed check ends the run with a non-zero exit code. Each phase prints one
 JSON line; the line before the last lists every kernel, the last line is the
@@ -254,8 +258,8 @@ T_F64_CHK = 300
 # cell (s), the stage ablation (K2e): each ablated unit is held against its
 # plain version over T_ABL ticks (the window full, then a dozen ticks of
 # marginalization) of a B_ABL-instance fleet in float64, x and the window
-# state it leaves, and the tool's stage table runs over the first T_ABL_TABLE
-# ticks of cell (a)'s fleet (the tool's default depth). The "solve" stage
+# state it leaves, and the tool's stage tables run over the first T_ABL_TABLE
+# ticks of the headline fleets (the tool's default depth). The "solve" stage
 # returns a sum over the window's slots of the assembled system's entries,
 # which are themselves sums of products of either sign up to about 1e12 in
 # size that cancel to a few hundred or to rounding noise, so no limit on the
@@ -283,16 +287,29 @@ T_START = time.time()
 # build without FMA contraction, for fma_witness, as (library, FMAD_OFF)),
 # and each later phase waits for its own only (``need``). A compiler beside
 # them halves the speed of the host-bound eager plain versions (PERF.md §5),
-# so Cassie's Cholesky and per-lane-clock libraries start later
-# (CASSIE_LATE_BUILDS), while the GPU runs bench_route's long Cassie ticks
+# and more of them than cores slow them further: at most NVCC_JOBS nvcc
+# processes run beside the phases. The stage ablation's units that the last
+# phases launch (ABL_LIBRARIES: every float64 unit, and the float32 units of
+# the stage tables, ABL_TABLES) compile last; its other float32 units no
+# phase launches, and they are not built here (ABL_NOT_BUILT)
 GO1_LIBRARIES = ("tridiag_s9", "ekf", "mhe_go1", "admm_s9")
-LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF), "mhe_go1_abl",
-                "mhe_pogox", "mhe_pogox_abl", "mhe_pogox_chol", "mhe_pogox_pi",
-                "tridiag_s15", "admm_s15", "mhe_cassie", ("mhe_cassie", FMAD_OFF))
-CASSIE_LATE_BUILDS = ("mhe_cassie_chol", "mhe_cassie_pi")
+NVCC_JOBS = 6
+# the variants whose stage table cell (s) draws at each shape, on its headline
+# fleet ((a), (i), (k)), and the ablation library of each variant
+ABL_TABLES = {"go1": ("", "chol", "box"), "pogox": ("",), "cassie": ("", "chol", "box")}
+ABL_GROUP = {"": "abl", "chol": "abl_chol", "box": "abl_box"}
+ABL_LIBRARIES = {m: tuple(f"mhe_{m}_{g}_f64" for g in _build.MHE_ABL_GROUPS)
+                 + tuple(f"mhe_{m}_{ABL_GROUP[v]}_f32" for v in ABL_TABLES[m])
+                 for m in ABL_TABLES}
+LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF),
+                "mhe_pogox", "mhe_pogox_chol", "mhe_pogox_pi",
+                "tridiag_s15", "admm_s15", "mhe_cassie", ("mhe_cassie", FMAD_OFF),
+                "mhe_cassie_chol", "mhe_cassie_pi",
+                *ABL_LIBRARIES["go1"], *ABL_LIBRARIES["pogox"], *ABL_LIBRARIES["cassie"])
 BUILDS_AT_ONCE = 4
-assert set(GO1_LIBRARIES + CASSIE_LATE_BUILDS) | {
-    b for b in LATER_BUILDS if isinstance(b, str)} == set(_build.LIBRARIES)
+ABL_NOT_BUILT = sorted(set(_build.LIBRARIES) - set(GO1_LIBRARIES)
+                       - {b for b in LATER_BUILDS if isinstance(b, str)})
+assert all(re.fullmatch(r"mhe_\w+_abl\w*_f32", n) for n in ABL_NOT_BUILT), ABL_NOT_BUILT
 
 
 def emit(phase, **kw):
@@ -497,8 +514,10 @@ def phase_build(pool):
     _build.build(ptxas=True, libraries=GO1_LIBRARIES)
     for name in GO1_LIBRARIES:
         _build.load(name)
+    _build.limit_jobs(NVCC_JOBS)
     builds = start_builds(pool, LATER_BUILDS)
     emit("build", seconds=round(time.time() - t0, 2), libraries=list(GO1_LIBRARIES),
+         not_built_no_phase_launches_them=ABL_NOT_BUILT, nvcc_jobs_beside_the_phases=NVCC_JOBS,
          flags=" ".join(_build.NVCC_FLAGS), **build_report(GO1_LIBRARIES),
          compiling_beside_the_go1_phases=[" ".join((b[0],) + b[1]) if isinstance(b, tuple)
                                           else b for b in LATER_BUILDS],
@@ -724,7 +743,8 @@ def reset_counts():
         mod.launches = 0
     mrk.launches_box = mrk.launches_pi = mrk.launches_pi_box = mrk.launches_chol = 0
     mrk.launches_pi_chol = 0
-    mrk.launches_abl_by_stage.update(dict.fromkeys(mrk.ABLATE_STAGES, 0))
+    for by_stage in mrk.launches_abl.values():
+        by_stage.update(dict.fromkeys(mrk.ABLATE_STAGES, 0))
     admm_kernel.launches_core = 0
     tridiag_kernel.launches_batched = 0
 
@@ -734,7 +754,7 @@ def read_counts():
             "mhe_tick": mrk.launches, "mhe_tick_box": mrk.launches_box,
             "mhe_tick_pi": mrk.launches_pi, "mhe_tick_pi_box": mrk.launches_pi_box,
             "mhe_tick_chol": mrk.launches_chol, "mhe_tick_pi_chol": mrk.launches_pi_chol,
-            "mhe_tick_abl": sum(mrk.launches_abl_by_stage.values()),
+            "mhe_tick_abl": sum(sum(v.values()) for v in mrk.launches_abl.values()),
             "admm_solve": admm_kernel.launches,
             "admm_box_solve": admm_kernel.launches_core,
             "tridiag_solve_batched": tridiag_kernel.launches_batched}
@@ -963,13 +983,14 @@ TICK_ROWS = {"mhe_tick": (False, "gj"), "mhe_tick_pi": (True, "gj"),
 
 
 def mark_tick_group(kernels, geometry):
-    """The rows of the unconstrained tick where it runs a group of threads per
-    instance (K2, K2b at every shape, K2d, K2d-PI at Cassie's) carry that
-    launch's geometry as the card reports it (``tick_geometry_phase``),
-    float32, with the units' ptxas figures."""
+    """The rows of the unconstrained tick (K2, K2b, K2d, K2d-PI at every
+    shape, each on a group of threads per instance) carry that launch's
+    geometry as the card reports it (``tick_geometry_phase``), float32, with
+    the units' ptxas figures."""
     for row in kernels:
         name, _, model = row["name"].partition("[")
-        key = (model.rstrip("]"), *TICK_ROWS.get(name, (None, None)))
+        model = model.rstrip("]")   # Go1's rows name no shape, but its Cholesky rows do
+        key = ("" if model == "go1" else model, *TICK_ROWS.get(name, (None, None)))
         if key in geometry:
             row["threads_per_instance"] = mrk.BOX_G
             row["group_geometry"] = geometry[key]
@@ -1569,7 +1590,6 @@ def tick_group_figures(p, pi, tail):
     figures; every launch keeps all B_MAIN instances resident at once.
     {"float": ..., "double": ...}."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    assert mrk.tick_group(p.dim_state, tail)
     c = mhe.make_consts(p, F32, device=DEV)
     lib = mrk.kernel_library(p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type, pi,
                              tail == "chol")
@@ -1588,17 +1608,16 @@ def tick_group_figures(p, pi, tail):
 
 
 def tick_geometry_phase():
-    """The unconstrained tick's launch where it runs a group of threads per
-    instance (``mrk.tick_group``: the Gauss-Jordan tail at Go1's, PogoX's and
-    Cassie's shapes, the Cholesky tail at Cassie's), on both clocks, in both
-    types (``tick_group_figures``). Returns the float32 figures by (the
+    """The unconstrained tick's launch on a group of threads per instance,
+    with either tail at Go1's, PogoX's and Cassie's shapes, on both clocks,
+    in both types (``tick_group_figures``). Returns the float32 figures by (the
     robot's tag in the kernels line's names, per-lane clock, tail) for the
     kernels line."""
     res, rows = {}, {}
     for model, tag in (("go1", ""), ("pogox", "pogox"), ("cassie_bench", "cassie")):
         p = robot_params(model)[0]
         for pi in (False, True):
-            for tail in (t for t in mrk.MK_SOLVES if mrk.tick_group(p.dim_state, t)):
+            for tail in mrk.MK_SOLVES:
                 figs = tick_group_figures(p, pi, tail)
                 for name, card in figs.items():
                     res[f"{tag or model} {'per-lane' if pi else 'shared'} clock {tail} "
@@ -2642,12 +2661,11 @@ def check_kernels_chol(model):
     except ValueError as e:
         unknown = str(e)
     assert unknown, "an unknown tail must raise"
-    # above s=9 both units run a group of threads per instance: their launch
-    group = ({clock: tick_group_figures(p, pi, "chol")
-              for clock, pi in (("shared", False), ("per_lane", True))}
-             if mrk.tick_group(p.dim_state, "chol") else None)
+    # both units run a group of threads per instance: their launch
+    group = {clock: tick_group_figures(p, pi, "chol")
+             for clock, pi in (("shared", False), ("per_lane", True))}
     emit("kernels_chol", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
-         leg_odom_type=p.leg_odom_type, threads_per_instance=mrk.BOX_G if group else 1,
+         leg_odom_type=p.leg_odom_type, threads_per_instance=mrk.BOX_G,
          group_launch=group, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
          tol=TOL_MHE, tol_vs_gauss_jordan=TOL_CHOL_VS_GJ, tol_uniform_vs_shared=1e-12,
          mhe_tick_chol_err=errs, clocks=N_CLOCKS, vo_free_lanes=B_CHK // VO_FREE_EVERY,
@@ -2743,8 +2761,7 @@ def chol_path(model, fleet64, fleet32, gt_v, k2_ms=None):
     emit("chol_path", model=model, config=f"{model} N={N_WIN} s={s} m={p.dim_meas} "
          f"L={p.num_legs} leg_odom_type={p.leg_odom_type}, DEM_MK_SOLVE=chol, "
          + ("lanes runner" if lanes else "pipeline runner"),
-         group_launch_f32=(tick_group_figures(p, False, "chol")["float"]
-                           if mrk.tick_group(s, "chol") else None),
+         group_launch_f32=tick_group_figures(p, False, "chol")["float"],
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
          pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
          rmse_vs_ground_truth=rmse, rmse_f64=r64, rmse_f64_all_ticks=r64_all, rmse_gate=gate,
@@ -3015,8 +3032,7 @@ def pi_chol_cell(model, clocks64, clocks32, gt_v, k2b_ms=None):
     emit(f"{tag}_pi_chol",
          config=f"{model} N={N_WIN} s={s} m={m} L={L} leg_odom_type={lot}, 15 camera clocks, "
          "every 64th lane VO-free, DEM_MK_SOLVE=chol, lanes runner",
-         group_launch_f32=(tick_group_figures(p, True, "chol")["float"]
-                           if mrk.tick_group(s, "chol") else None),
+         group_launch_f32=tick_group_figures(p, True, "chol")["float"],
          T=T_MAIN, B=B_MAIN, dtype="float32", launches=counts, wall_s=wall / 1e3,
          wall_from="the counted run", pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / (wall / 1e3),
          tick_kernel_only_ms=k_only, rmse_vs_ground_truth=rmse, rmse_gate=gate,
@@ -3097,143 +3113,270 @@ def check_state(ks_k, ks_p, tag):
     return read
 
 
-def check_ablation(model):
-    """Each unit of the stage ablation (K2e, ``mrk.ABLATE_STAGES``) at
-    ``model``'s shape (Go1, PogoX) against its plain version over T_ABL ticks
-    of a B_ABL-instance fleet, float64, the EKF kernel's orientation: x with
-    the same non-finite positions and its finite entries within TOL_MHE (the
-    "solve" stage's within ATOL_SOLVE + RTOL_SOLVE of its terms, see T_ABL),
-    and the window state it leaves (``check_state``); then the refusals on the
-    card: box consts, per-lane clocks, the Cholesky tail and Cassie's shape.
-    Returns ({stage: readings}, {stage: plain ms}, {refusal: message})."""
+# the compositions of the stage ablation: variant (mrk.ABLATE_VARIANTS) ->
+# (per-lane clock, tail, box consts); the stage tables are ABL_TABLES'
+# (float32, T_ABL_TABLE ticks of B_MAIN instances)
+ABL_COMPOSITIONS = {"": (False, "gj", False), "pi": (True, "gj", False),
+                    "chol": (False, "chol", False), "pi_chol": (True, "chol", False),
+                    "box": (False, "gj", True), "pi_box": (True, "gj", True)}
+ABL_TAGS = {"go1": "", "pogox": "pogox", "cassie": "cassie"}   # in the kernels line's names
+
+
+def abl_row_name(model, variant, stage):
+    """The kernels line's name of an ablated unit: mhe_tick_abl[<shape>
+    <variant> <stage>], Go1's shape and the Gauss-Jordan shared-clock variant
+    unnamed."""
+    return "mhe_tick_abl[" + " ".join(w for w in (ABL_TAGS[model], variant, stage) if w) + "]"
+
+
+def abl_consts(model, box, dtype):
+    """``model``'s consts, unconstrained or with cell (b)'s box (|v| <= V_BOX,
+    20 ADMM iterations)."""
     p = robot_params(model)[0]
-    data_b, _, vo = ekf_oriented(model, make_fleet(T_ABL, B_ABL, F64, seed=1,
-                                                   model=model)[1:], F64)
-    c = mhe.make_consts(p, F64, device=DEV)
-    ks0, (d, v, i) = clock_inputs(c, (data_b, None, vo), F64)
-    assert int(v.active.sum()) > 0 and T_ABL > N_WIN
-    errs, plain_ms = {}, {}
-    for stage in mrk.ABLATE_STAGES:
-        reset_counts()
-        x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV, ablate=stage)
-        assert read_counts() == dict(NO_LAUNCH, mhe_tick_abl=1), read_counts()
-        assert mrk.launches_abl_by_stage[stage] == 1
-        (x_p, ks_p), plain_ms[stage] = wall_ms(
-            lambda: mrk.replay_ticks_plain(c._replace(use_pallas=False), ks0, d, v, i,
-                                           ablate=stage))
-        same_nan = torch.equal(torch.isnan(x_k), torch.isnan(x_p))
-        same_inf = torch.equal(torch.isinf(x_k), torch.isinf(x_p))
-        fin = torch.isfinite(x_p)
-        diff = (x_k - x_p)[fin].abs()
-        over = lambda sc, tol=TOL_MHE: float((diff / (tol["atol"] + tol["rtol"] * sc[fin])).max())
-        errs[stage] = {"max_abs_err": float(diff.max()) if bool(fin.any()) else None,
-                       "same_nonfinite": same_nan and same_inf,
-                       "finite_share": float(fin.double().mean()),
-                       "x_over_tol": over(x_p.abs()) if bool(fin.any()) else None,
-                       "state_over_tol": check_state(ks_k, ks_p, ("ablated mhe_tick", stage))}
-        ok = same_nan and same_inf
-        if stage == "solve":
-            sc = mrk.solve_stage_scales(c, ks0, d, v, i)
-            tol = dict(rtol=RTOL_SOLVE, atol=ATOL_SOLVE)
-            errs[stage].update(
-                x_over_tol_of_terms=over(sc["terms"], tol),
-                x_over_tol_of_system=over(sc["system"], tol),
-                zeros_over_tol_of_terms=float((x_p.abs() / (ATOL_SOLVE + RTOL_SOLVE
-                                                            * sc["terms"])).max()),
-                without_r_over_tol_of_terms=float((sc["r_sum"].abs() / (
-                    ATOL_SOLVE + RTOL_SOLVE * sc["terms"])).max()),
-                max_err_over_terms=float((diff / sc["terms"][fin]).max()))
-            ok = ok and errs[stage]["x_over_tol_of_terms"] <= 1.0
-        elif bool(fin.any()):
-            ok = ok and errs[stage]["x_over_tol"] <= 1.0
-        assert ok, ("ablated mhe_tick vs plain", stage, errs[stage])
-    refused = {}
-    pi_vo = uniform_clock(v, B_ABL)
-    box = box_consts(box_params(model=model), F64, V_BOX, 20)
-    cassie = mhe.make_consts(robot_params("cassie")[0], F64, device=DEV)
-    for what, call in (
-            ("box consts", lambda: mrk.replay_ticks(box, ks0, d, v, i, device=DEV,
-                                                    ablate="solve")),
-            ("per-lane clocks", lambda: mrk.replay_ticks(c, ks0, d, pi_vo, i, device=DEV,
-                                                         ablate="marg")),
-            ("Cholesky tail", lambda: mrk.replay_ticks(c, ks0, d, v, i, device=DEV,
-                                                       mk_solve="chol", ablate="build")),
-            ("Cassie's shape", lambda: mrk.check_ablate(cassie, "ingest", False, "gj"))):
-        try:
-            call()
-            refused[what] = None
-        except NotImplementedError as e:
-            refused[what] = str(e)
-        assert refused[what] and mrk.ABLATE_ROW in refused[what], (what, refused[what])
-    return errs, plain_ms, refused
+    return (box_consts(box_params(model=model), dtype, V_BOX, 20) if box
+            else mhe.make_consts(p, dtype, device=DEV))
+
+
+def abl_ptxas(model):
+    """The ptxas figures of every ablated unit of ``model``'s shape that this
+    script builds: {(variant, stage): {"float": [...], "double": [...]}} from
+    its libraries' reports (the kernels differ in their template
+    arguments)."""
+    out = {}
+    pat = re.compile(r"(\d+)(mhe_(?:pi_|chol_|box_)?abl_kernel)I([fd])(?:Li\d+E){4}"
+                     r"(?:Lb([01])E)?Li(\d)E")
+    for lib in ABL_LIBRARIES[model]:
+        for _, text, _ in _build.report[lib]["units"]:
+            for kern, fig in ptxas_figures(text).items():
+                m = pat.search(kern)
+                if not m:
+                    continue
+                base, pi = m.group(2), m.group(4) == "1" or m.group(2) == "mhe_pi_abl_kernel"
+                variant = "_".join(w for w, on in (("pi", pi), ("box", "box" in base),
+                                                   ("chol", "chol" in base)) if on)
+                stage = mrk.ABLATE_STAGES[int(m.group(5)) - 1]
+                out.setdefault((variant, stage), {})[
+                    {"f": "float", "d": "double"}[m.group(3)]] = fig
+    return out
+
+
+def check_ablation(model):
+    """Every unit of the stage ablation (K2e) at ``model``'s shape — each
+    composition of ABL_COMPOSITIONS (either clock, either tail, box consts)
+    and each of its stages — against its plain version over T_ABL ticks of a
+    B_ABL-instance fleet, float64: the shared clock on the EKF kernel's
+    orientation, per-lane clocks on the 15-clock fleet (a VO-free lane
+    among them). x with the same non-finite positions and its finite entries
+    within TOL_MHE (the "solve" stage's within ATOL_SOLVE + RTOL_SOLVE of its
+    terms, see T_ABL), the window state it leaves (``check_state``); with box
+    consts also z, y (TOL_MHE, the same non-finite positions) and the
+    iteration counts (equal on the ticks and lanes whose x is finite: on a
+    non-finite window they follow how each stopping rule treats NaN, fault
+    F8). Each unit's launch is counted alone and timed
+    (the kernel alone, CUDA events). The Cholesky tick's tail-free stages run
+    the Gauss-Jordan units of their clock: their result must equal those bit
+    for bit, with the launch counted there. The "solve" stage with box consts
+    must raise ``ValueError``, on the card as on the CPU. Returns ({(variant,
+    stage): readings}, {refusal: message})."""
+    p = robot_params(model)[0]
+    fleets = {False: ekf_oriented(model, make_fleet(T_ABL, B_ABL, F64, seed=1,
+                                                    model=model)[1:], F64),
+              True: tuple(make_clock_fleet(T_ABL, B_ABL, F64, seed=1, model=model)[1:])}
+    consts = {box: abl_consts(model, box, F64) for box in (False, True)}
+    inputs = {(pi, box): clock_inputs(consts[box], fleets[pi], F64)
+              for pi in (False, True) for box in (False, True)}
+    res, refused, gj = {}, {}, {}
+    for variant, (pi, tail, box) in ABL_COMPOSITIONS.items():
+        c = consts[box]
+        ks0, (d, v, i) = inputs[pi, box]
+        assert int(v.active.sum()) > 0 and T_ABL > N_WIN
+        for stage in mrk.ABLATE_STAGES:
+            if box and stage == "solve":
+                continue
+            unit = mrk.ablate_variant(box, pi, tail, stage)
+            reset_counts()
+            mrk.timer.on = True
+            x_k, ks_k = mrk.replay_ticks(c, ks0, d, v, i, device=DEV, mk_solve=tail,
+                                         ablate=stage)
+            mrk.timer.on = False
+            (ms,) = mrk.timer.ms()
+            want = dict(NO_LAUNCH, mhe_tick_abl=1,
+                        admm_box_solve=int(box and stage != "assembly"))
+            assert read_counts() == want and mrk.launches_abl[unit][stage] == 1, (
+                model, variant, stage, read_counts())
+            if unit != variant:     # a tail-free stage of the Cholesky tick
+                xg, ksg = gj[unit, stage]
+                assert torch.equal(x_k.isnan(), xg.isnan()) and torch.equal(
+                    x_k.nan_to_num(), xg.nan_to_num()) and all(
+                    torch.equal(a.nan_to_num(), b.nan_to_num())
+                    for a, b in zip(ks_k.arrays, ksg.arrays)), (model, variant, stage)
+                res[unit, stage]["same_unit_as"] = res[unit, stage].get(
+                    "same_unit_as", []) + [variant]
+                continue
+            (x_p, ks_p), plain_ms = wall_ms(
+                lambda: mrk.replay_ticks_plain(c._replace(use_pallas=False), ks0, d, v, i,
+                                               ablate=stage, mk_solve=tail))
+            if tail == "gj":
+                gj[variant, stage] = (x_k, ks_k)
+            same_nan = torch.equal(torch.isnan(x_k), torch.isnan(x_p))
+            same_inf = torch.equal(torch.isinf(x_k), torch.isinf(x_p))
+            fin = torch.isfinite(x_p)
+            diff = (x_k - x_p)[fin].abs()
+            over = lambda sc, tol=TOL_MHE: float((diff / (tol["atol"] + tol["rtol"]
+                                                          * sc[fin])).max())
+            tag = ("ablated mhe_tick", model, variant, stage)
+            r = {"max_abs_err": float(diff.max()) if bool(fin.any()) else None,
+                 "same_nonfinite": same_nan and same_inf,
+                 "finite_share": float(fin.double().mean()),
+                 "x_over_tol": over(x_p.abs()) if bool(fin.any()) else None,
+                 "state_over_tol": check_state(ks_k._replace(arrays=ks_k.arrays[:18]),
+                                               ks_p._replace(arrays=ks_p.arrays[:18]), tag),
+                 "kernel_ms_f64": ms, "plain_ms_f64": plain_ms,
+                 "work_f64": roofline.tick_work(c, ks0, d, v, 8, stage, tail, ks_k.iters)}
+            ok = same_nan and same_inf
+            if stage == "solve":
+                sc = mrk.solve_stage_scales(c, ks0, d, v, i)
+                tol = dict(rtol=RTOL_SOLVE, atol=ATOL_SOLVE)
+                r.update(
+                    x_over_tol_of_terms=over(sc["terms"], tol),
+                    x_over_tol_of_system=over(sc["system"], tol),
+                    zeros_over_tol_of_terms=float((x_p.abs() / (ATOL_SOLVE + RTOL_SOLVE
+                                                                * sc["terms"])).max()),
+                    without_r_over_tol_of_terms=float((sc["r_sum"].abs() / (
+                        ATOL_SOLVE + RTOL_SOLVE * sc["terms"])).max()),
+                    max_err_over_terms=float((diff / sc["terms"][fin]).max()))
+                ok = ok and r["x_over_tol_of_terms"] <= 1.0
+            elif bool(fin.any()):
+                ok = ok and r["x_over_tol"] <= 1.0
+            if box:
+                for f, a, b in (("z", ks_k.arrays[18], ks_p.arrays[18]),
+                                ("y", ks_k.arrays[19], ks_p.arrays[19])):
+                    fb = torch.isfinite(b)
+                    ok = ok and torch.equal(fb, torch.isfinite(a)) and torch.equal(
+                        a.isnan(), b.isnan())
+                    r[f"{f}_over_tol"] = (float(over_tol(a[fb], b[fb]).max())
+                                          if bool(fb.any()) else None)
+                    ok = ok and (r[f"{f}_over_tol"] or 0.0) <= 1.0
+                # on a window the "build" stage has left non-finite, the counts
+                # follow how each stopping rule treats NaN residuals (the
+                # kernel's amax drops them, csrc/admm.cuh; the plain version's
+                # keeps them): held where the tick's x is finite (fault F8)
+                fin_tb = torch.isfinite(x_p).all(1)
+                r["iters_equal"] = bool(torch.equal(ks_k.iters[fin_tb], ks_p.iters[fin_tb]))
+                r["iters_compared_share"] = float(fin_tb.double().mean())
+                r["iters_differ_where_x_not_finite"] = int(
+                    (ks_k.iters != ks_p.iters)[~fin_tb].sum())
+                r["iters_mean"] = float(ks_k.iters.double().mean())
+                ok = ok and r["iters_equal"] and (stage != "assembly" or not bool(
+                    ks_k.iters.any()))
+            assert ok, (tag, r)
+            res[variant, stage] = r
+    ks0, (d, v, i) = inputs[False, True]
+    try:
+        mrk.replay_ticks(consts[True], ks0, d, v, i, device=DEV, ablate="solve")
+        refused["solve with box consts"] = None
+    except ValueError as e:
+        refused["solve with box consts"] = str(e)
+    assert refused["solve with box consts"], "the box solve stage must be refused"
+    return res, refused
 
 
 def ablation_phase(model, fleet32):
-    """Cell (s), the stage ablation of the tick at ``model``'s shape (Go1,
-    PogoX): ``check_ablation``, then the stage table of ``roofline.ablation``
-    on the first T_ABL_TABLE ticks of its headline float32 fleet ``fleet32``
-    (cell (a), (i); K2 and the five units, each alone, best of 3), whose
-    launches are counted. Returns the units' entries of the last-but-one
-    line."""
-    errs, plain_ms, refused = check_ablation(model)
-    # the stage table on the headline fleet, the tool's code path
+    """Cell (s), the stage ablation of the tick at ``model``'s shape:
+    ``check_ablation`` (every unit, float64), then the stage tables of
+    ``roofline.ablation`` on the first T_ABL_TABLE ticks of its headline
+    float32 fleet ``fleet32`` ((a), (i), (k)) for the variants of
+    ABL_TABLES[model] (the tick and its units, each alone, best of 3), whose
+    launches are counted. A unit with a table takes its ms, launches and bound
+    from there; the others from their float64 check (the kernel alone, one
+    launch, at T_ABL, B_ABL). Returns the units' entries of the
+    last-but-one line."""
+    res, refused = check_ablation(model)
     p = robot_params(model)[0]
-    fleet = (p, *head(fleet32, T_ABL_TABLE))
-    reset_counts()
-    table = roofline.ablation(device=DEV, fleet=fleet)
-    counts = read_counts()
-    by_stage = dict(mrk.launches_abl_by_stage)
-    assert counts == dict(NO_LAUNCH, mhe_tick=4, mhe_tick_abl=20), counts
-    assert all(n == 4 for n in by_stage.values()), by_stage
-    ptxas = {}     # by stage and type: the units' kernels differ in their last template argument
-    for _, text, _ in _build.report[f"mhe_{model}_abl"]["units"]:
-        for kern, fig in ptxas_figures(text).items():
-            m = re.search(r"14mhe_abl_kernelI([fd])(?:Li\d+E){4}Li(\d)E", kern)
-            if m:
-                ptxas[f"{mrk.ABLATE_STAGES[int(m.group(2)) - 1]} "
-                      f"{ {'f': 'float', 'd': 'double'}[m.group(1)]}"] = fig
+    table_model = "cassie_bench" if model == "cassie" else model   # (k)'s shape
+    fleet = (robot_params(table_model)[0], *head(fleet32, T_ABL_TABLE))
+    tables, table_counts = {}, {}
+    for variant in ABL_TABLES[model]:
+        pi, tail, box = ABL_COMPOSITIONS[variant]
+        reset_counts()
+        tables[variant] = roofline.ablation(
+            device=DEV, fleet=fleet, mk_solve=tail,
+            consts=abl_consts(table_model, True, F32) if box else None)
+        counts = read_counts()
+        stages = tables[variant]["stages"]
+        full = {"": "mhe_tick", "chol": "mhe_tick_chol", "box": "mhe_tick_box"}[variant]
+        assert counts == dict(NO_LAUNCH, **{full: 4, "mhe_tick_abl": 4 * len(stages)},
+                              admm_box_solve=4 * len(stages) if box else 0), (
+            model, variant, counts)
+        # each stage's unit: the Cholesky tick's tail-free stages are the
+        # Gauss-Jordan units
+        table_counts[variant] = {st: mrk.launches_abl[mrk.ablate_variant(box, pi, tail, st)][st]
+                                 for st in stages}
+        assert all(n == 4 for n in table_counts[variant].values()), (model, variant,
+                                                                      table_counts)
+        t = tables[variant]
+        print(f"stage table, {model} {variant or 'gj'} (full - ablated over full; float32, "
+              f"T={t['T']}, B={t['B']}): full {t['full']['ms']:.3f} ms; " + "; ".join(
+                  f"{stage} {row['ms']:.3f} ms, {100 * row['share']:.1f} %"
+                  for stage, row in t["stages"].items()), flush=True)
+    ptxas = abl_ptxas(model)
     emit("ablation", model=model,
          config=f"{model} N={N_WIN} s={p.dim_state} m={p.dim_meas} L={p.num_legs}, the tick "
-         f"with one stage skipped on {mrk.BOX_G} threads per instance, roofline.ablation on "
-         "the headline fleet", check={"T": T_ABL, "B": B_ABL, "dtype": "float64", "tol": TOL_MHE,
-                                      "tol_solve_of_terms": dict(rtol=RTOL_SOLVE,
-                                                                 atol=ATOL_SOLVE),
-                                      "errors": errs},
-         plain_f64_ms=plain_ms, refused=refused, table=table, launches=counts,
-         launches_by_stage=by_stage, ptxas_registers_frame_spill_stores_loads=ptxas)
-    print(f"stage table, {model} (full - ablated over full; float32, T={table['T']}, "
-          f"B={table['B']}): full {table['full']['ms']:.3f} ms; " + "; ".join(
-              f"{stage} {row['ms']:.3f} ms, {100 * row['share']:.1f} %"
-              for stage, row in table["stages"].items()), flush=True)
+         f"with one stage skipped, every composition (clock, tail, box consts), "
+         "roofline.ablation on the headline fleet",
+         check={"T": T_ABL, "B": B_ABL, "dtype": "float64", "tol": TOL_MHE,
+                "tol_solve_of_terms": dict(rtol=RTOL_SOLVE, atol=ATOL_SOLVE),
+                "errors": {f"{v or 'gj'} {st}": r for (v, st), r in res.items()}},
+         refused=refused, tables=tables, table_launches=table_counts,
+         ptxas_registers_frame_spill_stores_loads={f"{v or 'gj'} {st}": f
+                                                   for (v, st), f in ptxas.items()})
     rows = []
-    for stage, row in table["stages"].items():
-        name = f"mhe_tick_abl[{stage}]" if model == "go1" else f"mhe_tick_abl[{model} {stage}]"
+    for (variant, stage), r in res.items():
+        name = abl_row_name(model, variant, stage)
+        row = tables.get(variant, {}).get("stages", {}).get(stage)
+        if row is not None:
+            ms, work, n = row["ms"], (row["bytes"], row["operations"]), table_counts[variant][stage]
+            how = {"shape": {"T": tables[variant]["T"], "B": tables[variant]["B"], "N": N_WIN},
+                   "ms_how": "roofline.ablation: the kernel alone (CUDA events), best of 3",
+                   "share_of_the_tick": row["share"],
+                   "full_tick_ms": tables[variant]["full"]["ms"]}
+        else:
+            ms, work, n = r["kernel_ms_f64"], r["work_f64"], 1
+            how = {"shape": {"T": T_ABL - 1, "B": B_ABL, "N": N_WIN}, "ms_dtype": "float64",
+                   "ms_how": "its float64 check's launch: the kernel alone (CUDA events)"}
         rows += kernel_rows({name: (
             "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
-            f"decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (ablate='{stage}')")},
-            {name: (row["bytes"], row["operations"])}, {name: by_stage[stage]},
-            {name: errs[stage]["max_abs_err"]}, {name: row["ms"]}, {name: plain_ms[stage]},
-            **{name: {"shape": {"T": table["T"], "B": table["B"], "N": N_WIN}, "model": model,
-                      "threads_per_instance": mrk.BOX_G,
-                      "ms_how": "roofline.ablation: the kernel alone (CUDA events), best of 3",
-                      "share_of_the_tick": row["share"], "full_tick_ms": table["full"]["ms"],
+            f"decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 (ablate='{stage}'"
+            + (", per_instance=True" if "pi" in variant else "")
+            + (", mk_solve='chol'" if "chol" in variant else "")
+            + (", admm_ks set" if "box" in variant else "") + ")")},
+            {name: work}, {name: n}, {name: r["max_abs_err"]}, {name: ms},
+            {name: r["plain_ms_f64"]},
+            **{name: {"model": model, "variant": variant or "gj",
+                      "threads_per_instance": mrk.BOX_G, **how,
                       "max_abs_err_shape": {"T": T_ABL, "B": B_ABL},
-                      "max_abs_err_detail": errs[stage],
+                      "max_abs_err_detail": dict(
+                          {k: v for k, v in r.items() if k not in ("state_over_tol", "work_f64")},
+                          state_over_tol_max=max((t["scaled"] or 0.0)
+                                                 for t in r["state_over_tol"].values())),
                       "plain_ms_shape": {"T": T_ABL - 1, "B": B_ABL, "N": N_WIN},
                       "plain_ms_dtype": "float64",
+                      "ptxas": ptxas.get((variant, stage)),
                       "path": "tools.roofline.ablation (mhe_replay_kernel.replay_ticks, "
-                              "ablate=)"}})
+                              "ablate=)" if row is not None else
+                              "mhe_replay_kernel.replay_ticks(ablate=) at the check's size"}})
     return rows
 
 
-def legged_phases(model, builds, pool, rows):
+def legged_phases(model, builds, rows, abl_fleets):
     """Every phase of ``model``'s shape (PogoX, Cassie): its shared-clock
     fleet (g)-(j) against float64 and the plain versions, its Cholesky tail
     (Cassie's on the bench's route (k), run first), and its fleet on per-lane
     clocks (l)-(o) and, with the Cholesky tail, (r), each after waiting for
-    its libraries. Returns the
-    kernels' entries of the last-but-one line; ``rows`` are the entries so
-    far."""
+    its libraries. Returns the kernels' entries of the last-but-one line;
+    ``rows`` are the entries so far. The first T_ABL_TABLE ticks of its
+    headline float32 fleet ((i), (k)) go into ``abl_fleets[model]`` for its
+    stage tables."""
     s = robot_params(model)[0].dim_state
     need(builds, f"mhe_{model}", *((f"tridiag_s{s}", f"admm_s{s}") if s != 9 else ()),
          *(((f"mhe_{model}", FMAD_OFF),) if model in Y_ROUNDING_ROBOTS else ()))
@@ -3256,9 +3399,8 @@ def legged_phases(model, builds, pool, rows):
     box_counts, _, _, box_tick = box_path(model, f64, f32, gt)
     kernels = legged_full_width(model, f64, f32, q64, counts, box_counts, tick_ms, box_tick)
     del q64, box_tick
-    if model in _build.MHE_ABL_SHAPES:   # cell (s) at this shape, on its fleet (i)
-        need(builds, f"mhe_{model}_abl")
-        kernels += ablation_phase(model, f32)
+    if model == "pogox":       # cell (s) at this shape, on its fleet (i)
+        abl_fleets[model] = head(f32, T_ABL_TABLE)
     if err_std is not None:
         # K5's standard-layout route at this state size: held against its
         # plain version at the small size only; its row is the s=9 route's
@@ -3271,10 +3413,10 @@ def legged_phases(model, builds, pool, rows):
         # bench's route (k): float32 gated over the whole log, the
         # constrained tick timed on ticks that all do full work; the
         # Cholesky tail runs on the same route (p)
-        builds.update(start_builds(pool, CASSIE_LATE_BUILDS))
         log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model="cassie_bench")
         f32 = tuple(cast(nt, F32) for nt in f64)
         gt = torch.as_tensor(log.gt_v_s, device=DEV)
+        abl_fleets[model] = head(f32, T_ABL_TABLE)   # cell (s) at this shape, on (k)
         tick, k2_ms = bench_route("cassie_bench", f64, f32, gt)
         # the constrained Cassie tick's row: its time and bound from (k),
         # on which every tick does full work; the yaml fleet's (h) beside
@@ -3348,10 +3490,8 @@ def main():
     kernels += chol_path("go1", fleet64, fleet32, gt_v)
     del fleet64
     done("go1_cholesky")
-    # cell (s): the stage ablation on cell (a)'s fleet
-    need(builds, "mhe_go1_abl")
-    kernels += ablation_phase("go1", fleet32)
-    done("go1_ablation")
+    # cell (s), the stage ablation, runs last, on cell (a)'s fleet at Go1's shape
+    abl_fleets = {"go1": head(fleet32, T_ABL_TABLE)}
     need(builds, "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF))
     check_kernels_pi()
     _, *clocks64 = make_clock_fleet(T_MAIN, B_MAIN, F64, seed=0)
@@ -3365,8 +3505,14 @@ def main():
     done("go1_per_lane_clocks")
     # PogoX, then Cassie (whose s=15 libraries compile longest)
     for model in LEGGED:
-        kernels += legged_phases(model, builds, pool, kernels)
+        kernels += legged_phases(model, builds, kernels, abl_fleets)
         done(model)
+    # cell (s): every unit of the stage ablation at each shape, once its
+    # libraries are built
+    for model, fleet in abl_fleets.items():
+        need(builds, *ABL_LIBRARIES[model])
+        kernels += ablation_phase(model, fleet)
+        done(f"{model}_ablation")
     pool.shutdown()
     box_geometry_phase()
     mark_window_solve(kernels)

@@ -1,7 +1,6 @@
 // mhe_tick — the whole MHE replay loop, one thread per instance (the
-// constrained tick's prelude, and the Cholesky tail at s=9; the unconstrained
-// tick otherwise runs a group of 16, see below): the kernel bodies, included
-// by csrc/mhe.cu, which compiles each
+// constrained tick's prelude; the unconstrained tick runs a group of 16, see
+// below): the kernel bodies, included by csrc/mhe.cu, which compiles each
 // instantiation in a translation unit of its own (see there). The model shape
 // (s, m, L and the leg-odometry form LOT) is a template parameter: Go1 (9, 12,
 // 4, 0), Cassie (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
@@ -82,12 +81,12 @@
 // per-lane-clock statement behind `if constexpr (PI)`, and every statement of
 // one leg-odometry form behind `if constexpr` on LOT.
 //
-// The unconstrained tick on a group (template parameter GRP; the kernels
-// mhe_kernel, mhe_pi_kernel, mhe_chol_kernel, mhe_pi_chol_kernel and
-// mhe_abl_kernel set it where tick_group<S, CHOL>() holds: K2, K2b and K2e at
-// every shape, K2d and K2d-PI at Cassie's, s=15; Go1's and PogoX's K2d and
-// K2d-PI keep the one-thread body, which the host harness also runs as the
-// reference of the group's). At s=15 one thread per instance spilled its
+// The unconstrained tick on a group (template parameter GRP; every
+// unconstrained kernel sets it — mhe_kernel, mhe_pi_kernel, mhe_chol_kernel,
+// mhe_pi_chol_kernel and the ablated mhe_abl_kernel, mhe_pi_abl_kernel and
+// mhe_chol_abl_kernel: K2, K2b, K2d, K2d-PI and K2e at every shape; the
+// one-thread body stays the host harness's reference of the group's). At
+// s=15 one thread per instance spilled its
 // per-slot working set (seven 15 x 15 matrices, 6.3 KB in float32) to local
 // memory; at s=9 it ran on registers but as one serial chain of s x s products
 // per instance; at either size on 32 of the 132 SMs at B=1024 (three quarters
@@ -106,7 +105,9 @@
 // writes its element of x. With the Cholesky tail (CHOL) the sweep keeps the
 // same assembly and runs chol_slot_group in place of the Gauss-Jordan step — W
 // = L^-1 U_prev column-parallel, S_j and yv row-parallel, the factor column by
-// column with one sync per column — and the spare lane s solves for x. Each
+// column with one sync per column — and the spare lane s solves for x (at s=9
+// lane 9, which at Go1's shape, m=12, also owns a measurement row in
+// shift_group, whose last sync comes before the sweep). Each
 // element keeps the one-thread chain (acc = a0 v0; acc += a_k v_k over k = 0,
 // 1, ...), so the results are the one-thread body's bit for bit as far as nvcc
 // contracts the same expressions alike (tests/test_torch_tick_group.py runs
@@ -142,18 +143,27 @@
 // The stage ablation (template parameter ABL; the TPU kernel's ablate,
 // mhe_replay_kernel.py:375-394; driven by tools/roofline.py --ablate) skips one
 // stage of the tick so that the time it saves is that stage's share. The output
-// is wrong by construction. ABL_INGEST: no VO ingestion and no Bezier carry;
-// ABL_MARG: no marg_group; ABL_BUILD: shift_group gives the fresh slot's
-// dynamics, camera weight and measurement as zeros (the caches are still
-// updated from them); ABL_ASSEMBLY: no sweep_group, each lane writes its
-// element of x = n_p after the shift and the cache update; ABL_SOLVE:
-// sweep_group assembles the masked system and lane r sums D_j[r,0] + r_j[r] +
-// U_j[r,0] over the slots into x[r] in place of the inverse chain. It runs on
-// the group as the tick it ablates, so that full minus ablated subtracts one
-// body from itself. Every skip sits behind `if constexpr` on ABL, so ABL ==
-// ABL_NONE compiles to the tick above; ABL is instantiated unconstrained, on
-// the shared clock, with the Gauss-Jordan tail only (mhe_abl_kernel), the
-// configuration the tool times.
+// is wrong by construction. ABL_INGEST: no VO ingestion and no Bezier carry
+// (on either clock: lane 0's per-lane ingestion too); ABL_MARG: no
+// marginalization; ABL_BUILD: the fresh slot's dynamics, camera weight and
+// measurement are zeros (the caches are still updated from them);
+// ABL_ASSEMBLY: no normal equations, each lane writes its element of x = n_p
+// after the shift, the cache update and (CON) the z/y warm-start shift, and
+// the constrained tick runs no ADMM (0 iterations; z/y stay as shifted);
+// ABL_SOLVE: sweep_group assembles the masked system and lane r sums D_j[r,0]
+// + r_j[r] + U_j[r,0] over the slots into x[r] in place of the inverse chain,
+// with either tail (tested before CHOL, as the reference tests ablate before
+// mk_solve; the constrained tick has no such stage: the reference's
+// constrained loop never reaches its sum). Unconstrained it runs on the group
+// as the tick it ablates (the skips in marg_group's call, shift_group and
+// sweep_group), constrained in lane 0's one-thread prelude before the group's
+// ADMM, so that full minus ablated subtracts one body from itself. Every skip
+// sits behind `if constexpr` on ABL, so ABL == ABL_NONE compiles to the tick
+// above. ABL is instantiated at every shape on either clock: unconstrained
+// with the Gauss-Jordan tail (mhe_abl_kernel, mhe_pi_abl_kernel) and with the
+// Cholesky tail (mhe_chol_abl_kernel, for the stages before the tail — its
+// assembly and solve stages never reach the tail, so they are the
+// Gauss-Jordan units), and constrained (mhe_box_abl_kernel).
 #pragma once
 #include "admm.cuh"
 #include "admm_group.cuh"
@@ -471,14 +481,6 @@ DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd
 // instance (GRP; see the note at the top). Lane r (< S) owns row r of every
 // s x s block and element r of every vector; lanes >= S take part in the
 // syncs and in gj_inv_rows only.
-
-// The route of the unconstrained tick at state size S with its tail: a group
-// per instance with the Gauss-Jordan tail at every shape, and with the
-// Cholesky tail above s=9 (Cassie); the Cholesky tail at s=9 (Go1, PogoX) one
-// thread per instance (kernels/mhe_replay_kernel.py's tick_group says the
-// same).
-template <int S, bool CHOL>
-DEM_HHD constexpr bool tick_group() { return !CHOL || S > 9; }
 
 // One instance's shared memory in the group tick, in scalars: A_meas and
 // P_cam (copied once per launch), five matrix buffers, four vector buffers
@@ -860,8 +862,8 @@ DEM_HD void chol_slot_group(const BoxGroup<T>& g, int j, T* D, T r, const T* Up)
 // written, and after yv is. With the Cholesky tail (CHOL) each slot after
 // the assembly is chol_slot_group, and after the last one the spare lane S
 // forms x_{N-1} = L^-T L^-1 yv (trsv_l, trsv_lt, through vec 0 and 2) and
-// writes it. ABL_SOLVE: the assembly alone, and lane r sums
-// D_j[r,0] + r_j[r] + U_j[r,0] over the slots into x[r], with no sync.
+// writes it. ABL_SOLVE (before either tail): the assembly alone, and lane r
+// sums D_j[r,0] + r_j[r] + U_j[r,0] over the slots into x[r], with no sync.
 template <typename T, int S, int M, bool CHOL, int ABL>
 DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i, int t,
                         int base_new) {
@@ -934,15 +936,15 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
       DEM_UNROLL
       for (int k = 0; k < S; ++k) D[k] = T(0);
     }
-    if constexpr (CHOL) {
-      chol_slot_group<T, S, M>(g, j, D, r, Up);
-      continue;
-    } else if constexpr (ABL == ABL_SOLVE) {
+    if constexpr (ABL == ABL_SOLVE) {
       // keep the assembled system live, skip the inverse chain
       if (ln < S) {
         const T term = D[0] + r + Uj[ln * S];
         abl_acc = j == 0 ? term : abl_acc + term;
       }
+      continue;
+    } else if constexpr (CHOL) {
+      chol_slot_group<T, S, M>(g, j, D, r, Up);
       continue;
     }
     T yvi = r;
@@ -974,7 +976,9 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
     }
     __syncwarp(g.mask);
   }
-  if constexpr (CHOL) {
+  if constexpr (ABL == ABL_SOLVE) {
+    if (ln < S) st(p.x, (size_t)i * S + ln, B, b, abl_acc);
+  } else if constexpr (CHOL) {
     if (ln == S) {
       const T *Lp = g.sm + Lay::mat(3), *rd = Lp + S * (S + 1) / 2;
       T *vz = g.sm + Lay::vec(0), *vx = g.sm + Lay::vec(2);
@@ -983,8 +987,6 @@ DEM_HD void sweep_group(const MhePtrs<T>& p, const BoxGroup<T>& g, int N, int i,
       DEM_UNROLL_UPTO(S, 1)
       for (int k = 0; k < S; ++k) st(p.x, (size_t)i * S + k, B, b, vx[k]);
     }
-  } else if constexpr (ABL == ABL_SOLVE) {
-    if (ln < S) st(p.x, (size_t)i * S + ln, B, b, abl_acc);
   } else if (ln < S) {   // logical N-1 = newest state
     T si[S];
     DEM_UNROLL
@@ -998,8 +1000,9 @@ template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL
 DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
                      const MheBox<T>* q, int N, int B, int Tn, int t0, int b) {
   static_assert(!GRP || !CON, "the group tick is the unconstrained one, with either tail");
-  static_assert(ABL == ABL_NONE || (GRP && !CHOL),
-                "the stage ablation runs on the group with the Gauss-Jordan tail");
+  static_assert(ABL == ABL_NONE || GRP || CON,
+                "the stage ablation runs on the group or in the constrained tick");
+  static_assert(!CON || ABL != ABL_SOLVE, "the constrained tick has no solve stage to ablate");
   constexpr int SS = S * S;
   constexpr int MM = M * M;
   const T dt = c.dt;
@@ -1119,7 +1122,8 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     }
 
     // ---- marginalization (mhe_lanes._marginalize) -------------------------
-    if (lead && t >= N) {
+    if constexpr (ABL == ABL_MARG) {
+    } else if (lead && t >= N) {
       const int p0 = base_old;
       T A[SS], Qd[SS], AtQd[SS], Qc[9], PtQc[S * 3], PtQcP[SS];
       T bv[S], c0[3], Mp[SS], np_[S];
@@ -1181,16 +1185,22 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
     const int pN2 = (base_old + N - 1) % N;    // logical N-2 after the shift
     if (lead) {
       T Rp[9], accp[3], A_d[SS], b_d[S], Q_d[SS], Qcn[9], tmp9[9];
-      load<9>(Rp, p.prev_R, 0, B, b);
-      load<3>(accp, p.prev_acc, 0, B, b);
-      build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
-      if constexpr (LOT == 1) {
-        T ctp[L];   // the previous tick's contact gates the foot noise
-        load<L>(ctp, p.prev_ct, 0, B, b);
-        add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
+      if constexpr (ABL == ABL_BUILD) {   // the fresh dynamics and camera weight: zeros
+        for (int k = 0; k < SS; ++k) { A_d[k] = T(0); Q_d[k] = T(0); }
+        for (int k = 0; k < S; ++k) b_d[k] = T(0);
+        for (int k = 0; k < 9; ++k) Qcn[k] = T(0);
+      } else {
+        load<9>(Rp, p.prev_R, 0, B, b);
+        load<3>(accp, p.prev_acc, 0, B, b);
+        build_dynamics<T, S, M>(c, Rp, accp, A_d, b_d, Q_d);
+        if constexpr (LOT == 1) {
+          T ctp[L];   // the previous tick's contact gates the foot noise
+          load<L>(ctp, p.prev_ct, 0, B, b);
+          add_foot_dynamics<T, S, M, L>(c, Rp, ctp, A_d, Q_d);
+        }
+        matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
+        matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
       }
-      matmul<3, 3, 3>(Rp, c.Q_vo_p, tmp9);
-      matmul_nt<3, 3, 3>(tmp9, Rp, Qcn);
 
       store<SS>(p.A_dyn, (size_t)pN2 * SS, B, b, A_d);
       store<S>(p.b_dyn, (size_t)pN2 * S, B, b, b_d);
@@ -1225,7 +1235,10 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
       load<L * 3>(dqv, p.dq, (size_t)i * L * 3, B, b);
       load<L>(ct, p.contact, (size_t)i * L, B, b);
       T y_T[M], Q_T[MM];
-      if constexpr (LOT == 1) {
+      if constexpr (ABL == ABL_BUILD) {   // the fresh measurement: zeros
+        for (int k = 0; k < M; ++k) y_T[k] = T(0);
+        for (int k = 0; k < MM; ++k) Q_T[k] = T(0);
+      } else if constexpr (LOT == 1) {
         build_measurement_pos<T, S, M, L>(c, Rt, pf, Jf, y_T, Q_T);
       } else {
         build_measurement<T, S, M, L>(c, Rt, om, pf, Jf, dqv, ct, y_T, Q_T);
@@ -1267,6 +1280,15 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
         store<S>(q->z_adm, (size_t)pN1 * S, B, b, v);
         load<S>(v, q->y_adm, (size_t)pN2 * S, B, b);
         store<S>(q->y_adm, (size_t)pN1 * S, B, b, v);
+      }
+      if constexpr (ABL == ABL_ASSEMBLY) {
+        // no normal equations and no ADMM: the arrival cost's vector stands
+        // in for x, once lane 0 has written it
+        __syncwarp(grp.mask);
+        if (lead) q->iters[(size_t)i * B + b] = 0;
+        if (grp.ln < S) st(p.x, (size_t)i * S + grp.ln, B, b, ld(p.n_p, grp.ln, B, b));
+        __syncwarp(grp.mask);   // read before lane 0's next tick writes it
+        continue;
       }
     }
 
@@ -1465,9 +1487,7 @@ MheConstsFor<T, S, M, LOT> mhe_consts(const double* consts) {
 #ifdef __CUDACC__
 
 // The unconstrained ticks on either clock, with either tail: BOX_G threads
-// per instance where tick_group holds (the Gauss-Jordan tail, as here, at
-// every shape; the Cholesky tail above s=9), a group beyond the fleet leaving
-// whole; else one thread per instance.
+// per instance, a group beyond the fleet leaving whole.
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                            int Tn, int t0) {
@@ -1505,41 +1525,56 @@ __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, Mh
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                 int Tn, int t0) {
-  if constexpr (tick_group<S, true>()) {
-    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, false, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
-                                                                  b);
-  } else {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, false, true>(p, c, nullptr, N, B, Tn, t0, b);
-  }
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, false, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
+                                                                b);
 }
 
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                    int Tn, int t0) {
-  if constexpr (tick_group<S, true>()) {
-    const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, true, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
-                                                                 b);
-  } else {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    mhe_body<T, S, M, L, LOT, false, true, true>(p, c, nullptr, N, B, Tn, t0, b);
-  }
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, true, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
+                                                               b);
 }
 
-// the stage ablation: the unconstrained Gauss-Jordan tick on the shared clock
-// with stage ABL skipped, on the group as mhe_kernel
+// The stage ablation: a tick with stage ABL skipped, on the group as the
+// tick it ablates. The Gauss-Jordan tick on the shared clock ...
 template <typename T, int S, int M, int L, int LOT, int ABL>
 __global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                int Tn, int t0) {
   const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, false, false, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+// ... on a clock per lane ...
+template <typename T, int S, int M, int L, int LOT, int ABL>
+__global__ void mhe_pi_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
+                                  int Tn, int t0) {
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, true, false, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+// ... the Cholesky tick on either clock ...
+template <typename T, int S, int M, int L, int LOT, bool PI, int ABL>
+__global__ void mhe_chol_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
+                                    int Tn, int t0) {
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, false, PI, true, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
+}
+
+// ... and the constrained tick on either clock (the skips in lane 0's prelude)
+template <typename T, int S, int M, int L, int LOT, bool PI, int ABL>
+__global__ void mhe_box_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
+                                   int N, int B, int Tn, int t0) {
+  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  if (b >= B) return;
+  mhe_body<T, S, M, L, LOT, true, PI, false, ABL>(p, c, &q, N, B, Tn, t0, b);
 }
 
 // The dynamic shared memory of a constrained launch of `block` threads:
@@ -1550,7 +1585,7 @@ DEM_HHD size_t box_shared_bytes(int N, int block) {
   return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
 }
 
-// ... and of the unconstrained group tick (tick_group): block / BOX_G
+// ... and of the unconstrained group tick: block / BOX_G
 // instances of TickLayout::stride scalars (mhe_replay_kernel.py's
 // tick_geometry computes the same bytes)
 template <typename T, int S, int M>
@@ -1558,17 +1593,20 @@ DEM_HHD size_t tick_shared_bytes(int block) {
   return (size_t)(block / BOX_G) * TickLayout<T, S, M>::stride() * sizeof(T);
 }
 
-// the constrained kernel of a clock
-template <typename T, int S, int M, int L, int LOT, bool PI>
+// the constrained kernel of a clock, or with stage ABL skipped
+template <typename T, int S, int M, int L, int LOT, bool PI, int ABL = ABL_NONE>
 auto mhe_box_entry() {
-  if constexpr (PI) return &mhe_pi_box_kernel<T, S, M, L, LOT>;
+  if constexpr (ABL != ABL_NONE) return &mhe_box_abl_kernel<T, S, M, L, LOT, PI, ABL>;
+  else if constexpr (PI) return &mhe_pi_box_kernel<T, S, M, L, LOT>;
   else return &mhe_box_kernel<T, S, M, L, LOT>;
 }
 
 // the unconstrained kernel of a clock and a tail, or with stage ABL skipped
 template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL, int ABL = ABL_NONE>
 auto mhe_tick_entry() {
-  if constexpr (ABL != ABL_NONE) return &mhe_abl_kernel<T, S, M, L, LOT, ABL>;
+  if constexpr (ABL != ABL_NONE && CHOL) return &mhe_chol_abl_kernel<T, S, M, L, LOT, PI, ABL>;
+  else if constexpr (ABL != ABL_NONE && PI) return &mhe_pi_abl_kernel<T, S, M, L, LOT, ABL>;
+  else if constexpr (ABL != ABL_NONE) return &mhe_abl_kernel<T, S, M, L, LOT, ABL>;
   else if constexpr (CHOL && PI) return &mhe_pi_chol_kernel<T, S, M, L, LOT>;
   else if constexpr (CHOL) return &mhe_chol_kernel<T, S, M, L, LOT>;
   else if constexpr (PI) return &mhe_pi_kernel<T, S, M, L, LOT>;
@@ -1625,31 +1663,27 @@ int mhe_box_geometry(int N, int block, int* out) {
 }
 
 // The same figures of the unconstrained group tick with its tail (out[6] =
-// 0), or -1 where this shape ticks one thread per instance with it.
+// 0).
 template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
 int mhe_tick_geometry(int block, int* out) {
-  if constexpr (!tick_group<S, CHOL>()) {
-    return -1;
-  } else {
-    const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>(),
-                                   tick_shared_bytes<T, S, M>(block), block, out);
-    if (!err) out[6] = 0;
-    return err;
-  }
+  const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>(),
+                                 tick_shared_bytes<T, S, M>(block), block, out);
+  if (!err) out[6] = 0;
+  return err;
 }
 
 // One instantiation of the tick: S, M, L, LOT the model shape, CON selects the
 // constrained kernel, PI the per-lane camera clock, CHOL the Cholesky tail
-// (unconstrained only), ABL the stage ablation (unconstrained, shared clock,
-// Gauss-Jordan tail only, on the group). ptrs: the 34 pointers of
+// (unconstrained only), ABL the stage ablation (any of them; constrained, not
+// the solve stage). ptrs: the 34 pointers of
 // MhePtrs in declaration order. consts (double): dt, H[m*s], Pc[3*s], then
 // Q_vo_p, C_p, C_accel, Q_accel_bias, C_enc_pos, C_enc_vel, C_gyro,
 // Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw; ints/reals as admm_settings reads them. The
 // constrained kernels take `block` threads per block, a multiple of BOX_G,
-// and box_shared_bytes of dynamic shared memory, the unconstrained ones where
-// tick_group holds, ablated or not, likewise with tick_shared_bytes; the
+// and box_shared_bytes of dynamic shared memory, the unconstrained ones,
+// ablated or not, likewise with tick_shared_bytes; the
 // error of a launch the card refuses (too many threads, too much shared
 // memory) is returned.
 template <typename T, int S, int M, int L, int LOT, bool CON, bool PI, bool CHOL,
@@ -1659,24 +1693,15 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
                int t0, int block, void* stream) {
   const MhePtrs<T> p = mhe_ptrs<T>(ptrs);
   const MheConstsFor<T, S, M, LOT> c = mhe_consts<T, S, M, LOT>(consts);
-  const int grid = (B + block - 1) / block;
   static_assert(!CHOL || !CON, "the Cholesky tail runs unconstrained");
-  static_assert(ABL == ABL_NONE || (!CON && !PI && !CHOL),
-                "the stage ablation runs unconstrained on the shared clock with Gauss-Jordan");
-  if constexpr (!CON && tick_group<S, CHOL>()) {
+  static_assert(!CON || ABL != ABL_SOLVE, "the constrained tick has no solve stage to ablate");
+  if constexpr (!CON) {
     const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI, CHOL, ABL>();
     size_t shmem = 0;
     const int err = box_launch_shape(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
     if (err) return err;
     const int ipb = block / BOX_G;
     kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
-  } else if constexpr (CHOL) {
-    if constexpr (PI)
-      mhe_pi_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B,
-                                                                                    Tn, t0);
-    else
-      mhe_chol_kernel<T, S, M, L, LOT><<<grid, block, 0, (cudaStream_t)stream>>>(p, c, N, B, Tn,
-                                                                                 t0);
   } else {
     MheBox<T> bx;
     int q = 0;
@@ -1689,7 +1714,7 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     bx.Uw = (T*)box_ptrs[q++];
     bx.rw = (T*)box_ptrs[q++];
     bx.admm = admm_settings<T>(ints, reals);
-    const auto kern = mhe_box_entry<T, S, M, L, LOT, PI>();
+    const auto kern = mhe_box_entry<T, S, M, L, LOT, PI, ABL>();
     size_t shmem = 0;
     const int err = box_launch_shape(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
     if (err) return err;

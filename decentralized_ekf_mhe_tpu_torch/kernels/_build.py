@@ -9,10 +9,11 @@ body, because one nvcc process would spend minutes on all of them in a row,
 and each model shape of ``MHE_SHAPES`` has one library per variant group of
 ``MHE_GROUPS`` (``libmhe_go1.so``: the shared camera clock,
 ``libmhe_go1_pi.so``: a clock per lane, ``libmhe_go1_chol.so``: the Cholesky
-tail on either clock; likewise ``cassie`` and ``pogox``; and
-``libmhe_go1_abl.so`` and ``libmhe_pogox_abl.so``, the stage ablation, at
-Go1's and PogoX's shapes), so a fleet
-builds only what it launches; likewise ``csrc/tridiag.cu`` and
+tail on either clock; and the stage ablation, a library per variant and type,
+``libmhe_go1_abl_f32.so`` and ``_f64``, ``_abl_pi_*``, ``_abl_chol_*``,
+``_abl_pi_chol_*``, ``_abl_box_*`` and ``_abl_pi_box_*`` (``MHE_ABL_GROUPS``);
+likewise ``cassie`` and ``pogox``), so a fleet builds only what it launches;
+likewise ``csrc/tridiag.cu`` and
 ``csrc/admm.cu`` are one library per state size (``libtridiag_s9.so``,
 ``libadmm_s15.so``, ...). ``load`` builds a library at its first use, all its
 units at once, one nvcc process each; ``build`` builds several libraries that
@@ -29,6 +30,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -61,11 +63,25 @@ MHE_GROUPS = {
     "chol": ((0, 0, 1), (1, 0, 1)),
 }
 # The stage ablation of the tick (a timing diagnostic: tools/roofline.py
-# --ablate), stage k + 1 of csrc/mhe_body.cuh's ABL for ABLATE_STAGES[k],
-# unconstrained on the shared clock with the Gauss-Jordan tail, float and
-# double: one library, mhe_<tag>_abl, for each shape of MHE_ABL_SHAPES
+# --ablate), stage k + 1 of csrc/mhe_body.cuh's ABL for ABLATE_STAGES[k], at
+# every shape: group -> the (per-lane clock, constrained, Cholesky tail)
+# variant of its units and the stages it has, one library
+# mhe_<tag>_<group>_<f32|f64> per shape and type (a timing run launches the
+# float32 units, a check against the plain version the float64 ones; each
+# builds only its own). The Cholesky tick's assembly and solve stages
+# never reach the tail: they are the Gauss-Jordan tick's units
+# (TAIL_FREE_STAGES); the constrained tick has no solve stage (its window
+# solve is the ADMM, which the reference's stage sum never reaches).
 ABLATE_STAGES = ("ingest", "marg", "build", "assembly", "solve")
-MHE_ABL_SHAPES = ("go1", "pogox")
+TAIL_FREE_STAGES = ("assembly", "solve")
+MHE_ABL_GROUPS = {
+    "abl": ((0, 0, 0), ABLATE_STAGES),
+    "abl_pi": ((1, 0, 0), ABLATE_STAGES),
+    "abl_chol": ((0, 0, 1), ABLATE_STAGES[:3]),
+    "abl_pi_chol": ((1, 0, 1), ABLATE_STAGES[:3]),
+    "abl_box": ((0, 1, 0), ABLATE_STAGES[:4]),
+    "abl_pi_box": ((1, 1, 0), ABLATE_STAGES[:4]),
+}
 
 
 def _unroll(S):
@@ -109,24 +125,33 @@ def _mhe_unit(tag, suffix, real, con, pi, extra=()):
         f"-DDEM_MHE_PI={pi}") + extra)
 
 
+def _variant_suffix(pi, con, chol):
+    return ("_pi" if pi else "") + ("_box" if con else "") + ("_chol" if chol else "")
+
+
 def _mhe_units(tag, group):
     """csrc/mhe.cu for one shape and variant group: its entry point, then one
     unit per variant of the group and type."""
     units = [("mhe", _mhe_shape_flags(tag))]
     for pi, con, chol in MHE_GROUPS[group]:
         for real in ("float", "double"):
-            suffix = ("_pi" if pi else "") + ("_box" if con else "") + ("_chol" if chol else "")
-            units.append(_mhe_unit(tag, suffix, real, con, pi,
+            units.append(_mhe_unit(tag, _variant_suffix(pi, con, chol), real, con, pi,
                                    ("-DDEM_MHE_CHOL=1",) if chol else ()))
     return tuple(units)
 
 
-def _mhe_abl_units(tag):
-    """csrc/mhe.cu's entry point, then the unit of each ablated stage and type
-    (symbol suffix ``_abl<k>``, k = 1..5 as in ``ABLATE_STAGES``)."""
+REALS = {"f32": "float", "f64": "double"}
+
+
+def _mhe_abl_units(tag, group, typ):
+    """csrc/mhe.cu's entry point, then the unit of each stage of ablation
+    group ``group`` in type ``typ`` ("f32", "f64"; symbol suffix
+    ``<variant>_abl<k>``, k = 1..5 as in ``ABLATE_STAGES``)."""
+    (pi, con, chol), stages = MHE_ABL_GROUPS[group]
     return (("mhe", _mhe_shape_flags(tag)),) + tuple(
-        _mhe_unit(tag, f"_abl{k}", real, 0, 0, (f"-DDEM_MHE_ABL={k}",))
-        for k in range(1, len(ABLATE_STAGES) + 1) for real in ("float", "double"))
+        _mhe_unit(tag, f"{_variant_suffix(pi, con, chol)}_abl{k}", REALS[typ], con, pi,
+                  (("-DDEM_MHE_CHOL=1",) if chol else ()) + (f"-DDEM_MHE_ABL={k}",))
+        for k in (ABLATE_STAGES.index(st) + 1 for st in stages))
 
 
 # library -> its translation units (source, extra nvcc flags)
@@ -136,7 +161,8 @@ UNITS = {
     "ekf": (("ekf", ()),),
     **{mhe_library(*shape, group): _mhe_units(tag, group)
        for tag, shape in MHE_SHAPES.items() for group in MHE_GROUPS},
-    **{f"mhe_{tag}_abl": _mhe_abl_units(tag) for tag in MHE_ABL_SHAPES},
+    **{f"mhe_{tag}_{group}_{typ}": _mhe_abl_units(tag, group, typ)
+       for tag in MHE_SHAPES for group in MHE_ABL_GROUPS for typ in REALS},
     **{f"admm_s{S}": (("admm", (f"-DDEM_ADMM_S={S}",) + _unroll(S)),) for S in SOLVE_SIZES},
 }
 LIBRARIES = tuple(UNITS)
@@ -158,6 +184,19 @@ _ARGTYPES = {
              [_c_int, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p]
              + [_c_int] * 3 + [_c_void_p]),
 }
+
+# the nvcc processes that run at once, over every build of the process (each
+# unit's compile is one single-threaded process; more of them than cores only
+# crowd the host): ``limit_jobs`` sets it
+_jobs = threading.BoundedSemaphore(os.cpu_count() or 8)
+
+
+def limit_jobs(n: int) -> None:
+    """Run at most ``n`` nvcc processes at once from now on (default: one per
+    core), e.g. to leave cores to a program that builds beside its work."""
+    global _jobs
+    _jobs = threading.BoundedSemaphore(max(1, int(n)))
+
 
 _libs: dict = {}
 # what the last build of each library took: {name (and its extra flags):
@@ -187,13 +226,14 @@ def _source_hash() -> str:
 
 
 def _run_all(cmds, nice=0):
-    """Run the nvcc commands at once (at scheduling priority ``nice``); raise
-    with the output of those that failed. Returns each command's (output,
-    time.time() when it ended)."""
+    """Run the nvcc commands at once, as far as ``limit_jobs`` lets them (at
+    scheduling priority ``nice``); raise with the output of those that
+    failed. Returns each command's (output, time.time() when it ended)."""
     def run(cmd):
         prio = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
-        r = subprocess.run(prio + cmd,
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        with _jobs:
+            r = subprocess.run(prio + cmd,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return r.returncode, r.stdout, time.time()
 
     with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:
@@ -315,10 +355,8 @@ def check_launch(err: int, what: str) -> None:
             f"{what}: this shape is not instantiated in the CUDA build (MHE tick: "
             + ", ".join(f"{t} s={v[0]}, m={v[1]}, L={v[2]}, leg_odom_type={v[3]}"
                         for t, v in MHE_SHAPES.items())
-            + f"; the Cholesky tail: unconstrained only; the stage ablation: unconstrained "
-            f"on the shared camera clock with the Gauss-Jordan tail, shapes {MHE_ABL_SHAPES}; "
-            f"box-ADMM and tridiagonal solve: s in {SOLVE_SIZES}); see ROADMAP.md, "
-            "'What is left to port'")
+            + f"; the Cholesky tail: unconstrained only; box-ADMM and tridiagonal solve: "
+            f"s in {SOLVE_SIZES}); see ROADMAP.md, 'What is left to port'")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed, cudaError {err}")
 

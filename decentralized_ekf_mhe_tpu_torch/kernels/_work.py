@@ -573,7 +573,7 @@ def _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail="gj", ablate=""):
                 lane += _VO_EVENT + (_VO_SETUP + nodes * _VO_NODE
                                      + written * _VO_WRITE if nodes else 0)
         ops += n_lanes * lane
-    if box is not None:
+    if box is not None and ablate != "assembly":   # "assembly" runs no ADMM
         # the window's real slots follow the tick alone, not the clock
         ops += sum(admm_ops(s, n_states, np.asarray(box[0][i]), *box[1:])
                    for i, (n_states, *_) in enumerate(groups[0][1]))
@@ -606,25 +606,29 @@ def mhe_tick(N, s, m, L, B, schedule, n_stance, itemsize, box=None, lot=0, tail=
     iterations that were run: the Thomas sweep gives way to one box-ADMM per
     tick and instance, and the z/y warm starts, the bounds and the iteration
     counts join the bytes. ``tail`` is the unconstrained sweep's tail, "gj"
-    or "chol" (the box variant has none). ``ablate`` (the unconstrained
-    Gauss-Jordan tick only) counts the work left once that stage is dropped:
+    or "chol" (the box variant has none). ``ablate`` (any tick) counts the
+    work left once that stage is dropped:
     "ingest" — no VO events, so no Bezier work and no camera terms anywhere,
     and no ``vo_inc`` read; "marg" — no marginalization; "build" — no
     dynamics, camera-weight or measurement build (the caches are still
     updated), and the per-tick inputs only the build reads are not read;
-    "assembly" — no window work; "solve" — the masked system and the sum
-    that stands in for its solution, no sweep."""
+    "assembly" — no window work (with ``box`` no ADMM); "solve" — the masked
+    system and the sum that stands in for its solution, no sweep (no such
+    stage with ``box``). With ``tail`` "chol" the stages before the tail
+    count its sweep; its tail-free stages count as the Gauss-Jordan tick's."""
     return (_mhe_bytes(N, s, m, L, B, len(schedule), itemsize, box, ablate),
             _mhe_ops(N, s, m, L, [(B, schedule)], n_stance, box, lot, tail, ablate))
 
 
-def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None, lot=0, tail="gj"):
+def mhe_tick_lanes(N, s, m, L, groups, n_stance, itemsize, box=None, lot=0, tail="gj",
+                   ablate=""):
     """``mhe_tick`` with a camera clock per lane: ``groups`` from
     ``mhe_lane_schedules``. Each lane's camera terms and Bezier work follow
-    its own schedule; the (Tn,B) VO metadata and the per-lane Bezier schedule
-    (read and written) join the bytes. ``tail`` as in ``mhe_tick``."""
+    its own schedule; the (Tn,B) VO metadata (not read without the
+    ingestion) and the per-lane Bezier schedule (read and written) join the
+    bytes. ``tail`` and ``ablate`` as in ``mhe_tick``."""
     B = sum(n for n, _ in groups)
     Tn = len(groups[0][1])
-    nbytes = (_mhe_bytes(N, s, m, L, B, Tn, itemsize, box)
-              + 4 * B * 3 * Tn + 2 * B * (4 * itemsize + 4))
-    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail)
+    nbytes = (_mhe_bytes(N, s, m, L, B, Tn, itemsize, box, ablate)
+              + (0 if ablate == "ingest" else 4 * B * 3 * Tn) + 2 * B * (4 * itemsize + 4))
+    return nbytes, _mhe_ops(N, s, m, L, groups, n_stance, box, lot, tail, ablate)

@@ -16,18 +16,16 @@ window state per instance stay in global memory in the instance-minor layout
 (coalesced; L2-resident at B=1024 in float32), addressed by the physical ring
 slot. What bounds it: operations, and in practice the serial dependency chain
 of one instance with B/32 warps in flight (and at s=15 the s×s temporaries
-spilling to local memory). So the unconstrained tick with the Gauss-Jordan
-tail at every shape, and with the Cholesky tail above s=9 (Cassie's shape;
-``tick_group``), runs ``BOX_G`` = 16 threads per instance instead: lane 0
-ingests the VO, the 3×3 blocks of the two changed slots are built on lane 0 or
-(the velocity form: Go1, PogoX) one lane per leg, the group the
-marginalization, the shift with its cache update and the streaming sweep, each
+spilling to local memory). So the unconstrained tick, with either tail at
+every shape (``tick_group``), runs ``BOX_G`` = 16 threads per instance
+instead: lane 0 ingests the VO, the 3×3 blocks of the two changed slots are
+built on lane 0 or (the velocity form: Go1, PogoX) one lane per leg, the group
+the marginalization, the shift with its cache update and the streaming sweep, each
 lane a row of every s×s block (with the Cholesky tail: a column of L⁻¹U_prev,
 then a row of the factor), with the blocks that a product reads whole in
 shared memory (``tick_geometry``: threads and instances per block, dynamic
-shared bytes; ``tick_occupancy``: what the card keeps resident). The route is
-fixed by the shape and the tail; no switch restores the one-thread body there.
-The Cholesky tail at s=9 (Go1, PogoX) keeps one thread per instance.
+shared bytes; ``tick_occupancy``: what the card keeps resident). No switch
+restores the one-thread body.
 
 With state box constraints in the consts (``c.x_lb``) the constrained variant
 of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
@@ -57,8 +55,9 @@ reference, ``replay`` reads the tail from the environment variable
 which never name it, run whichever the environment asks for. Unlike the
 reference, a value other than "gj" or "chol" raises ``ValueError`` instead of
 running GJ. The two tails return the same newest state of the same window, so
-the plain version of either is the same ``mhe_lanes.step`` loop. The box
-kernels ignore the tail: their window solve is the ADMM.
+the plain version of either is the same ``mhe_lanes.step`` loop (but for the
+stage ablation, below). The box kernels ignore the tail: their window solve is
+the ADMM.
 
 Every model shape the reference runs has its own instantiations, in one
 library per variant group, each built at its first use (``_build.MHE_SHAPES``,
@@ -67,16 +66,20 @@ library per variant group, each built at its first use (``_build.MHE_SHAPES``,
 camera clock, a clock per lane, and the Cholesky tail on either clock.
 
 The stage ablation (``ablate=``, the TPU kernel's ``ablate``; a timing
-diagnostic that ``tools/roofline.py --ablate`` drives) runs the unconstrained
-Gauss-Jordan tick on the shared clock with one stage skipped — "ingest",
-"marg", "build", "assembly" or "solve" (``csrc/mhe_body.cuh``, ``ABL``) —
-so that the time it saves is that stage's share; its output is wrong by
-construction. It runs on the group as the tick it ablates. Its plain version
-skips the same stages on the logical window (``_step_ablated``). It is
-instantiated at Go1's and PogoX's shapes (``_build.MHE_ABL_SHAPES``); at
-Cassie's, with box consts, on per-lane clocks or with the Cholesky tail it
-raises ``NotImplementedError`` naming its ROADMAP.md row, on the CPU as on
-the card.
+diagnostic that ``tools/roofline.py --ablate`` drives) runs the tick with one
+stage skipped — "ingest", "marg", "build", "assembly" or "solve"
+(``csrc/mhe_body.cuh``, ``ABL``) — so that the time it saves is that stage's
+share; its output is wrong by construction. It composes with everything the
+tick does, as the TPU kernel's does: every shape, either clock, either tail,
+box consts (in the constrained tick's one-thread prelude; "assembly" runs no
+ADMM, and there is no "solve" stage: ``ValueError``, as the reference's
+constrained loop never reaches the sum that stage returns). The Cholesky
+tick's "assembly" and "solve" stages never reach the tail, so they run the
+Gauss-Jordan tick's units (``_build.TAIL_FREE_STAGES``). Its plain version
+skips the same stages on the logical window (``_step_ablated``), with the
+Cholesky tail its own factor-and-substitute sweep (``_chol_sweep``: where
+the ablated window is singular the two tails break down in different
+places).
 
 State contract: ``KernelState`` carries the window tensors in PHYSICAL ring
 order together with the tick counter ``t`` (newest tick in the window), so a
@@ -97,7 +100,6 @@ from decentralized_ekf_mhe_tpu_torch.kernels.admm_kernel import ADMMCoreStatic
 from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-BLOCK = 32       # threads per block of a one-thread launch unless the caller names ``block``
 # the constrained tick: threads per instance (csrc/admm_group.cuh's BOX_G), and
 # its threads per block unless the caller names ``block``: eight instances, the
 # fastest of 2, 4, 5 and 8 at Go1's and Cassie's shapes in float32 in the sweep
@@ -112,30 +114,31 @@ BLOCK_TICK = 128
 # what one block may use of an SM's shared memory, and what an SM has for its
 # blocks, each of which reserves 1 KB more (H100: 227 KB and 228 KB)
 SHARED_PER_BLOCK, SHARED_PER_SM, SHARED_RESERVED_PER_BLOCK = 232448, 233472, 1024
+MK_SOLVES = ("gj", "chol")     # the tails of the window solve
+ABLATE_STAGES = _build.ABLATE_STAGES
+# the variants of the ablated units, as csrc/mhe.cu's symbols name them: the
+# Gauss-Jordan tick ("", "pi": on a clock per lane), the Cholesky tick
+# ("chol", "pi_chol") and the constrained one ("box", "pi_box")
+ABLATE_VARIANTS = ("", "pi", "chol", "pi_chol", "box", "pi_box")
+
 # incremented where a CUDA kernel is launched, nowhere else: one count per
-# kernel — the unconstrained tick (mhe_kernel, on a group of threads per
-# instance, as mhe_pi_kernel and, at Cassie's shape, mhe_chol_kernel and
-# mhe_pi_chol_kernel), the constrained one (mhe_box_kernel), their
-# per-lane-clock variants (mhe_pi_kernel, mhe_pi_box_kernel), the
-# unconstrained tick with the Cholesky tail (mhe_chol_kernel,
-# mhe_pi_chol_kernel) and the stage ablation
-# (mhe_abl_kernel, one count per stage)
+# kernel — the unconstrained tick (mhe_kernel), the constrained one
+# (mhe_box_kernel), their per-lane-clock variants (mhe_pi_kernel,
+# mhe_pi_box_kernel), the unconstrained tick with the Cholesky tail
+# (mhe_chol_kernel, mhe_pi_chol_kernel) and the stage ablation (mhe_abl_kernel,
+# mhe_pi_abl_kernel, mhe_chol_abl_kernel, mhe_box_abl_kernel: one count per
+# variant of ABLATE_VARIANTS and stage)
 launches = 0
 launches_box = 0
 launches_pi = 0
 launches_pi_box = 0
 launches_chol = 0
 launches_pi_chol = 0
-launches_abl_by_stage = dict.fromkeys(_build.ABLATE_STAGES, 0)
+launches_abl = {v: dict.fromkeys(ABLATE_STAGES, 0) for v in ABLATE_VARIANTS}
 # (constrained, per-lane clock, Cholesky tail) -> counter
 _COUNTER = {(False, False, False): "launches", (True, False, False): "launches_box",
             (False, True, False): "launches_pi", (True, True, False): "launches_pi_box",
             (False, False, True): "launches_chol", (False, True, True): "launches_pi_chol"}
-
-MK_SOLVES = ("gj", "chol")     # the tails of the window solve
-ABLATE_STAGES = _build.ABLATE_STAGES
-# where ROADMAP.md lists what the stage ablation does not cover yet
-ABLATE_ROW = "ROADMAP.md, 'K2e at Cassie; on per-lane clocks, the Cholesky tail and box consts'"
 
 # times the kernel call alone, apart from the wrapper's state copy
 timer = _build.KernelTimer()
@@ -197,25 +200,32 @@ def _pack_consts(kc: KernelConsts) -> np.ndarray:
     ]).astype(np.float64)
 
 
-def kernel_library(s, m, L, lot, per_lane_clock, chol=False, ablate=""):
+def ablate_variant(constrained, per_lane_clock, mk_solve, ablate):
+    """The variant (``ABLATE_VARIANTS``) of the unit that runs stage
+    ``ablate``: the Cholesky tick's tail-free stages run the Gauss-Jordan
+    tick's unit, and the box kernels ignore the tail."""
+    chol = mk_solve == "chol" and not constrained and ablate not in _build.TAIL_FREE_STAGES
+    return "_".join(w for w, on in (("pi", per_lane_clock), ("box", constrained),
+                                     ("chol", chol)) if on)
+
+
+def kernel_library(s, m, L, lot, per_lane_clock, chol=False, ablate="", constrained=False,
+                   double=True):
     """The library (``_build.UNITS``) whose kernels tick this shape and clock,
     with the Cholesky tail if ``chol`` (unconstrained ticks only: the box
-    kernels ignore the tail), or with stage ``ablate`` skipped; raises
-    ``NotImplementedError`` for what the CUDA build does not instantiate — a
-    shape outside ``_build.MHE_SHAPES``, or the stage ablation at a shape
-    outside ``_build.MHE_ABL_SHAPES``."""
+    kernels ignore the tail), or with stage ``ablate`` skipped (of the
+    constrained tick if ``constrained``; a library per type, float64 if
+    ``double``); raises ``NotImplementedError`` for a shape outside
+    ``_build.MHE_SHAPES``, which the CUDA build does not instantiate."""
     lib = _build.mhe_library(s, m, L, lot)
     if lib is None:
         raise NotImplementedError(
             f"mhe_tick: no CUDA instantiation for s={s}, m={m}, L={L}, "
             f"leg_odom_type={lot} (shapes: {sorted(_build.MHE_SHAPES)})")
     if ablate:
-        if lib[len("mhe_"):] not in _build.MHE_ABL_SHAPES:
-            raise NotImplementedError(
-                f"mhe_tick: the stage ablation is instantiated at the shapes "
-                f"{_build.MHE_ABL_SHAPES} only, not s={s}, m={m}, L={L}, leg_odom_type={lot}: "
-                + ABLATE_ROW)
-        return _build.mhe_library(s, m, L, lot, "abl")
+        variant = ablate_variant(constrained, per_lane_clock, "chol" if chol else "gj", ablate)
+        group = "abl" + ("_" + variant if variant else "")
+        return _build.mhe_library(s, m, L, lot, f"{group}_{'f64' if double else 'f32'}")
     return _build.mhe_library(s, m, L, lot, "chol" if chol else "pi" if per_lane_clock else "")
 
 
@@ -227,29 +237,28 @@ def check_mk_solve(mk_solve):
 
 
 def check_ablate(c, ablate, per_lane_clock, mk_solve):
-    """Raise ``ValueError`` for a stage that does not exist and
-    ``NotImplementedError`` (naming the ROADMAP.md row) for an ablation the
-    port does not run: with box consts, on per-lane camera clocks, with the
-    Cholesky tail, or at a shape without an instantiation. ``ablate=""`` runs
-    the whole tick."""
+    """Raise ``ValueError`` for a stage that does not exist, and for the
+    "solve" stage with box consts, which the reference does not define (its
+    constrained loop collects the window for the ADMM before the stage's sum,
+    which it then never sets: the TPU kernel fails to trace there);
+    ``NotImplementedError`` for a shape without an instantiation.
+    ``ablate=""`` runs the whole tick."""
     if not ablate:
         return
     if ablate not in ABLATE_STAGES:
         raise ValueError(f"ablate: {ablate!r} is not one of {ABLATE_STAGES} (or '')")
-    what = [w for w, on in (("box consts", c.x_lb is not None),
-                            ("per-lane camera clocks", per_lane_clock),
-                            ("the Cholesky tail", mk_solve == "chol")) if on]
-    if what:
-        raise NotImplementedError(
-            f"mhe_tick: the stage ablation with {' and '.join(what)} is not ported (it runs "
-            f"unconstrained on the shared clock with the Gauss-Jordan tail): {ABLATE_ROW}")
-    kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type), False,
-                   ablate=ablate)
+    if ablate == "solve" and c.x_lb is not None:
+        raise ValueError(
+            "ablate='solve' with box consts: the reference defines no such stage (its "
+            "constrained loop hands the window to the ADMM before the stage's sum and "
+            "never sets it)")
+    kernel_library(c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type), per_lane_clock,
+                   mk_solve == "chol", ablate, c.x_lb is not None)
 
 
 def _check_block(block):
-    """Threads per block of a launch: ``BLOCK`` when None, else 1..1024."""
-    block = BLOCK if block is None else int(block)
+    """Threads per block of a launch: 1..1024."""
+    block = int(block)
     if not 1 <= block <= 1024:
         raise ValueError(f"block: {block} threads per block, expected 1..1024")
     return block
@@ -327,13 +336,11 @@ def box_geometry(s, dtype, block=None, N=20):
 
 def tick_group(s, mk_solve="gj"):
     """Whether the unconstrained tick with the tail ``mk_solve`` runs a group
-    of ``BOX_G`` threads per instance at state size ``s`` (``csrc/mhe_body.cuh``'s
-    ``tick_group``, fixed by the shape and the tail): with the Gauss-Jordan
-    tail (and its stage ablation) at every shape, with the Cholesky tail above
-    s=9 (Cassie); the Cholesky tail at s=9 (Go1, PogoX) and the constrained
-    tick's prelude stay on one thread."""
+    of ``BOX_G`` threads per instance at state size ``s``: with either tail
+    (and its stage ablation) at every shape; only the constrained tick's
+    prelude stays on one thread."""
     check_mk_solve(mk_solve)
-    return mk_solve == "gj" or s > 9
+    return True
 
 
 class TickGeometry(NamedTuple):
@@ -358,13 +365,10 @@ def tick_geometry(s, m, dtype, block=None, mk_solve="gj"):
     ``s``, ``m`` measurements, element type ``dtype`` and ``block`` threads
     per block (default ``BLOCK_TICK``): ``BOX_G`` threads per instance, so
     ``block // BOX_G`` instances per block, each with ``tick_shared_scalars``
-    padded to 16 mod 32 four-byte words. Raises ``ValueError`` for the
-    Cholesky tail at s <= 9 (one thread per instance there), for a block that
-    is no multiple of ``BOX_G`` in 16..1024, or for more shared memory than a
-    block may use."""
-    if not tick_group(s, mk_solve):
-        raise ValueError(f"s={s}: the unconstrained tick with the Cholesky tail runs one "
-                         "thread per instance at s <= 9")
+    padded to 16 mod 32 four-byte words. Raises ``ValueError`` for a tail
+    that does not exist, for a block that is no multiple of ``BOX_G`` in
+    16..1024, or for more shared memory than a block may use."""
+    check_mk_solve(mk_solve)
     return TickGeometry(*_group_launch(tick_shared_scalars(s, m), dtype,
                                        BLOCK_TICK if block is None else block,
                                        f"unconstrained tick (s={s}, m={m})"))
@@ -514,17 +518,103 @@ def mhe_state_from_kernel(ks: KernelState, c) -> mhe_lanes.MHEStateL:
     )
 
 
+def _chol(A):
+    """The Cholesky factor of the (s,s,B) blocks A, statement by statement as
+    the reference's ``pallas/tridiag_kernel.py`` ``_chol`` (its row loop
+    taken at once): L (s,s,B), zero above the diagonal, and the reciprocal
+    pivots rd (s,B). Each pivot is clamped at 1e-30 before its root (NaN
+    passes)."""
+    s = A.shape[0]
+    L = torch.zeros_like(A)
+    rd = torch.zeros_like(A[0])
+    tiny = torch.tensor(1e-30, dtype=A.dtype, device=A.device)
+    for k in range(s):
+        d = A[k, k]
+        for m in range(k):
+            d = d - L[k, m] * L[k, m]
+        d = torch.sqrt(torch.maximum(d, tiny))
+        L[k, k] = d
+        rd[k] = 1.0 / d
+        e = A[k + 1:, k]
+        for m in range(k):
+            e = e - L[k + 1:, m] * L[k, m]
+        L[k + 1:, k] = e * rd[k]
+    return L, rd
+
+
+def _trsm_l(L, rd, Bm):
+    """X = L⁻¹ Bm for (s,n,B) Bm, row by row as the reference's ``_trsm_l``."""
+    X = torch.empty_like(Bm)
+    for i in range(L.shape[0]):
+        acc = Bm[i]
+        for m in range(i):
+            acc = acc - L[i, m] * X[m]
+        X[i] = acc * rd[i]
+    return X
+
+
+def _trsv_lt(L, rd, z):
+    """x = L⁻ᵀ z for (s,B) z, from the last row up (the reference's
+    ``_trsv_lt``)."""
+    s = L.shape[0]
+    x = torch.empty_like(z)
+    for i in range(s - 1, -1, -1):
+        acc = z[i]
+        for m in range(i + 1, s):
+            acc = acc - L[m, i] * x[m]
+        x[i] = acc * rd[i]
+    return x
+
+
+def _chol_sweep(D, U, r):
+    """x_{N-1} of masked window systems (D (N,s,s,K), U (N-1,s,s,K), r
+    (N,s,K); K lanes) by the Cholesky tail's forward sweep (``mk_solve='chol'``,
+    the reference's ``mhe_replay_kernel.py:743-772, 801-802``): the oldest
+    block factored, then per slot W = L⁻¹U_prev, S_j = D_j − WᵀW (each
+    element's sum over the rows of W in order), yv = r_j − Wᵀ(L⁻¹yv) and the
+    factor of S_j; x = L⁻ᵀL⁻¹yv. Where a window is singular it breaks down
+    where the reference's Cholesky chain does, not where the Gauss-Jordan one
+    does. Every statement acts on each lane alone, so windows side by side
+    give each one's x as alone."""
+    N = D.shape[0]
+    L, rd = _chol(D[0])
+    yv = r[0]
+    for j in range(1, N):
+        W = _trsm_l(L, rd, U[j - 1])                  # (s,s,K), rows of W
+        wtw = W[0][:, None] * W[0][None, :]
+        for i in range(1, W.shape[0]):
+            wtw = wtw + W[i][:, None] * W[i][None, :]
+        z = _trsm_l(L, rd, yv[:, None])[:, 0]
+        wz = W[0] * z[0]
+        for i in range(1, W.shape[0]):
+            wz = wz + W[i] * z[i]
+        yv = r[j] - wz
+        L, rd = _chol(D[j] - wtw)
+    return _trsv_lt(L, rd, _trsm_l(L, rd, yv[:, None])[:, 0])
+
+
 def _step_ablated(c, st: mhe_lanes.MHEStateL, R_sb, accel_b, omega_b, p_foot, J_foot, dq,
-                  contact, vo_active, vo_tick_pre, vo_tick_now, vo_inc, ablate):
-    """``mhe_lanes.step`` with stage ``ablate`` skipped, as the kernel's
-    ``ABL`` skips it (the plain version of K2e): "ingest" — no VO ingestion
-    and no Bezier carry; "marg" — no marginalization; "build" — the fresh
-    slot's dynamics, camera weight and measurement are zeros; "assembly" —
-    x = n_p after the shift; "solve" — x = Σ_j (D_j[:,0] + r_j + U_j[:,0])
-    over the masked system (U_{N-1} = 0) in place of its solution. Returns
-    (new state, x (s,B))."""
-    if ablate != "ingest" and bool(vo_active):
-        st = mhe_lanes._apply_vo(c, st, vo_inc, int(vo_tick_pre), int(vo_tick_now))
+                  contact, vo_active, vo_tick_pre, vo_tick_now, vo_inc, ablate, mk_solve="gj",
+                  systems=None):
+    """``mhe_lanes.step`` (``step_per_instance_vo`` where ``vo_active`` is a
+    (B,) tensor) with stage ``ablate`` skipped, as the kernel's ``ABL`` skips
+    it (the plain version of K2e): "ingest" — no VO ingestion and no Bezier
+    carry; "marg" — no marginalization; "build" — the fresh slot's dynamics,
+    camera weight and measurement are zeros; "assembly" — x = n_p after the
+    shift (and, with box consts, the z/y shift; no ADMM, 0 iterations);
+    "solve" — x = Σ_j (D_j[:,0] + r_j + U_j[:,0]) over the masked system
+    (U_{N-1} = 0) in place of its solution. The window is solved as the tick
+    solves it: with box consts the warm-started ADMM, else with the tail
+    ``mk_solve`` (the Cholesky one by ``_chol_sweep``; a caller that passes
+    a list ``systems`` gets the masked system appended there, and x None, to
+    sweep many ticks' windows at once). Returns (new state, x (s,B), the (B,)
+    int32 ADMM iterations or None unconstrained)."""
+    if ablate != "ingest":
+        if torch.is_tensor(vo_active) and vo_active.ndim == 1:
+            st = mhe_lanes._apply_vo_per_instance(c, st, vo_inc, vo_tick_pre, vo_tick_now,
+                                                  vo_active)
+        elif bool(vo_active):
+            st = mhe_lanes._apply_vo(c, st, vo_inc, int(vo_tick_pre), int(vo_tick_now))
     if ablate != "marg" and st.T + 1 >= c.N:
         M_new, n_new = mhe_lanes._marginalize(c, st)
     else:
@@ -536,8 +626,13 @@ def _step_ablated(c, st: mhe_lanes.MHEStateL, R_sb, accel_b, omega_b, p_foot, J_
     else:
         fresh = mhe_lanes._fresh_slot(c, st, R_sb, omega_b, p_foot, J_foot, dq, contact)
     st = mhe_lanes._shift_append(c, st, M_new, n_new, fresh, R_sb, accel_b, contact)
+    constrained = c.x_lb is not None
     if ablate == "assembly":
-        return st, st.n_p
+        return st, st.n_p, (torch.zeros(st.n_p.shape[-1], dtype=torch.int32,
+                                        device=st.n_p.device) if constrained else None)
+    if constrained:
+        res = mhe_lanes._solve_window_admm(c, st)
+        return st._replace(z_adm=res.z, y_adm=res.y), res.x[c.N - 1], res.iters
     if ablate == "solve":
         D, U, r = mhe_lanes._masked_system(c, st)
         x = None
@@ -546,8 +641,13 @@ def _step_ablated(c, st: mhe_lanes.MHEStateL, R_sb, accel_b, omega_b, p_foot, J_
             if j < c.N - 1:
                 term = term + U[j, :, 0]
             x = term if x is None else x + term
-        return st, x
-    return st, mhe_lanes.solve_window(c, st)[c.N - 1]
+        return st, x, None
+    if mk_solve == "chol":
+        if systems is not None:
+            systems.append(mhe_lanes._masked_system(c, st))
+            return st, None, None
+        return st, _chol_sweep(*mhe_lanes._masked_system(c, st)), None
+    return st, mhe_lanes.solve_window(c, st)[c.N - 1], None
 
 
 def solve_stage_scales(c, ks: KernelState, d, v, i):
@@ -559,16 +659,19 @@ def solve_stage_scales(c, ks: KernelState, d, v, i):
     the magnitudes of the masked system's own entries Σ_j (|D_j[:,0]| + |r_j|
     + |U_j[:,0]|); and ``r_sum``, Σ_j r_j, what a sum without r would miss.
     Each (Tn, s, B), from the plain version's ticks (``_step_ablated``), on
-    the inputs of ``replay_ticks`` (shared clock)."""
+    the inputs of ``replay_ticks`` (either clock; unconstrained consts)."""
     N, real, dev = c.N, d.accel_b.dtype, d.accel_b.device
     H, P = c.A_meas.abs(), c.P_cam.abs()
     st = mhe_state_from_kernel(ks, c)
-    act, pre, now = v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist()
+    if v.active.ndim == 2:
+        act, pre, now = v.active, v.tick_pre, v.tick_now
+    else:
+        act, pre, now = v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist()
     out = {"terms": [], "system": [], "r_sum": []}
     for t in range(d.accel_b.shape[0]):
-        st, _ = _step_ablated(c, st, d.R_sb[t], d.accel_b[t], d.omega_b[t], d.p_foot[t],
-                              d.J_foot[t], d.dq[t], d.contact[t], act[t], pre[t], now[t], i[t],
-                              "solve")
+        st, _, _ = _step_ablated(c, st, d.R_sb[t], d.accel_b[t], d.omega_b[t], d.p_foot[t],
+                                 d.J_foot[t], d.dq[t], d.contact[t], act[t], pre[t], now[t],
+                                 i[t], "solve")
         Ds, Us, rs = mhe_lanes._masked_system(c, st)
         out["system"].append(Ds[:, :, 0].abs().sum(0) + rs.abs().sum(0) + Us[:, :, 0].abs().sum(0))
         out["r_sum"].append(rs.sum(0))
@@ -596,10 +699,11 @@ def solve_stage_scales(c, ks: KernelState, d, v, i):
     return {k: torch.stack(a) for k, a in out.items()}
 
 
-def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc, ablate=""):
+def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc, ablate="", mk_solve="gj"):
     """Plain PyTorch version of ``replay_ticks``: a Python loop over
     ``mhe_lanes.step`` (per-instance ``vo``: ``step_per_instance_vo``; with
-    ``ablate``, ``_step_ablated``) on the logical (shift-by-roll) window."""
+    ``ablate``, ``_step_ablated`` with the tail ``mk_solve``) on the logical
+    (shift-by-roll) window."""
     st = mhe_state_from_kernel(ks, c)
     Tn = data_l.accel_b.shape[0]
     if vo.active.ndim == 2:
@@ -610,14 +714,13 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc, ablate=""):
         tick_pre = vo.tick_pre.tolist()
         tick_now = vo.tick_now.tolist()
         step = mhe_lanes.step
-    xs, its = [], []
+    xs, its, systems = [], [], []
     for i in range(Tn):
         d_i = (data_l.R_sb[i], data_l.accel_b[i], data_l.omega_b[i], data_l.p_foot[i],
                data_l.J_foot[i], data_l.dq[i], data_l.contact[i])
         if ablate:
-            st, x_T = _step_ablated(c, st, *d_i, active[i], tick_pre[i], tick_now[i],
-                                    vo_inc[i], ablate)
-            it = None
+            st, x_T, it = _step_ablated(c, st, *d_i, active[i], tick_pre[i], tick_now[i],
+                                        vo_inc[i], ablate, mk_solve, systems)
         else:
             st, (x_T, _, it) = step(c, st, *d_i, active[i], None, tick_pre[i], tick_now[i],
                                     None, vo_inc=vo_inc[i])
@@ -625,6 +728,9 @@ def replay_ticks_plain(c, ks: KernelState, data_l, vo, vo_inc, ablate=""):
         its.append(it)
     s, B = c.dim_state, data_l.accel_b.shape[-1]
     dev = data_l.accel_b.device
+    if systems:   # the Cholesky sweeps of every tick at once, its windows side by side
+        x_all = _chol_sweep(*(torch.cat(a, dim=-1) for a in zip(*systems)))
+        xs = list(x_all.reshape(s, Tn, B).movedim(1, 0))
     x = (torch.stack(xs, dim=0) if xs else
          torch.zeros((0, s, B), dtype=data_l.accel_b.dtype, device=dev))
     iters = None
@@ -658,15 +764,13 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     the kernel or raise. ``nvcc_flags`` launches a variant build of the
     kernel instead (``_build.load``), e.g. ``("-fmad=false",)`` to compare
     builds. ``mk_solve`` is the tail of the unconstrained window solve, "gj"
-    or "chol" (see the module docstring); the plain version and the box
-    kernels do not depend on it. ``ablate`` skips one stage of the tick (see
-    the module docstring; "" runs it all). ``block`` is the launch's threads
-    per block (default ``BLOCK``; with box consts ``BLOCK_BOX``, and then a
-    multiple of ``BOX_G`` whose shared memory fits, see ``box_geometry``, which
-    raises ``ValueError`` otherwise, on the CPU as on the card; likewise for
-    the unconstrained tick where it runs on a group (``tick_group``: the
-    Gauss-Jordan tail and its ablation at every shape, the Cholesky tail above
-    s=9), default ``BLOCK_TICK``, see ``tick_geometry``); the plain version
+    or "chol" (see the module docstring); the box kernels do not depend on
+    it, nor does the plain version but for the stage ablation. ``ablate``
+    skips one stage of the tick (see the module docstring; "" runs it all).
+    ``block`` is the launch's threads per block, a multiple of ``BOX_G``
+    whose shared memory fits (default ``BLOCK_TICK``, with box consts
+    ``BLOCK_BOX``; see ``tick_geometry`` and ``box_geometry``, which raise
+    ``ValueError`` otherwise, on the CPU as on the card); the plain version
     does not depend on it.
     """
     check_mk_solve(mk_solve)
@@ -698,10 +802,8 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
         _build.require_lanes(name, a, sh, dtype, dev)
     if constrained:
         block = box_geometry(s, dtype, block, N).threads_per_block
-    elif tick_group(s, mk_solve):
-        block = tick_geometry(s, m, dtype, block, mk_solve).threads_per_block
     else:
-        block = _check_block(block)
+        block = tick_geometry(s, m, dtype, block, mk_solve).threads_per_block
     shapes = state_shapes(N, s, m, L, constrained)
     if len(ks.arrays) != len(shapes):
         raise ValueError(
@@ -727,13 +829,13 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
             + (" (a camera clock per lane needs a state from "
                "mhe_lanes.init(per_instance_vo=True))" if pi else ""))
     if dev.type == "cpu":
-        return replay_ticks_plain(c, ks, data_l, vo, vo_inc, ablate)
+        return replay_ticks_plain(c, ks, data_l, vo, vo_inc, ablate, mk_solve)
     return _launch(c, ks, [a for _, a, _ in inputs], vo, bounds, nvcc_flags, mk_solve,
                    ablate, block)
 
 
 def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve="gj",
-            ablate="", block=BLOCK):
+            ablate="", block=BLOCK_TICK):
     """Copy the window state, launch the tick kernel through ``dem_mhe_tick``
     (constrained with ``bounds``, the (lb, ub) pair of (s,B) tensors; on a
     camera clock per lane when ``vo``'s metadata is (Tn,B); unconstrained
@@ -747,8 +849,10 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve
     Tn, B = inputs[1].shape[0], inputs[1].shape[-1]
     dtype, dev = ks.arrays[0].dtype, ks.arrays[0].device
     pi = vo.active.ndim == 2
-    chol = mk_solve == "chol" and bounds is None
-    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi, chol, ablate)
+    variant = ablate_variant(bounds is not None, pi, mk_solve, ablate)
+    chol = mk_solve == "chol" and bounds is None and (not ablate or "chol" in variant)
+    lib = kernel_library(s, m, L, int(c.leg_odom_type), pi, chol, ablate, bounds is not None,
+                         dtype == torch.float64)
     kc = consts_from_mhe(c)
     # the kernel updates the window in place: work on copies
     state = [a.clone() for a in ks.arrays]
@@ -787,10 +891,10 @@ def _launch(c, ks: KernelState, inputs, vo, bounds=None, nvcc_flags=(), mk_solve
         timer.record(stream)
     _build.check_launch(err, "mhe_tick")
     if ablate:
-        launches_abl_by_stage[ablate] += 1
+        launches_abl[variant][ablate] += 1
     else:
         globals()[_COUNTER[bounds is not None, pi, chol]] += 1
-    if bounds is not None:
+    if bounds is not None and ablate != "assembly":
         admm_kernel.launches_core += 1
     return x, KernelState(arrays=tuple(state), bez_times=bez_times_out,
                           bez_count=bez_count_out, t=ks.t + Tn, iters=iters)

@@ -21,7 +21,10 @@ Modes (each prints a table to stderr and one JSON line to stdout):
   ablations (K2e: ingest, marg, build, assembly, solve) at B=1024, T=200, each
   timed alone with CUDA events, best of 3; full minus ablated is the stage's
   share. The ablated outputs are wrong by construction (timing only).
-  ``--model pogox_bench`` ablates PogoX's tick.
+  ``--model pogox_bench`` (``cassie_bench``) ablates PogoX's (Cassie's) tick.
+  The ``ablation`` function takes, as ``replay`` does, any fleet (per-lane
+  clocks included), the tail and any consts (box consts: the constrained
+  tick, whose stages are all but "solve").
 * ``--sweep`` (``sweep``): the kernel's threads per block (32, 64, 128, 256)
   against the fleet size (1024, 4096, 16384) — the port has no chunk to sweep
   (one launch replays the whole log), so the block is its launch knob.
@@ -135,14 +138,27 @@ def tick_inputs(c, data_b, vo):
             estimator.VOData(*(a[1:] for a in vo)), vo_inc[1:].contiguous())
 
 
-def tick_work(c, ks, d, v, itemsize, ablate=""):
-    """(bytes, operations) of one ``replay_ticks`` call on these inputs
-    (``_work.mhe_tick``, the shared clock)."""
+def tick_work(c, ks, d, v, itemsize, ablate="", tail="gj", iters=None):
+    """(bytes, operations) of one ``replay_ticks`` call on these inputs with
+    the tail ``tail`` and stage ``ablate`` skipped (``_work.mhe_tick``, on
+    per-lane clocks ``mhe_tick_lanes``); with box consts ``iters`` are the
+    (Tn,B) ADMM iterations the call ran."""
+    box = None
+    if c.x_lb is not None:
+        a = c.admm
+        box = (iters.cpu().numpy(), a.rho_update_every, a.adaptive_rho,
+               a.abs_tol > 0 or a.rel_tol > 0, a.polish)
+    shape = (c.N, c.dim_state, c.dim_meas, c.num_legs)
+    kw = dict(box=box, lot=int(c.leg_odom_type), tail=tail, ablate=ablate)
+    n_stance = int((d.contact > 0).sum())
+    if v.active.ndim == 2:
+        groups = _work.mhe_lane_schedules(v.active.cpu().numpy(), v.tick_pre.cpu().numpy(),
+                                          v.tick_now.cpu().numpy(), c.N,
+                                          ks.bez_count[0].cpu().numpy())
+        return _work.mhe_tick_lanes(*shape, groups, n_stance, itemsize, **kw)
     sched = _work.mhe_schedule(v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist(),
                                c.N, int(ks.bez_count))
-    return _work.mhe_tick(c.N, c.dim_state, c.dim_meas, c.num_legs, d.accel_b.shape[-1],
-                          sched, int((d.contact > 0).sum()), itemsize,
-                          lot=int(c.leg_odom_type), ablate=ablate)
+    return _work.mhe_tick(*shape, d.accel_b.shape[-1], sched, n_stance, itemsize, **kw)
 
 
 def bound(work):
@@ -224,31 +240,48 @@ def report(rate_ticks_per_s, file=sys.stderr, **shape):
             "bound_by": bound_by, "model": mdl}
 
 
-def ablation(B=1024, T=200, device="cuda", fleet=None, reps=3, model="go1"):
+def ablation(B=1024, T=200, device="cuda", fleet=None, reps=3, model="go1", mk_solve="gj",
+             consts=None):
     """Per-stage time of the tick by ablation: the tick kernel (K2, float32)
     and each of its stage ablations (K2e) on the same inputs, the kernel
     alone, best of ``reps`` after a warm-up; ``full − ablated`` over ``full``
-    is the stage's share. ``fleet`` (params, data, EKF blocks, VOData) replaces
-    ``model``'s bench fleet of B instances over T ticks. Returns {"full":
-    {...}, "stages": {stage: {"ms", "share", "bound_ms", ...}}, ...}."""
+    is the stage's share. ``fleet`` (params, data, EKF blocks, VOData: the
+    shared camera clock or a clock per lane) replaces ``model``'s bench fleet
+    of B instances over T ticks; as ``replay`` does, the tick takes the tail
+    ``mk_solve`` and ``consts`` (e.g. box consts: the constrained tick, whose
+    stages are all but "solve"; default the fleet's params unconstrained).
+    Returns {"full": {...}, "stages": {stage: {"ms", "share", "bound_ms",
+    ...}}, ...}."""
     device = resolve_device(device)
     p, data_b, _, vo = fleet if fleet is not None else bench_fleet(B, T, device, model=model)
     B, T = data_b.accel_b.shape[1], data_b.accel_b.shape[0]
-    c = mhe.make_consts(p, data_b.accel_b.dtype, device=device)
+    c = consts if consts is not None else mhe.make_consts(p, data_b.accel_b.dtype, device=device)
     ks, d, v, i = tick_inputs(c, data_b, vo)
     itemsize = data_b.accel_b.element_size()
-    run = lambda ablate: mrk.replay_ticks(c, ks, d, v, i, device=device, ablate=ablate)
+    got = {}
+
+    def run(ablate):
+        got["ks"] = mrk.replay_ticks(c, ks, d, v, i, device=device, mk_solve=mk_solve,
+                                     ablate=ablate)[1]
+
+    work_of = lambda ablate: tick_work(c, ks, d, v, itemsize, ablate, mk_solve, got["ks"].iters)
     full = best_ms(lambda: run(""), device, reps)
-    work = tick_work(c, ks, d, v, itemsize)
-    out = {"B": B, "T": T, "s": c.dim_state, "m": c.dim_meas, **device_info(device),
+    work = work_of("")
+    box = c.x_lb is not None
+    out = {"B": B, "T": T, "s": c.dim_state, "m": c.dim_meas, "mk_solve": mk_solve,
+           "constrained": box, "per_lane_clocks": vo.active.ndim == 2, **device_info(device),
            "full": {"ms": full, "ticks_per_s": B * (T - 1) / (full / 1e3), **bound(work),
                     "bytes": work[0], "operations": work[1]},
            "stages": {}}
-    print(f"ablation (s={c.dim_state}, m={c.dim_meas}, B={B}, T={T}): full {full:.3f} ms -> "
+    print(f"ablation (s={c.dim_state}, m={c.dim_meas}, {mk_solve}"
+          f"{', box' if box else ''}{', per-lane clocks' if vo.active.ndim == 2 else ''}, "
+          f"B={B}, T={T}): full {full:.3f} ms -> "
           f"{B * (T - 1) / (full / 1e3):,.0f} ticks/s", file=sys.stderr)
     for stage in mrk.ABLATE_STAGES:
+        if box and stage == "solve":
+            continue
         t = best_ms(lambda: run(stage), device, reps)
-        work = tick_work(c, ks, d, v, itemsize, ablate=stage)
+        work = work_of(stage)
         out["stages"][stage] = {"ms": t, "share": (full - t) / full, **bound(work),
                                 "bytes": work[0], "operations": work[1]}
         print(f"  minus {stage:9s}: {t:9.3f} ms -> stage share "

@@ -3,13 +3,14 @@
 // std::threads, prelude.h's barrier for __syncwarp) against the one-thread
 // body, at the shape the case names — Go1 (9, 12, 4, 0), PogoX (9, 3, 1, 0)
 // or Cassie (15, 6, 2, 1: foot positions as states) — with the Gauss-Jordan
-// or (Cassie) the Cholesky tail (CHOL), on window states and tick inputs that
+// or the Cholesky tail (CHOL), on window states and tick inputs that
 // tests/test_torch_tick_group.py writes from the plain path. Each case runs in
 // float64 and float32; x, the 18 window-state tensors and the Bezier schedule
 // must agree bit for bit. A case that names a stage of the ablation (ABL,
-// 1..5, Go1's shape) runs the group's ablated body alone, in float64, for the
-// test to hold against the plain version. Built without FMA contraction, so
-// both bodies round every operation alike.
+// 1..5 with the Gauss-Jordan tail, 1..3 with the Cholesky one, either clock,
+// Go1's shape) runs the group's ablated body alone, in float64, for the test
+// to hold against the plain version. Built without FMA contraction, so both
+// bodies round every operation alike.
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -pthread -I<csrc> tick_harness.cpp -o tick_harness
 //   ./tick_harness case.bin out.bin ...   (exit 0: every case bit for bit)
@@ -175,39 +176,51 @@ static int both(const Case& cs, const char* tag, FILE* out) {
          check<float, S, M, L, LOT, PI, CHOL>(cs, tag, nullptr);
 }
 
-// the group's float64 tick with stage ABL skipped (shared clock, Gauss-Jordan)
-template <int S, int M, int L, int LOT, int ABL>
+// the group's float64 tick with stage ABL skipped, on its clock with its tail
+template <int S, int M, int L, int LOT, bool PI, bool CHOL, int ABL>
 static int ablated(const Case& cs, const char* tag, FILE* out) {
-  write_out(out, run<double, S, M, L, LOT, false, false, true, ABL>(cs));
-  printf("%s s=%d m=%d f64 shared gj ablation %d: written\n", tag, S, M, ABL);
+  write_out(out, run<double, S, M, L, LOT, PI, CHOL, true, ABL>(cs));
+  printf("%s s=%d m=%d f64 %s %s ablation %d: written\n", tag, S, M,
+         PI ? "per-lane" : "shared", CHOL ? "chol" : "gj", ABL);
   return 0;
+}
+
+// the ablated units of one clock and tail (the Cholesky tick's: the stages
+// before the tail)
+template <int S, int M, int L, int LOT, bool PI, bool CHOL>
+static int ablated_stage(const Case& cs, const char* tag, FILE* out) {
+  switch (cs.abl) {
+    case ABL_INGEST: return ablated<S, M, L, LOT, PI, CHOL, ABL_INGEST>(cs, tag, out);
+    case ABL_MARG: return ablated<S, M, L, LOT, PI, CHOL, ABL_MARG>(cs, tag, out);
+    case ABL_BUILD: return ablated<S, M, L, LOT, PI, CHOL, ABL_BUILD>(cs, tag, out);
+  }
+  if constexpr (!CHOL) {
+    switch (cs.abl) {
+      case ABL_ASSEMBLY: return ablated<S, M, L, LOT, PI, CHOL, ABL_ASSEMBLY>(cs, tag, out);
+      case ABL_SOLVE: return ablated<S, M, L, LOT, PI, CHOL, ABL_SOLVE>(cs, tag, out);
+    }
+  }
+  fprintf(stderr, "%s: no ablated unit %d with the %s tail\n", tag, cs.abl, CHOL ? "chol" : "gj");
+  exit(2);
 }
 
 template <int S, int M, int L, int LOT>
 static int run_case(const char* path, FILE* f, Case& cs, FILE* out) {
   read_body<Shape<S, M, L, LOT>>(f, path, cs);
   if (cs.abl) {
-    if (cs.pi || cs.chol) { fprintf(stderr, "%s: the ablation runs shared-clock gj\n", path); exit(2); }
     if constexpr (S == 9 && M == 12) {   // Go1's units
-      switch (cs.abl) {
-        case ABL_INGEST: return ablated<S, M, L, LOT, ABL_INGEST>(cs, path, out);
-        case ABL_MARG: return ablated<S, M, L, LOT, ABL_MARG>(cs, path, out);
-        case ABL_BUILD: return ablated<S, M, L, LOT, ABL_BUILD>(cs, path, out);
-        case ABL_ASSEMBLY: return ablated<S, M, L, LOT, ABL_ASSEMBLY>(cs, path, out);
-        case ABL_SOLVE: return ablated<S, M, L, LOT, ABL_SOLVE>(cs, path, out);
-      }
+      if (cs.chol)
+        return cs.pi ? ablated_stage<S, M, L, LOT, true, true>(cs, path, out)
+                     : ablated_stage<S, M, L, LOT, false, true>(cs, path, out);
+      return cs.pi ? ablated_stage<S, M, L, LOT, true, false>(cs, path, out)
+                   : ablated_stage<S, M, L, LOT, false, false>(cs, path, out);
     }
     fprintf(stderr, "%s: no ablated unit %d at s=%d m=%d\n", path, cs.abl, S, M);
     exit(2);
   }
-  if (cs.chol) {
-    if constexpr (S > 9) {   // the Cholesky tail runs on a group above s=9 only
-      return cs.pi ? both<S, M, L, LOT, true, true>(cs, path, out)
-                   : both<S, M, L, LOT, false, true>(cs, path, out);
-    }
-    fprintf(stderr, "%s: the Cholesky tail ticks one thread per instance at s=%d\n", path, S);
-    exit(2);
-  }
+  if (cs.chol)
+    return cs.pi ? both<S, M, L, LOT, true, true>(cs, path, out)
+                 : both<S, M, L, LOT, false, true>(cs, path, out);
   return cs.pi ? both<S, M, L, LOT, true, false>(cs, path, out)
                : both<S, M, L, LOT, false, false>(cs, path, out);
 }

@@ -182,36 +182,45 @@ def test_unknown_tail_raises(monkeypatch):
 def test_chol_library_and_per_lane_clock_refusal(model, monkeypatch):
     """``kernel_library`` names the shape's Cholesky library on either camera
     clock, whose units are the shared-clock and the per-lane-clock
-    instantiations of the tail (K2d, K2d-PI); on per-lane clocks the kernel
-    route refuses only the stage ablation (naming its ROADMAP row) before it
-    takes either route, so it builds and launches nothing, while the plain
-    version on the CPU runs the Cholesky tail there (the tail does not change
-    what the tick returns)."""
+    instantiations of the tail (K2d, K2d-PI); on per-lane clocks no ablation
+    is refused any more: with the Cholesky tail the stages before the tail
+    take the shape's ``_abl_pi_chol`` libraries and the tail-free ones the
+    Gauss-Jordan tick's ``_abl_pi``, and on the CPU the plain version runs
+    them (equal to the Gauss-Jordan tick's where the tail is not reached)
+    without a launch, while the unablated plain version runs the Cholesky
+    tail there (the tail does not change what the tick returns)."""
     s, m, L, lot = SHAPES[model]
     assert mrk.kernel_library(s, m, L, lot, False, chol=True) == f"mhe_{model}_chol"
     assert mrk.kernel_library(s, m, L, lot, True, chol=True) == f"mhe_{model}_chol"
     assert mrk.kernel_library(s, m, L, lot, False) == f"mhe_{model}"
     assert mrk.kernel_library(s, m, L, lot, True) == f"mhe_{model}_pi"
+    assert mrk.kernel_library(s, m, L, lot, True, chol=True, ablate="marg") == (
+        f"mhe_{model}_abl_pi_chol_f64")
+    assert mrk.kernel_library(s, m, L, lot, True, chol=True, ablate="solve") == (
+        f"mhe_{model}_abl_pi_f64")
     units = [[d for d in flags if d.startswith(("-DDEM_MHE_UNIT=", "-DDEM_MHE_PI=",
                                                   "-DDEM_MHE_CHOL="))]
              for _, flags in _build.UNITS[f"mhe_{model}_chol"][1:]]
     assert units == [[f"-DDEM_MHE_UNIT=dem_mhe_unit_{model}{pi}_chol_{t}", f"-DDEM_MHE_PI={k}",
                       "-DDEM_MHE_CHOL=1"] for k, pi in ((0, ""), (1, "_pi")) for t in ("f32", "f64")]
     tc, ks, d, v, i = _tick_inputs(model, per_lane_clock=True)
-    before = (mrk.launches, mrk.launches_pi, mrk.launches_chol, mrk.launches_pi_chol)
+    before = (mrk.launches, mrk.launches_pi, mrk.launches_chol, mrk.launches_pi_chol,
+              repr(mrk.launches_abl))
 
     def route(*a, **k):
-        raise AssertionError("a refused ablation reached a route")
+        raise AssertionError("the CPU took the kernel route")
 
     with monkeypatch.context() as mp:
         mp.setattr(mrk, "_launch", route)
-        mp.setattr(mrk, "replay_ticks_plain", route)
-        with pytest.raises(NotImplementedError, match="K2e at Cassie; on per-lane clocks, the Cholesky tail and box consts"):
-            mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol", ablate="solve")
+        x_abl, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol",
+                                    ablate="solve")
+    x_abl_gj, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu", ablate="solve")
+    assert torch.equal(x_abl, x_abl_gj)
     x_chol, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu", mk_solve="chol")
     x_gj, _ = mrk.replay_ticks(tc, ks, d, v, i, device="cpu")
     assert torch.equal(x_chol, x_gj)
-    assert (mrk.launches, mrk.launches_pi, mrk.launches_chol, mrk.launches_pi_chol) == before
+    assert (mrk.launches, mrk.launches_pi, mrk.launches_chol, mrk.launches_pi_chol,
+            repr(mrk.launches_abl)) == before
 
 
 def test_work_counts_the_cholesky_tail():

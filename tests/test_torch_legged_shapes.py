@@ -309,9 +309,10 @@ def test_convert_carries_consts_and_state(model):
 
 def test_library_map_has_every_variant_group_at_every_shape():
     """Every shape has its shared-clock, per-lane-clock and Cholesky-tail
-    library (the tail on either clock), each unit carries its shape's and its
-    variant's defines (the entry point its shape's alone), the s=15 units keep
-    their long loops rolled, and a shape outside the build still raises."""
+    library (the tail on either clock), and a stage-ablation library per
+    composition, each unit carries its shape's and its variant's defines (the
+    entry point its shape's alone), the s=15 units keep their long loops
+    rolled, and a shape outside the build still raises."""
     shapes = dict(SHAPES, go1=(9, 12, 4, 0))
     variants = {"": {(0, 0, 0), (0, 1, 0)}, "pi": {(1, 0, 0), (1, 1, 0)},
                 "chol": {(0, 0, 1), (1, 0, 1)}}
@@ -334,15 +335,15 @@ def test_library_map_has_every_variant_group_at_every_shape():
             assert reals == (["-DDEM_MHE_REAL=double"] * len(want)
                              + ["-DDEM_MHE_REAL=float"] * len(want))
         # the tail on per-lane clocks is a unit of the Cholesky library; the
-        # stage ablation exists at Go1's and PogoX's shapes, at Cassie's it
-        # names its row
+        # stage ablation exists at every shape, one library per composition
         assert mrk.kernel_library(s, m, L, lot, per_lane_clock=True, chol=True) == (
             f"mhe_{model}_chol")
-        if model == "cassie":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md.*K2e"):
-                mrk.kernel_library(s, m, L, lot, False, ablate="solve")
-        else:
-            assert mrk.kernel_library(s, m, L, lot, False, ablate="solve") == f"mhe_{model}_abl"
+        for per_lane, chol, con, lib in ((False, False, False, "abl"),
+                                         (True, False, False, "abl_pi"),
+                                         (True, True, False, "abl_pi_chol"),
+                                         (True, False, True, "abl_pi_box")):
+            assert mrk.kernel_library(s, m, L, lot, per_lane, chol=chol, ablate="marg",
+                                      constrained=con) == f"mhe_{model}_{lib}_f64"
     with pytest.raises(NotImplementedError):
         mrk.kernel_library(12, 6, 1, 1, False)
     assert _build.mhe_library(12, 6, 1, 1) is None

@@ -318,12 +318,13 @@ def test_tridiag_plain_matches_pallas_interpret(full_window):
 
 
 def test_unported_branches_raise():
-    # the stage ablation at Cassie's shape (foot positions as states) has no
-    # tick kernel: the wrapper names the row
+    # the stage ablation at Cassie's shape (foot positions as states) is
+    # ported now: it has its library; a shape outside the build has none
     p1 = EstimatorParams(num_legs=2, leg_odom_type=1, rate=200, N=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mrk.kernel_library(p1.dim_state, p1.dim_meas, p1.num_legs, p1.leg_odom_type,
-                           per_lane_clock=False, ablate="marg")
+    assert mrk.kernel_library(p1.dim_state, p1.dim_meas, p1.num_legs, p1.leg_odom_type,
+                              per_lane_clock=False, ablate="marg") == "mhe_cassie_abl_f64"
+    with pytest.raises(NotImplementedError, match="no CUDA instantiation"):
+        mrk.kernel_library(12, 6, 1, 1, per_lane_clock=False, ablate="marg")
     z = torch.zeros
     # per-lane VO timing has no EKF kernel, in this package as in the
     # reference: the kernel wrapper refuses it (the runners take the scan)

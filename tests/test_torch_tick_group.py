@@ -1,21 +1,22 @@
 """The unconstrained tick on a group of threads per instance.
 
-The unconstrained tick runs ``BOX_G`` = 16 threads per instance with the
-Gauss-Jordan tail (K2, K2b) at every shape (Go1, PogoX, Cassie), and with the
-Cholesky tail (K2d, K2d-PI) above s=9 (Cassie): ``tick_geometry`` gives the
+The unconstrained tick runs ``BOX_G`` = 16 threads per instance with either
+tail (K2, K2b; K2d, K2d-PI) at every shape (Go1, PogoX, Cassie):
+``tick_geometry`` gives the
 launch (threads and instances per block, dynamic shared bytes), and the
 wrapper on CPU tensors still takes the plain version, with a block that must
 be a multiple of 16. Without a card, ``tests/box_group_host/tick_harness.cpp``
 builds the tick body of ``csrc/mhe_body.cuh`` with g++ and runs it on the
 group (each instance's 16 lanes as host threads) and on one thread per
 instance, from plain-path states of the bench's Go1, PogoX and Cassie fleets
-(Cassie with either tail), for 24 ticks (the window full from tick 20, so the
+with either tail, for 24 ticks (the window full from tick 20, so the
 marginalization runs), in float64 and float32, on the shared camera clock and
 on a clock per lane with a VO-free lane: x, every window-state tensor and the
 Bezier schedule must agree bit for bit, and the float64 result must match the
 plain version (the window's weights on their diagonal scale). The group's
-units of the stage ablation (K2e) at Go1's shape run there too, in float64,
-against the plain version that skips the same stage.
+units of the stage ablation (K2e) at Go1's shape, on either clock with either
+tail, run there too, in float64, against the plain version that skips the
+same stage.
 """
 
 import os
@@ -60,10 +61,10 @@ def test_tick_geometry(dtype):
     factor and reciprocal pivots, s(s+1)/2 + s scalars, in a matrix buffer of
     max(s², m²), and z, yv, x in three of the four vectors); any multiple of
     16 up to 256 fits a block; a block that is no multiple of 16 raises, and
-    so does an unknown tail. At s=9 the Gauss-Jordan tick launches the same
-    way with Go1's and PogoX's layouts (8 instances per block at B=1024 fill
-    128 of the 132 SMs), and the Cholesky tail, one thread per instance
-    there, raises."""
+    so does an unknown tail. At s=9 the tick launches the same way with
+    either tail at Go1's and PogoX's layouts (8 instances per block at
+    B=1024 fill 128 of the 132 SMs; the Cholesky tail's packed factor and
+    pivots, 54 scalars, fit a matrix buffer, and lane 9 is its spare lane)."""
     item = torch.empty((), dtype=dtype).element_size()
     per = _layout_bytes(15, 6, item)
     assert per % 128 == 64 and per == {4: 5568, 8: 11072}[item]
@@ -73,7 +74,8 @@ def test_tick_geometry(dtype):
     with pytest.raises(ValueError, match="mk_solve"):
         mrk.tick_group(9, "cholesky")
     assert mrk.tick_group(15) and mrk.tick_group(9)
-    assert mrk.tick_group(15, "chol") and not mrk.tick_group(9, "chol")
+    assert mrk.tick_group(15, "chol") and mrk.tick_group(9, "chol")
+    assert 9 * 10 // 2 + 9 <= 9 * 9 and 9 < mrk.BOX_G
     for m, want in ((12, {4: 3776, 8: 7616}), (3, {4: 2240, 8: 4288})):   # Go1, PogoX
         g = mrk.tick_geometry(9, m, dtype)
         assert _layout_bytes(9, m, item) == want[item] and want[item] % 128 == 64
@@ -95,8 +97,9 @@ def test_tick_geometry(dtype):
         with pytest.raises(ValueError, match="block"):
             mrk.tick_geometry(15, 6, dtype, block)
     for m in (12, 3):
-        with pytest.raises(ValueError, match="one thread per instance"):
-            mrk.tick_geometry(9, m, dtype, mk_solve="chol")
+        assert mrk.tick_geometry(9, m, dtype, mk_solve="chol") == mrk.tick_geometry(9, m, dtype)
+        with pytest.raises(ValueError, match="block"):
+            mrk.tick_geometry(9, m, dtype, 40, mk_solve="chol")
 
 
 def _fleet(per_lane, B=B_HOST, T=T_HOST, model="cassie_bench"):
@@ -213,7 +216,11 @@ def _hold_state(arrays, ksp):
     pytest.param("go1", "gj", False, id="go1-shared_clock"),
     pytest.param("go1", "gj", True, id="go1-per_lane_clocks"),
     pytest.param("pogox_bench", "gj", False, id="pogox-shared_clock"),
-    pytest.param("pogox_bench", "gj", True, id="pogox-per_lane_clocks")])
+    pytest.param("pogox_bench", "gj", True, id="pogox-per_lane_clocks"),
+    pytest.param("go1", "chol", False, id="go1-chol-shared_clock"),
+    pytest.param("go1", "chol", True, id="go1-chol-per_lane_clocks"),
+    pytest.param("pogox_bench", "chol", False, id="pogox-chol-shared_clock"),
+    pytest.param("pogox_bench", "chol", True, id="pogox-chol-per_lane_clocks")])
 def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, model, tail,
                                                        per_lane):
     """mhe_body on the group (GRP: the marginalization, the shift with its
@@ -221,9 +228,10 @@ def test_group_tick_equals_one_thread_tick_on_the_host(tick_harness, tmp_path, m
     ingestion and the fresh slots' blocks; with the Cholesky tail W column-parallel,
     S_j row-parallel and the factor column by column) gives the one-thread
     body's x, window state and Bezier schedule bit for bit over 24 ticks, in
-    float64 and float32, at Cassie's shape with the Gauss-Jordan tail ("gj")
-    and the Cholesky tail ("chol"), at Go1's and PogoX's (s=9) with the
-    Gauss-Jordan tail; on per-lane clocks with a lane that never ingests. Its
+    float64 and float32, at Cassie's, Go1's and PogoX's shapes with the
+    Gauss-Jordan tail ("gj") and the Cholesky tail ("chol": at s=9 lane 9 is
+    the spare lane, and at Go1's shape it also owns a measurement row); on
+    per-lane clocks with a lane that never ingests. Its
     float64 x and state are the plain version's (the plain version does not
     depend on the tail). A lane that leaves a sync alone hangs the barrier,
     which the time limit turns into a failure."""
@@ -260,14 +268,25 @@ def test_group_ablation_matches_the_plain_version_on_the_host(tick_harness, tmp_
     assert int(v.active.sum()) > 0
     case, out = str(tmp_path / "case.bin"), str(tmp_path / "out.bin")
     _write_case(case, c, ks, d, v, i, ablate=stage)
-    lines = _run_harness(tick_harness, case, out)
-    assert lines == [f"{case} s=9 m=12 f64 shared gj ablation "
+    _hold_ablated(tick_harness, case, out, c, ks, d, v, i, stage)
+
+
+def _hold_ablated(exe, case, out, c, ks, d, v, i, stage, tail="gj"):
+    """Run an ablation case of the harness and hold its float64 x and window
+    state against ``replay_ticks_plain(..., ablate=stage, mk_solve=tail)``."""
+    pi = v.active.ndim == 2
+    lines = _run_harness(exe, case, out)
+    assert lines == [f"{case} s=9 m=12 f64 {'per-lane' if pi else 'shared'} {tail} ablation "
                      f"{mrk.ABLATE_STAGES.index(stage) + 1}: written", "ALL BIT-IDENTICAL"], lines
-    xp, ksp = mrk.replay_ticks_plain(c, ks, d, v, i, ablate=stage)
+    xp, ksp = mrk.replay_ticks_plain(c, ks, d, v, i, ablate=stage, mk_solve=tail)
     x, arrays, times = _read_out(out, xp, ksp)
     fin = torch.isfinite(xp)
     assert torch.equal(fin, torch.isfinite(x)) and torch.equal(xp.isnan(), x.isnan())
-    assert bool(fin.any()) == (stage != "build")   # zeroed fresh data: a singular window
+    # zeroed fresh data: a singular window, on which the Gauss-Jordan chain
+    # leaves nothing finite and the Cholesky chain breaks down in places
+    assert bool(fin.all()) == (stage != "build")
+    if tail == "gj":
+        assert bool(fin.any()) == (stage != "build")
     if stage == "solve":
         scale, tol = mrk.solve_stage_scales(c, ks, d, v, i)["terms"], dict(rtol=RTOL_SOLVE,
                                                                           atol=ATOL_SOLVE)
@@ -276,6 +295,26 @@ def test_group_ablation_matches_the_plain_version_on_the_host(tick_harness, tmp_
     assert bool(((x - xp).abs()[fin] <= tol["atol"] + tol["rtol"] * scale[fin]).all())
     _hold_state(arrays, ksp)
     assert torch.equal(times, ksp.bez_times)
+
+
+@pytest.mark.parametrize("stage,tail,per_lane", [
+    *(pytest.param(st, "gj", True, id=f"per_lane_clocks-{st}") for st in mrk.ABLATE_STAGES),
+    *(pytest.param(st, "chol", pl, id=f"chol-{'per_lane_clocks' if pl else 'shared_clock'}-{st}")
+      for pl in (False, True) for st in ("ingest", "marg", "build"))])
+def test_group_ablation_on_either_clock_and_tail_on_the_host(tick_harness, tmp_path, stage,
+                                                             tail, per_lane):
+    """The group's float64 tick with one stage skipped on per-lane clocks (a
+    VO-free lane among them; the ingest stage skips lane 0's per-lane
+    ingestion and Bezier carry) and with the Cholesky tail on either clock
+    (the stages before the tail; its tail-free stages are the Gauss-Jordan
+    units) against ``replay_ticks_plain(..., ablate=stage, mk_solve=tail)``
+    over 24 ticks at Go1's shape, as the shared-clock units are held: where
+    "build" leaves the window singular, the Cholesky chain's non-finite
+    positions are the plain Cholesky sweep's."""
+    c, ks, d, v, i = _fleet(per_lane, model="go1")
+    case, out = str(tmp_path / "case.bin"), str(tmp_path / "out.bin")
+    _write_case(case, c, ks, d, v, i, chol=tail == "chol", ablate=stage)
+    _hold_ablated(tick_harness, case, out, c, ks, d, v, i, stage, tail)
 
 
 def test_unconstrained_wrapper_takes_the_plain_version_on_the_cpu():
