@@ -37,11 +37,11 @@ def launch(fn, D, U, r, lb, ub, settings, valid=None, z0=None, y0=None):
     z = torch.zeros_like(r) if z0 is None else z0.clone()
     y = torch.zeros_like(r) if y0 is None else y0.clone()
     iters = torch.empty((B,), dtype=torch.int32, device=D.device)
-    tensors = [D, U, r, lb, ub, x, z, y, iters, torch.empty_like(D), torch.empty_like(r)]
+    tensors = [D, U, r, lb, ub, x, z, y, iters]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     ints, reals = admm_kernel.ADMMCoreStatic.from_settings(settings, N, s).pack()
     err = fn(int(D.dtype == torch.float64), s, ptrs, len(tensors), ints.ctypes.data,
-             reals.ctypes.data, N, B, admm_kernel.BLOCK,
+             reals.ctypes.data, N, B, admm_kernel.geometry(s, D.dtype, None, N).threads_per_block,
              torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "admm_solve")
     torch.cuda.synchronize()

@@ -1,11 +1,14 @@
 // admm_box_solve — OSQP-semantics box-ADMM on one block-tridiagonal system,
-// a device function run by one thread per instance.
+// a function run by one thread per instance.
 //
-// Replaces pallas/admm_core.py::admm_box_solve (with factor_chain,
-// sweep_factored, t_apply, add_scalar_diag, add_diag) in csrc/admm.cu (one
-// whole solve per launch). The constrained estimator tick (csrc/mhe_body.cuh)
-// runs the same solve on a group of 16 threads per instance,
-// admm_box_solve_group of csrc/admm_group.cuh, statement for statement.
+// The port of pallas/admm_core.py::admm_box_solve (with factor_chain,
+// sweep_factored, t_apply, add_scalar_diag, add_diag) as one thread computes
+// it. No kernel launches it: K4 (csrc/admm.cu) and the constrained estimator
+// tick (csrc/mhe_body.cuh) run the same solve on a group of 16 threads per
+// instance, admm_box_solve_group of csrc/admm_group.cuh, statement for
+// statement, and the host harness (tests/box_group_host/harness.cpp) holds
+// that group against this version bit for bit. The settings, the pointer
+// bundle and the maxima below are shared with the group.
 //
 //   min 1/2 x^T T x - r^T x   s.t.  lb <= x <= ub,
 //   T block tridiagonal: D (N,s,s), U (N-1,s,s).
@@ -75,8 +78,16 @@ struct AdmmPtrs {
   T* ys;        // (N,s,B) scratch: forward-sweep vectors
 };
 
-template <typename T> DEM_HD T amax(T m, T v) { v = v < T(0) ? -v : v; return v > m ? v : m; }
-template <typename T> DEM_HD T tmax(T a, T b) { return a > b ? a : b; }
+// Maxima that keep a NaN, as jnp.max/jnp.maximum and torch.amax/torch.maximum
+// do: a NaN residual never passes the convergence check, and a NaN rho or
+// polish penalty stays NaN. On other values they are the plain comparisons
+// (the first operand on a tie), so finite inputs give the same bits.
+// amax folds |v| into the running maximum m; tmax is the larger of a and b.
+template <typename T> DEM_HD T amax(T m, T v) {
+  v = v < T(0) ? -v : v;
+  return (v > m || v != v) ? v : m;
+}
+template <typename T> DEM_HD T tmax(T a, T b) { return (a > b || a != a) ? a : b; }
 template <typename T> DEM_HD T clip(T v, T lo, T hi) { v = v < lo ? lo : v; return v > hi ? hi : v; }
 template <typename T> DEM_HD bool is_fin(T v) { return v - v == T(0); }
 DEM_HD int ring_slot(int base, int j, int N) { const int p = base + j; return p >= N ? p - N : p; }

@@ -1,18 +1,21 @@
-// admm_box_solve_group — the box-ADMM window solve of the constrained MHE tick,
-// run by a group of BOX_G = 16 threads per instance.
+// admm_box_solve_group — the box-ADMM window solve, run by a group of
+// BOX_G = 16 threads per instance: in the constrained MHE tick and in K4.
 //
 // Replaces, inside the constrained tick (csrc/mhe_body.cuh, CON), the TPU
 // kernel's whole-window solve: pallas/mhe_replay_kernel.py:787-800 calling
 // pallas/admm_core.py::admm_box_solve (factor_chain, sweep_factored,
-// t_apply, add_scalar_diag, add_diag). It computes what admm_box_solve of
-// admm.cuh computes — the one-thread version, which K4 (csrc/admm.cu) keeps —
+// t_apply, add_scalar_diag, add_diag); and, as K4's body (admm_solve_group
+// below, launched by csrc/admm.cu), the TPU kernel pallas/admm_kernel.py:75.
+// It computes what admm_box_solve of admm.cuh computes — the one-thread
+// version, which no kernel launches any more and the host harness
+// (tests/box_group_host/harness.cpp) keeps as the reference —
 // statement for statement: every output element is the same chain
 // acc = a0 * v0; acc += a_k * v_k over k = 0, 1, ... (smallmat.cuh's products),
 // the Gauss-Jordan inverse runs the statements of gj_inv with the same no-op
 // columns skipped, and the epoch-end residuals are maxima, which a reduction
-// over the group gives exactly. So the iterates, the iteration counts and x
-// are the one-thread version's, as far as nvcc contracts the same expressions
-// to the same FMAs.
+// over the group gives exactly (NaN included: amax and tmax keep it). So the
+// iterates, the iteration counts and x are the one-thread version's, as far
+// as nvcc contracts the same expressions to the same FMAs.
 //
 // What bounds it on this card. The solve is a serial chain: per iteration a
 // forward and a backward block-Thomas substitution over the N slots, each slot
@@ -113,8 +116,9 @@ DEM_HD BoxGroup<T> box_group(int N, int B, int b) {
   return g;
 }
 
-// the largest of the group's values (each lane's is a fold of amax from +0,
-// so never NaN: the order of the comparisons does not matter)
+// the largest of the group's values, NaN if any lane's is (tmax keeps a NaN,
+// as the one-thread fold amax does; each lane's value is a fold of amax from
+// +0, so on values without NaN the order of the comparisons does not matter)
 template <typename T>
 DEM_HD T group_max(T v, unsigned mask) {
   DEM_UNROLL
@@ -532,5 +536,81 @@ DEM_HD int admm_box_solve_group(const BoxGroup<T>& g, const T* D, const T* Ug, c
   }
   return itc;
 }
+
+// K4's whole solve for instance b (csrc/admm.cu's admm_kernel), on its group:
+// D, U, r the system and lb, ub the (s,B) bounds in global memory in the lanes
+// layout; z and y the warm starts in and the final iterates out (slot j at j:
+// zbase 0); x (N,s,B) and iters (B,) out. Lane i reads its bounds lb[i],
+// ub[i] and writes row i of x from shared memory, lane 0 the iteration count.
+template <typename T, int S>
+DEM_HD void admm_solve_group(const T* D, const T* U, const T* r, const T* lb, const T* ub,
+                             T* x, T* z, T* y, int* iters, const AdmmSettings<T>& a, int N,
+                             int B, int b) {
+  constexpr bool USH = box_u_shared<S>();
+  const BoxGroup<T> g = box_group<T, S, USH>(N, B, b);
+  T lbi = T(0), ubi = T(0);
+  if (g.ln < S) {
+    lbi = ld(lb, g.ln, B, b);
+    ubi = ld(ub, g.ln, B, b);
+  }
+  const int its = admm_box_solve_group<T, S, USH>(g, D, U, r, z, y, a, lbi, ubi, 0);
+  if (g.ln < S) {
+    const T* xs = g.sm + BoxLayout<T, S, USH>::x(N);
+    for (int j = 0; j < N; ++j) st(x, (size_t)j * S + g.ln, B, b, xs[j * S + g.ln]);
+  }
+  if (g.ln == 0) iters[b] = its;
+}
+
+// The dynamic shared memory of a launch of `block` threads that runs the
+// solve above, the constrained tick's or K4's (csrc/admm.cu): block / BOX_G
+// instances of BoxLayout::stride scalars (kernels/_group.py's box_geometry
+// computes the same bytes).
+template <typename T, int S>
+DEM_HHD size_t box_shared_bytes(int N, int block) {
+  return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
+}
+
+#ifdef __CUDACC__
+
+// Check a group launch's shape and allow its dynamic shared memory:
+// 0, or the error of what the card refuses (cleared, so that it does not
+// surface at a later launch). *shmem = the bytes to launch with.
+template <typename K>
+int box_launch_shape(K kern, size_t bytes, int block, size_t* shmem) {
+  if (block < BOX_G || block > 1024 || block % BOX_G) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  *shmem = bytes;
+  return 0;
+}
+
+// The geometry of a launch of `block` threads, BOX_G per instance, with
+// `bytes` of dynamic shared memory: out[0..5] = instances per block, threads
+// per block, dynamic shared bytes, blocks resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
+// local bytes per thread. Returns 0 or the CUDA error.
+template <typename K>
+int group_geometry(K kern, size_t bytes, int block, int* out) {
+  size_t shmem = 0;
+  int err = box_launch_shape(kern, bytes, block, &shmem);
+  if (err) return err;
+  int per_sm = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, shmem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  out[0] = block / BOX_G; out[1] = block; out[2] = (int)shmem; out[3] = per_sm;
+  out[4] = fa.numRegs; out[5] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+#endif  // __CUDACC__
 
 }  // namespace dem

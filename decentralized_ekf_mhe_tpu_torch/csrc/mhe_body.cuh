@@ -1577,14 +1577,6 @@ __global__ void mhe_box_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, M
   mhe_body<T, S, M, L, LOT, true, PI, false, ABL>(p, c, &q, N, B, Tn, t0, b);
 }
 
-// The dynamic shared memory of a constrained launch of `block` threads:
-// block / BOX_G instances of BoxLayout::stride scalars (kernels/
-// mhe_replay_kernel.py's box_geometry computes the same bytes).
-template <typename T, int S>
-DEM_HHD size_t box_shared_bytes(int N, int block) {
-  return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
-}
-
 // ... and of the unconstrained group tick: block / BOX_G
 // instances of TickLayout::stride scalars (mhe_replay_kernel.py's
 // tick_geometry computes the same bytes)
@@ -1611,45 +1603,6 @@ auto mhe_tick_entry() {
   else if constexpr (CHOL) return &mhe_chol_kernel<T, S, M, L, LOT>;
   else if constexpr (PI) return &mhe_pi_kernel<T, S, M, L, LOT>;
   else return &mhe_kernel<T, S, M, L, LOT>;
-}
-
-// Check a constrained launch's shape and allow its dynamic shared memory:
-// 0, or the error of what the card refuses (cleared, so that it does not
-// surface at a later launch). *shmem = the bytes to launch with.
-template <typename K>
-int box_launch_shape(K kern, size_t bytes, int block, size_t* shmem) {
-  if (block < BOX_G || block > 1024 || block % BOX_G) return (int)cudaErrorInvalidValue;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  *shmem = bytes;
-  return 0;
-}
-
-// The geometry of a launch of `block` threads, BOX_G per instance, with
-// `bytes` of dynamic shared memory: out[0..5] = instances per block, threads
-// per block, dynamic shared bytes, blocks resident per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
-// local bytes per thread. Returns 0 or the CUDA error.
-template <typename K>
-int group_geometry(K kern, size_t bytes, int block, int* out) {
-  size_t shmem = 0;
-  int err = box_launch_shape(kern, bytes, block, &shmem);
-  if (err) return err;
-  int per_sm = 0;
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, shmem);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  out[0] = block / BOX_G; out[1] = block; out[2] = (int)shmem; out[3] = per_sm;
-  out[4] = fa.numRegs; out[5] = (int)fa.localSizeBytes;
-  return 0;
 }
 
 // ... of the constrained kernel of this instantiation at N slots (csrc/mhe.cu's

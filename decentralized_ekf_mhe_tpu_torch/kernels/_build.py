@@ -171,8 +171,9 @@ SOURCES = ("tridiag", "ekf", "mhe", "admm")   # csrc/<source>.cu
 _c_int, _c_void_p = ctypes.c_int, ctypes.c_void_p
 # by source: every mhe_<shape> library has the entry point of csrc/mhe.cu
 _ARGTYPES = {
+    # is_double, S, std_layout, D, U, r, valid, strides, x, N, B, block, stream
     "tridiag": ("dem_tridiag_solve",
-                [_c_int, _c_int] + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
+                [_c_int] * 3 + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
     "ekf": ("dem_ekf_stage",
             [_c_int, _c_void_p, _c_void_p] + [_c_int] * 8 + [_c_void_p]),
     # is_double, con, pi, chol, ablate, S, M, L, lot, ptrs, nptrs, consts, ints,

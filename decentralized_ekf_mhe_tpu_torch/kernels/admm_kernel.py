@@ -2,26 +2,27 @@
 
 Replaces the reference's TPU kernel ``pallas/admm_kernel.py``
 (``solve_box_lanes`` → ``_solve_padded`` → ``_make_kernel``) with
-``csrc/admm.cu``, whose body is the device function ``admm_box_solve`` of
-``csrc/admm.cuh`` — the port of ``pallas/admm_core.py::admm_box_solve``, which
-the constrained ``mhe_tick`` kernel (``csrc/mhe_body.cuh``) runs once per tick
-on a group of 16 threads per instance instead (``admm_box_solve_group``,
-``csrc/admm_group.cuh``, the same statements). Here one CUDA thread per
-instance runs the ρ-epoch factorizations, the α-relaxed projection
+``csrc/admm.cu``, whose body is ``admm_solve_group`` of
+``csrc/admm_group.cuh``: the constrained ``mhe_tick`` kernel's window solve
+(``admm_box_solve_group``, the port of ``pallas/admm_core.py::admm_box_solve``)
+with its warm starts read in slot order. A group of ``BOX_G`` = 16 CUDA threads
+per instance runs the ρ-epoch factorizations, the α-relaxed projection
 iterations, the converged-freeze, the adaptive-ρ updates and the active-set
-polish on operands in the instance-minor lanes layout.
+polish on operands in the instance-minor lanes layout; lane i owns row i of
+every block.
 
-What the TPU kernel keeps in its on-chip memory (the system, the
-factorization chain and the iterates: about 6k scalars per instance at N=20,
-s=9) does not fit a thread's registers, so the factorization chain, the
-forward-sweep vectors and the iterates live in global memory in the lanes
-layout (coalesced; the wrapper allocates the scratch per launch). A converged
-instance stops iterating instead of computing masked updates: a frozen
-instance changes nothing, ρ included, so the results are the same, and
-``iters`` says what each instance ran. What bounds it on an H100: operations
-(``kernels/_work.py``), in practice the serial chain of one instance with B/32
-warps in flight. The TPU wrapper's pad to a lane tile does not carry over:
-the ragged edge is masked in the kernel.
+What the TPU kernel keeps in its on-chip memory (the factorization chain,
+the iterates and the sweep vectors: about 6k scalars per instance at N=20,
+s=9) sits in the block's shared memory for the whole solve, and U_j with
+them at s=9 (``_group.box_geometry``: threads and instances per block,
+dynamic shared bytes; a block the card cannot take raises before a launch,
+and a launch it refuses raises with its CUDA error). A converged instance
+stops iterating instead of computing masked updates: a frozen instance
+changes nothing, ρ included, so the results are the same, and ``iters`` says
+what each instance ran. What bounds it on an H100: operations
+(``kernels/_work.py``), in practice the serial chain of one instance. The
+TPU wrapper's pad to a lane tile does not carry over: the ragged edge is
+masked in the kernel.
 
 ADMM settings are runtime values, so every budget shares one binary; only the
 state size is a template parameter: s=9 (Go1, PogoX) and s=15 (Cassie, whose
@@ -37,15 +38,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from decentralized_ekf_mhe_tpu_torch.kernels import _build
+from decentralized_ekf_mhe_tpu_torch.kernels import _build, _group
 from decentralized_ekf_mhe_tpu_torch.ops import admm
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-BLOCK = 32       # threads per block: one warp, so a small fleet spreads over SMs
 launches = 0     # incremented where the CUDA kernel is launched, nowhere else
-# launches of any kernel that runs the box-ADMM solve (K3): this module's
-# admm_solve (admm_box_solve, one thread per instance) and the constrained
-# mhe_tick (kernels/mhe_replay_kernel; admm_box_solve_group, 16 per instance)
+# launches of any kernel that runs the box-ADMM solve (K3, admm_box_solve_group
+# of csrc/admm_group.cuh on 16 threads per instance): this module's admm_solve
+# and the constrained mhe_tick (kernels/mhe_replay_kernel)
 launches_core = 0
 timer = _build.KernelTimer()   # times the kernel call alone
 
@@ -143,28 +143,49 @@ def solve_box_lanes(D, U, r, lb, ub, settings, valid=None, z0=None, y0=None,
     return admm.ADMMResult(x, z, y, prim, dual, iters)
 
 
+def geometry(s, dtype, block=None, N=20):
+    """The launch of ``admm_solve``: ``_group.box_geometry`` (threads and
+    instances per block, dynamic shared bytes); raises ``ValueError`` for a
+    block the card cannot take."""
+    return _group.box_geometry(s, dtype, block, N, what="box-ADMM solve")
+
+
+def occupancy(s, dtype, block=None, N=20):
+    """The launch's geometry as the card reports it (``dem_admm_geometry``, on
+    the current device): instances and threads per block, dynamic shared
+    bytes, blocks resident per SM, registers and local bytes per thread,
+    whether U_j sits in shared memory. Raises as a launch would."""
+    block = geometry(s, dtype, block, N).threads_per_block
+    fn = _build.entry(_build.solve_library("admm", s), "dem_admm_geometry",
+                      [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 7)()
+    _build.check_launch(fn(int(dtype == torch.float64), s, N, block,
+                           ctypes.cast(out, ctypes.c_void_p)), "admm_solve geometry")
+    return _group.card_figures(out, "u_shared")
+
+
 def _launch(D, U, r, lb, ub, z0, y0, static: ADMMCoreStatic):
-    """Allocate outputs and scratch, launch ``dem_admm_solve`` on the current
-    stream, count the launch. The kernel updates z and y in place, so they
-    start as copies of the warm starts."""
+    """Allocate the outputs, launch ``dem_admm_solve`` on the current stream
+    (``geometry``'s threads per block), count the launch.
+    The kernel updates z and y in place, so they start as copies of the warm
+    starts."""
     global launches, launches_core
     N, s, _, B = D.shape
     dev, dtype = D.device, D.dtype
+    block = geometry(s, dtype, N=N).threads_per_block
     fn = _build.load(_build.solve_library("admm", s))
     x = torch.empty((N, s, B), dtype=dtype, device=dev)
     z = torch.zeros_like(r) if z0 is None else z0.clone()
     y = torch.zeros_like(r) if y0 is None else y0.clone()
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    Sinv_ws = torch.empty((N, s, s, B), dtype=dtype, device=dev)
-    ys_ws = torch.empty((N, s, B), dtype=dtype, device=dev)
-    tensors = [D, U, r, lb, ub, x, z, y, iters, Sinv_ws, ys_ws]
+    tensors = [D, U, r, lb, ub, x, z, y, iters]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     ints, reals = static.pack()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
         timer.record(stream)
         err = fn(int(dtype == torch.float64), s, ptrs, len(tensors),
-                 ints.ctypes.data, reals.ctypes.data, N, B, BLOCK,
+                 ints.ctypes.data, reals.ctypes.data, N, B, block,
                  stream.cuda_stream)
         timer.record(stream)
     _build.check_launch(err, "admm_solve")

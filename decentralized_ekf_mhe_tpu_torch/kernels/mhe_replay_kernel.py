@@ -95,25 +95,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from decentralized_ekf_mhe_tpu_torch.kernels import _build, admm_kernel
+from decentralized_ekf_mhe_tpu_torch.kernels import _build, _group, admm_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels.admm_kernel import ADMMCoreStatic
 from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-# the constrained tick: threads per instance (csrc/admm_group.cuh's BOX_G), and
-# its threads per block unless the caller names ``block``: eight instances, the
-# fastest of 2, 4, 5 and 8 at Go1's and Cassie's shapes in float32 in the sweep
-# of tools/roofline.py --box-layouts on the card (PERF.md §5), or as many as
-# fit a block's shared memory where eight do not (float64)
-BOX_G = 16
-BLOCK_BOX = 128
+# the constrained tick's group (BOX_G threads per instance), its default
+# block and what a block and an SM may hold of shared memory: kernels/_group.py
+BOX_G, BLOCK_BOX = _group.BOX_G, _group.BLOCK_BOX
+SHARED_PER_BLOCK, SHARED_PER_SM = _group.SHARED_PER_BLOCK, _group.SHARED_PER_SM
 # the unconstrained tick where ``tick_group`` holds (the Gauss-Jordan tail at
 # every shape, the Cholesky tail above s=9) runs BOX_G threads per instance
 # too; its threads per block unless the caller names ``block``
 BLOCK_TICK = 128
-# what one block may use of an SM's shared memory, and what an SM has for its
-# blocks, each of which reserves 1 KB more (H100: 227 KB and 228 KB)
-SHARED_PER_BLOCK, SHARED_PER_SM, SHARED_RESERVED_PER_BLOCK = 232448, 233472, 1024
 MK_SOLVES = ("gj", "chol")     # the tails of the window solve
 ABLATE_STAGES = _build.ABLATE_STAGES
 # the variants of the ablated units, as csrc/mhe.cu's symbols name them: the
@@ -256,82 +250,7 @@ def check_ablate(c, ablate, per_lane_clock, mk_solve):
                    mk_solve == "chol", ablate, c.x_lb is not None)
 
 
-def _check_block(block):
-    """Threads per block of a launch: 1..1024."""
-    block = int(block)
-    if not 1 <= block <= 1024:
-        raise ValueError(f"block: {block} threads per block, expected 1..1024")
-    return block
-
-
-def box_u_shared(s):
-    """Whether the constrained tick keeps U_j in shared memory (layout (b)) at
-    state size s, as ``csrc/admm_group.cuh``'s ``box_u_shared`` decides: at
-    s=9; at s=15 it reads U_j from the assembly's scratch (layout (a))."""
-    return s <= 9
-
-
-class BoxGeometry(NamedTuple):
-    """The launch of the constrained tick (``box_geometry``)."""
-
-    instances_per_block: int
-    threads_per_block: int
-    shared_bytes: int           # dynamic shared memory of one block
-    u_shared: bool              # U_j in shared memory (layout (b))
-    instances_per_sm: int       # as far as shared memory, threads and blocks allow
-
-
-def _group_launch(scalars, dtype, block, what):
-    """(instances per block, threads per block, shared bytes of a block,
-    instances per SM as far as shared memory, threads and blocks allow) of a
-    launch of ``block`` threads, ``BOX_G`` per instance, each instance with
-    ``scalars`` of shared memory padded to 16 mod 32 four-byte words (so that
-    the two groups of a warp use different banks). Raises ``ValueError`` for
-    a block that is no multiple of ``BOX_G`` in 16..1024 or whose shared
-    memory exceeds what a block may use."""
-    item = torch.empty((), dtype=dtype).element_size()
-    words = scalars * item // 4
-    one = (words + (16 - words % 32) % 32) * 4      # bytes of one instance
-    if block is None:
-        block = min(BLOCK_BOX, BOX_G * (SHARED_PER_BLOCK // one))
-    block = _check_block(block)
-    if block % BOX_G or block < BOX_G:
-        raise ValueError(f"block: {block} threads per block is not a multiple of "
-                         f"{BOX_G}, the {what}'s threads per instance")
-    ipb = block // BOX_G
-    shared = ipb * one
-    if shared > SHARED_PER_BLOCK:
-        raise ValueError(
-            f"{what}: {shared} bytes of shared memory for {ipb} instances per block "
-            f"({dtype}), more than the {SHARED_PER_BLOCK} a block may use")
-    blocks = min(SHARED_PER_SM // (shared + SHARED_RESERVED_PER_BLOCK), 32, 2048 // block)
-    return ipb, block, shared, blocks * ipb
-
-
-def box_shared_scalars(s, N, u_shared):
-    """Scalars of one instance's shared memory (``BoxLayout``): Sinv N s², U
-    (N−1) s² in layout (b), x, z, y, the sweep vectors and r 5 N s, 6 s of
-    broadcast buffers."""
-    return N * s * s + (N - 1) * s * s * int(u_shared) + 5 * N * s + 6 * s
-
-
-def box_geometry(s, dtype, block=None, N=20):
-    """The launch geometry of the constrained tick at state size ``s``, element
-    type ``dtype``, ``block`` threads per block (default ``BLOCK_BOX``, capped
-    to the instances whose shared memory fits a block) and ``N`` slots:
-    ``BOX_G`` threads per instance, so ``block // BOX_G``
-    instances per block, each with ``box_shared_scalars`` padded to 16 mod 32
-    four-byte words (``BoxLayout::stride``, so that the two groups of a warp
-    use different banks); U_j sits in shared memory where
-    ``box_u_shared(s)``. Raises ``ValueError`` when ``block`` is not a
-    multiple of ``BOX_G`` in 16..1024, when s > ``BOX_G``, or when the block's
-    shared memory exceeds what a block may use (232,448 bytes)."""
-    if s > BOX_G:
-        raise ValueError(f"s={s}: the constrained tick runs at most {BOX_G} states")
-    u_shared = box_u_shared(s)
-    ipb, block, shared, per_sm = _group_launch(
-        box_shared_scalars(s, N, u_shared), dtype, block, f"constrained tick (s={s}, N={N})")
-    return BoxGeometry(ipb, block, shared, u_shared, per_sm)
+box_geometry = _group.box_geometry      # the constrained tick's launch
 
 
 def tick_group(s, mk_solve="gj"):
@@ -369,7 +288,7 @@ def tick_geometry(s, m, dtype, block=None, mk_solve="gj"):
     that does not exist, for a block that is no multiple of ``BOX_G`` in
     16..1024, or for more shared memory than a block may use."""
     check_mk_solve(mk_solve)
-    return TickGeometry(*_group_launch(tick_shared_scalars(s, m), dtype,
+    return TickGeometry(*_group.group_launch(tick_shared_scalars(s, m), dtype,
                                        BLOCK_TICK if block is None else block,
                                        f"unconstrained tick (s={s}, m={m})"))
 
@@ -385,11 +304,7 @@ def _occupancy(c, dtype, constrained, per_lane_clock, block, chol=False):
              c.dim_state, c.dim_meas, c.num_legs, int(c.leg_odom_type), c.N, block,
              ctypes.cast(out, ctypes.c_void_p))
     _build.check_launch(err, f"mhe_tick ({'constrained' if constrained else 'group'}) geometry")
-    keys = ("instances_per_block", "threads_per_block", "shared_bytes", "blocks_per_sm",
-            "registers_per_thread", "local_bytes_per_thread", "u_shared")
-    res = dict(zip(keys, list(out)))
-    res["instances_per_sm"] = res["blocks_per_sm"] * res["instances_per_block"]
-    return res
+    return _group.card_figures(out, "u_shared")
 
 
 def box_occupancy(c, dtype, per_lane_clock=False, block=None):
@@ -402,9 +317,7 @@ def box_occupancy(c, dtype, per_lane_clock=False, block=None):
     would."""
     if block is None:
         block = box_geometry(c.dim_state, dtype, None, c.N).threads_per_block
-    res = _occupancy(c, dtype, True, per_lane_clock, block)
-    res["u_shared"] = bool(res["u_shared"])
-    return res
+    return _occupancy(c, dtype, True, per_lane_clock, block)
 
 
 def tick_occupancy(c, dtype, per_lane_clock=False, block=None, mk_solve="gj"):

@@ -1,18 +1,22 @@
 """Batched block-tridiagonal solve: hand-written CUDA kernel + plain version.
 
 Replaces the reference's TPU kernel ``pallas/tridiag_kernel.py``
-(``solve_lanes`` → ``_kernel``) with ``csrc/tridiag.cu``: one CUDA thread per
-instance runs the forward block-Thomas sweep with a pivot-free Gauss-Jordan
-inverse per slot and the backward sweep, on operands in the instance-minor
-lanes layout, so a warp's loads are coalesced. The TPU kernel's lane-tile
-padding does not carry over: the ragged edge is masked in the kernel.
+(``solve_lanes`` → ``_kernel``) with ``csrc/tridiag.cu``: a group of
+``BOX_G`` = 16 CUDA threads per instance runs the forward block-Thomas sweep
+with a row-parallel pivot-free Gauss-Jordan inverse per slot and the backward
+sweep, lane i a row of every block (``csrc/tridiag.cuh``). The TPU kernel's
+lane-tile padding does not carry over: the ragged edge is masked in the
+kernel.
 
 What bounds it on an H100: bytes (about 5k floating-point operations per
 slot against 2·s² + 2·s values moved, ``kernels/_work.py``) — and, below a
 few tens of thousands of instances, the serial dependency chain of one
-instance, because B instances fill only B/32 warps. The design does nothing about that yet (several threads
-per instance and shared-memory staging are later work); it is the simple
-version that is right.
+instance. On the group each product of that chain is s dependent
+multiply-adds instead of s², and B=1024 instances are 512 warps instead of
+32. The factorization chain sits in the block's shared memory
+(``_group.tridiag_geometry``: threads and instances per block, dynamic shared
+bytes; a block the card cannot take raises before a launch, a launch it
+refuses raises with its CUDA error).
 
 On the lanes fleet path this kernel runs once per replay: the tick-0 init
 solve of ``mhe_replay_kernel.replay``. The state size is a template
@@ -22,21 +26,25 @@ parameter: s=9 (Go1, PogoX) and s=15 (Cassie).
 (``pallas/tridiag_kernel.py`` ``solve_batched``): the drop-in for
 ``ops.tridiag.solve`` on (K, B, s, s) operands that ``ops.mhe.solve_window``
 takes every tick of the standard-layout fleet runner
-(``parallel.batch.make_fused_batched_runner(use_pallas=True)``). It masks the
-warm-up slots, moves B to the minor axis, launches the same kernel and moves
-the result back; the masking and the two moves are plain PyTorch, as they are
-XLA glue around the reference's kernel.
+(``parallel.batch.make_fused_batched_runner(use_pallas=True)``). The same
+kernel reads that layout, through any strides, and the (K, B) warm-up mask
+itself — a dead slot
+loads as an identity block with zero coupling and right-hand side, the values
+of ``ops.tridiag.mask_system`` — and writes x in (K, B, s): one launch, no
+PyTorch pass around it (the reference's XLA glue masks and moves B to the
+minor axis and back).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from decentralized_ekf_mhe_tpu_torch.kernels import _build
+from decentralized_ekf_mhe_tpu_torch.kernels import _build, _group
 from decentralized_ekf_mhe_tpu_torch.ops import lanes, tridiag
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-BLOCK = 32       # threads per block: one warp, so a small fleet spreads over SMs
 launches = 0     # incremented where the CUDA kernel is launched, nowhere else
 launches_batched = 0   # launches made by the standard-layout route (solve_batched)
 
@@ -88,12 +96,10 @@ def solve_batched(D, U, r, valid=None, device="cuda"):
       U: (K-1, B, s, s) couplings.
       r: (K, B, s) right-hand side.
       valid: optional (K, B) bool mask of live slots.
-    Returns x: (K, B, s). Dead slots become identity blocks with zero
-    coupling and right-hand side (``ops.tridiag.mask_system``), B moves to
-    the minor axis, the kernel solves, and B moves back. The kernel masks the
-    ragged edge of the last block itself, so B needs no padding. CPU tensors
-    (``device="cpu"``) take the plain version; CUDA tensors launch the kernel
-    or raise.
+    Returns x: (K, B, s). Dead slots solve as identity blocks with zero
+    coupling and right-hand side (``ops.tridiag.mask_system``'s values). CPU
+    tensors (``device="cpu"``) take the plain version; CUDA tensors launch
+    the kernel, which reads this layout and the mask itself, or raise.
     """
     global launches_batched
     device = resolve_device(device)
@@ -116,26 +122,54 @@ def solve_batched(D, U, r, valid=None, device="cuda"):
                          f"{tuple(valid.shape)} {valid.dtype} on {valid.device}")
     if dev.type == "cpu":
         return solve_batched_plain(D, U, r, valid)
-    D, U, r = tridiag.mask_system(D, U, r, valid)
-    x = _launch(*(torch.movedim(a, 1, -1).contiguous() for a in (D, U, r)))
+    x = _launch(D, U, r, valid, standard=True)
     launches_batched += 1
-    return torch.movedim(x, -1, 1)
+    return x
 
 
-def _launch(D, U, r):
-    """Allocate output and scratch, launch ``dem_tridiag_solve`` on the
-    current stream, count the launch."""
+def geometry(s, dtype, block=None, N=20):
+    """The launch of ``tridiag_solve`` (either route):
+    ``_group.tridiag_geometry``; raises ``ValueError`` for a block the card
+    cannot take."""
+    return _group.tridiag_geometry(s, dtype, block, N)
+
+
+def occupancy(s, dtype, block=None, N=20, standard=False):
+    """The launch's geometry as the card reports it (``dem_tridiag_geometry``,
+    on the current device): instances and threads per block, dynamic shared
+    bytes, blocks resident per SM, registers and local bytes per thread.
+    Raises as a launch would."""
+    g = geometry(s, dtype, block, N)
+    fn = _build.entry(_build.solve_library("tridiag", s), "dem_tridiag_geometry",
+                      [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 6)()
+    _build.check_launch(fn(int(dtype == torch.float64), s, int(standard), N,
+                           g.threads_per_block, ctypes.cast(out, ctypes.c_void_p)),
+                        "tridiag_solve geometry")
+    return _group.card_figures(out)
+
+
+def _launch(D, U, r, valid=None, standard=False):
+    """Allocate the output, launch ``dem_tridiag_solve`` on the current
+    stream on the lanes layout (D (N,s,s,B)) or, ``standard``, the standard
+    layout (D (K,B,s,s), U, r read in place through their strides) with its
+    mask ``valid``, with ``geometry``'s threads per block; count the launch."""
     global launches
-    N, s, _, B = D.shape
-    dev = D.device
+    if standard:
+        N, B, s, _ = D.shape
+        x = torch.empty((N, B, s), dtype=D.dtype, device=D.device)
+    else:
+        N, s, _, B = D.shape
+        x = torch.empty((N, s, B), dtype=D.dtype, device=D.device)
+    g = geometry(s, D.dtype, N=N)
     fn = _build.load(_build.solve_library("tridiag", s))
-    x = torch.empty((N, s, B), dtype=D.dtype, device=dev)
-    Sinv_ws = torch.empty((N, s, s, B), dtype=D.dtype, device=dev)
-    y_ws = torch.empty((N, s, B), dtype=D.dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(int(D.dtype == torch.float64), s, D.data_ptr(), U.data_ptr(),
-                 r.data_ptr(), x.data_ptr(), Sinv_ws.data_ptr(),
-                 y_ws.data_ptr(), N, B, BLOCK,
+    ptr = lambda t: None if t is None else t.data_ptr()
+    strides = (ctypes.c_longlong * 13)(*(
+        [*D.stride(), *U.stride(), *r.stride(), *(valid.stride() if valid is not None else (0, 0))]
+        if standard else [0] * 13))
+    with torch.cuda.device(D.device):
+        err = fn(int(D.dtype == torch.float64), s, int(standard), ptr(D), ptr(U), ptr(r),
+                 ptr(valid), strides, ptr(x), N, B, g.threads_per_block,
                  torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "tridiag_solve")
     launches += 1
