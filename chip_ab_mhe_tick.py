@@ -2,9 +2,11 @@
 """Compare two checkouts' kernels on one card: every kernel's ptxas figures,
 the whole-window box-ADMM (K4 ``admm_solve``) and the block-tridiagonal solve
 (K5 ``tridiag_solve``, lanes and standard routes) in turns, and their float64
-results and those of the constrained tick, whose residual maxima they share.
+results and those of the constrained tick, whose residual maxima they share;
+and the orientation-EKF stage (K1 ``ekf_stage``).
 
-    python3 chip_ab_mhe_tick.py OTHER_CHECKOUT [--turns-only | --bits-only | --f8-only]
+    python3 chip_ab_mhe_tick.py OTHER_CHECKOUT [--turns-only | --bits-only | --f8-only |
+                                                --ekf-only | --ekf-diag]
 
 Run from the root of this checkout on a machine with one NVIDIA GPU and nvcc.
 ``OTHER_CHECKOUT`` is the root of a second checkout (for instance the parent
@@ -13,8 +15,7 @@ checkouts build all their libraries at once, each with ptxas' report, and
 the script prints, for every kernel the two have in common, whether its
 registers, stack frame and spill stores and loads are the same, and which of
 those that differ are outside the set this comparison expects to change
-(``CHANGED``: K4's and K5's kernels, and the constrained tick's units, whose
-window solve keeps a NaN residual since the maxima of csrc/admm.cuh keep it).
+(``CHANGED``: K1's kernels, now on a group of threads per instance).
 Then, since two versions are only comparable within one run on one card, the
 timing turns go other, this, this, other; each turn is a fresh process. Go1's
 unconstrained tick (K2) on the headline fleet (cell (a): T=2000, B=1024,
@@ -48,7 +49,15 @@ where this checkout's iteration counts differ from the other's, whether they
 equal the plain version's on every tick (each plain tick run from the
 kernel's state before it), and at the first differing tick and lane the
 plain ADMM's residuals at each epoch end with a NaN kept and dropped, and
-the terms behind the first one that is not finite (``F8_TURN``).
+the terms behind the first one that is not finite (``F8_TURN``). Then K1
+(``--ekf-only`` alone): K1 alone at (a) (T=2000, B=1024, float32) in turns,
+CUDA events around the library call in either checkout, and its float64
+q_seq and final state over (a)'s first 300 ticks bit for bit, again with
+``-fmad=false`` in both where they differ (``EKF_TURN``). ``--ekf-diag``
+runs in this checkout only (not part of a run without flags): K1 alone at (a)
+as built and built with approximate division and square root, in turns, as a
+diagnostic of what the IEEE sequences cost; and the SASS opcode counts of
+both builds.
 """
 
 import json
@@ -410,6 +419,90 @@ with torch.inference_mode():
     print(json.dumps(out))
 """
 
+# K1 in one checkout: python -c EKF_TURN MODE OUT|- [FLAGS] [BLOCKS]
+# (MODE time: K1 alone at (a) — T=2000, B=1024, float32, seed 0 — best of 3
+# device times of its launch (CUDA events around the library call, so the
+# wrapper's copies are left out, in either checkout), once per block of
+# BLOCKS (comma-separated threads per block, "-": the wrapper's default);
+# bits: the float64 q_seq and final state (q, P, the rings) over (a)'s first
+# 300 ticks saved to OUT; FLAGS: further nvcc flags, one string, for a variant
+# build of the EKF library)
+EKF_TURN = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from decentralized_ekf_mhe_tpu_torch.config import EKFParams
+from decentralized_ekf_mhe_tpu_torch.kernels import _build, ekf_kernel
+from decentralized_ekf_mhe_tpu_torch.ops import ekf_lanes, estimator
+mode, out = sys.argv[1:3]
+flags = tuple(sys.argv[3].split()) if len(sys.argv) > 3 else ()
+events, load = [], _build.load
+
+
+def timed_load(name, extra_flags=()):
+    fn = load(name, flags if name == "ekf" else extra_flags)
+    if name != "ekf":
+        return fn
+
+    def call(*a):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = fn(*a)
+        e1.record()
+        events.append((e0, e1))
+        return r
+    return call
+
+
+_build.load = timed_load
+with torch.inference_mode():
+    dtype = cs.F32 if mode == "time" else cs.F64
+    _, _, eb, _ = cs.make_fleet(cs.T_MAIN if mode == "time" else 300, cs.B_MAIN, cs.F64, seed=0)
+    eb = cs.cast(eb, dtype)
+    pe = EKFParams()
+    ec = ekf_lanes.make_consts(pe, dtype)
+    st = ekf_lanes.init_state(pe, cs.B_MAIN, cs.RING, dtype, device=cs.DEV)
+    if mode == "time":
+        ekf_kernel.replay(ec, st, eb, device=cs.DEV)
+        torch.cuda.synchronize()
+        events.clear()
+        for _ in range(3):
+            ekf_kernel.replay(ec, st, eb, device=cs.DEV)
+        torch.cuda.synchronize()
+        print(json.dumps({"ekf_stage_alone_ms_best_of_3": min(
+            a.elapsed_time(b) for a, b in events), "nvcc_flags": " ".join(flags),
+            "T": cs.T_MAIN, "B": cs.B_MAIN, "dtype": "float32"}))
+    else:
+        q, fin = ekf_kernel.replay(ec, st, eb, device=cs.DEV)
+        torch.save({"q_seq": q.cpu(), "t": fin.t, **{k: getattr(fin, k).cpu() for k in (
+            "q", "P", "gyro_hist", "accel_hist", "q_hist", "P_hist")}}, out)
+"""
+
+# the SASS of this checkout's K1 kernels (cuobjdump of the library built with
+# FLAGS): per kernel the instruction count and the counts of the opcodes that
+# shape its chain
+SASS = r"""
+import collections, json, os, re, shutil, subprocess, sys
+from decentralized_ekf_mhe_tpu_torch.kernels import _build
+flags = tuple(sys.argv[1].split()) if len(sys.argv) > 1 else ()
+lib = os.path.join(_build.build(extra_flags=flags, libraries=("ekf",)), "libekf.so")
+exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+text = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, check=True).stdout
+res, name = {}, None
+for line in text.splitlines():
+    m = re.search(r"Function : (\S+)", line)
+    if m:
+        name, res[m.group(1)] = m.group(1), collections.Counter()
+    m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+    if m and name:
+        op = m.group(2).split(".")[0]
+        res[name]["instructions"] += 1
+        if op in ("MUFU", "FCHK", "CALL", "BRA", "WARPSYNC", "BAR", "LDS", "STS", "LDGSTS",
+                  "FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "FSEL", "SEL"):
+            res[name][op] += 1
+print(json.dumps({"sass": {k: dict(v) for k, v in res.items()}, "nvcc_flags": " ".join(flags)}))
+"""
+
 # build a checkout's libraries with ptxas' report, but those whose name
 # matches the pattern argv[1] (units the other checkout has not): {kernel:
 # figures}
@@ -462,12 +555,10 @@ def run_turn(tree, code, *args):
     return json.loads(lines[-1]) if lines else None
 
 
-# the kernels this comparison expects to change ptxas figures: K4 and K5 (on
-# a group of threads per instance: new signatures, so they show as only in one
-# checkout) and the constrained tick's units at every shape, clock and
-# ablated stage (the maxima of the box-ADMM keep a NaN)
-CHANGED = re.compile(r"11admm_kernelI|14tridiag_kernelI|18tridiag_std_kernelI|"
-                     r"14mhe_box_kernelI|17mhe_pi_box_kernelI|18mhe_box_abl_kernelI")
+# the kernels this comparison expects to change ptxas figures: K1's (on a
+# group of threads per instance, with a new signature, so they show as only
+# in one checkout)
+CHANGED = re.compile(r"10ekf_kernelI")
 # libraries one checkout has and the other does not (none): not built for
 # the comparison
 NEW_LIBRARIES = r"^$"
@@ -583,6 +674,41 @@ def f8(other):
         print(json.dumps({"f8": run_turn(".", F8_TURN, f)}), flush=True)
 
 
+def ekf_bits(other, flags=""):
+    """K1's float64 results over (a)'s first 300 ticks in both checkouts
+    (``EKF_TURN`` bits; ``flags``: further nvcc flags of both checkouts' EKF
+    library): whether q_seq and the final state are bit-identical, and where
+    not how far apart. Returns True where every result is."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {}
+        for tree in (other, "."):
+            f = os.path.join(tmp, f"{'this' if tree == '.' else 'other'}.pt")
+            run_turn(tree, EKF_TURN, "bits", f, flags)
+            res[tree] = torch.load(f)
+    row = {k: compare(res["."][k], res[other][k]) for k in res["."] if k != "t"}
+    row["t_equal"] = res["."]["t"] == res[other]["t"]
+    same = all(r["bit_identical"] for r in row.values() if isinstance(r, dict))
+    print(json.dumps({"ekf_float64": {"T": 300, "B": 1024, "nvcc_flags": flags,
+                                      "all_bit_identical": same, **row}}), flush=True)
+    return same
+
+
+# K1's diagnostic in this checkout: the library as built and built with
+# approximate division and square root (-prec-div=false -prec-sqrt=false: what
+# the IEEE sequences cost; no wrapper takes such a build), in turns (as built,
+# approximate, approximate, as built), then the SASS of both builds
+EKF_DIAG = "-prec-div=false -prec-sqrt=false"
+
+
+def ekf_diag():
+    for flags in ("", EKF_DIAG, EKF_DIAG, ""):
+        print(json.dumps(run_turn(".", EKF_TURN, "time", "-", flags)), flush=True)
+    for flags in ("", EKF_DIAG):
+        print(json.dumps(run_turn(".", SASS, flags)), flush=True)
+
+
 def main(other, mode=""):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -603,10 +729,17 @@ def main(other, mode=""):
                 tick_bits(other, differ, T=T, dtype=dtype, flags=FMAD_OFF)
     if mode in ("", "--f8-only"):
         f8(other)
+    if mode in ("", "--ekf-only"):
+        turns(other, EKF_TURN, "time", "-")
+        if not ekf_bits(other):
+            ekf_bits(other, FMAD_OFF)
+    if mode == "--ekf-diag":
+        ekf_diag()
 
 
 if __name__ == "__main__":
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
-            [], ["--turns-only"], ["--bits-only"], ["--f8-only"]):
+            [], ["--turns-only"], ["--bits-only"], ["--f8-only"], ["--ekf-only"],
+            ["--ekf-diag"]):
         raise SystemExit(__doc__)
     main(*sys.argv[1:])

@@ -555,6 +555,31 @@ def need(builds, *libs):
          **build_report(names), without_fma_seconds=witness)
 
 
+def ekf_geometry_phase():
+    """K1's launch on its group of threads per instance, in both types and
+    with either form of the VO quaternion, as the card reports it
+    (``ekf_kernel.occupancy``) held equal to the geometry the wrapper computes
+    (``_group.ekf_geometry``), with the kernel's ptxas figures; every launch
+    keeps all B_MAIN instances resident at once. Returns the float32 figures
+    (shared VO quaternion, as on the main path) for the kernels line."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    figs = tick_ptxas("ekf", "ekf_kernel")
+    res = {}
+    for dtype, name in ((F32, "float"), (F64, "double")):
+        for pl in (False, True):
+            want = ekf_kernel.geometry(RING, 3, dtype, pl)
+            card = ekf_kernel.occupancy(RING, 3, dtype, pl)
+            assert (card["shared_bytes"], card["instances_per_block"], card["threads_per_block"],
+                    card["ticks_per_chunk"]) == (
+                want.shared_bytes, want.instances_per_block, want.threads_per_block,
+                want.ticks_per_chunk), (name, pl, card, want)
+            assert card["instances_per_sm"] * n_sm >= B_MAIN, (name, pl, card)
+            res[f"{name} {'per-lane' if pl else 'shared'} vo_q"] = card
+    emit("ekf_geometry", threads_per_instance=_group.EKF_G, ring=RING, substeps_per_tick=3,
+         sms=n_sm, ptxas_registers_frame_spill_stores_loads=figs, **res)
+    return dict(res["float shared vo_q"], ptxas_registers_frame_spill_stores_loads=figs)
+
+
 def tick_ptxas(lib, kernel):
     """The ptxas figures of one tick kernel of ``lib``: {"float": [...],
     "double": [...]} (registers, stack frame, spill stores, spill loads)."""
@@ -565,6 +590,40 @@ def tick_ptxas(lib, kernel):
             if m:
                 out[{"f": "float", "d": "double"}[m.group(1)]] = fig
     return out
+
+
+# the steps-back cases K1's float64 check adds to the fleet's camera clock:
+# (tick, steps back) on the tick's first substep — beyond t, 1, R - 1, R,
+# beyond R, and (tick 17, twelve back) a replay that reaches into the chunk
+# of the input stream staged before (16 ticks at Go1's 3 substeps per tick)
+EDGE_EVENTS = ((1, 10), (3, 1), (8, RING - 1), (12, RING), (20, 40), (17, 12), (30, 5))
+
+
+def edge_schedule(eb):
+    """``eb`` with a VO event of EDGE_EVENTS at the first valid substep of each
+    of their ticks; asserts that each case is reached as named."""
+    act, sb = eb.vo_active.clone(), eb.vo_steps_back.clone()
+    valid = eb.valid.tolist()
+    for k, n in EDGE_EVENTS:
+        j = valid[k].index(True)
+        act[k, j], sb[k, j] = True, n
+    t = {k: sum(map(sum, valid[:k])) for k, _ in EDGE_EVENTS}
+    assert EDGE_EVENTS[0][1] > t[EDGE_EVENTS[0][0]] and all(
+        n <= t[k] for k, n in EDGE_EVENTS[1:]), t
+    return eb._replace(vo_active=act, vo_steps_back=sb)
+
+
+def ekf_err(q_k, fin_k, q_p, fin_p, tag):
+    """K1 against its plain version: q_seq and every tensor of the state
+    carried out within TOL_EKF, the same substep count; the largest error."""
+    errs = []
+    for name in ("q_seq", "q", "P", "gyro_hist", "accel_hist", "q_hist", "P_hist"):
+        a, b = (q_k, q_p) if name == "q_seq" else (getattr(fin_k, name), getattr(fin_p, name))
+        ok, err = close(a, b, **TOL_EKF)
+        assert ok, (tag, name, err)
+        errs.append(err)
+    assert fin_k.t == fin_p.t, (tag, fin_k.t, fin_p.t)
+    return max(errs)
 
 
 def check_kernels():
@@ -578,16 +637,17 @@ def check_kernels():
     ec = ekf_lanes.make_consts(pe, F64)
     st = ekf_lanes.init_state(pe, B_CHK, RING, F64, device=DEV)
 
-    # ---- K1 ekf_stage: per-lane and shared measured quaternion, split log
+    # ---- K1 ekf_stage: per-lane and shared measured quaternion, split log,
+    # a ragged fleet, the steps-back edge cases; q_seq and every state tensor
     _, _, eb_s, _ = make_fleet(T_CHK, B_CHK, F64, seed=1, vo_noise=0.0)
+    _, _, eb_r, _ = make_fleet(T_CHK, B_RAGGED, F64, seed=2)
+    st_r = ekf_lanes.init_state(pe, B_RAGGED, RING, F64, device=DEV)
     errs = {}
-    for tag, eb in (("per_lane_vo_q", eb_l), ("shared_vo_q", eb_s)):
-        q_p, fin_p = ekf_kernel.replay_plain(ec, st, eb)
-        q_k, fin_k = ekf_kernel.replay(ec, st, eb, device=DEV)
-        ok, err = close(q_k, q_p, **TOL_EKF)
-        ok2, err2 = close(fin_k.P_hist, fin_p.P_hist, **TOL_EKF)
-        assert ok and ok2 and fin_k.t == fin_p.t, (tag, err, err2, fin_k.t, fin_p.t)
-        errs[tag] = max(err, err2)
+    for tag, eb, st_ in (("per_lane_vo_q", eb_l, st), ("shared_vo_q", eb_s, st),
+                         ("ragged_B", eb_r, st_r), ("steps_back_edges", edge_schedule(eb_l), st)):
+        q_p, fin_p = ekf_kernel.replay_plain(ec, st_, eb)
+        q_k, fin_k = ekf_kernel.replay(ec, st_, eb, device=DEV)
+        errs[tag] = ekf_err(q_k, fin_k, q_p, fin_p, tag)
         if tag == "per_lane_vo_q":
             cut = 25
             ebA = estimator.EKFBlocks(*(a[:cut].contiguous() for a in eb))
@@ -598,7 +658,7 @@ def check_kernels():
             assert ok, ("ekf split-log resume", err)
             errs["split_log"] = err
             q_seq = q_p
-    res["ekf_err"] = errs
+    res["ekf_err"] = dict(errs, B_ragged=B_RAGGED, steps_back=EDGE_EVENTS)
 
     # ---- K2 mhe_tick: VO events, marginalization (T > N), split log
     c = mhe.make_consts(p, F64, use_pallas=False, device=DEV)
@@ -915,6 +975,10 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
         lambda: ekf_kernel.replay_plain(ec32, st32, head32[1]))
     q32k, _ = ekf_kernel.replay(ec32, st32, eb32, device=DEV)
     ms["ekf_stage"] = timed(lambda: ekf_kernel.replay(ec32, st32, eb32, device=DEV))
+    ekf_kernel.timer.on = True
+    timed(lambda: ekf_kernel.replay(ec32, st32, eb32, device=DEV))
+    ekf_kernel.timer.on = False
+    ekf_alone_ms = min(ekf_kernel.timer.ms())
     assert torch.isfinite(q32k).all()
     dq_k = float((q32k[:T_BOX_PLAIN].double() - q_p[:T_BOX_PLAIN]).abs().max())
     dq_p = float((q32p.double() - q_p[:T_BOX_PLAIN]).abs().max())
@@ -972,7 +1036,8 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
                        "library": "torch.linalg.solve on the densified (B, N*s, N*s) system",
                        "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN}},
         **{k: {"plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
-               "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN}}
+               "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN},
+               **({"kernel_alone_ms": ekf_alone_ms} if k == "ekf_stage" else {})}
            for k in ("ekf_stage", "mhe_tick")})
 
 
@@ -3577,6 +3642,7 @@ def main():
     card = phase_device()
     pool = ThreadPoolExecutor(BUILDS_AT_ONCE)
     builds = phase_build(pool)
+    ekf_row = ekf_geometry_phase()
     done("build_go1")
     check_kernels()
     # one perturbed fleet at full width, drawn in float64; the main path runs
@@ -3633,6 +3699,8 @@ def main():
     mark_window_solve(kernels)
     mark_tick_group(kernels, tick_geometry_phase())
     mark_solve_group(kernels, solve_geometry_phase(), per_tick)
+    row = next(k for k in kernels if k["name"] == "ekf_stage")
+    row.update(threads_per_instance=_group.EKF_G, group_geometry=ekf_row)
     emit("script", seconds=time.time() - t_start, groups_s=group_s)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -174,8 +174,10 @@ _ARGTYPES = {
     # is_double, S, std_layout, D, U, r, valid, strides, x, N, B, block, stream
     "tridiag": ("dem_tridiag_solve",
                 [_c_int] * 3 + [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p]),
+    # is_double, ptrs, consts, quirk_W, Tn, S, R, B, t0, per_lane_vo_q, ticks_per_chunk,
+    # block, stream
     "ekf": ("dem_ekf_stage",
-            [_c_int, _c_void_p, _c_void_p] + [_c_int] * 8 + [_c_void_p]),
+            [_c_int, _c_void_p, _c_void_p] + [_c_int] * 9 + [_c_void_p]),
     # is_double, con, pi, chol, ablate, S, M, L, lot, ptrs, nptrs, consts, ints,
     # reals, N, B, Tn, t0, block, stream: one entry point for every tick kernel
     "mhe": ("dem_mhe_tick",

@@ -5,9 +5,13 @@ The constrained MHE tick (``mhe_replay_kernel``), the whole-window box-ADMM
 each run ``BOX_G`` = 16 threads per instance: ``block // BOX_G`` instances per
 block, each with its own slice of the block's dynamic shared memory, whose
 size the CUDA side computes from the same layout (``BoxLayout::stride`` of
-``csrc/admm_group.cuh``, ``TriLayout::stride`` of ``csrc/tridiag.cuh``). Here
-the wrappers choose a block and refuse, before a launch, a block the card
-could not take (each geometry computed once: a launch asks for it every call).
+``csrc/admm_group.cuh``, ``TriLayout::stride`` of ``csrc/tridiag.cuh``). The
+orientation-EKF stage (``ekf_kernel``, K1) runs ``EKF_G`` = 4 threads per
+instance, one warp per block, with the history ring per instance and the
+staged input stream per block in shared memory (``EkfDims`` of
+``csrc/ekf.cuh``). Here the wrappers choose a block and refuse, before a
+launch, a block the card could not take (each geometry computed once: a
+launch asks for it every call).
 """
 
 from __future__ import annotations
@@ -153,3 +157,49 @@ def tridiag_geometry(s, dtype, block=None, N=20):
     ipb, block, shared, per_sm = group_launch(
         tridiag_shared_scalars(s, N), dtype, block, f"tridiagonal solve (s={s}, N={N})")
     return TridiagGeometry(ipb, block, shared, per_sm)
+
+
+# K1: threads per instance (csrc/ekf.cuh's EKF_G: lane l owns row l), threads
+# per block (one warp, 8 instances) and the substeps of one staged chunk of the
+# input stream, rounded down to whole ticks (the launch takes the ticks)
+EKF_G, EKF_BLOCK, EKF_CHUNK = 4, 32, 48
+
+
+class EkfGeometry(NamedTuple):
+    """The launch of K1 on its group (``ekf_geometry``)."""
+
+    instances_per_block: int
+    threads_per_block: int
+    shared_bytes: int           # dynamic shared memory of one block
+    ticks_per_chunk: int        # ticks of the input stream staged at a time
+    instances_per_sm: int       # as far as shared memory, threads and blocks allow
+
+
+@functools.lru_cache(maxsize=None)
+def ekf_geometry(R, S, dtype, per_lane_vo_q=False):
+    """The launch geometry of K1 (``ekf_stage``) for a ring of ``R`` slots,
+    ``S`` substeps per tick, element type ``dtype`` and a shared or per-lane
+    VO quaternion: ``EKF_BLOCK`` threads per block, ``max(1, EKF_CHUNK // S)``
+    ticks per chunk, and the block's dynamic shared memory as ``EkfDims``
+    lays it out: per instance the ring, 26 R scalars padded to 4 mod 32
+    four-byte words (the 8 instances of a warp start in different banks); two
+    buffers of the staged stream (gyro, accel and a per-lane VO quaternion: 6
+    or 10 scalars per substep and instance) and of the shared VO quaternion
+    (4 per substep); two buffers of the schedule (3 ints per substep). Raises
+    ``ValueError`` when R or S is below 1, or when the block's shared memory
+    exceeds what a block may use (232,448 bytes)."""
+    if R < 1 or S < 1:
+        raise ValueError(f"ekf_stage: ring of {R} slots, {S} substeps per tick")
+    ipb, item = EKF_BLOCK // EKF_G, dtype.itemsize
+    ct = max(1, EKF_CHUNK // S)
+    cs = ct * S
+    words = 26 * R * item // 4
+    stride = (words + (EKF_G - words) % 32) * 4 // item
+    scalars = ipb * stride + 2 * cs * (6 + 4 * bool(per_lane_vo_q)) * ipb + 2 * cs * 4
+    shared = scalars * item + 2 * 3 * cs * 4
+    if shared > SHARED_PER_BLOCK:
+        raise ValueError(
+            f"ekf_stage (R={R}, S={S}): {shared} bytes of shared memory for {ipb} instances "
+            f"per block ({dtype}), more than the {SHARED_PER_BLOCK} a block may use")
+    blocks = min(SHARED_PER_SM // (shared + SHARED_RESERVED_PER_BLOCK), 32, 2048 // EKF_BLOCK)
+    return EkfGeometry(ipb, EKF_BLOCK, shared, ct, blocks * ipb)
