@@ -108,6 +108,20 @@ scratch, the two timed in turns), which their rows carry, and K4's row at s=9 ca
 run (``box_per_tick``): the mean time per launch beside the mean bound of
 those launches, from the iterations each returned.
 
+The facade group, after the standard layout's: the online surface
+(``ops/facade.py``) on one instance, Go1 at the bench's settings.
+``PipelineEstimator(use_pallas=True)`` streams 300 ticks in float64 in uneven
+blocks against the offline pipeline replay at B=1 with plain consts,
+unconstrained (K5 at B=1 every tick) and with the bench's box (K4 every
+tick), each launch count exactly the ticks plus one; its carry, written
+halfway, resumes in a fresh estimator bit for bit; the float32 HIL stream of
+``examples/run_hil.py`` (2000 ticks, blocks of 20, the native BlockFeeder,
+built here if missing) is gated on its velocity RMSE and its float32-float64
+delta, and prints its per-tick latency; ``DecentralizedEstimator`` (no
+kernel) is held to ``run_mhe`` and ``run_kf``; and K5 and K4 at B=1 are held
+to their plain versions and timed, their launches queued behind a spin on the
+card so that the host's launch cost is hidden.
+
 The kernels are built from csrc/ at the start: the Go1 shared-clock
 libraries first, every unit at once; every other library compiles at a
 lower priority while the phases run, in the order the phases need them (the
@@ -130,19 +144,24 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
+from decentralized_ekf_mhe_tpu_torch import native
 from decentralized_ekf_mhe_tpu_torch.config import EKFParams, load_yaml_params
+from decentralized_ekf_mhe_tpu_torch.examples import run_hil
 from decentralized_ekf_mhe_tpu_torch.io import synth
 from decentralized_ekf_mhe_tpu_torch.kernels import _build, _group, _work
 from decentralized_ekf_mhe_tpu_torch.kernels import admm_kernel, ekf_kernel, tridiag_kernel
 from decentralized_ekf_mhe_tpu_torch.kernels import mhe_replay_kernel as mrk
 from decentralized_ekf_mhe_tpu_torch.ops import admm, ekf_lanes, estimator, mhe, mhe_lanes, tridiag
+from decentralized_ekf_mhe_tpu_torch.ops.facade import DecentralizedEstimator, PipelineEstimator
 from decentralized_ekf_mhe_tpu_torch.parallel import batch
 from decentralized_ekf_mhe_tpu_torch.tools import roofline
+from decentralized_ekf_mhe_tpu_torch.utils import checkpoint
 
 DEV = torch.device("cuda")
 F32, F64 = torch.float32, torch.float64
@@ -281,6 +300,20 @@ T_F64_CHK = 300
 # size), are printed beside it
 T_ABL, B_ABL, T_ABL_TABLE = N_WIN + 12, 64, 200
 RTOL_SOLVE, ATOL_SOLVE = 2e-13, 1e-8
+# the facade group (the online surface, ops/facade.py) on Go1's synthetic log
+# (seed 0) at the bench's settings, one instance: PipelineEstimator streamed
+# in float64 over the first T_FACADE ticks in the uneven blocks FACADE_SPLITS
+# (its carry snapshot after tick FACADE_SNAPSHOT - 1, resumed into a fresh
+# estimator), the HIL stream (examples/run_hil.py) in float32 over T_HIL ticks
+# in blocks of HIL_BLOCK, DecentralizedEstimator over T_FACADE_STD ticks, and
+# the window solves at B=1 timed over FACADE_REPS launches queued behind a
+# spin of SPIN_CYCLES clock cycles on the card (so the host's launch cost is
+# hidden; K4 over K4_REPS: its wrapper queues about 20 operations a call, and
+# a full launch queue would stall the host until the spin ends)
+T_FACADE, T_HIL, HIL_BLOCK, T_FACADE_STD = 300, 2000, 20, 100
+FACADE_SPLITS, FACADE_SNAPSHOT = ((1, 11), (11, 97), (97, 150), (150, T_FACADE)), 150
+FACADE_REPS, K4_REPS, SPIN_CYCLES = 200, 25, 2_000_000_000
+HIL_RMSE_GATE, TOL_FACADE_STD = 0.1, dict(rtol=0, atol=1e-9)
 # a main-path run longer than this many seconds is timed once, in its
 # counted run (the spread within a call is about 3%)
 WALL_ONCE_S = 2.0
@@ -3629,6 +3662,306 @@ def legged_phases(model, builds, rows, abl_fleets):
     return kernels
 
 
+# ------------------------------------------- the facade group (ops/facade.py)
+
+
+def facade_inputs(log, T):
+    """The first T ticks of ``log`` as the facade takes them: host arrays of
+    the EKF substep blocks and the tick-rate rows."""
+    eb = estimator.ekfblocks_from_log(log, dtype=F64, device="cpu")
+    return dict(
+        ekf_gyro=eb.gyro[:T].numpy(), ekf_accel=eb.accel[:T].numpy(),
+        ekf_valid=eb.valid[:T].numpy(), accel_b=log.accel_b[:T], omega_b=log.omega_b[:T],
+        p_foot=log.p_foot[:T], J_foot=log.J_foot[:T], dq=log.dq[:T], contact=log.contact[:T],
+        ekf_vo_active=eb.vo_active[:T].numpy(), ekf_vo_q=eb.vo_q[:T].numpy(),
+        ekf_vo_steps_back=eb.vo_steps_back[:T].numpy(), vo_active=log.vo_active[:T],
+        vo_dp=log.vo_dp_body[:T], vo_tick_pre=log.vo_tick_pre[:T],
+        vo_tick_now=log.vo_tick_now[:T])
+
+
+TICK0_KEYS = ("ekf_gyro", "ekf_accel", "ekf_valid", "accel_b", "omega_b", "p_foot", "J_foot",
+              "dq", "contact", "ekf_vo_active", "ekf_vo_q", "ekf_vo_steps_back")
+
+
+def facade_init(est, src):
+    """Tick 0 of ``src`` into ``est.initialize``."""
+    return est.initialize(**{k: src[k][0] for k in TICK0_KEYS})
+
+
+def facade_stream(est, src, splits, snapshot_at=None, path=None):
+    """``est.update_block`` over the blocks ``splits`` of ``src``; the carry
+    is written to ``path`` when the stream reaches tick ``snapshot_at``.
+    Returns (x (T,s), v (T,3), q (T,4)) of the ticks streamed."""
+    outs = []
+    for lo, hi in splits:
+        if lo == snapshot_at:
+            checkpoint.save_carry(path, est.carry)
+        outs.append(est.update_block(**{k: v[lo:hi] for k, v in src.items()}))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def facade_offline(p, log, T, consts):
+    """The offline reference of a streamed run: ``run_pipeline_lanes`` at
+    B=1 over the first T ticks on the card, float64, with ``consts``."""
+    lanes1 = lambda t: t[:T, None].movedim(1, -1).contiguous()
+    data = estimator.TickData(*map(lanes1, estimator.tickdata_from_log(log, dtype=F64,
+                                                                       device=DEV)))
+    eb = estimator.ekfblocks_from_log(log, F64, device=DEV)
+    eb = estimator.EKFBlocks(*(a[:T] for a in eb))
+    eb = eb._replace(gyro=eb.gyro[..., None], accel=eb.accel[..., None])
+    vo = estimator.VOData(*(a[:T] for a in estimator.vodata_from_log(log, F64, device=DEV)))
+    return estimator.run_pipeline_lanes(p, EKFParams(), data, eb, vo=vo, dtype=F64,
+                                        consts=consts, ekf_ring_len=RING, device=DEV)
+
+
+def facade_box():
+    """The bench's constrained settings (fixed rho=5000, polish, 20
+    iterations, the |v| <= V_BOX box): (params, x_lb, x_ub)."""
+    p = box_params()
+    p.osqp.max_iter = 20
+    ub = torch.full((9,), float("inf"), dtype=F64)
+    ub[3:6] = V_BOX
+    return p, -ub, ub
+
+
+def backlog_ms(fn, reps):
+    """(mean device ms of one ``fn()``, host ms to queue them, spin ms):
+    ``reps`` calls queued behind a spin kernel, CUDA events around them, so that the
+    host's launch cost is hidden; the queueing must end within the spin."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    assert host_ms < spin_ms, ("queueing outran the spin", host_ms, spin_ms)
+    return ev[1].elapsed_time(ev[2]) / reps, host_ms, spin_ms
+
+
+def facade_kernel_rows(tri_windows, box_window, box_consts_, counts, hil_counts):
+    """K5 and K4 at B=1 on windows of the streams: each against its plain
+    version in float64 (K5 on the tick-0 window, whose dead slots the warm-up
+    masks, and the last one; K4 on the last window of the box stream with its
+    warm starts, x, z, y and the iteration counts, ``check_admm``), then
+    timed in float32 on the last window, beside its plain version, its bound
+    (``_work``, this window's iterations) and, for K5, the library's dense
+    solve. Returns the two rows of the kernels line."""
+    errs = []
+    for D, U, r in tri_windows:
+        ok, e = close(tridiag_kernel.solve_lanes(D, U, r, device=DEV),
+                      tridiag_kernel.solve_lanes_plain(D, U, r), **TOL_MHE)
+        assert ok, ("tridiag_solve at B=1 vs plain", e)
+        errs.append(e)
+    (D, U, r, z0, y0), c = box_window, box_consts_
+    kw = dict(z0=z0, y0=y0)
+    box_errs, _, res = check_admm("B=1", D, U, r, c.x_lb, c.x_ub, c.admm, **kw)
+
+    tri32 = tuple(a.float().contiguous() for a in tri_windows[-1])
+    k5_ms, k5_host, spin = backlog_ms(lambda: tridiag_kernel.solve_lanes(*tri32, device=DEV),
+                                      FACADE_REPS)
+    k5_plain_ms = timed(lambda: tridiag_kernel.solve_lanes_plain(*tri32))
+    lib_ms, lib_diff = library_ms(*(torch.movedim(a, -1, 1) for a in tri32))
+    box32 = tuple(a.float().contiguous() for a in box_window)
+    lb32, ub32 = c.x_lb.float(), c.x_ub.float()
+    k4 = lambda: admm_kernel.solve_box_lanes(*box32[:3], lb32, ub32, c.admm, z0=box32[3],
+                                             y0=box32[4], device=DEV)
+    admm_kernel.timer.on = True
+    _, k4_host, _ = backlog_ms(k4, K4_REPS)
+    admm_kernel.timer.on = False
+    k4_alone = admm_kernel.timer.ms()[1:]      # the first is backlog_ms' warm-up call
+    assert len(k4_alone) == K4_REPS, len(k4_alone)
+    k4_ms = sum(k4_alone) / len(k4_alone)
+    k4_plain_ms = timed(lambda: admm_kernel.solve_box_lanes_plain(*box32[:3], lb32, ub32, c.admm,
+                                                                  z0=box32[3], y0=box32[4]))
+    iters = k4().iters.cpu().numpy()
+    works = {"tridiag_solve": _work.tridiag(N_WIN, 9, 1, 4),
+             "admm_solve": _work.admm(N_WIN, 9, 1, 4, iters, *admm_work_settings(c))}
+    how = ("mean of %d (K5) or %d (K4) launches queued behind a spin on the card (CUDA events; "
+           "the host's launch cost hidden), float32, the last window of the float64 stream cast"
+           % (FACADE_REPS, K4_REPS))
+    rows = []
+    for name, src, repl, err, ms, plain, lib, extra in (
+            ("tridiag_solve", "tridiag.cu", "tridiag_kernel.py:213", max(errs), k5_ms,
+             k5_plain_ms, lib_ms,
+             {"library": "torch.linalg.solve on the densified (1, N*s, N*s) system",
+              "library_minus_kernel_max_abs_f32": lib_diff, "host_queue_ms": k5_host}),
+            ("admm_solve", "admm.cu", "admm_kernel.py:75", max(box_errs.values()), k4_ms,
+             k4_plain_ms, None,
+             {"iters": int(iters[0]), "ms_kernel_alone": "KernelTimer events around each launch",
+              "host_queue_ms": k4_host, "max_abs_err_xzy": box_errs})):
+        rows.append({
+            "name": f"{name}[B=1]", "route": "cuda",
+            "source": f"decentralized_ekf_mhe_tpu_torch/csrc/{src}",
+            "replaces": f"decentralized_ekf_mhe_tpu/pallas/{repl}",
+            "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            **bound(works[name]), "library_ms": lib,
+            "shape": {"N": N_WIN, "s": 9, "B": 1}, "ms_dtype": "float32",
+            "max_abs_err_dtype": "float64", "ms_how": how, "spin_ms": spin,
+            "path": "PipelineEstimator(use_pallas=True) streamed, T=%d, one launch per tick "
+                    "and one at initialize" % T_FACADE,
+            "launches_hil_stream": hil_counts[name],
+            "bytes": works[name][0], "operations": works[name][1], **extra})
+    emit("facade_kernels", tol=TOL_MHE, tridiag_solve_max_abs_err=errs,
+         admm_solve_max_abs_err=box_errs, admm_iters=int(iters[0]),
+         ms={"tridiag_solve": k5_ms, "admm_solve": k4_ms},
+         plain_ms={"tridiag_solve": k5_plain_ms, "admm_solve": k4_plain_ms},
+         library_ms={"tridiag_solve": lib_ms},
+         bound_ms={k: bound(w)["bound_ms"] for k, w in works.items()})
+    return rows
+
+
+def facade_group():
+    """The online surface on one instance (Go1, the bench's settings, ring
+    RING): PipelineEstimator(use_pallas=True) streamed in float64 in uneven
+    blocks against the offline pipeline replay with plain consts at B=1,
+    unconstrained (K5 every tick) and with the bench's box (K4 every tick),
+    the launch counts exact; its carry snapshot halfway resumed bit for bit;
+    the float32 HIL stream through the native BlockFeeder with its latency;
+    DecentralizedEstimator in float64 against run_mhe and run_kf; and K5 and
+    K4 at B=1 against their plain versions. Returns the kernels line's rows."""
+    p = go1_params()
+    log = synth.generate(synth.SynthConfig(T=T_HIL, seed=0))
+    src = facade_inputs(log, T_FACADE)
+    gt_v = torch.as_tensor(log.gt_v_s, device=DEV)
+    res, counts, windows = {}, {}, {}
+    path = os.path.join(_build.BUILD_ROOT, "facade_carry.npz")
+
+    # 1, 3: the streamed float64 runs, unconstrained and boxed, each counted
+    t_step = time.time()
+    for box in (False, True):
+        pb, lb, ub = facade_box() if box else (p, None, None)
+        est = PipelineEstimator(pb, EKFParams(), dtype=F64, x_lb=lb, x_ub=ub, use_pallas=True,
+                                ekf_ring_len=RING, device=DEV)
+        reset_counts()
+        x0 = facade_init(est, src)
+        st0 = est.carry[1]
+        x, v, q = facade_stream(est, src, FACADE_SPLITS, FACADE_SNAPSHOT if not box else None,
+                                path)
+        torch.cuda.synchronize()
+        n = read_counts()
+        kern, other = ("admm_solve", "tridiag_solve") if box else ("tridiag_solve", "admm_solve")
+        assert n[kern] == T_FACADE and n[other] == 0, ("facade launches", box, n)
+        assert n == dict(NO_LAUNCH, **{kern: T_FACADE}, **({"admm_box_solve": T_FACADE}
+                                                           if box else {})), n
+        counts[kern] = n[kern]
+        x = torch.cat([x0[None], x])
+        consts = box_consts(pb, F64, V_BOX, 20, use_pallas=False) if box else None
+        x_r, v_r, q_r = facade_offline(pb, log, T_FACADE, consts)
+        okx, ex = close(x, x_r[:, 0], **TOL_MHE)
+        okv, ev = close(v, v_r[1:, 0], **TOL_MHE)
+        okq, eq = close(q, q_r[1:, :, 0], **TOL_EKF)
+        assert okx and okv and okq, ("facade stream vs offline", box, ex, ev, eq)
+        vmax = float(x[:, 3:6].abs().max())
+        if box:
+            assert vmax <= V_BOX + 1e-6, ("facade box", vmax)
+            st = est.carry[1]
+            windows["box"] = (*(a.contiguous() for a in mhe_lanes._masked_system(est.consts, st)),
+                              st.z_adm.contiguous(), st.y_adm.contiguous())
+            windows["box_consts"] = est.consts
+        else:
+            windows["tri"] = [tuple(a.contiguous() for a in mhe_lanes._masked_system(
+                est.consts, s_)) for s_ in (st0, est.carry[1])]
+            x64 = x
+            # 6: resume the carry written at tick FACADE_SNAPSHOT into a
+            # fresh estimator: the rest of the stream bit for bit
+            fresh = PipelineEstimator(p, EKFParams(), dtype=F64, use_pallas=True,
+                                      ekf_ring_len=RING, device=DEV)
+            facade_init(fresh, src)
+            fresh.carry = checkpoint.load_carry(path, fresh.carry)
+            assert fresh.T == FACADE_SNAPSHOT, fresh.T
+            tail = facade_stream(fresh, src, ((FACADE_SNAPSHOT, T_FACADE),))
+            k = FACADE_SNAPSHOT - 1          # x, v, q of update_block start at tick 1
+            same = [torch.equal(a, b[k:]) for a, b in zip(tail, (x[1:], v, q))]
+            assert all(same), ("checkpoint resume", same)
+            res["resume"] = {"snapshot_after_tick": FACADE_SNAPSHOT - 1, "bit_identical": True}
+        res["box" if box else "unconstrained"] = {
+            "launches": n, "max_abs_err_vs_offline": {"x": ex, "v_body": ev, "q": eq},
+            "max_abs_v": vmax, "rmse_vs_gt": fleet_rmse(x[:, None], gt_v[:T_FACADE]),
+            "seconds": round(time.time() - t_step, 1)}
+        emit("facade_stream", box=box, **res["box" if box else "unconstrained"])
+        t_step = time.time()
+
+    # 4: the float32 HIL stream through the native BlockFeeder
+    if not native.available():
+        subprocess.run(["sh", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "native", "build.sh")], check=True,
+                       capture_output=True, timeout=300)
+        native._TRIED = False
+    assert native.available(), "the native runtime library (native/build.sh) did not build"
+    reset_counts()
+    hil = run_hil.stream(log, p, EKFParams(), HIL_BLOCK, F32, DEV, use_native=True)
+    hil_counts = read_counts()
+    n_hil = hil["x"].shape[0]
+    assert hil["feeder"] == "native BlockFeeder"
+    assert hil_counts == dict(NO_LAUNCH, tridiag_solve=n_hil), hil_counts
+    x32 = hil["x"]
+    assert torch.isfinite(x32).all()
+    rmse32 = fleet_rmse(x32[:, None], gt_v[:n_hil])
+    assert rmse32 < HIL_RMSE_GATE, ("HIL float32 velocity RMSE", rmse32)
+    r32 = fleet_rmse(x32[:T_FACADE, None], gt_v[:T_FACADE])
+    r64 = fleet_rmse(x64[:, None], gt_v[:T_FACADE])
+    assert abs(r32 - r64) < 1e-3, ("HIL f32-vs-f64 RMSE delta", r32, r64)
+    lat = hil["latency_ms"]
+    tick1 = run_hil.tick_at_a_time(log, p, F32, DEV, 40)
+    res["hil"] = {"T": T_HIL, "block": HIL_BLOCK, "ticks_streamed": n_hil,
+                  "feeder": hil["feeder"], "dtype": "float32", "launches": hil_counts,
+                  "latency_ms_p50": float(np.percentile(lat, 50)),
+                  "latency_ms_p99": float(np.percentile(lat, 99)),
+                  "latency_ms_mean": float(lat.mean()), "blocks_timed": len(lat),
+                  "tick_at_a_time_ms_p50": float(np.percentile(tick1, 50)),
+                  "rmse_vs_gt": rmse32, "rmse_f32_first_300": r32, "rmse_f64_first_300": r64,
+                  "budget_ms": 5.0, "seconds": round(time.time() - t_step, 1)}
+    emit("facade_hil", **res["hil"])
+    t_step = time.time()
+
+    # 5: DecentralizedEstimator (standard layout, one instance, no kernel)
+    data = estimator.tickdata_from_log(log, dtype=F64, device=DEV)
+    data = estimator.TickData(*(a[:T_FACADE_STD] for a in data))
+    vo = estimator.VOData(*(a[:T_FACADE_STD] for a in estimator.vodata_from_log(log, F64,
+                                                                                 device=DEV)))
+    args = lambda k: [a[k] for a in (log.R_sb_gt, log.accel_b, log.omega_b, log.p_foot,
+                                      log.J_foot, log.dq, log.contact)]
+    std = {}
+    for est_type, ref in ((0, estimator.run_mhe), (1, estimator.run_kf)):
+        pt = go1_params()
+        pt.est_type = est_type
+        est = DecentralizedEstimator(pt, dtype=F64, use_pallas=True, device=DEV)
+        reset_counts()
+        xs = [est.initialize(*args(0))]
+        for k in range(1, T_FACADE_STD):
+            vo_k = dict(vo_active=bool(log.vo_active[k]), vo_dp=log.vo_dp_body[k],
+                        vo_tick_pre=int(log.vo_tick_pre[k]),
+                        vo_tick_now=int(log.vo_tick_now[k])) if est_type == 0 else {}
+            xs.append(est.update(*args(k), **vo_k))
+        n = read_counts()
+        assert n == NO_LAUNCH, ("DecentralizedEstimator launches", n)
+        x_ref, _ = ref(pt, data, **({"vo": vo} if est_type == 0 else {}), dtype=F64, device=DEV)
+        ok, e = close(torch.stack(xs), x_ref, **TOL_FACADE_STD)
+        assert ok, ("DecentralizedEstimator vs", ref.__name__, e)
+        std[ref.__name__] = e
+    res["decentralized_estimator"] = {"T": T_FACADE_STD, "tol": TOL_FACADE_STD,
+                                      "max_abs_err": std, "seconds": round(time.time() - t_step, 1)}
+
+    rows = facade_kernel_rows(windows["tri"], windows["box"], windows["box_consts"], counts,
+                              hil_counts)
+    res["hil"]["tridiag_solve_B1_mean_launch_ms"] = rows[0]["ms"]
+    emit("facade", T=T_FACADE, splits=FACADE_SPLITS, N=N_WIN, ring=RING, tol=TOL_MHE,
+         tol_ekf=TOL_EKF, **res)
+    print(f"facade: HIL stream of {n_hil} float32 cycles (blocks of {HIL_BLOCK}, "
+          f"{hil['feeder']}): per-tick latency p50 {res['hil']['latency_ms_p50']:.3f} ms, "
+          f"p99 {res['hil']['latency_ms_p99']:.3f} ms (budget 5 ms); one K5 launch at B=1 "
+          f"{rows[0]['ms'] * 1e3:.1f} us; tick-at-a-time p50 "
+          f"{res['hil']['tick_at_a_time_ms_p50']:.3f} ms", flush=True)
+    return rows
+
+
 def main():
     t_start = time.time()
     group_s, t_group = {}, [t_start]
@@ -3665,6 +3998,9 @@ def main():
     kernels += std_path(fleet64, fleet32, q64, gt_v, err_std)
     oracle()
     done("go1_standard_layout")
+    # the online surface: the stateful facade and the streaming HIL cycle
+    kernels += facade_group()
+    done("facade")
     # the Cholesky tail at Go1's shape: cell (p) on cell (a)'s fleet
     need(builds, "mhe_go1_chol")
     check_kernels_chol("go1")

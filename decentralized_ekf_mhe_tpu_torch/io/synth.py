@@ -109,6 +109,53 @@ _TROT_PHASE = np.array([0.0, 0.5, 0.5, 0.0])
 G_S = np.array([0.0, 0.0, -9.81])
 
 
+def rawlog_from_synth(log: SynthLog, cfg: SynthConfig):
+    """Render a SynthLog as RAW asynchronous streams (io.replay.RawLog) — the
+    shape a rosbag of the reference's topics has. The alignment pass
+    (io.replay.align with models.base.CartesianFeetModel) then reproduces the
+    dense tensors, including the synthetic VO arrival schedule (receive times
+    carry the vo_latency).
+
+    The IMU stream is the EKF-rate stream (one physical sensor, two sampling
+    rates — align() derives both), so MHE-rate accel/gyro are its latest-value
+    samples rather than SynthLog's independently-drawn per-tick arrays.
+    """
+    from decentralized_ekf_mhe_tpu_torch.io.replay import RawLog
+
+    T = log.accel_b.shape[0]
+    dt = 1.0 / cfg.rate
+    dt_e = 1.0 / cfg.ekf_rate
+    T_ekf = log.ekf_gyro.shape[0]
+    imu_t = np.arange(T_ekf) * dt_e
+    tick_t = np.arange(T) * dt
+
+    L = log.p_foot.shape[1]
+    joint_pos = log.p_foot.reshape(T, 3 * L)
+    joint_vel = log.dq.reshape(T, 3 * L)
+    foot_force = np.where(log.contact > 0, 200.0, 0.0)
+
+    active = np.nonzero(log.vo_active)[0]
+    vo_t_pre = tick_t[log.vo_tick_pre[active]]
+    vo_t_now = tick_t[log.vo_tick_now[active]]
+    # receive time strictly inside the arrival tick's interval
+    vo_t_recv = tick_t[active] - 0.5 * dt
+    vo_q = np.stack([
+        log.ekf_q_gt[min(int(e), T_ekf - 1)]
+        for e in np.floor((log.vo_tick_now[active] + 1) * cfg.ekf_rate / cfg.rate) - 1
+    ]) if len(active) else np.zeros((0, 4))
+
+    return RawLog(
+        imu_t=imu_t, accel_b=log.ekf_accel, gyro_b=log.ekf_gyro,
+        joint_t=tick_t, joint_pos=joint_pos, joint_vel=joint_vel,
+        foot_force=foot_force,
+        vo_t_pre=vo_t_pre, vo_t_now=vo_t_now,
+        vo_dp_body=log.vo_dp_body[active], vo_q_wb=vo_q,
+        vo_t_recv=vo_t_recv,
+        mocap_t=tick_t, mocap_p=log.gt_p, mocap_v=log.gt_v_s,
+        mocap_q=log.q_gt,
+    )
+
+
 def generate(cfg: SynthConfig, nominal_feet: Optional[np.ndarray] = None) -> SynthLog:
     rng = np.random.default_rng(cfg.seed)
     T, L = cfg.T, cfg.num_legs

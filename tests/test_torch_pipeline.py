@@ -452,10 +452,14 @@ def test_port_imports_no_jax():
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 20
-    # the standard-layout modules are among the files walked
+    # the standard-layout modules, the facade, the utilities, the I/O modules
+    # and the example drivers are among the files walked
     for name in ("utils/quaternion.py", "ops/smallmat.py", "ops/tridiag.py", "ops/assembly.py",
                  "ops/kf.py", "ops/ekf.py", "ops/mhe.py", "ops/admm.py", "ops/estimator.py",
-                 "parallel/batch.py", "kernels/tridiag_kernel.py"):
+                 "parallel/batch.py", "kernels/tridiag_kernel.py", "ops/facade.py",
+                 "utils/checkpoint.py", "utils/timing.py", "native.py", "io/logger.py",
+                 "io/replay.py", "io/rosbag.py", "io/vo_frontend.py", "io/synth.py",
+                 "examples/run_go1.py", "examples/run_robot.py", "examples/run_hil.py"):
         assert os.path.join(PORT, *name.split("/")) in files, name
     bad = re.compile(
         r"^\s*(import\s+jax\b|from\s+jax\b|import\s+decentralized_ekf_mhe_tpu(\s|\.|$)"
