@@ -6,7 +6,7 @@ results and those of the constrained tick, whose residual maxima they share;
 and the orientation-EKF stage (K1 ``ekf_stage``).
 
     python3 chip_ab_mhe_tick.py OTHER_CHECKOUT [--turns-only | --bits-only | --f8-only |
-                                                --ekf-only | --ekf-diag]
+                                                --ekf-only | --ekf-diag | --sass-only]
 
 Run from the root of this checkout on a machine with one NVIDIA GPU and nvcc.
 ``OTHER_CHECKOUT`` is the root of a second checkout (for instance the parent
@@ -57,7 +57,12 @@ q_seq and final state over (a)'s first 300 ticks bit for bit, again with
 runs in this checkout only (not part of a run without flags): K1 alone at (a)
 as built and built with approximate division and square root, in turns, as a
 diagnostic of what the IEEE sequences cost; and the SASS opcode counts of
-both builds.
+both builds. ``--sass-only`` (not part of a run without flags either) builds
+the libraries of ``SASS_LIBRARIES`` in both checkouts at once — every tick,
+K4 and K5 library below s=16 but the stage ablation's — and prints, for every
+kernel the two have in common, whether its SASS (``cuobjdump -sass``, every
+instruction with its offset) is the same: the check that a change to the
+group's size at s=21 left the code that runs below s=16 as it was.
 """
 
 import json
@@ -544,6 +549,59 @@ def ptxas_both(other):
         "only_in_other": sorted(set(figs[other]) - set(figs["."]))}}), flush=True)
 
 
+# the libraries whose SASS ``--sass-only`` compares (a full match of the name)
+SASS_LIBRARIES = r"mhe_(go1|pogox|cassie)(_pi|_chol)?|(tridiag|admm)_s(9|15)"
+# build a checkout's libraries matching argv[1]: {library kernel: [sha256 of
+# its SASS, instructions]}
+SASS_BUILD = r'''
+import hashlib, json, os, re, shutil, subprocess, sys
+from decentralized_ekf_mhe_tpu_torch.kernels import _build
+names = [n for n in _build.LIBRARIES if re.fullmatch(sys.argv[1], n)]
+out_dir = _build.build(libraries=names)
+exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+res = {}
+for n in names:
+    text = subprocess.run([exe, "-sass", os.path.join(out_dir, f"lib{n}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    name, lines = None, {}
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = f"{n} {m.group(1)}"
+            lines[name] = []
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            lines[name].append(line.strip())
+    res.update({k: [hashlib.sha256("\n".join(v).encode()).hexdigest(), len(v)]
+                for k, v in lines.items()})
+print(json.dumps(res))
+'''
+
+
+def sass_both(other):
+    """Both checkouts' builds of SASS_LIBRARIES at once; prints, for the
+    kernels they have in common, how many have the same SASS and which do
+    not."""
+    procs = {tree: subprocess.Popen([sys.executable, "-c", SASS_BUILD, SASS_LIBRARIES],
+                                    cwd=tree, text=True, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for tree in (other, ".")}
+    sass = {}
+    for tree, p in procs.items():
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise SystemExit(f"{tree}: {err[-2000:]}")
+        sass[tree] = json.loads(out.strip().splitlines()[-1])
+    common = sorted(set(sass[other]) & set(sass["."]))
+    differ = [k for k in common if sass[other][k] != sass["."][k]]
+    print(json.dumps({"sass": {
+        "libraries": SASS_LIBRARIES, "kernels_in_common": len(common),
+        "identical": len(common) - len(differ),
+        "instructions_in_common": sum(sass["."][k][1] for k in common),
+        "differ": {k: {"other": sass[other][k][1], "this": sass["."][k][1]} for k in differ},
+        "only_in_this": sorted(set(sass["."]) - set(sass[other])),
+        "only_in_other": sorted(set(sass[other]) - set(sass["."]))}}), flush=True)
+
+
 def run_turn(tree, code, *args):
     """One turn: ``code`` in a fresh process with ``tree`` as working
     directory; its last line of output, parsed, if it prints JSON."""
@@ -735,11 +793,13 @@ def main(other, mode=""):
             ekf_bits(other, FMAD_OFF)
     if mode == "--ekf-diag":
         ekf_diag()
+    if mode == "--sass-only":
+        sass_both(other)
 
 
 if __name__ == "__main__":
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
             [], ["--turns-only"], ["--bits-only"], ["--f8-only"], ["--ekf-only"],
-            ["--ekf-diag"]):
+            ["--ekf-diag"], ["--sass-only"]):
         raise SystemExit(__doc__)
     main(*sys.argv[1:])

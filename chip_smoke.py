@@ -34,7 +34,8 @@ float32 accuracy gates are held over the lanes with a camera: a VO-free lane
 breaks down in float32 after a few hundred ticks (ROADMAP.md, fault F5), which
 each of these phases reports; the float64 runs hold every lane.
 
-Then the Cassie and PogoX fleets (configs/parameters_{cassie,pogox}.yaml:
+Then the PogoX fleet, the go1feet group and the Cassie fleet
+(configs/parameters_{cassie,pogox}.yaml:
 Cassie with foot positions as states, s=15, m=6, L=2; PogoX one leg, s=9,
 m=3): each shape's tick kernels (unconstrained and constrained), the
 tridiagonal solve and the box-ADMM at its state size against their plain
@@ -48,6 +49,18 @@ Cassie's shape also runs at the reference bench's own settings through the
 bench's route (the lanes runner), where float32 stays finite over the whole
 log: unconstrained and constrained, gated over the whole log, and the
 constrained tick timed there.
+
+The go1feet group, between PogoX and Cassie: the bench's Go1 estimator with
+its foot positions as states (leg_odom_type=1, 4 legs: s=21, m=12; Go1's
+log, seed 0, perturbed as Go1's), on which every group kernel runs a warp of
+32 threads per instance. Every tick variant (K2, K2b, K2c, K2c-PI, K2d,
+K2d-PI), K5 on both routes and K4 against their plain versions at the small
+size (float64, split log, ragged B; where the Cholesky tick departs from the
+Gauss-Jordan one beyond the reference's test of the two tails, each against
+its own tail's plain version, ``tails_witness``), the pipeline runner at
+full width (u) against a float64 twin, its constrained pipeline (v) over its
+first 500 ticks against a float64 twin over 200, and each kernel timed at
+full width for its row of the kernels line.
 
 The Cholesky tail of the tick (DEM_MK_SOLVE=chol, the reference's
 mk_solve='chol') at each shape: against its plain version and the
@@ -110,12 +123,12 @@ those launches, from the iterations each returned.
 
 The facade group, after the standard layout's: the online surface
 (``ops/facade.py``) on one instance, Go1 at the bench's settings.
-``PipelineEstimator(use_pallas=True)`` streams 300 ticks in float64 in uneven
+``PipelineEstimator(use_pallas=True)`` streams 200 ticks in float64 in uneven
 blocks against the offline pipeline replay at B=1 with plain consts,
 unconstrained (K5 at B=1 every tick) and with the bench's box (K4 every
 tick), each launch count exactly the ticks plus one; its carry, written
 halfway, resumes in a fresh estimator bit for bit; the float32 HIL stream of
-``examples/run_hil.py`` (2000 ticks, blocks of 20, the native BlockFeeder,
+``examples/run_hil.py`` (500 ticks, blocks of 20, the native BlockFeeder,
 built here if missing) is gated on its velocity RMSE and its float32-float64
 delta, and prints its per-tick latency; ``DecentralizedEstimator`` (no
 kernel) is held to ``run_mhe`` and ``run_kf``; and K5 and K4 at B=1 are held
@@ -193,6 +206,10 @@ TOL_ADAPT = 1e-6
 # held against its eager plain version at full width (6 ring wraps; float64
 # element-wise, float32 for the plain version's time)
 V_BOX, T_PER_TICK, T_BOX_PLAIN = 0.3, 200, 120
+# the depth of the float32 plain versions at full width, timed and held to
+# the float64 ones by accuracy (eager loops of small launches, the longest
+# phases of this script)
+T_PLAIN_F32 = 60
 
 # per-lane camera clocks: lane b follows clock b % 15 (vo_every 5..9, latency
 # 1..3 ticks), every 64th lane has no VO at all; the depth of the ragged-fleet
@@ -229,9 +246,15 @@ Y_ROUNDING_ROBOTS, Y_OVER_TOL_ROUNDING = ("cassie", "cassie_bench"), 3.0
 # and Cassie's shape at the bench's own settings ("cassie_bench", see
 # robot_params), whose float32 runs stay finite over the whole log
 LEGGED, LEGGED_LOG_SEED = ("pogox", "cassie"), 2
+# the fleets on Go1's synthetic log (seed 0): Go1's, and "go1feet", the
+# reference bench's Go1 estimator with its foot positions as states
+# (leg_odom_type=1, four legs: s = 9 + 3·4 = 21, m=12; bench.py:455-458
+# builds cassie_bench the same way), which every group kernel runs on a warp
+# per instance
+GO1_LOGS = ("go1", "go1feet")
 # each fleet's velocity-RMSE gate against ground truth: Go1's bench
 # (bench.py:178-181), the other shapes' (bench.py:484)
-RMSE_GATE = {"go1": 0.1, "cassie": 0.5, "pogox": 0.5, "cassie_bench": 0.5}
+RMSE_GATE = {"go1": 0.1, "cassie": 0.5, "pogox": 0.5, "cassie_bench": 0.5, "go1feet": 0.5}
 # the constrained runs' float64 twin covers the first T_BOX_F64 ticks
 T_BOX_F64 = 200
 # fault F6 (ROADMAP.md): with Cassie's parameter file the float32 estimate
@@ -252,16 +275,31 @@ T_BOX_F64 = 200
 # box, drifts by tenths to tens of m/s or turns non-finite (the Cholesky tail
 # at tick 1073), while float64 holds
 F6_TICKS = {"cassie": 300, "cassie_bench": 1000}
-# such a robot's constrained pipeline (box_path) runs its first T_F6_BOX ticks:
-# its gates cover F6_TICKS of them, float32 is not finite from tick 814 on,
-# and the constrained Cassie tick's time row comes from bench_route's fleet
-T_F6_BOX = 1000
+# yaml Cassie's pipelines (main_path, box_path: cells (g), (h)) run their first
+# T_F6_BOX ticks, the ticks their float32 gates cover (F6_TICKS), and the
+# constrained Cassie tick's time row comes from bench_route's fleet
+T_F6_BOX = 300
+# the pipeline runner on Cassie's shape at the bench's settings (bench_route)
+# runs its first T_F6_PIPE ticks, to show where its float32 estimate stops
+# being finite
+T_F6_PIPE = 1000
 # on per-lane clocks at Cassie's shape (cells (l), (m)) the float32 plain
 # tick also runs on the card over ticks F6_WITNESS of the counted run's
 # inputs, from the kernel's state, to show whether the plain version departs
 # from float64 and leaves the box in those ticks as the kernel does (F6) or
 # not (a float32 fault of the kernel alone): ``f6_witness``
 F6_WITNESS = (1000, 1100)
+# the go1feet group (Go1 with its foot positions as states, s=21): its
+# K2b, K2d and K2d-PI rows run the first T_GO1FEET_CLOCKS ticks at full
+# width; its constrained pipeline (v) runs the first T_GO1FEET_BOX ticks (the
+# constrained tick's one-thread prelude on lane 0 is an s^3 chain: at s=21
+# about 2.7 times Cassie's per tick, on one lane of each warp where two lanes
+# of a warp share it below s=16: 68 ms a tick at B=1024 in float32), its
+# float64 twin T_BOX_F64 of them; K2c-PI's row runs T_GO1FEET_PI_BOX ticks
+# (its RMSE gate covers those after the SKIP warm-up ticks); the plain
+# versions of its rows run the first T_GO1FEET_PLAIN ticks at full width
+# (eager loops of small launches)
+T_GO1FEET_CLOCKS, T_GO1FEET_BOX, T_GO1FEET_PI_BOX, T_GO1FEET_PLAIN = 400, 500, 150, 40
 # the Cholesky tail (DEM_MK_SOLVE=chol) against the Gauss-Jordan one: the
 # reference's own test of the two tails (tests/test_megakernel.py:261-273)
 TOL_CHOL_VS_GJ = dict(rtol=1e-9, atol=1e-10)
@@ -275,17 +313,17 @@ TOL_CHOL_VS_GJ = dict(rtol=1e-9, atol=1e-10)
 # replays Go1's synthetic log (seed 0) of T_ORACLE ticks (a single instance is
 # host-bound on the card: thousands of small launches per tick)
 T_STD_CHK, TOL_STD_VS_LANES, KF_RMSE_GATE, T_ORACLE_BOX = 40, dict(rtol=1e-7, atol=1e-8), 0.06, 200
-T_ORACLE = 500
+T_ORACLE = 300
 # the element-wise float64 check of the main path's kernels (full_size) covers
 # its first T_F64_CHK ticks at TOL_MHE; over the whole log std_path holds the
 # lanes runner's tick kernel (K2) against the standard-layout fused runner (its
 # window solves through K5's standard route on the card) at TOL_STD_VS_LANES
 T_F64_CHK = 300
 # cell (s), the stage ablation (K2e): each ablated unit is held against its
-# plain version over T_ABL ticks (the window full, then a dozen ticks of
+# plain version over T_ABL ticks (the window full, then six ticks of
 # marginalization) of a B_ABL-instance fleet in float64, x and the window
 # state it leaves, and the tool's stage tables run over the first T_ABL_TABLE
-# ticks of the headline fleets (the tool's default depth). The "solve" stage
+# ticks of the headline fleets. The "solve" stage
 # returns a sum over the window's slots of the assembled system's entries,
 # which are themselves sums of products of either sign up to about 1e12 in
 # size that cancel to a few hundred or to rounding noise, so no limit on the
@@ -298,7 +336,7 @@ T_F64_CHK = 300
 # of a kernel that wrote zeros or dropped r, and on the value and on the
 # masked system's own entries (whose own rounding is of the 4e10 weights'
 # size), are printed beside it
-T_ABL, B_ABL, T_ABL_TABLE = N_WIN + 12, 64, 200
+T_ABL, B_ABL, T_ABL_TABLE = N_WIN + 6, 64, 100
 RTOL_SOLVE, ATOL_SOLVE = 2e-13, 1e-8
 # the facade group (the online surface, ops/facade.py) on Go1's synthetic log
 # (seed 0) at the bench's settings, one instance: PipelineEstimator streamed
@@ -310,7 +348,7 @@ RTOL_SOLVE, ATOL_SOLVE = 2e-13, 1e-8
 # spin of SPIN_CYCLES clock cycles on the card (so the host's launch cost is
 # hidden; K4 over K4_REPS: its wrapper queues about 20 operations a call, and
 # a full launch queue would stall the host until the spin ends)
-T_FACADE, T_HIL, HIL_BLOCK, T_FACADE_STD = 300, 2000, 20, 100
+T_FACADE, T_HIL, HIL_BLOCK, T_FACADE_STD = 200, 500, 20, 50
 FACADE_SPLITS, FACADE_SNAPSHOT = ((1, 11), (11, 97), (97, 150), (150, T_FACADE)), 150
 FACADE_REPS, K4_REPS, SPIN_CYCLES = 200, 25, 2_000_000_000
 HIL_RMSE_GATE, TOL_FACADE_STD = 0.1, dict(rtol=0, atol=1e-9)
@@ -341,7 +379,8 @@ ABL_GROUP = {"": "abl", "chol": "abl_chol", "box": "abl_box"}
 ABL_LIBRARIES = {m: tuple(f"mhe_{m}_{g}_f64" for g in _build.MHE_ABL_GROUPS)
                  + tuple(f"mhe_{m}_{ABL_GROUP[v]}_f32" for v in ABL_TABLES[m])
                  for m in ABL_TABLES}
-LATER_BUILDS = ("mhe_go1_chol", "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF),
+LATER_BUILDS = ("mhe_go1feet", "tridiag_s21", "admm_s21", "mhe_go1_chol",
+                "mhe_go1_pi", ("mhe_go1_pi", FMAD_OFF), "mhe_go1feet_chol", "mhe_go1feet_pi",
                 "mhe_pogox", "mhe_pogox_chol", "mhe_pogox_pi",
                 "tridiag_s15", "admm_s15", "mhe_cassie", ("mhe_cassie", FMAD_OFF),
                 "mhe_cassie_chol", "mhe_cassie_pi",
@@ -364,14 +403,15 @@ def go1_params():
 
 def robot_params(model="go1"):
     """(EstimatorParams, EKFParams) of a robot: Go1's as above, Cassie's and
-    PogoX's from their parameter files, and "cassie_bench", Cassie's shape at
+    PogoX's from their parameter files, "cassie_bench", Cassie's shape at
     the reference bench's own settings (Go1's with 2 legs and foot positions
-    as states, bench.py:455-458)."""
+    as states, bench.py:455-458), and "go1feet", Go1's with its 4 legs' foot
+    positions as states (s=21)."""
     if model == "go1":
         return go1_params(), EKFParams()
-    if model == "cassie_bench":
+    if model in ("cassie_bench", "go1feet"):
         p = go1_params()
-        p.num_legs, p.leg_odom_type = 2, 1
+        p.num_legs, p.leg_odom_type = (2, 1) if model == "cassie_bench" else (4, 1)
         return p, EKFParams()
     return load_yaml_params(os.path.join(CONFIGS, f"parameters_{model}.yaml"))
 
@@ -380,11 +420,12 @@ def make_fleet(T, B, dtype, seed, vo_noise=1.0, model="go1"):
     """One synthetic log tiled into a perturbed B-instance fleet on the card:
     per-lane IMU/encoder noise, per-lane VO quaternion into the EKF, per-lane
     VO translation into the MHE, one shared camera clock. ``model`` picks the
-    robot: Go1's log (seed 0, 4 legs), or Cassie's or PogoX's (seed 2, their
-    own legs)."""
+    robot: Go1's log (seed 0, 4 legs; Go1's estimator, or "go1feet" with its
+    foot positions as states), or Cassie's or PogoX's (seed 2, their own
+    legs)."""
     p, pe = robot_params(model)
     log = synth.generate(synth.SynthConfig(
-        T=T, seed=0 if model == "go1" else LEGGED_LOG_SEED, num_legs=p.num_legs))
+        T=T, seed=0 if model in GO1_LOGS else LEGGED_LOG_SEED, num_legs=p.num_legs))
     g = torch.Generator(device=DEV).manual_seed(seed)
     data = estimator.tickdata_from_log(log, dtype=dtype, device=DEV)
     vo = estimator.vodata_from_log(log, dtype=dtype, device=DEV)
@@ -403,7 +444,7 @@ def clock_logs(T, model="go1"):
     ticks, 1..3 ticks late."""
     legs = robot_params(model)[0].num_legs
     return [synth.generate(synth.SynthConfig(
-        T=T, seed=0 if model == "go1" else LEGGED_LOG_SEED, num_legs=legs,
+        T=T, seed=0 if model in GO1_LOGS else LEGGED_LOG_SEED, num_legs=legs,
         vo_every=5 + k % 5, vo_latency=1 + (k // 5) % 3))
         for k in range(N_CLOCKS)]
 
@@ -909,7 +950,9 @@ def mk_solve_env(tail):
 
 
 def fleet_rmse(x_tbs, gt_v, lanes=slice(None)):
-    """Fleet velocity RMSE of x (T,B,s) against the log's ground truth."""
+    """Fleet velocity RMSE of x (T,B,s) against the log's ground truth, over
+    the ticks after the SKIP warm-up ticks (there must be some)."""
+    assert x_tbs.shape[0] > SKIP, ("RMSE over no tick after the warm-up", x_tbs.shape[0], SKIP)
     err = x_tbs[SKIP:, lanes, 3:6].double() - gt_v[SKIP:, None]
     return float(torch.sqrt((err ** 2).mean()))
 
@@ -953,13 +996,13 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     """Each kernel against its plain version at the main path's size (T=2000,
     B=1024, N=20) on identical inputs, and the float64 main path against the
     chain of plain versions: float64 element-wise over the first T_F64_CHK
-    ticks, float32 by the velocity-RMSE gate over the first T_BOX_PLAIN ticks
+    ticks, float32 by the velocity-RMSE gate over the first T_PLAIN_F32 ticks
     (the eager plain versions are host-bound loops of small launches); the
     kernels' float32 times over the whole log, the plain versions' over
-    T_BOX_PLAIN ticks; the bounds from this run's inputs."""
+    T_PLAIN_F32 ticks; the bounds from this run's inputs."""
     p, pe = go1_params(), EKFParams()
     err, ms, plain_ms = {}, {}, {}
-    head32 = head(fleet32, T_BOX_PLAIN)
+    head32 = head(fleet32, T_PLAIN_F32)
 
     # ---- float64, element-wise over the first T_F64_CHK ticks
     ec = ekf_lanes.make_consts(pe, F64)
@@ -1000,7 +1043,7 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     err["main_path_f64"] = {"q": eq, "x": ex}
 
     # ---- float32: same inputs cast; the kernels over the whole log, the plain
-    # versions over T_BOX_PLAIN ticks
+    # versions over T_PLAIN_F32 ticks
     ec32 = ekf_lanes.make_consts(pe, F32)
     st32 = ekf_lanes.init_state(pe, B_MAIN, RING, F32, device=DEV)
     eb32 = fleet32[1]
@@ -1013,13 +1056,13 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     ekf_kernel.timer.on = False
     ekf_alone_ms = min(ekf_kernel.timer.ms())
     assert torch.isfinite(q32k).all()
-    dq_k = float((q32k[:T_BOX_PLAIN].double() - q_p[:T_BOX_PLAIN]).abs().max())
-    dq_p = float((q32p.double() - q_p[:T_BOX_PLAIN]).abs().max())
+    dq_k = float((q32k[:T_PLAIN_F32].double() - q_p[:T_PLAIN_F32]).abs().max())
+    dq_p = float((q32p.double() - q_p[:T_PLAIN_F32]).abs().max())
     assert abs(dq_k - dq_p) < 1e-3, (dq_k, dq_p)
 
     R32 = q64_main.to(F32)
     c32, tri32, ks32, (d32, v32, i32) = stage_inputs(p, fleet32, R32, F32)
-    _, _, ks32p, (d32p, v32p, i32p) = stage_inputs(p, head32, R32[:T_BOX_PLAIN], F32)
+    _, _, ks32p, (d32p, v32p, i32p) = stage_inputs(p, head32, R32[:T_PLAIN_F32], F32)
     (x32p, _), plain_ms["mhe_tick"] = wall_ms(
         lambda: mrk.replay_ticks_plain(c32, ks32p, d32p, v32p, i32p))
     x32k, _ = mrk.replay_ticks(c32, ks32, d32, v32, i32, device=DEV)
@@ -1028,19 +1071,19 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
     mrk.timer.on = False
     kernel_only_ms = min(mrk.timer.ms())
     assert torch.isfinite(x32k).all()
-    rk = vel_rmse(x32k[:T_BOX_PLAIN - 1], x_p[:T_BOX_PLAIN - 1], N_WIN)
-    rp = vel_rmse(x32p, x_p[:T_BOX_PLAIN - 1], N_WIN)
+    rk = vel_rmse(x32k[:T_PLAIN_F32 - 1], x_p[:T_PLAIN_F32 - 1], N_WIN)
+    rp = vel_rmse(x32p, x_p[:T_PLAIN_F32 - 1], N_WIN)
     assert abs(rk - rp) < 1e-3, ("f32 velocity-RMSE delta", rk, rp)
     ms["tridiag_solve"] = timed(lambda: tridiag_kernel.solve_lanes(*tri32, device=DEV))
     plain_ms["tridiag_solve"] = timed(lambda: tridiag_kernel.solve_lanes_plain(*tri32))
     lib_ms, lib_diff = library_ms(*(torch.movedim(a, -1, 1) for a in tri32))
 
-    emit("full_size", T=T_MAIN, B=B_MAIN, N=N_WIN, T_f64=T_F64_CHK, T_f32_plain=T_BOX_PLAIN,
+    emit("full_size", T=T_MAIN, B=B_MAIN, N=N_WIN, T_f64=T_F64_CHK, T_f32_plain=T_PLAIN_F32,
          tol_ekf=TOL_EKF, tol_mhe_tridiag=TOL_MHE, max_abs_err_f64=err,
          plain_f64_ms={"ekf_stage": ekf_plain64_ms, "mhe_tick": mhe_plain64_ms},
          f32={"ekf_q_err_kernel": dq_k, "ekf_q_err_plain": dq_p,
               "mhe_vel_rmse_vs_f64_kernel": rk, "mhe_vel_rmse_vs_f64_plain": rp,
-              "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]},
+              "ticks": [N_WIN + 1, T_PLAIN_F32 - 1]},
          kernel_f32_ms=ms, plain_f32_ms=plain_ms,
          mhe_tick_kernel_only_ms=kernel_only_ms)
 
@@ -1068,18 +1111,25 @@ def full_size(fleet64, fleet32, x64_main, q64_main, counts):
         tridiag_solve={"library_ms": lib_ms, "library_minus_kernel_max_abs_f32": lib_diff,
                        "library": "torch.linalg.solve on the densified (B, N*s, N*s) system",
                        "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN}},
-        **{k: {"plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+        **{k: {"plain_ms_shape": {"T": T_PLAIN_F32, "B": B_MAIN, "N": N_WIN},
                "max_abs_err_shape": {"T": T_F64_CHK, "B": B_MAIN},
                **({"kernel_alone_ms": ekf_alone_ms} if k == "ekf_stage" else {})}
            for k in ("ekf_stage", "mhe_tick")})
 
 
-def mark_window_solve(kernels):
+def mark_window_solve(kernels, geometry):
     """The constrained tick's rows (K2c, K2c-PI at every shape) name the file
-    of their window solve, which runs on a group of threads per instance."""
+    of their window solve, which runs on a group of threads per instance, and
+    carry that launch's geometry as the card reports it
+    (``box_geometry_phase``, float32)."""
     for row in kernels:
-        if row["name"].split("[")[0] in ("mhe_tick_box", "mhe_tick_pi_box"):
+        name, _, model = row["name"].partition("[")
+        if name in ("mhe_tick_box", "mhe_tick_pi_box"):
             row["window_solve_source"] = "decentralized_ekf_mhe_tpu_torch/csrc/admm_group.cuh"
+            key = (model.rstrip("]") or "go1", name == "mhe_tick_pi_box")
+            if key in geometry:
+                row["threads_per_instance"] = geometry[key]["threads_per_instance"]
+                row["group_geometry"] = geometry[key]
 
 
 # the rows of the unconstrained tick: (per-lane clock, tail) by name
@@ -1097,7 +1147,7 @@ def mark_tick_group(kernels, geometry):
         model = model.rstrip("]")   # Go1's rows name no shape, but its Cholesky rows do
         key = ("" if model == "go1" else model, *TICK_ROWS.get(name, (None, None)))
         if key in geometry:
-            row["threads_per_instance"] = mrk.BOX_G
+            row["threads_per_instance"] = geometry[key]["threads_per_instance"]
             row["group_geometry"] = geometry[key]
 
 
@@ -1632,11 +1682,11 @@ def box_refusals(c, ks0, d, v, i):
     no plain version runs instead). Returns the two messages."""
     launched = mrk.launches_box
     try:
-        mrk.replay_ticks(c, ks0, d, v, i, device=DEV, block=mrk.BOX_G + 8)
+        mrk.replay_ticks(c, ks0, d, v, i, device=DEV, block=mrk.group_size(c.dim_state) + 8)
     except ValueError as e:
         by_wrapper = str(e)
     else:
-        raise AssertionError("a block that is no multiple of BOX_G was taken")
+        raise AssertionError("a block that is no multiple of the group size was taken")
     bounds = admm.broadcast_bounds(c.x_lb, c.x_ub, c.dim_state, d.accel_b.shape[-1],
                                    d.accel_b.dtype, d.accel_b.device)
     try:
@@ -1659,11 +1709,15 @@ def box_geometry_phase():
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor through the library's C
     entry point, ``mrk.box_occupancy``), registers and local bytes per thread,
     and the ptxas figures of the units (registers, stack frame, spill stores,
-    spill loads). Every float32 launch keeps at least 8 instances resident
-    per SM, all B_MAIN instances on the card at once."""
+    spill loads). Every float32 launch below s=16 keeps at least 8 instances
+    resident per SM, all B_MAIN instances on the card at once; at s=21 (a
+    warp per instance, 5 instances of 44 KB a block) B_MAIN takes a second
+    wave, which is printed. Returns the float32 figures by (the robot's tag
+    in the kernels line's names, per-lane clock)."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    res = {}
-    for model, tag in (("go1", "go1"), ("pogox", "pogox"), ("cassie_bench", "cassie")):
+    res, rows = {}, {}
+    for model, tag in (("go1", "go1"), ("pogox", "pogox"), ("cassie_bench", "cassie"),
+                       ("go1feet", "go1feet")):
         p = box_params(model=model)
         c = box_consts(p, F32, V_BOX, 20)
         for pi in (False, True):
@@ -1674,14 +1728,19 @@ def box_geometry_phase():
                 card = mrk.box_occupancy(c, dtype, pi)
                 assert (card["shared_bytes"], card["u_shared"], card["instances_per_block"]) == (
                     want.shared_bytes, want.u_shared, want.instances_per_block), (tag, pi, card, want)
-                if dtype == F32:
+                if dtype == F32 and p.dim_state < 16:
                     assert card["instances_per_sm"] >= 8, (tag, pi, card)
                     assert card["instances_per_sm"] * n_sm >= B_MAIN, (tag, pi, card)
                 res[f"{tag} {'per-lane' if pi else 'shared'} clock {name}"] = dict(
-                    card, s=p.dim_state, ptxas=figs[name])
-    emit("box_geometry", threads_per_instance=mrk.BOX_G, sms=n_sm, N=N_WIN,
+                    card, s=p.dim_state, threads_per_instance=mrk.group_size(p.dim_state),
+                    waves_at_B_MAIN=-(-B_MAIN // (card["instances_per_sm"] * n_sm)),
+                    ptxas=figs[name])
+            rows[(tag, pi)] = {k: v for k, v in res[
+                f"{tag} {'per-lane' if pi else 'shared'} clock float"].items() if k != "ptxas"}
+    emit("box_geometry", sms=n_sm, N=N_WIN,
          shared_per_block_max=mrk.SHARED_PER_BLOCK, shared_per_sm=mrk.SHARED_PER_SM,
          **res)
+    return rows
 
 
 def solve_ptxas(s):
@@ -1704,13 +1763,15 @@ def solve_ptxas(s):
 
 def solve_geometry_phase():
     """K4 (``admm_solve``) and K5 (``tridiag_solve``, both routes) on their
-    groups of threads per instance at s=9 and s=15, in both types, as the
-    card reports them (``admm_kernel.occupancy``, ``tridiag_kernel.occupancy``:
-    the library's C entry point), held equal to the geometry the wrappers
-    compute (``kernels/_group.py``), with the kernels' ptxas figures; every
-    launch keeps all B_MAIN instances resident at once but in float64 K4's
-    (both sizes) and K5's at s=15, whose shared memory leaves a second wave.
-    Returns the float32 launches by row name for the kernels line."""
+    groups of threads per instance at s=9, s=15 and s=21 (a warp per
+    instance), in both types, as the card reports them
+    (``admm_kernel.occupancy``, ``tridiag_kernel.occupancy``: the library's C
+    entry point), held equal to the geometry the wrappers compute
+    (``kernels/_group.py``), with the kernels' ptxas figures; every launch
+    keeps all B_MAIN instances resident at once but in float64 K4's (every
+    size) and K5's above s=9, and at s=21 in either type, whose shared memory
+    leaves a second wave. Returns the float32 launches by row name for the
+    kernels line."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     res, rows = {}, {}
     for s in _build.SOLVE_SIZES:
@@ -1729,30 +1790,33 @@ def solve_geometry_phase():
                     want.threads_per_block), (key, s, name, card, want)
                 if key == "admm_solve":
                     assert card["u_shared"] == want.u_shared, (s, name, card, want)
-                assert card["instances_per_sm"] * n_sm >= B_MAIN or (
+                assert card["instances_per_sm"] * n_sm >= B_MAIN or s > 15 or (
                     dtype == F64 and (key == "admm_solve" or s > 9)), (key, s, name, card)
-                res[f"{key} s={s} {name}"] = dict(card, ptxas=figs.get(key, {}).get(name))
+                G = _group.group_size(s)
+                res[f"{key} s={s} {name}"] = dict(card, threads_per_instance=G,
+                                                  ptxas=figs.get(key, {}).get(name))
                 if dtype == F32:
                     row = key if s == 9 else f"{key}[s={s}]"
-                    rows[row] = dict(card, ptxas_registers_frame_spill_stores_loads={
-                        t: figs.get(key, {}).get(t) for t in ("float", "double")})
-    emit("solve_geometry", threads_per_instance=_group.BOX_G, sms=n_sm, N=N_WIN,
-         shared_per_block_max=_group.SHARED_PER_BLOCK, **res)
-    rows["admm_box_solve"] = rows["admm_solve"]
-    rows["admm_box_solve[s=15]"] = rows["admm_solve[s=15]"]
+                    rows[row] = dict(card, threads_per_instance=G,
+                                     ptxas_registers_frame_spill_stores_loads={
+                                         t: figs.get(key, {}).get(t) for t in ("float", "double")})
+    emit("solve_geometry", sms=n_sm, N=N_WIN, shared_per_block_max=_group.SHARED_PER_BLOCK, **res)
+    for s in _build.SOLVE_SIZES:
+        tag = "" if s == 9 else f"[s={s}]"
+        rows["admm_box_solve" + tag] = rows["admm_solve" + tag]
     return rows
 
 
 def mark_solve_group(kernels, geometry, per_tick):
     """The rows of K4 (``admm_solve``), K3 (``admm_box_solve``) and K5
-    (``tridiag_solve``, ``tridiag_solve_batched``) at both state sizes carry
-    their launch on 16 threads per instance as the card reports it
+    (``tridiag_solve``, ``tridiag_solve_batched``) at every state size carry
+    their launch on a group of threads per instance as the card reports it
     (``solve_geometry_phase``, float32); K4's row at s=9 also the per-tick
     run (``box_per_tick``): its mean time per launch beside the mean bound of
     those launches from the iterations each returned."""
     for row in kernels:
         if row["name"] in geometry:
-            row["threads_per_instance"] = _group.BOX_G
+            row["threads_per_instance"] = geometry[row["name"]]["threads_per_instance"]
             row["group_geometry"] = geometry[row["name"]]
     row = next(k for k in kernels if k["name"] == "admm_solve")
     row["box_per_tick"] = dict(
@@ -1785,18 +1849,21 @@ def tick_group_figures(p, pi, tail):
             want.shared_bytes, want.instances_per_block, want.threads_per_block), (
             p.dim_state, pi, tail, card, want)
         assert card["instances_per_sm"] * n_sm >= B_MAIN, (p.dim_state, pi, tail, card)
-        res[name] = dict(card, ptxas=figs[name])
+        res[name] = dict(card, threads_per_instance=mrk.group_size(p.dim_state),
+                         ptxas=figs[name])
     return res
 
 
 def tick_geometry_phase():
     """The unconstrained tick's launch on a group of threads per instance,
-    with either tail at Go1's, PogoX's and Cassie's shapes, on both clocks,
-    in both types (``tick_group_figures``). Returns the float32 figures by (the
-    robot's tag in the kernels line's names, per-lane clock, tail) for the
-    kernels line."""
+    with either tail at Go1's, PogoX's, Cassie's and Go1's with its foot
+    positions as states shapes, on both clocks, in both types
+    (``tick_group_figures``). Returns the float32 figures by (the robot's tag
+    in the kernels line's names, per-lane clock, tail) for the kernels
+    line."""
     res, rows = {}, {}
-    for model, tag in (("go1", ""), ("pogox", "pogox"), ("cassie_bench", "cassie")):
+    for model, tag in (("go1", ""), ("pogox", "pogox"), ("cassie_bench", "cassie"),
+                       ("go1feet", "go1feet")):
         p = robot_params(model)[0]
         for pi in (False, True):
             for tail in mrk.MK_SOLVES:
@@ -1807,7 +1874,7 @@ def tick_geometry_phase():
                 f32 = {k: v for k, v in figs["float"].items() if k != "ptxas"}
                 rows[(tag, pi, tail)] = dict(f32, ptxas_registers_frame_spill_stores_loads={
                     name: card["ptxas"] for name, card in figs.items()})
-    emit("tick_geometry", threads_per_instance=mrk.BOX_G,
+    emit("tick_geometry",
          sms=torch.cuda.get_device_properties(0).multi_processor_count,
          shared_per_block_max=mrk.SHARED_PER_BLOCK, shared_per_sm=mrk.SHARED_PER_SM, **res)
     return rows
@@ -1818,15 +1885,19 @@ def box_path(model, fleet64, fleet32, gt_v):
     entry point (|v| <= 0.3 on states 3:6, rho=5000 fixed, 20 it + polish):
     launches, the box, accuracy, wall (the counted run); its float64 twin over
     the whole log for Go1 (``box_full_width`` holds the kernels against it),
-    over the first T_BOX_F64 ticks for the others. Returns the launches, the
-    float64 twin's (x, q) and the counted run's constrained tick: its time
-    around the wrapper and alone, (bytes, operations), ADMM iterations, final
-    state and first non-finite tick."""
+    over the first T_BOX_F64 ticks for the others. A fleet of fault F6 runs
+    its first T_F6_BOX ticks, Go1's with its foot positions as states its
+    first T_GO1FEET_BOX. Returns the launches, the float64 twin's (x, q) and
+    the counted run's constrained tick: its time around the wrapper and alone,
+    (bytes, operations), ADMM iterations, final state and first non-finite
+    tick."""
     p = box_params(model=model)
     pe = robot_params(model)[1]
     gate = RMSE_GATE[model]
     if model in F6_TICKS:
         fleet32 = head(fleet32, T_F6_BOX)
+    elif model == "go1feet":
+        fleet32 = head(fleet32, T_GO1FEET_BOX)
     T = fleet32[0].accel_b.shape[0]
     gt_v = gt_v[:T]
     runner = batch.make_pipeline_fleet_runner(
@@ -1954,9 +2025,9 @@ def box_per_tick(fleet32):
 def box_full_width(fleet64, fleet32, x64, q64, counts, tick):
     """The constrained kernels against their plain versions at full width:
     float64 element-wise over T_BOX_PLAIN ticks; float32 by accuracy against
-    the float64 main path ``x64`` over the first T_BOX_PLAIN ticks; the
+    the float64 main path ``x64`` over the first T_PLAIN_F32 ticks; the
     constrained tick's time and bound from the main path's counted run
-    (``tick``, from ``box_path``), the plain version's over T_BOX_PLAIN ticks.
+    (``tick``, from ``box_path``), the plain version's over T_PLAIN_F32 ticks.
     Returns the kernels' entries of the last-but-one line."""
     p = box_params()
     R64 = ekf_lanes.to_rot(q64)
@@ -1987,21 +2058,21 @@ def box_full_width(fleet64, fleet32, x64, q64, counts, tick):
            "admm_box_solve": max(el.values())}
 
     # ---- float32 at the main path's shapes: the kernel and its plain version
-    # over the first T_BOX_PLAIN ticks (the eager constrained tick is
+    # over the first T_PLAIN_F32 ticks (the eager constrained tick is
     # thousands of small launches per tick), both held to the float64 main
     # path by accuracy over the ticks after the window's warm-up (ticks
-    # N_WIN+1 .. T_BOX_PLAIN-1); the kernel over the whole log is the main
+    # N_WIN+1 .. T_PLAIN_F32-1); the kernel over the whole log is the main
     # path's counted run (``tick``)
-    cm, stm, ksp, (dp_, vp, ip) = inputs(fleet32, F32, T_BOX_PLAIN)
+    cm, stm, ksp, (dp_, vp, ip) = inputs(fleet32, F32, T_PLAIN_F32)
     ms, plain_ms = {"mhe_tick_box": tick["ms"]}, {}
     (x32p, _), plain_ms["mhe_tick_box"] = wall_ms(
         lambda: mrk.replay_ticks_plain(cm._replace(use_pallas=False), ksp, dp_, vp, ip))
     x32k, _ = mrk.replay_ticks(cm, ksp, dp_, vp, ip, device=DEV)
     assert torch.isfinite(x32k).all() and tick["t_bad"] is None
-    ref = torch.movedim(x64, 1, -1)[1:T_BOX_PLAIN]
+    ref = torch.movedim(x64, 1, -1)[1:T_PLAIN_F32]
     rk, rp = vel_rmse(x32k, ref, N_WIN), vel_rmse(x32p, ref, N_WIN)
     assert abs(rk - rp) < 1e-3, ("constrained f32 velocity-RMSE delta", rk, rp)
-    rmse_ticks = [N_WIN + 1, T_BOX_PLAIN - 1]
+    rmse_ticks = [N_WIN + 1, T_PLAIN_F32 - 1]
     del x32p, ref
     kernel_only_ms = tick["kernel_only_ms"]
     iters_tick, ks_end = tick["iters"], tick["ks_end"]
@@ -2035,7 +2106,7 @@ def box_full_width(fleet64, fleet32, x64, q64, counts, tick):
         _work.admm_ops(9, n_states, it, *box)
         for (n_states, *_), it in zip(sched, iters_tick.cpu().numpy()))
     emit("box_full_width", B=B_MAIN, N=N_WIN, T_f64=T_BOX_PLAIN, T_f32_kernel=T_MAIN,
-         T_f32_plain=T_BOX_PLAIN, tol=TOL_MHE,
+         T_f32_plain=T_PLAIN_F32, tol=TOL_MHE,
          max_abs_err_f64={"mhe_tick_box": e_tick, "admm_solve": {"tick0": e0, "final": el}},
          plain_and_kernel_f64_s=plain64_s,
          f32={"vel_rmse_vs_f64_kernel": rk, "vel_rmse_vs_f64_plain": rp, "ticks": rmse_ticks},
@@ -2052,7 +2123,7 @@ def box_full_width(fleet64, fleet32, x64, q64, counts, tick):
                        "decentralized_ekf_mhe_tpu/pallas/admm_kernel.py:75"),
     }, works, counts, err, ms, plain_ms,
         mhe_tick_box=dict(max_abs_err_shape=f64_shape, max_abs_err_by_output=e_tick,
-                          plain_ms_shape=dict(f64_shape, N=N_WIN),
+                          plain_ms_shape={"T": T_PLAIN_F32, "B": B_MAIN, "N": N_WIN},
                           f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp, "ticks": rmse_ticks}),
         admm_solve={"shape": {"B": B_MAIN, "N": N_WIN, "window": "tick 0: one real slot"},
                     "max_abs_err_shape": dict(f64_shape, window="tick 0 and final"),
@@ -2191,6 +2262,7 @@ def check_kernels_pi(model="go1"):
          dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK, clocks=N_CLOCKS,
          vo_free_lanes=B_CHK // VO_FREE_EVERY, tol=TOL_MHE, tol_uniform_vs_shared=1e-12,
          box=bound, osqp_tol=1e-8, **res)
+    return res
 
 
 def pi_main_path(fleet64, fleet32, gt_v, shared32):
@@ -2198,7 +2270,7 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
     from the log): launches, accuracy, wall; then the per-lane-clock tick
     against its plain version — float64 element-wise over T_BOX_PLAIN ticks;
     float32, the kernel timed over the whole log, the plain version over
-    T_BOX_PLAIN ticks — and, on the shared-clock fleet ``shared32``, the shared
+    T_PLAIN_F32 ticks — and, on the shared-clock fleet ``shared32``, the shared
     and the per-lane-clock tick in turns on the same schedule, which splits
     the per-lane clocks' cost into the variant's own and the divergence.
     Returns the kernel's entry of the last-but-one line."""
@@ -2253,12 +2325,12 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
             timed(lambda: mrk.replay_ticks(c32, ks_s, ds, vs, i_s, device=DEV), reps=2))
         ab["mhe_tick_pi_uniform_clock"].append(
             timed(lambda: mrk.replay_ticks(c32, ks_u, ds, vu, iu, device=DEV), reps=2))
-    # the plain version over the first T_BOX_PLAIN ticks, both held to the
+    # the plain version over the first T_PLAIN_F32 ticks, both held to the
     # float64 run by accuracy over the ticks after the window's warm-up
-    ksp, (dp_, vp, ip) = clock_inputs(c32, fleet32, F32, T=T_BOX_PLAIN)
+    ksp, (dp_, vp, ip) = clock_inputs(c32, fleet32, F32, T=T_PLAIN_F32)
     (x32p, _), plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c32, ksp, dp_, vp, ip))
-    ref = torch.movedim(x64, 1, -1)[1:T_BOX_PLAIN]
-    rk = vel_rmse(x32k[:T_BOX_PLAIN - 1], ref, N_WIN, cam)
+    ref = torch.movedim(x64, 1, -1)[1:T_PLAIN_F32]
+    rk = vel_rmse(x32k[:T_PLAIN_F32 - 1], ref, N_WIN, cam)
     rp = vel_rmse(x32p, ref, N_WIN, cam)
     assert abs(rk - rp) < 1e-3, ("per-lane-clock f32 velocity-RMSE delta", rk, rp)
     _, free_bad_plain = split_vo_free(torch.movedim(x32p, -1, 1), vp)
@@ -2279,8 +2351,8 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
          mhe_tick_pi_ms=ms, mhe_tick_pi_kernel_only_ms=kernel_only_ms,
          same_schedule_in_turns_ms=ab,
          max_abs_err_f64={"T": T_BOX_PLAIN, "x": err}, plain_f64_ms=plain64_ms,
-         plain_f32_ms={"T": T_BOX_PLAIN, "ms": plain_ms},
-         f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp, "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]},
+         plain_f32_ms={"T": T_PLAIN_F32, "ms": plain_ms},
+         f32_vel_rmse_vs_f64={"kernel": rk, "plain": rp, "ticks": [N_WIN + 1, T_PLAIN_F32 - 1]},
          vo_events=n_events,
          distinct_lane_schedules=len(groups))
     return kernel_rows({"mhe_tick_pi": (
@@ -2289,7 +2361,7 @@ def pi_main_path(fleet64, fleet32, gt_v, shared32):
         {"mhe_tick_pi": work}, counts, {"mhe_tick_pi": err}, {"mhe_tick_pi": ms},
         {"mhe_tick_pi": plain_ms},
         mhe_tick_pi={"max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
-                     "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+                     "plain_ms_shape": {"T": T_PLAIN_F32, "B": B_MAIN, "N": N_WIN},
                      "kernel_only_ms": kernel_only_ms,
                      "path": "make_lanes_fleet_runner, per-instance VOData"})
 
@@ -2299,7 +2371,8 @@ def pi_box(fleet64, fleet32, gt_v):
     (|v| <= 0.3, rho=5000 fixed, 20 it + polish) through the MHE-only runner
     at full width, the counted run also the timed one (wall, the tick around
     its wrapper and alone, its ADMM iterations); the tick against its float64
-    plain version over T_BOX_PLAIN ticks. Returns the kernel's entry of the
+    plain version over T_BOX_PLAIN ticks, the float32 plain version timed over
+    T_PLAIN_F32. Returns the kernel's entry of the
     last-but-one line."""
     p = box_params()
     data_b, _, vo = fleet32
@@ -2335,7 +2408,7 @@ def pi_box(fleet64, fleet32, gt_v):
     ks64, (d64, v64, i64) = clock_inputs(c64, fleet64, F64, T=T_BOX_PLAIN)
     _, _, _, e_tick = check_box_tick(c64, c64._replace(use_pallas=False), ks64, d64, v64, i64,
                                      "per-lane clocks, full width", fma=True)
-    ksp, (dp_, vp, ip) = clock_inputs(c32, fleet32, F32, T=T_BOX_PLAIN)
+    ksp, (dp_, vp, ip) = clock_inputs(c32, fleet32, F32, T=T_PLAIN_F32)
     _, plain_ms = wall_ms(lambda: mrk.replay_ticks_plain(c32._replace(use_pallas=False),
                                                         ksp, dp_, vp, ip))
     a = c32.admm
@@ -2353,7 +2426,7 @@ def pi_box(fleet64, fleet32, gt_v):
          pipeline_ticks_per_s=B_MAIN * (T_MAIN - 1) / wall,
          mhe_tick_pi_box_ms=ms, mhe_tick_pi_box_kernel_only_ms=kernel_only_ms,
          max_abs_err_f64={"T": T_BOX_PLAIN, **e_tick},
-         plain_f32_ms={"T": T_BOX_PLAIN, "ms": plain_ms},
+         plain_f32_ms={"T": T_PLAIN_F32, "ms": plain_ms},
          admm_iters_mean=float(ks_end.iters.double().mean()))
     return kernel_rows({"mhe_tick_pi_box": (
         "decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
@@ -2362,7 +2435,7 @@ def pi_box(fleet64, fleet32, gt_v):
         {"mhe_tick_pi_box": ms}, {"mhe_tick_pi_box": plain_ms},
         mhe_tick_pi_box={"max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
                          "max_abs_err_by_output": e_tick,
-                         "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+                         "plain_ms_shape": {"T": T_PLAIN_F32, "B": B_MAIN, "N": N_WIN},
                          "kernel_only_ms": kernel_only_ms,
                          "path": "make_lanes_fleet_runner, per-instance VOData, box consts"})
 
@@ -2504,6 +2577,7 @@ def check_kernels_legged(model):
     emit("kernels_legged", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
          leg_odom_type=p.leg_odom_type, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
          tol=TOL_MHE, tol_ekf=TOL_EKF, box=bound, osqp_tol=1e-8, **res)
+    return res
 
 
 def admm_work_settings(c):
@@ -2548,7 +2622,7 @@ def bench_route(model, fleet64, fleet32, gt_v):
     iterations. Also prints where the pipeline runner's float32 estimate on
     this fleet stops being finite (fault F6). Returns the constrained tick's
     figures and the unconstrained tick's kernel-alone time. The pipeline
-    runner's run covers the first T_F6_BOX ticks."""
+    runner's run covers the first T_F6_PIPE ticks."""
     p, pe = robot_params(model)
     pb = box_params(model=model)
     gate = RMSE_GATE[model]
@@ -2613,7 +2687,7 @@ def bench_route(model, fleet64, fleet32, gt_v):
         del x, x64, calls
 
     pipe = batch.make_pipeline_fleet_runner(p, pe, F32, use_megakernel=True, device=DEV)
-    pipe_bad = first_nonfinite(pipe(*head(fleet32, T_F6_BOX))[0])
+    pipe_bad = first_nonfinite(pipe(*head(fleet32, T_F6_PIPE))[0])
     emit("bench_route", model=model,
          config=f"{model} N={N_WIN} s={p.dim_state} m={p.dim_meas} L={p.num_legs} "
                 f"leg_odom_type={p.leg_odom_type}; lanes runner; box |v|<=0.3, rho=5000 fixed, "
@@ -2644,9 +2718,9 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     orientation: float64 element-wise over T_BOX_PLAIN ticks; the kernels'
     float32 times over the whole log (the ticks' from the main path's runs:
     the unconstrained one's ``mhe_tick_ms``, the constrained one's
-    ``box_tick`` from ``box_path``), the plain versions' over T_BOX_PLAIN ticks
-    (eager loops), and the float32 kernel held to the float64 plain version
-    by accuracy there; the bounds from this run's inputs. Returns the
+    ``box_tick`` from ``box_path``), the plain versions' over T_PLAIN_F32
+    ticks (eager loops), and the float32 kernel held to the float64 plain
+    version by accuracy there; the bounds from this run's inputs. Returns the
     kernels' entries of the last-but-one line."""
     p = robot_params(model)[0]
     pb = box_params(model=model)
@@ -2679,11 +2753,12 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     T = fleet32[0].accel_b.shape[0]      # T_F6_BOX for yaml Cassie (F6)
     st32, ks32, (d32, v32, i32) = inputs(c32, fleet32, F32, T)
     ms["mhe_tick" + tag] = mhe_tick_ms
-    _, ksp, (dp_, vp, ip) = inputs(c32, fleet32, F32, T_BOX_PLAIN)
+    _, ksp, (dp_, vp, ip) = inputs(c32, fleet32, F32, T_PLAIN_F32)
     (x32p, _), plain_ms["mhe_tick" + tag] = wall_ms(
         lambda: mrk.replay_ticks_plain(c32, ksp, dp_, vp, ip))
     x32k, _ = mrk.replay_ticks(c32, ksp, dp_, vp, ip, device=DEV)
-    rk, rp = vel_rmse(x32k, x_p, N_WIN), vel_rmse(x32p, x_p, N_WIN)
+    ref = x_p[:T_PLAIN_F32 - 1]
+    rk, rp = vel_rmse(x32k, ref, N_WIN), vel_rmse(x32p, ref, N_WIN)
     assert abs(rk - rp) < 1e-3, (f"{model} f32 velocity-RMSE delta", rk, rp)
     tri32 = tuple(a.contiguous() for a in mhe_lanes._masked_system(c32, st32))
     ms[f"tridiag_solve[s={s}]"] = timed(lambda: tridiag_kernel.solve_lanes(*tri32, device=DEV))
@@ -2701,9 +2776,9 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
         "max_abs_err_shape": {"T": T_BOX_PLAIN, "B": B_MAIN},
         "shape": {"T": T, "B": B_MAIN, "N": N_WIN},
         "ms_how": "the kernel alone (CUDA events), best of the main path's timed runs",
-        "plain_ms_shape": {"T": T_BOX_PLAIN, "B": B_MAIN, "N": N_WIN},
+        "plain_ms_shape": {"T": T_PLAIN_F32, "B": B_MAIN, "N": N_WIN},
         "plain_f64_ms": plain64_ms,
-        "f32_vel_rmse_vs_f64": {"kernel": rk, "plain": rp, "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]}}
+        "f32_vel_rmse_vs_f64": {"kernel": rk, "plain": rp, "ticks": [N_WIN + 1, T_PLAIN_F32 - 1]}}
     del x32k, x32p
 
     # ---- constrained: K2c at this shape, K4 and K3 at this state size
@@ -2723,13 +2798,14 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
     err[f"admm_box_solve[s={s}]"] = max(el.values())
 
     cb32 = box_consts(pb, F32, V_BOX, 20)
-    stb32, ksbp, (dbp, vbp, ibp) = inputs(cb32, fleet32, F32, T_BOX_PLAIN)
+    stb32, ksbp, (dbp, vbp, ibp) = inputs(cb32, fleet32, F32, T_PLAIN_F32)
     xb32, _ = mrk.replay_ticks(cb32, ksbp, dbp, vbp, ibp, device=DEV)
     (xb32p, _), plain_ms["mhe_tick_box" + tag] = wall_ms(
         lambda: mrk.replay_ticks_plain(cb32._replace(use_pallas=False), ksbp, dbp, vbp, ibp))
     ms["mhe_tick_box" + tag], works["mhe_tick_box" + tag] = box_tick["ms"], box_tick["work"]
     kb_only, nb, ks_end = box_tick["kernel_only_ms"], box_tick["t_bad"], box_tick["ks_end"]
-    rbk, rbp = vel_rmse(xb32, x_bp, N_WIN), vel_rmse(xb32p, x_bp, N_WIN)
+    ref = x_bp[:T_PLAIN_F32 - 1]
+    rbk, rbp = vel_rmse(xb32, ref, N_WIN), vel_rmse(xb32p, ref, N_WIN)
     assert abs(rbk - rbp) < 1e-3, (f"{model} constrained f32 velocity-RMSE delta", rbk, rbp)
     del xb32, xb32p
     st_end = mrk.mhe_state_from_kernel(ks_end, cb32)
@@ -2752,9 +2828,9 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
         "kernel_only_ms": kb_only, "ms_runs": 1, "plain_and_kernel_f64_s": plainb64_s,
         "ms_how": "the constrained main path's counted run (box_path), around the wrapper",
         "f32_first_nonfinite_tick": nb,
-        "plain_ms_shape": dict(f64_shape, N=N_WIN),
+        "plain_ms_shape": {"T": T_PLAIN_F32, "B": B_MAIN, "N": N_WIN},
         "admm_iters_mean": float(box_tick["iters"].double().mean()),
-        "f32_vel_rmse_vs_f64": {"kernel": rbk, "plain": rbp, "ticks": [N_WIN + 1, T_BOX_PLAIN - 1]}}
+        "f32_vel_rmse_vs_f64": {"kernel": rbk, "plain": rbp, "ticks": [N_WIN + 1, T_PLAIN_F32 - 1]}}
     more[f"admm_solve[s={s}]"] = {"shape": {"B": B_MAIN, "N": N_WIN, "window": "tick 0: one real slot"},
                                   "max_abs_err_by_output": {"tick0_window": e0, "final_window": el}}
     more[f"admm_box_solve[s={s}]"] = {
@@ -2763,7 +2839,7 @@ def legged_full_width(model, fleet64, fleet32, q64, counts, box_counts, mhe_tick
                 "two kernels' launches; ms, plain_ms and the bound are of one warm-started "
                 "whole-window solve through admm_solve"}
     emit(f"{model}_full_width", B=B_MAIN, N=N_WIN, T_f64=T_BOX_PLAIN, T_f32_kernel=T,
-         T_f32_plain=T_BOX_PLAIN, tol=TOL_MHE, max_abs_err_f64=err,
+         T_f32_plain=T_PLAIN_F32, tol=TOL_MHE, max_abs_err_f64=err,
          max_abs_err_f64_by_output={"mhe_tick_box": e_tick, "admm_solve": {"tick0": e0, "final": el}},
          kernel_f32_ms=ms, plain_f32_ms=plain_ms, mhe_tick_box_kernel_only_ms=kb_only)
 
@@ -2817,7 +2893,8 @@ def check_kernels_chol(model):
     check_schedule(ks_k, ks_p, f"{model} chol")
     x_g, _ = mrk.replay_ticks(c, ks0, d1, v1, i1, device=DEV)
     ok, errs["vs_gauss_jordan_kernel"] = close(x_k, x_g, **TOL_CHOL_VS_GJ)
-    assert ok, ("mhe_tick_chol vs mhe_tick", model, errs["vs_gauss_jordan_kernel"])
+    if not ok:
+        errs["tails_witness"] = tails_witness(c, ks0, d1, v1, i1, x_k, x_g, f"{model} chol")
     cut = lambda sl: (estimator.TickData(*(a[sl] for a in d1)),
                       estimator.VOData(*(a[sl] for a in v1)), i1[sl])
     xA, ksA = mrk.replay_ticks(c, ks0, *cut(slice(0, 30)), device=DEV, mk_solve="chol")
@@ -2863,7 +2940,9 @@ def check_kernels_chol(model):
     assert read_counts() == dict(NO_LAUNCH, mhe_tick_pi_chol=3), read_counts()
     x_pg, _ = mrk.replay_ticks(c, cks0, cd, cv, ci, device=DEV)
     ok, pi_errs["vs_gauss_jordan_kernel"] = close(x_pi, x_pg, **TOL_CHOL_VS_GJ)
-    assert ok, ("mhe_tick_pi_chol vs mhe_tick_pi", model, pi_errs["vs_gauss_jordan_kernel"])
+    if not ok:
+        pi_errs["tails_witness"] = tails_witness(c, cks0, cd, cv, ci, x_pi, x_pg,
+                                                 f"{model} pi_chol")
     ks_u, (_, vu, iu) = clock_inputs(c, (fleet[0], None, uniform_clock(fleet[2], B_CHK)), F64)
     x_u, _ = mrk.replay_ticks(c, ks_u, d1, vu, iu, device=DEV, mk_solve="chol")
     ok, pi_errs["uniform_clock_vs_shared"] = close(x_u, x_k, rtol=0.0, atol=1e-12)
@@ -2881,11 +2960,63 @@ def check_kernels_chol(model):
     group = {clock: tick_group_figures(p, pi, "chol")
              for clock, pi in (("shared", False), ("per_lane", True))}
     emit("kernels_chol", model=model, s=p.dim_state, m=p.dim_meas, L=p.num_legs,
-         leg_odom_type=p.leg_odom_type, threads_per_instance=mrk.BOX_G,
+         leg_odom_type=p.leg_odom_type, threads_per_instance=mrk.group_size(p.dim_state),
          group_launch=group, dtype="float64", N=N_WIN, T=T_CHK, B=B_CHK,
          tol=TOL_MHE, tol_vs_gauss_jordan=TOL_CHOL_VS_GJ, tol_uniform_vs_shared=1e-12,
          mhe_tick_chol_err=errs, clocks=N_CLOCKS, vo_free_lanes=B_CHK // VO_FREE_EVERY,
          mhe_tick_pi_chol_err=pi_errs, unknown_tail_refused=unknown)
+    return {"mhe_tick_chol": errs, "mhe_tick_pi_chol": pi_errs}
+
+
+def plain_chol_ticks(c, ks0, d, v, i):
+    """x of the plain tick loop over the ticks handed in with the Cholesky
+    tail's own sweep (``mrk._step_ablated`` with no stage skipped and
+    ``mrk._chol_sweep`` over every tick's window side by side, as
+    ``mrk.replay_ticks_plain`` runs it for the stage ablation): the plain
+    version of K2d and K2d-PI statement by statement, where the shared plain
+    version of both tails solves each window by Gauss-Jordan."""
+    c = c._replace(use_pallas=False)
+    st = mrk.mhe_state_from_kernel(ks0, c)
+    per_lane = v.active.ndim == 2
+    act, pre, now = ((v.active, v.tick_pre, v.tick_now) if per_lane else
+                     (v.active.tolist(), v.tick_pre.tolist(), v.tick_now.tolist()))
+    Tn, B, systems = d.accel_b.shape[0], d.accel_b.shape[-1], []
+    for t in range(Tn):
+        st, _, _ = mrk._step_ablated(c, st, d.R_sb[t], d.accel_b[t], d.omega_b[t], d.p_foot[t],
+                                     d.J_foot[t], d.dq[t], d.contact[t], act[t], pre[t], now[t],
+                                     i[t], "", "chol", systems)
+    x = mrk._chol_sweep(*(torch.cat(a, dim=-1) for a in zip(*systems)))
+    return x.reshape(c.dim_state, Tn, B).movedim(1, 0)
+
+
+def tails_witness(c, ks0, d, v, i, x_chol, x_gj, tag):
+    """Where the Cholesky-tail kernel (``x_chol``) departs from the
+    Gauss-Jordan one (``x_gj``) by more than TOL_CHOL_VS_GJ — the reference's
+    test of the two tails, which it runs at Go1's shape (s=9) — the two
+    tails' plain versions on the same inputs (float64, on the card): the
+    Gauss-Jordan one (``mrk.replay_ticks_plain``) and the Cholesky one's own
+    sweep (``plain_chol_ticks``). The kernels may depart only where the plain
+    tails depart beyond the limit themselves (at s=21 they do: the two
+    algorithms' rounding departs by more at that shape, ROADMAP §3 fault
+    F10); then each kernel must meet TOL_MHE against its own tail's plain
+    version, and the kernels' difference may reach at most
+    Y_OVER_TOL_ROUNDING times the limit. Emits and returns the readings (the
+    largest |a - b| / (atol + rtol |b|))."""
+    x_pg, _ = mrk.replay_ticks_plain(c._replace(use_pallas=False), ks0, d, v, i)
+    x_pc = plain_chol_ticks(c, ks0, d, v, i)
+    ratio = lambda a, b, tol=TOL_CHOL_VS_GJ: float(over_tol(a, b, tol).max())
+    res = {"kernels_over_tol": ratio(x_chol, x_gj), "plain_tails_over_tol": ratio(x_pc, x_pg),
+           "chol_kernel_vs_plain_chol_over_tol_mhe": ratio(x_chol, x_pc, TOL_MHE),
+           "gj_kernel_vs_plain_gj_over_tol_mhe": ratio(x_gj, x_pg, TOL_MHE),
+           "max_abs": {"kernels": float((x_chol - x_gj).abs().max()),
+                       "plain_tails": float((x_pc - x_pg).abs().max())},
+           "tol": TOL_CHOL_VS_GJ, "allowance": Y_OVER_TOL_ROUNDING}
+    emit("tails_witness", of=tag, **res)
+    assert res["plain_tails_over_tol"] > 1.0, ("mhe_tick_chol vs mhe_tick", tag, res)
+    assert (res["chol_kernel_vs_plain_chol_over_tol_mhe"] <= 1.0
+            and res["gj_kernel_vs_plain_gj_over_tol_mhe"] <= 1.0), ("tails witness", tag, res)
+    assert res["kernels_over_tol"] <= Y_OVER_TOL_ROUNDING, ("tails witness", tag, res)
+    return res
 
 
 def chol_path(model, fleet64, fleet32, gt_v, k2_ms=None):
@@ -3566,7 +3697,7 @@ def ablation_phase(model, fleet32):
             {name: work}, {name: n}, {name: r["max_abs_err"]}, {name: ms},
             {name: r["plain_ms_f64"]},
             **{name: {"model": model, "variant": variant or "gj",
-                      "threads_per_instance": mrk.BOX_G, **how,
+                      "threads_per_instance": mrk.group_size(p.dim_state), **how,
                       "max_abs_err_shape": {"T": T_ABL, "B": B_ABL},
                       "max_abs_err_detail": dict(
                           {k: v for k, v in r.items() if k not in ("state_over_tol", "work_f64")},
@@ -3660,6 +3791,254 @@ def legged_phases(model, builds, rows, abl_fleets):
     kernels += pi_chol_cell(clock_model, c64, c32, gt,
                             k2b_ms=k2b if model == "cassie" else None)
     return kernels
+
+
+# --------------------- Go1 with its foot positions as states (s=21, a warp)
+
+
+def max_err(errs):
+    """The largest absolute error of a check's result dict (nested dicts
+    included), leaving out what is no error: the readings that are ratios to
+    a limit (``*_over_tol``), the limits themselves, an ``fma_witness`` or
+    ``tails_witness`` reading, the iteration ranges and the shapes."""
+    out = 0.0
+    for k, v in errs.items():
+        if (k.startswith("limit") or k in ("without_fma", "tails_witness")
+                or k.endswith("_over_tol")):
+            continue
+        if isinstance(v, dict):
+            out = max(out, max_err(v))
+        elif isinstance(v, float):
+            out = max(out, v)
+    return out
+
+
+def go1feet_phases(builds, rows):
+    """Every phase of the go1feet shape (s=21, m=12, L=4, leg_odom_type=1: a
+    warp of 32 threads per instance in every group kernel): the tick kernels
+    on either clock with either tail, K5 on both routes and K4 against their
+    plain versions at the small size (float64, split log, ragged B); the
+    pipeline runner at full width (u) with its float64 twin; its constrained
+    pipeline (v) over the first T_GO1FEET_BOX ticks with its float64 twin
+    over T_BOX_F64; and the rows of the kernels line (``go1feet_rows``,
+    ``go1feet_clock_rows``). ``rows`` are the entries so far (K5's standard
+    route at s=21 joins the s=9 route's row, as s=15's does)."""
+    model = "go1feet"
+    s = robot_params(model)[0].dim_state
+    need(builds, "mhe_go1feet", "tridiag_s21", "admm_s21")
+    errs = {"legged": check_kernels_legged(model)}
+    data, _, vo = ekf_oriented(model, make_fleet(T_STD_CHK, B_CHK, F64, seed=1,
+                                                 model=model)[1:], F64)
+    err_std = check_kernels_std(model, data, vo._replace(
+        dp_body=vo.dp_body.transpose(1, 2).contiguous()), B_CHK - 6)
+    del data, vo
+    need(builds, "mhe_go1feet_chol")
+    errs["chol"] = check_kernels_chol(model)
+    need(builds, "mhe_go1feet_pi")
+    errs["pi"] = check_kernels_pi(model)
+    log, *f64 = make_fleet(T_MAIN, B_MAIN, F64, seed=0, model=model)
+    gt = torch.as_tensor(log.gt_v_s, device=DEV)
+    f32 = tuple(cast(nt, F32) for nt in f64)
+    counts, x64, q64, tick_ms = main_path(model, f64, f32, gt)
+    del x64
+    box_counts, _, _, box_tick = box_path(model, f64, f32, gt)
+    del f64
+    kernels = go1feet_rows(f32, q64, counts, box_counts, tick_ms, box_tick, errs["legged"])
+    del q64, box_tick
+    kernels += go1feet_clock_rows(f32, gt, errs)
+    row = next(k for k in rows if k["name"] == "tridiag_solve_batched")
+    row.setdefault("max_abs_err_other_sizes", {})[f"s={s}"] = {
+        "max_abs_err": err_std, "model": model, "T": T_STD_CHK, "B": B_CHK,
+        "threads_per_instance": _group.group_size(s)}
+    return kernels
+
+
+def go1feet_rows(fleet32, q64, counts, box_counts, tick_ms, box_tick, errs):
+    """The kernels line's rows of go1feet's K2, K2c, K5 (s=21), K4 (s=21)
+    and K3 (s=21): ms from the main path's runs ((u): the tick alone, best of
+    its timed runs; (v): the counted constrained run; K5, K4 and K3 timed on
+    the float32 windows of (u) and (v)), launches from those runs, the bounds
+    from this run's inputs, the plain versions' float32 ms over the first
+    T_GO1FEET_PLAIN ticks at full width (the solves on the same windows), K5's
+    library time (``torch.linalg.solve`` on the densified system), and
+    max_abs_err from the small-size float64 checks (``errs``, those of
+    ``check_kernels_legged``)."""
+    model, tag = "go1feet", "[go1feet]"
+    p, pb = robot_params(model)[0], box_params(model=model)
+    s, m, L, lot = p.dim_state, p.dim_meas, p.num_legs, p.leg_odom_type
+    R64 = ekf_lanes.to_rot(q64)
+    inputs = lambda c, T: window_inputs(c, fleet32, R64, F32, T)
+    names = {k: f"{k}{tag}" for k in ("mhe_tick", "mhe_tick_box")}
+    names.update({k: f"{k}[s={s}]" for k in ("tridiag_solve", "admm_solve", "admm_box_solve")})
+    ms, plain_ms, works, err, more = {}, {}, {}, {}, {}
+    Tp = T_GO1FEET_PLAIN
+
+    # K2 and K5: the unconstrained path (u)
+    c32 = mhe.make_consts(p, F32, use_pallas=False, device=DEV)
+    st32, ks32, (d32, v32, i32) = inputs(c32, T_MAIN)
+    _, ksp, (dp_, vp, ip) = inputs(c32, Tp)
+    _, plain_ms[names["mhe_tick"]] = wall_ms(lambda: mrk.replay_ticks_plain(c32, ksp, dp_, vp, ip))
+    ms[names["mhe_tick"]] = tick_ms
+    sched = _work.mhe_schedule(v32.active.tolist(), v32.tick_pre.tolist(), v32.tick_now.tolist(),
+                               N_WIN, int(ks32.bez_count))
+    works[names["mhe_tick"]] = _work.mhe_tick(N_WIN, s, m, L, B_MAIN, sched,
+                                              int((d32.contact > 0).sum()), 4, lot=lot)
+    err[names["mhe_tick"]] = max_err(errs["mhe_tick_err"])
+    more[names["mhe_tick"]] = {"ms_how": "the kernel alone (CUDA events), best of the main "
+                                         "path's timed runs (u)"}
+    del d32, v32, i32, dp_, vp, ip
+    tri32 = tuple(a.contiguous() for a in mhe_lanes._masked_system(c32, st32))
+    k = names["tridiag_solve"]
+    ms[k] = timed(lambda: tridiag_kernel.solve_lanes(*tri32, device=DEV))
+    plain_ms[k] = timed(lambda: tridiag_kernel.solve_lanes_plain(*tri32))
+    lib_ms, lib_diff = library_ms(*(torch.movedim(a, -1, 1) for a in tri32))
+    works[k] = _work.tridiag(N_WIN, s, B_MAIN, 4, n_states=1)
+    err[k] = max_err(errs["tridiag_err"])
+    more[k] = {"library_ms": lib_ms, "library_minus_kernel_max_abs_f32": lib_diff,
+               "library": "torch.linalg.solve on the densified (B, N*s, N*s) system",
+               "ms_how": "tick 0's window of (u), float32, best of 3",
+               "plain_ms_shape": {"B": B_MAIN, "N": N_WIN, "window": "tick 0"}}
+    del tri32, st32, ks32, ksp
+
+    # K2c, K4 and K3: the constrained path (v)
+    cb32 = box_consts(pb, F32, V_BOX, 20)
+    k = names["mhe_tick_box"]
+    stb32, _, _ = inputs(cb32, 2)
+    _, ksbp, (dbp, vbp, ibp) = inputs(cb32, Tp)
+    _, plain_ms[k] = wall_ms(lambda: mrk.replay_ticks_plain(cb32._replace(use_pallas=False), ksbp,
+                                                            dbp, vbp, ibp))
+    ms[k], works[k] = box_tick["ms"], box_tick["work"]
+    err[k] = max_err(errs["mhe_tick_box_err"])
+    more[k] = {"shape": {"T": box_tick["T"], "B": B_MAIN, "N": N_WIN},
+               "kernel_only_ms": box_tick["kernel_only_ms"], "ms_runs": 1,
+               "ms_how": "the constrained main path's counted run (v), around the wrapper",
+               "f32_first_nonfinite_tick": box_tick["t_bad"],
+               "admm_iters_mean": float(box_tick["iters"].double().mean()),
+               "y_over_tol": errs["mhe_tick_box_err"].get("y_over_tol")}
+    st_end = mrk.mhe_state_from_kernel(box_tick["ks_end"], cb32)
+    window = lambda st: (*(a.contiguous() for a in mhe_lanes._masked_system(cb32, st)),
+                         cb32.x_lb, cb32.x_ub, cb32.admm)
+    box = admm_work_settings(cb32)
+    # the rows' errors: the production settings' cases (fixed rho, polish);
+    # the adaptive-rho cases' unconverged iterates are held to their own
+    # limit (F4) and printed in kernels_legged
+    for key, st, kw, n_states, cases in (
+            ("admm_solve", stb32, {}, 1, ("fixed_rho_20_warm", "fixed_rho_valid")),
+            ("admm_box_solve", st_end, dict(z0=st_end.z_adm.contiguous(),
+                                            y0=st_end.y_adm.contiguous()), None,
+             ("fixed_rho_20_warm",))):
+        k, args = names[key], window(st)
+        run = lambda: admm_kernel.solve_box_lanes(*args, device=DEV, **kw)
+        iters = run().iters.cpu().numpy()
+        ms[k] = timed(run)
+        plain_ms[k] = timed(lambda: admm_kernel.solve_box_lanes_plain(*args, **kw), reps=1)
+        works[k] = _work.admm(N_WIN, s, B_MAIN, 4, iters, *box, n_states=n_states)
+        err[k] = max(max_err(errs["admm_err"][case]) for case in cases)
+        more[k] = {"shape": {"B": B_MAIN, "N": N_WIN, "window": "tick 0: one real slot"
+                             if n_states == 1 else f"tick {box_tick['T'] - 1} of (v): 20 real slots"},
+                   "ms_how": "one whole-window solve through admm_solve, float32, best of 3"}
+    more[names["admm_box_solve"]]["note"] = (
+        "device function inside mhe_tick_box and admm_solve: launches counts those two "
+        "kernels' launches in (v)")
+    launches = {names["mhe_tick"]: counts["mhe_tick"], names["tridiag_solve"]: counts["tridiag_solve"],
+                names["mhe_tick_box"]: box_counts["mhe_tick_box"],
+                names["admm_solve"]: box_counts["admm_solve"],
+                names["admm_box_solve"]: box_counts["admm_box_solve"]}
+    src = "decentralized_ekf_mhe_tpu_torch/csrc/"
+    tpu = "decentralized_ekf_mhe_tpu/pallas/"
+    meta = {names["mhe_tick"]: (src + "mhe_body.cuh", tpu + "mhe_replay_kernel.py:917"),
+            names["mhe_tick_box"]: (src + "mhe_body.cuh",
+                                    tpu + "mhe_replay_kernel.py:917 (admm_ks set)"),
+            names["tridiag_solve"]: (src + "tridiag.cu", tpu + "tridiag_kernel.py:213"),
+            names["admm_solve"]: (src + "admm.cu", tpu + "admm_kernel.py:75"),
+            names["admm_box_solve"]: (src + "admm_group.cuh", tpu + "admm_core.py:133")}
+    shape = {"model": model, "max_abs_err_shape": {"T": T_CHK, "B": B_CHK},
+             "plain_ms_shape": {"T": Tp, "B": B_MAIN, "N": N_WIN}, "plain_ms_dtype": "float32"}
+    emit("go1feet_rows", T_plain=Tp, B=B_MAIN, ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    return kernel_rows(meta, works, launches, err, ms, plain_ms,
+                       **{k: dict(shape, **more.get(k, {})) for k in meta})
+
+
+def go1feet_clock_rows(fleet32, gt_v, errs):
+    """The rows of go1feet's K2b, K2c-PI, K2d and K2d-PI: each through the
+    MHE-only lanes runner at full width (B=1024), counted and timed in one run
+    (the kernel alone, CUDA events) over the first T_GO1FEET_CLOCKS ticks — K2d
+    on (u)'s fleet with DEM_MK_SOLVE=chol, K2b and K2d-PI on the 15-clock
+    fleet of seed 0 (``make_clock_fleet``, every 64th lane VO-free), K2c-PI on
+    its first T_GO1FEET_PI_BOX ticks with the box: launches, the lanes with a camera finite and within the RMSE gate
+    (fault F5: a VO-free lane's float32 first non-finite tick is printed),
+    the box; the bounds from each run's inputs, the plain versions' float32 ms
+    over the first T_GO1FEET_PLAIN ticks of the same inputs, max_abs_err from
+    the small-size float64 checks (``errs``)."""
+    model = "go1feet"
+    p, pb = robot_params(model)[0], box_params(model=model)
+    gate = RMSE_GATE[model]
+    T_c = T_GO1FEET_CLOCKS
+    _, *clocks = make_clock_fleet(T_c, B_MAIN, F32, seed=0, model=model)
+    Tp = T_GO1FEET_PLAIN
+    runs = (("mhe_tick_pi", clocks, "gj", None, T_c),
+            ("mhe_tick_pi_chol", clocks, "chol", None, T_c),
+            ("mhe_tick_chol", fleet32, "chol", None, T_c),
+            ("mhe_tick_pi_box", clocks, "gj", box_consts(pb, F32, V_BOX, 20), T_GO1FEET_PI_BOX))
+    small = {"mhe_tick_pi": errs["pi"]["mhe_tick_pi_err"],
+             "mhe_tick_pi_box": errs["pi"]["mhe_tick_pi_box_err"],
+             "mhe_tick_chol": errs["chol"]["mhe_tick_chol"],
+             "mhe_tick_pi_chol": errs["chol"]["mhe_tick_pi_chol"]}
+    rows, res = [], {}
+    for key, fleet, tail, consts, T in runs:
+        name = f"{key}[go1feet]"
+        data_b, _, vo = head(fleet, T)
+        with mk_solve_env(tail):
+            run = batch.make_lanes_fleet_runner(p, F32, use_megakernel=True, consts=consts,
+                                                device=DEV)
+            reset_counts()
+            mrk.timer.on = True
+            with tick_calls() as calls:
+                (x, _), wall = wall_ms(lambda: run(data_b, vo))
+            mrk.timer.on = False
+            alone = min(mrk.timer.ms())
+            counts = read_counts()
+        want = dict(NO_LAUNCH, **({"admm_solve": 1, "admm_box_solve": 2} if consts is not None
+                                  else {"tridiag_solve": 1}), **{key: 1})
+        assert counts == want, (name, counts)
+        c, ks, d, v, i = calls[0]["args"]
+        per_lane = vo.active.ndim == 2
+        cam, t_bad = split_vo_free(x, vo) if per_lane else (slice(None), first_nonfinite(x))
+        assert per_lane or t_bad is None, (name, "float32 estimate not finite from tick", t_bad)
+        rmse = fleet_rmse(x, gt_v[:T], lanes=cam)
+        assert rmse < gate, (name, "velocity RMSE vs ground truth", rmse)
+        vmax = None
+        iters = calls[0]["out"][1].iters
+        if consts is not None:
+            vmax = float(x[:, cam, 3:6].abs().max())
+            assert V_BOX - 1e-2 <= vmax <= V_BOX + 1e-3, (name, "velocity box", vmax)
+        work = roofline.tick_work(c, ks, d, v, 4, tail=tail, iters=iters)
+        cut = (estimator.TickData(*(a[:Tp - 1].contiguous() for a in d)),
+               estimator.VOData(*(a[:Tp - 1] for a in v)), i[:Tp - 1].contiguous())
+        _, plain = wall_ms(lambda: mrk.replay_ticks_plain(c._replace(use_pallas=False), ks, *cut))
+        del calls, x, d, v, i, cut
+        res[name] = {"T": T, "wall_s": wall / 1e3, "kernel_only_ms": alone, "rmse": rmse,
+                     "launches": counts, "f32_first_nonfinite_tick_vo_free": t_bad,
+                     "max_abs_v": vmax, "plain_ms": plain}
+        src = ("decentralized_ekf_mhe_tpu_torch/csrc/mhe_body.cuh",
+               "decentralized_ekf_mhe_tpu/pallas/mhe_replay_kernel.py:917 ("
+               + ", ".join(w for w, on in (("per_instance=True", per_lane),
+                                            ("mk_solve='chol'", tail == "chol"),
+                                            ("admm_ks set", consts is not None)) if on) + ")")
+        rows += kernel_rows({name: src}, {name: work}, {name: counts[key]},
+                            {name: max_err(small[key])}, {name: alone}, {name: plain},
+                            **{name: {"model": model, "shape": {"T": T, "B": B_MAIN, "N": N_WIN},
+                                      "ms_how": "the kernel alone (CUDA events), the counted "
+                                                "run of make_lanes_fleet_runner",
+                                      "path": ("DEM_MK_SOLVE=chol, " if tail == "chol" else "")
+                                      + ("15 camera clocks" if per_lane else "(u)'s fleet")
+                                      + (", the box" if consts is not None else ""),
+                                      "rmse_vs_ground_truth": rmse,
+                                      "max_abs_err_shape": {"T": T_CHK, "B": B_CHK},
+                                      "plain_ms_shape": {"T": Tp, "B": B_MAIN, "N": N_WIN},
+                                      "plain_ms_dtype": "float32"}})
+    emit("go1feet_clocks", B=B_MAIN, clocks=N_CLOCKS, rmse_gate=gate, **res)
+    return rows
 
 
 # ------------------------------------------- the facade group (ops/facade.py)
@@ -3896,7 +4275,8 @@ def facade_group():
         native._TRIED = False
     assert native.available(), "the native runtime library (native/build.sh) did not build"
     reset_counts()
-    hil = run_hil.stream(log, p, EKFParams(), HIL_BLOCK, F32, DEV, use_native=True)
+    hil = run_hil.stream(log, p, EKFParams(), HIL_BLOCK, F32, DEV, use_native=True,
+                         use_pallas=True)
     hil_counts = read_counts()
     n_hil = hil["x"].shape[0]
     assert hil["feeder"] == "native BlockFeeder"
@@ -4020,10 +4400,14 @@ def main():
     kernels += pi_chol_cell("go1", clocks64, clocks32, gt_v)
     del clocks64, clocks32
     done("go1_per_lane_clocks")
-    # PogoX, then Cassie (whose s=15 libraries compile longest)
-    for model in LEGGED:
-        kernels += legged_phases(model, builds, kernels, abl_fleets)
-        done(model)
+    # PogoX, then Go1 with its foot positions as states (s=21, a warp per
+    # instance), then Cassie (whose s=15 libraries compile longest)
+    kernels += legged_phases("pogox", builds, kernels, abl_fleets)
+    done("pogox")
+    kernels += go1feet_phases(builds, kernels)
+    done("go1feet")
+    kernels += legged_phases("cassie", builds, kernels, abl_fleets)
+    done("cassie")
     # cell (s): every unit of the stage ablation at each shape, once its
     # libraries are built
     for model, fleet in abl_fleets.items():
@@ -4031,8 +4415,7 @@ def main():
         kernels += ablation_phase(model, fleet)
         done(f"{model}_ablation")
     pool.shutdown()
-    box_geometry_phase()
-    mark_window_solve(kernels)
+    mark_window_solve(kernels, box_geometry_phase())
     mark_tick_group(kernels, tick_geometry_phase())
     mark_solve_group(kernels, solve_geometry_phase(), per_tick)
     row = next(k for k in kernels if k["name"] == "ekf_stage")

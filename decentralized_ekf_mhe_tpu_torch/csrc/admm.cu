@@ -1,5 +1,5 @@
-// admm_solve — one whole box-ADMM solve per launch, a group of BOX_G = 16
-// threads per instance.
+// admm_solve — one whole box-ADMM solve per launch, a group of
+// group_size<S>() threads per instance (16 below s=16, a warp from s=16).
 //
 // Replaces the TPU kernel pallas/admm_kernel.py::_make_kernel (reached through
 // solve_box_lanes -> _solve_padded). The body is admm_solve_group of
@@ -21,8 +21,9 @@
 // The ragged edge (B not a multiple of the block's instances) is masked here;
 // there is no padding.
 //
-// The state size is a template parameter: s=9 (Go1, PogoX) and s=15 (Cassie).
-// This file is compiled once per size (-DDEM_ADMM_S=<s>, both element types)
+// The state size is a template parameter: s=9 (Go1, PogoX), s=15 (Cassie)
+// and s=21 (Go1 with its foot positions as states; U_j from global memory, as
+// at s=15). This file is compiled once per size (-DDEM_ADMM_S=<s>, both element types)
 // into a library of its own, libadmm_s<s>.so (kernels/_build.py), built at
 // the first solve of that size.
 #include "admm_group.cuh"
@@ -32,23 +33,25 @@ namespace dem {
 template <typename T, int S>
 __global__ void admm_kernel(const T* D, const T* U, const T* r, const T* lb, const T* ub,
                             T* x, T* z, T* y, int* iters, AdmmSettings<T> a, int N, int B) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   admm_solve_group<T, S>(D, U, r, lb, ub, x, z, y, iters, a, N, B, b);
 }
 
 // ptrs: D, U, r, lb, ub, x, z, y, iters. `block` threads per block, a
-// multiple of BOX_G; box_shared_bytes of dynamic shared memory. Returns the
+// multiple of group_size<S>(); box_shared_bytes of dynamic shared memory. Returns the
 // error of a launch the card refuses (box_launch_shape), else
 // cudaGetLastError().
 template <typename T, int S>
 int admm_launch(void* const* ptrs, const int* ints, const double* reals, int N, int B,
                 int block, void* stream) {
+  constexpr int G = group_size<S>();
   const auto kern = &admm_kernel<T, S>;
   size_t shmem = 0;
-  const int err = box_launch_shape(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
+  const int err = box_launch_shape<G>(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
   if (err) return err;
-  const int ipb = block / BOX_G;
+  const int ipb = block / G;
   kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(
       (const T*)ptrs[0], (const T*)ptrs[1], (const T*)ptrs[2], (const T*)ptrs[3],
       (const T*)ptrs[4], (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
@@ -79,9 +82,11 @@ extern "C" int dem_admm_solve(int is_double, int S, void* const* ptrs, int nptrs
 extern "C" int dem_admm_geometry(int is_double, int S, int N, int block, int* out) {
   if (S != DEM_ADMM_S || N < 1) return -1;
   out[6] = dem::box_u_shared<DEM_ADMM_S>() ? 1 : 0;
+  constexpr int G = dem::group_size<DEM_ADMM_S>();
   if (is_double)
-    return dem::group_geometry(&dem::admm_kernel<double, DEM_ADMM_S>,
-                               dem::box_shared_bytes<double, DEM_ADMM_S>(N, block), block, out);
-  return dem::group_geometry(&dem::admm_kernel<float, DEM_ADMM_S>,
-                             dem::box_shared_bytes<float, DEM_ADMM_S>(N, block), block, out);
+    return dem::group_geometry<G>(&dem::admm_kernel<double, DEM_ADMM_S>,
+                                  dem::box_shared_bytes<double, DEM_ADMM_S>(N, block), block,
+                                  out);
+  return dem::group_geometry<G>(&dem::admm_kernel<float, DEM_ADMM_S>,
+                                dem::box_shared_bytes<float, DEM_ADMM_S>(N, block), block, out);
 }

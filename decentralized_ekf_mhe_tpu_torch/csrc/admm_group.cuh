@@ -1,5 +1,6 @@
 // admm_box_solve_group — the box-ADMM window solve, run by a group of
-// BOX_G = 16 threads per instance: in the constrained MHE tick and in K4.
+// group_size<S>() threads per instance (16 below s=16, a warp from s=16 to
+// 31): in the constrained MHE tick and in K4.
 //
 // Replaces, inside the constrained tick (csrc/mhe_body.cuh, CON), the TPU
 // kernel's whole-window solve: pallas/mhe_replay_kernel.py:787-800 calling
@@ -30,8 +31,9 @@
 // What the group does about it. Lane i (< s) owns row i of every s x s block
 // and element i of every vector: a product is s dependent multiply-adds per
 // lane, s lanes at once; a vector that a product reads whole goes through
-// shared memory between two __syncwarp of the group's 16 lanes (two groups
-// per warp, so B=1024 is 512 warps over all SMs). Lanes >= s sit out of the
+// shared memory between two __syncwarp of the group's lanes (below s=16 16
+// lanes, two groups per warp, so B=1024 is 512 warps over all SMs; from s=16
+// a whole warp per instance, group_size). Lanes >= s sit out of the
 // arithmetic and take part in the syncs and reductions. The Gauss-Jordan
 // inverse runs row-parallel: at step i the pivot row is published, lane k
 // divides its element k of it, and every lane updates its own row. The
@@ -52,9 +54,12 @@
 //
 // Shared memory per instance, in scalars (N slots): Sinv N s^2, U (N-1) s^2
 // in layout (b), x, z, y, the forward-sweep vectors and r 5 N s, and 6 s of
-// broadcast buffers; padded to 64 mod 128 bytes, so that the two groups of a
-// warp touch different banks (BoxLayout::stride; kernels/mhe_replay_kernel.py's
-// box_geometry computes the same bytes).
+// broadcast buffers; padded to 64 mod 128 bytes on groups of 16, so that the
+// two groups of a warp touch different banks, and to 16 bytes on a warp per
+// instance, where a warp holds one instance (group_stride;
+// kernels/_group.py's box_geometry computes the same bytes). At s=21 (Go1
+// with its foot positions as states) U_j comes from global memory, layout
+// (a), as at s=15.
 #pragma once
 
 #include "admm.cuh"
@@ -63,12 +68,41 @@
 
 namespace dem {
 
-constexpr int BOX_G = 16;   // threads per instance of the constrained tick
+// Threads per instance of a group at state size S: 16 below s=16 (lane r owns
+// row r, and a spare lane s is left for the tails that need one), two
+// instances per warp; a whole warp from s=16 to s=31. Every body below takes
+// the group size from S, so an instantiation below s=16 compiles as it did
+// when 16 was the only size.
+template <int S>
+DEM_HHD constexpr int group_size() {
+  static_assert(S >= 1 && S < 32, "a group runs at most 31 states");
+  return S < 16 ? 16 : 32;
+}
 
-// this thread's row in its group (lanes 0-15 and 16-31 of a warp), and its
-// group's instance within the block
-DEM_HD int box_lane() { return (int)threadIdx.x % BOX_G; }
-DEM_HD int box_slot() { return (int)threadIdx.x / BOX_G; }
+// this thread's row in its group of G lanes (lanes 0-15 and 16-31 of a warp,
+// or the whole warp), its group's instance within the block, and the lanes of
+// the warp that its group's syncs and shuffles name
+template <int G>
+DEM_HD int box_lane() { return (int)threadIdx.x % G; }
+template <int G>
+DEM_HD int box_slot() { return (int)threadIdx.x / G; }
+template <int G>
+DEM_HD unsigned group_mask() {
+  if constexpr (G == 32) return 0xffffffffu;
+  else return ((int)threadIdx.x % 32) < G ? 0x0000ffffu : 0xffff0000u;
+}
+
+// Scalars from one instance's shared memory to the next, for `scalars` of
+// them: on groups of 16 padded to 16 mod 32 four-byte words, so that the two
+// groups of a warp touch different banks; on a warp per instance rounded up
+// to 16 bytes (a warp holds one instance: there is nothing to separate)
+template <typename T, int G>
+DEM_HHD constexpr int group_stride(int scalars) {
+  constexpr int wpe = (int)sizeof(T) / 4;
+  const int words = scalars * wpe;
+  if constexpr (G == 32) return (words + 3) / 4 * 4 / wpe;
+  else return (words + (48 - words % 32) % 32) / wpe;
+}
 
 // U in shared memory (layout (b)) or read from global memory (layout (a))
 template <int S>
@@ -85,12 +119,8 @@ struct BoxLayout {
   DEM_HHD static int ys(int N) { return y(N) + N * S; }
   DEM_HHD static int r(int N) { return ys(N) + N * S; }
   DEM_HHD static int buf(int N) { return r(N) + N * S; }   // 6 S: vb, xb, pivot row, divided row
-  // scalars from one instance to the next: padded to 16 mod 32 four-byte words
-  DEM_HHD static int stride(int N) {
-    constexpr int wpe = (int)sizeof(T) / 4;
-    const int words = (buf(N) + 6 * S) * wpe;
-    return (words + (48 - words % 32) % 32) / wpe;
-  }
+  // scalars from one instance to the next (group_stride)
+  DEM_HHD static int stride(int N) { return group_stride<T, group_size<S>()>(buf(N) + 6 * S); }
 };
 
 extern __shared__ __align__(16) unsigned char dem_box_smem[];
@@ -107,22 +137,24 @@ struct BoxGroup {
 
 template <typename T, int S, bool USH>
 DEM_HD BoxGroup<T> box_group(int N, int B, int b) {
+  constexpr int G = group_size<S>();
   BoxGroup<T> g;
-  g.ln = box_lane();
-  g.mask = ((int)threadIdx.x % 32) < BOX_G ? 0x0000ffffu : 0xffff0000u;
+  g.ln = box_lane<G>();
+  g.mask = group_mask<G>();
   g.sm = reinterpret_cast<T*>(dem_box_smem) +
-         (size_t)box_slot() * BoxLayout<T, S, USH>::stride(N);
+         (size_t)box_slot<G>() * BoxLayout<T, S, USH>::stride(N);
   g.N = N; g.B = B; g.b = b;
   return g;
 }
 
-// the largest of the group's values, NaN if any lane's is (tmax keeps a NaN,
-// as the one-thread fold amax does; each lane's value is a fold of amax from
-// +0, so on values without NaN the order of the comparisons does not matter)
-template <typename T>
+// the largest of the G lanes' values, NaN if any lane's is (tmax keeps a
+// NaN, as the one-thread fold amax does; each lane's value is a fold of amax
+// from +0, so on values without NaN the order of the comparisons does not
+// matter)
+template <int G, typename T>
 DEM_HD T group_max(T v, unsigned mask) {
   DEM_UNROLL
-  for (int o = BOX_G / 2; o > 0; o >>= 1) v = tmax(v, __shfl_xor_sync(mask, v, o, BOX_G));
+  for (int o = G / 2; o > 0; o >>= 1) v = tmax(v, __shfl_xor_sync(mask, v, o, G));
   return v;
 }
 
@@ -366,9 +398,10 @@ DEM_HD void epoch_end_group(const BoxGroup<T>& g, const T* D, const BoxU<T, S, U
       mTx = amax(mTx, o); my = amax(my, yj); mr = amax(mr, rj);
     }
   }
-  prim = group_max(prim, g.mask); dual = group_max(dual, g.mask);
-  mx = group_max(mx, g.mask); mz = group_max(mz, g.mask);
-  mTx = group_max(mTx, g.mask); my = group_max(my, g.mask); mr = group_max(mr, g.mask);
+  constexpr int G = group_size<S>();
+  prim = group_max<G>(prim, g.mask); dual = group_max<G>(dual, g.mask);
+  mx = group_max<G>(mx, g.mask); mz = group_max<G>(mz, g.mask);
+  mTx = group_max<G>(mTx, g.mask); my = group_max<G>(my, g.mask); mr = group_max<G>(mr, g.mask);
   const T ps = tmax(mx, mz);
   const T ds = tmax(tmax(mTx, my), mr);
   if (a.check && prim <= a.abs_tol + a.rel_tol * ps && dual <= a.abs_tol + a.rel_tol * ds)
@@ -562,22 +595,23 @@ DEM_HD void admm_solve_group(const T* D, const T* U, const T* r, const T* lb, co
 }
 
 // The dynamic shared memory of a launch of `block` threads that runs the
-// solve above, the constrained tick's or K4's (csrc/admm.cu): block / BOX_G
-// instances of BoxLayout::stride scalars (kernels/_group.py's box_geometry
-// computes the same bytes).
+// solve above, the constrained tick's or K4's (csrc/admm.cu): block /
+// group_size instances of BoxLayout::stride scalars (kernels/_group.py's
+// box_geometry computes the same bytes).
 template <typename T, int S>
 DEM_HHD size_t box_shared_bytes(int N, int block) {
-  return (size_t)(block / BOX_G) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) * sizeof(T);
+  return (size_t)(block / group_size<S>()) * BoxLayout<T, S, box_u_shared<S>()>::stride(N) *
+         sizeof(T);
 }
 
 #ifdef __CUDACC__
 
-// Check a group launch's shape and allow its dynamic shared memory:
-// 0, or the error of what the card refuses (cleared, so that it does not
-// surface at a later launch). *shmem = the bytes to launch with.
-template <typename K>
+// Check a launch's shape, G threads per instance, and allow its dynamic
+// shared memory: 0, or the error of what the card refuses (cleared, so that
+// it does not surface at a later launch). *shmem = the bytes to launch with.
+template <int G, typename K>
 int box_launch_shape(K kern, size_t bytes, int block, size_t* shmem) {
-  if (block < BOX_G || block > 1024 || block % BOX_G) return (int)cudaErrorInvalidValue;
+  if (block < G || block > 1024 || block % G) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) {
@@ -588,15 +622,15 @@ int box_launch_shape(K kern, size_t bytes, int block, size_t* shmem) {
   return 0;
 }
 
-// The geometry of a launch of `block` threads, BOX_G per instance, with
-// `bytes` of dynamic shared memory: out[0..5] = instances per block, threads
-// per block, dynamic shared bytes, blocks resident per SM
+// The geometry of a launch of `block` threads, G per instance, with `bytes`
+// of dynamic shared memory: out[0..5] = instances per block, threads per
+// block, dynamic shared bytes, blocks resident per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
 // local bytes per thread. Returns 0 or the CUDA error.
-template <typename K>
+template <int G, typename K>
 int group_geometry(K kern, size_t bytes, int block, int* out) {
   size_t shmem = 0;
-  int err = box_launch_shape(kern, bytes, block, &shmem);
+  int err = box_launch_shape<G>(kern, bytes, block, &shmem);
   if (err) return err;
   int per_sm = 0;
   cudaFuncAttributes fa;
@@ -606,7 +640,7 @@ int group_geometry(K kern, size_t bytes, int block, int* out) {
     cudaGetLastError();
     return (int)e;
   }
-  out[0] = block / BOX_G; out[1] = block; out[2] = (int)shmem; out[3] = per_sm;
+  out[0] = block / G; out[1] = block; out[2] = (int)shmem; out[3] = per_sm;
   out[4] = fa.numRegs; out[5] = (int)fa.localSizeBytes;
   return 0;
 }

@@ -1,9 +1,10 @@
 // mhe_tick — the whole MHE replay loop, one thread per instance (the
-// constrained tick's prelude; the unconstrained tick runs a group of 16, see
+// constrained tick's prelude; the unconstrained tick runs a group, see
 // below): the kernel bodies, included by csrc/mhe.cu, which compiles each
 // instantiation in a translation unit of its own (see there). The model shape
 // (s, m, L and the leg-odometry form LOT) is a template parameter: Go1 (9, 12,
-// 4, 0), Cassie (15, 6, 2, 1: foot positions as states) and PogoX (9, 3, 1, 0).
+// 4, 0), Cassie (15, 6, 2, 1: foot positions as states), PogoX (9, 3, 1, 0)
+// and Go1 with its foot positions as states (21, 12, 4, 1).
 //
 // Replaces the TPU kernel pallas/mhe_replay_kernel.py::_make_kernel (reached
 // through replay -> _replay_chunk), with the shared camera clock or a clock per
@@ -63,8 +64,9 @@
 // two more ring-indexed state tensors: the fresh slot copies the previous
 // newest iterate before the solve, and the solve updates them through the
 // ring. Per tick it also writes the iterations each instance ran.
-// The constrained kernels run a group of BOX_G = 16 threads per instance
-// (csrc/admm_group.cuh), two instances per warp: lane 0 of the group runs
+// The constrained kernels run a group of group_size<S>() threads per instance
+// (csrc/admm_group.cuh; 16 below s=16, two instances per warp, and a whole
+// warp per instance from s=16): lane 0 of the group runs
 // everything above with the statements of the one-thread tick, the other lanes
 // wait at the group's __syncwarp, and then the whole group runs the window
 // solve, admm_box_solve_group, with the factorization chain, the iterates and
@@ -90,8 +92,9 @@
 // per-slot working set (seven 15 x 15 matrices, 6.3 KB in float32) to local
 // memory; at s=9 it ran on registers but as one serial chain of s x s products
 // per instance; at either size on 32 of the 132 SMs at B=1024 (three quarters
-// of Go1's tick the sweep's inverse chain, PERF.md §5). The group runs BOX_G =
-// 16 threads per instance, two instances per warp: lane r (< s) owns row r of
+// of Go1's tick the sweep's inverse chain, PERF.md §5). The group runs
+// group_size<S>() threads per instance — 16 below s=16, two instances per
+// warp; at s=21 a warp, one instance — lane r (< s) owns row r of
 // every s x s block and element r of every vector, so a product is s dependent
 // multiply-adds per lane on s lanes at once; a matrix or vector that a product
 // reads whole goes through the instance's shared memory (TickLayout) between
@@ -477,17 +480,17 @@ DEM_HD void chol_step(int j, T* D_j, const T* r_j, const T* U_prev, T* Lc, T* rd
   chol<S>(D_j, Lc, rd);
 }
 
-// ---- the unconstrained Gauss-Jordan tick on a group of BOX_G threads per
-// instance (GRP; see the note at the top). Lane r (< S) owns row r of every
+// ---- the unconstrained Gauss-Jordan tick on a group of group_size<S>()
+// threads per instance (GRP; see the note at the top). Lane r (< S) owns row r of every
 // s x s block and element r of every vector; lanes >= S take part in the
 // syncs and in gj_inv_rows only.
 
 // One instance's shared memory in the group tick, in scalars: A_meas and
 // P_cam (copied once per launch), five matrix buffers, four vector buffers
 // and gj_inv_rows' pivot buffers (kept apart from the products' buffers);
-// padded as BoxLayout pads, so that the two groups of a warp touch different
-// banks. What each buffer holds in each stage: marg_group, shift_group,
-// sweep_group.
+// padded as BoxLayout pads (group_stride). At s=21, m=12: 2,688 scalars, 21.5
+// KB in float64. What each buffer holds in each stage: marg_group,
+// shift_group, sweep_group.
 template <typename T, int S, int M>
 struct TickLayout {
   static constexpr int SS = S * S;
@@ -500,19 +503,16 @@ struct TickLayout {
   static constexpr int PIV = VEC + 4 * V;
   DEM_HHD static constexpr int mat(int k) { return MAT + k * MX; }
   DEM_HHD static constexpr int vec(int k) { return VEC + k * V; }
-  DEM_HHD static constexpr int stride() {
-    constexpr int wpe = (int)sizeof(T) / 4;
-    constexpr int words = (PIV + 4 * S) * wpe;
-    return (words + (48 - words % 32) % 32) / wpe;
-  }
+  DEM_HHD static constexpr int stride() { return group_stride<T, group_size<S>()>(PIV + 4 * S); }
 };
 
 template <typename T, int S, int M>
 DEM_HD BoxGroup<T> tick_group_of(int N, int B, int b) {
+  constexpr int G = group_size<S>();
   BoxGroup<T> g;
-  g.ln = box_lane();
-  g.mask = ((int)threadIdx.x % 32) < BOX_G ? 0x0000ffffu : 0xffff0000u;
-  g.sm = reinterpret_cast<T*>(dem_box_smem) + (size_t)box_slot() * TickLayout<T, S, M>::stride();
+  g.ln = box_lane<G>();
+  g.mask = group_mask<G>();
+  g.sm = reinterpret_cast<T*>(dem_box_smem) + (size_t)box_slot<G>() * TickLayout<T, S, M>::stride();
   g.N = N; g.B = B; g.b = b;
   return g;
 }
@@ -638,7 +638,7 @@ DEM_HD void shift_group(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c
   constexpr int SS = S * S, MM = M * M;
   constexpr bool LEGS = LOT == 0;      // a lane per leg
   constexpr int DYN = LEGS ? L : 0;    // the lane of the dynamics and the stores
-  static_assert(!LEGS || (M == 3 * L && L < BOX_G), "three measurement rows per leg");
+  static_assert(!LEGS || (M == 3 * L && L < group_size<S>()), "three measurement rows per leg");
   const int ln = g.ln, B = g.B, b = g.b;
   const T* H = g.sm + Lay::H;
   T *sA = g.sm + Lay::mat(0), *sQ = g.sm + Lay::mat(1), *sR = g.sm + Lay::mat(2);
@@ -806,7 +806,7 @@ DEM_HD void chol_rows(const T* A, T* Lp, T* rd, int ln, unsigned mask) {
 // U_prev from the next slot's writes.
 template <typename T, int S, int M>
 DEM_HD void chol_slot_group(const BoxGroup<T>& g, int j, T* D, T r, const T* Up) {
-  static_assert(S < BOX_G, "the spare lane S solves for z");
+  static_assert(S < group_size<S>(), "the spare lane S solves for z");
   using Lay = TickLayout<T, S, M>;
   const int ln = g.ln;
   T* Lp = g.sm + Lay::mat(3);
@@ -1011,7 +1011,8 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
   // VO ingestion, the group the rest of the tick. Otherwise every thread
   // leads.
   constexpr bool USH = box_u_shared<S>();
-  const bool lead = !(CON || GRP) || box_lane() == 0;
+  constexpr int G = group_size<S>();
+  const bool lead = !(CON || GRP) || box_lane<G>() == 0;
   BoxGroup<T> grp{};
   T lbi = T(0), ubi = T(0);
   if constexpr (CON) {
@@ -1024,8 +1025,8 @@ DEM_HD void mhe_body(const MhePtrs<T>& p, const MheConstsFor<T, S, M, LOT>& c,
   if constexpr (GRP) {   // the group's copy of the constant blocks
     using Lay = TickLayout<T, S, M>;
     grp = tick_group_of<T, S, M>(N, B, b);
-    for (int e = grp.ln; e < M * S; e += BOX_G) grp.sm[Lay::H + e] = c.H[e];
-    for (int e = grp.ln; e < 3 * S; e += BOX_G) grp.sm[Lay::PC + e] = c.Pc[e];
+    for (int e = grp.ln; e < M * S; e += G) grp.sm[Lay::H + e] = c.H[e];
+    for (int e = grp.ln; e < 3 * S; e += G) grp.sm[Lay::PC + e] = c.Pc[e];
   }
 
   // private copy of the Bezier schedule: fleet-global, or this lane's own
@@ -1486,12 +1487,13 @@ MheConstsFor<T, S, M, LOT> mhe_consts(const double* consts) {
 // (tests/box_group_host/tick_harness.cpp) stops here.
 #ifdef __CUDACC__
 
-// The unconstrained ticks on either clock, with either tail: BOX_G threads
-// per instance, a group beyond the fleet leaving whole.
+// The unconstrained ticks on either clock, with either tail: group_size<S>()
+// threads per instance, a group beyond the fleet leaving whole.
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                            int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, false, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
@@ -1499,8 +1501,9 @@ __global__ void mhe_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, in
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                int N, int B, int Tn, int t0) {
-  // BOX_G threads per instance; a group beyond the fleet leaves whole
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  // group_size<S>() threads per instance; a group beyond the fleet leaves whole
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, true, false>(p, c, &q, N, B, Tn, t0, b);
 }
@@ -1508,7 +1511,8 @@ __global__ void mhe_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBo
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                               int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, true, false, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
@@ -1516,8 +1520,9 @@ __global__ void mhe_pi_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N,
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                   int N, int B, int Tn, int t0) {
-  // BOX_G threads per instance; a group beyond the fleet leaves whole
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  // group_size<S>() threads per instance; a group beyond the fleet leaves whole
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, true, true>(p, c, &q, N, B, Tn, t0, b);
 }
@@ -1525,7 +1530,8 @@ __global__ void mhe_pi_box_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, Mh
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                 int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, false, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
                                                                 b);
@@ -1534,7 +1540,8 @@ __global__ void mhe_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int 
 template <typename T, int S, int M, int L, int LOT>
 __global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                    int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, true, true, ABL_NONE, true>(p, c, nullptr, N, B, Tn, t0,
                                                                b);
@@ -1545,7 +1552,8 @@ __global__ void mhe_pi_chol_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, i
 template <typename T, int S, int M, int L, int LOT, int ABL>
 __global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, false, false, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
@@ -1554,7 +1562,8 @@ __global__ void mhe_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N
 template <typename T, int S, int M, int L, int LOT, int ABL>
 __global__ void mhe_pi_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                   int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, true, false, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
@@ -1563,7 +1572,8 @@ __global__ void mhe_pi_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, in
 template <typename T, int S, int M, int L, int LOT, bool PI, int ABL>
 __global__ void mhe_chol_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, int N, int B,
                                     int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, false, PI, true, ABL, true>(p, c, nullptr, N, B, Tn, t0, b);
 }
@@ -1572,17 +1582,18 @@ __global__ void mhe_chol_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, 
 template <typename T, int S, int M, int L, int LOT, bool PI, int ABL>
 __global__ void mhe_box_abl_kernel(MhePtrs<T> p, MheConstsFor<T, S, M, LOT> c, MheBox<T> q,
                                    int N, int B, int Tn, int t0) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   mhe_body<T, S, M, L, LOT, true, PI, false, ABL>(p, c, &q, N, B, Tn, t0, b);
 }
 
-// ... and of the unconstrained group tick: block / BOX_G
+// ... and of the unconstrained group tick: block / group_size<S>()
 // instances of TickLayout::stride scalars (mhe_replay_kernel.py's
 // tick_geometry computes the same bytes)
 template <typename T, int S, int M>
 DEM_HHD size_t tick_shared_bytes(int block) {
-  return (size_t)(block / BOX_G) * TickLayout<T, S, M>::stride() * sizeof(T);
+  return (size_t)(block / group_size<S>()) * TickLayout<T, S, M>::stride() * sizeof(T);
 }
 
 // the constrained kernel of a clock, or with stage ABL skipped
@@ -1609,8 +1620,8 @@ auto mhe_tick_entry() {
 // dem_mhe_geometry), out[6] = U in shared memory (1) or not (0)
 template <typename T, int S, int M, int L, int LOT, bool PI>
 int mhe_box_geometry(int N, int block, int* out) {
-  const int err = group_geometry(mhe_box_entry<T, S, M, L, LOT, PI>(),
-                                 box_shared_bytes<T, S>(N, block), block, out);
+  const int err = group_geometry<group_size<S>()>(mhe_box_entry<T, S, M, L, LOT, PI>(),
+                                                  box_shared_bytes<T, S>(N, block), block, out);
   if (!err) out[6] = box_u_shared<S>() ? 1 : 0;
   return err;
 }
@@ -1619,8 +1630,8 @@ int mhe_box_geometry(int N, int block, int* out) {
 // 0).
 template <typename T, int S, int M, int L, int LOT, bool PI, bool CHOL>
 int mhe_tick_geometry(int block, int* out) {
-  const int err = group_geometry(mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>(),
-                                 tick_shared_bytes<T, S, M>(block), block, out);
+  const int err = group_geometry<group_size<S>()>(mhe_tick_entry<T, S, M, L, LOT, PI, CHOL>(),
+                                                  tick_shared_bytes<T, S, M>(block), block, out);
   if (!err) out[6] = 0;
   return err;
 }
@@ -1634,7 +1645,8 @@ int mhe_tick_geometry(int block, int* out) {
 // Q_foot_swing (9 each), gravity[3], Q_foot_slide[9] (read for LOT == 1).
 // box_ptrs (CON; else unused): lb, ub, z_adm, y_adm, iters, then
 // the scratch Dw, Uw, rw; ints/reals as admm_settings reads them. The
-// constrained kernels take `block` threads per block, a multiple of BOX_G,
+// constrained kernels take `block` threads per block, a multiple of
+// group_size<S>(),
 // and box_shared_bytes of dynamic shared memory, the unconstrained ones,
 // ablated or not, likewise with tick_shared_bytes; the
 // error of a launch the card refuses (too many threads, too much shared
@@ -1648,12 +1660,13 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
   const MheConstsFor<T, S, M, LOT> c = mhe_consts<T, S, M, LOT>(consts);
   static_assert(!CHOL || !CON, "the Cholesky tail runs unconstrained");
   static_assert(!CON || ABL != ABL_SOLVE, "the constrained tick has no solve stage to ablate");
+  constexpr int G = group_size<S>();
   if constexpr (!CON) {
     const auto kern = mhe_tick_entry<T, S, M, L, LOT, PI, CHOL, ABL>();
     size_t shmem = 0;
-    const int err = box_launch_shape(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
+    const int err = box_launch_shape<G>(kern, tick_shared_bytes<T, S, M>(block), block, &shmem);
     if (err) return err;
-    const int ipb = block / BOX_G;
+    const int ipb = block / G;
     kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, N, B, Tn, t0);
   } else {
     MheBox<T> bx;
@@ -1669,9 +1682,9 @@ int mhe_launch(void* const* ptrs, const double* consts, void* const* box_ptrs,
     bx.admm = admm_settings<T>(ints, reals);
     const auto kern = mhe_box_entry<T, S, M, L, LOT, PI, ABL>();
     size_t shmem = 0;
-    const int err = box_launch_shape(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
+    const int err = box_launch_shape<G>(kern, box_shared_bytes<T, S>(N, block), block, &shmem);
     if (err) return err;
-    const int ipb = block / BOX_G;
+    const int ipb = block / G;
     kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(p, c, bx, N, B, Tn, t0);
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-// tridiag_solve — batched SPD block-tridiagonal solve, a group of BOX_G = 16
-// threads per instance, in either layout of the operands.
+// tridiag_solve — batched SPD block-tridiagonal solve, a group of
+// group_size<S>() threads per instance (16 below s=16, a warp from s=16), in
+// either layout of the operands.
 //
 // Replaces the TPU kernel pallas/tridiag_kernel.py::_kernel, reached through
 // solve_lanes (the lanes layout: D (N,s,s,B), U (N-1,s,s,B), r (N,s,B), x
@@ -26,8 +27,9 @@
 // §6, and a second path was not worth that one case). The ragged edge (B not a multiple of the
 // block's instances) is masked here; there is no padding.
 //
-// The state size is a template parameter: s=9 (Go1, PogoX) and s=15
-// (Cassie). This file is compiled once per size (-DDEM_TRIDIAG_S=<s>, both
+// The state size is a template parameter: s=9 (Go1, PogoX), s=15 (Cassie)
+// and s=21 (Go1 with its foot positions as states, a warp per instance). This
+// file is compiled once per size (-DDEM_TRIDIAG_S=<s>, both
 // element types) into a library of its own, libtridiag_s<s>.so
 // (kernels/_build.py), built at the first solve of that size.
 #include "tridiag.cuh"
@@ -36,7 +38,8 @@ namespace dem {
 
 template <typename T, int S>
 __global__ void tridiag_kernel(const T* D, const T* U, const T* r, T* x, int N, int B) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   tridiag_solve_group<T, S>(TriLanes<T, S>{D, U, r, x, B, b}, N);
 }
@@ -44,7 +47,8 @@ __global__ void tridiag_kernel(const T* D, const T* U, const T* r, T* x, int N, 
 template <typename T, int S>
 __global__ void tridiag_std_kernel(const T* D, const T* U, const T* r, const bool* valid,
                                    TriStrides st, T* x, int N, int B) {
-  const int b = blockIdx.x * (blockDim.x / BOX_G) + box_slot();
+  constexpr int G = group_size<S>();
+  const int b = blockIdx.x * (blockDim.x / G) + box_slot<G>();
   if (b >= B) return;
   tridiag_solve_group<T, S>(TriStd<T, S>{D, U, r, valid, x, st, B, b}, N);
 }
@@ -54,20 +58,21 @@ template <typename T, int S>
 int tridiag_run(bool std_layout, const void* D, const void* U, const void* r,
                 const void* valid, const TriStrides& st, void* x, int N, int B, int block,
                 void* stream, int* geometry) {
+  constexpr int G = group_size<S>();
   const size_t bytes = tri_shared_bytes<T, S>(N, block);
-  const int ipb = block / BOX_G;
+  const int ipb = block / G;
   size_t shmem = 0;
   if (std_layout) {
     const auto kern = &tridiag_std_kernel<T, S>;
-    if (geometry) return group_geometry(kern, bytes, block, geometry);
-    const int err = box_launch_shape(kern, bytes, block, &shmem);
+    if (geometry) return group_geometry<G>(kern, bytes, block, geometry);
+    const int err = box_launch_shape<G>(kern, bytes, block, &shmem);
     if (err) return err;
     kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(
         (const T*)D, (const T*)U, (const T*)r, (const bool*)valid, st, (T*)x, N, B);
   } else {
     const auto kern = &tridiag_kernel<T, S>;
-    if (geometry) return group_geometry(kern, bytes, block, geometry);
-    const int err = box_launch_shape(kern, bytes, block, &shmem);
+    if (geometry) return group_geometry<G>(kern, bytes, block, geometry);
+    const int err = box_launch_shape<G>(kern, bytes, block, &shmem);
     if (err) return err;
     kern<<<(B + ipb - 1) / ipb, block, shmem, (cudaStream_t)stream>>>(
         (const T*)D, (const T*)U, (const T*)r, (T*)x, N, B);
@@ -81,7 +86,7 @@ int tridiag_run(bool std_layout, const void* D, const void* U, const void* r,
 // the standard layout with the (K,B) bool mask `valid` (null: every slot
 // live) and `strides`, the thirteen of TriStrides in order (D's four, U's
 // four, r's three, valid's two). `block` threads per block, a multiple of
-// BOX_G. Returns the error of a launch the card refuses, else
+// group_size<S>(). Returns the error of a launch the card refuses, else
 // cudaGetLastError(); -1 for a state size this library does not instantiate.
 extern "C" int dem_tridiag_solve(int is_double, int S, int std_layout, const void* D,
                                  const void* U, const void* r, const void* valid,

@@ -1,5 +1,6 @@
 // The batched SPD block-tridiagonal solve (K5): the group body that
-// csrc/tridiag.cu launches, on BOX_G = 16 threads per instance, and the
+// csrc/tridiag.cu launches, on group_size<S>() threads per instance (16
+// below s=16, a warp from s=16: admm_group.cuh), and the
 // one-thread body tridiag_body, which no kernel launches any more and the
 // host harness (tests/box_group_host/harness.cpp) holds the group against.
 //
@@ -28,7 +29,7 @@
 // Where the data lives: everything in shared memory (TriLayout). The
 // factorization chain S_j^{-1} (N s^2 per instance) is read back only by the
 // lane that wrote each row; W_j = S_{j-1}^{-1} U_{j-1}, the current U block
-// (staged with the mask applied, each lane loading every 16th element), the
+// (staged with the mask applied, each lane loading every G-th element), the
 // forward vectors y_j (N s) and the broadcast buffers are shared by the group.
 // A lane holds slot j's operands in registers, loaded a slot ahead.
 #pragma once
@@ -148,8 +149,9 @@ struct TriStd {
 // offsets of one instance's shared memory, in scalars (N slots): the chain
 // N s^2, W s^2, the staged U block s^2, y N s, and 6 s of
 // broadcast buffers (the product vector, x_{j+1}, the pivot row and its
-// division); padded to 16 mod 32 four-byte words as BoxLayout is
-// (kernels/_group.py's tridiag_geometry computes the same bytes)
+// division); padded as BoxLayout is (group_stride; kernels/_group.py's
+// tridiag_geometry computes the same bytes). At s=21 that is 10,248 scalars,
+// 82 KB in float64: two instances fit a block.
 template <typename T, int S>
 struct TriLayout {
   static constexpr int SS = S * S;
@@ -157,29 +159,27 @@ struct TriLayout {
   DEM_HHD static int u(int N) { return w(N) + SS; }
   DEM_HHD static int ys(int N) { return u(N) + SS; }
   DEM_HHD static int buf(int N) { return ys(N) + N * S; }
-  DEM_HHD static int stride(int N) {
-    constexpr int wpe = (int)sizeof(T) / 4;
-    const int words = (buf(N) + 6 * S) * wpe;
-    return (words + (48 - words % 32) % 32) / wpe;
-  }
+  DEM_HHD static int stride(int N) { return group_stride<T, group_size<S>()>(buf(N) + 6 * S); }
 };
 
 // the dynamic shared memory of a launch of `block` threads
 template <typename T, int S>
 DEM_HHD size_t tri_shared_bytes(int N, int block) {
-  return (size_t)(block / BOX_G) * TriLayout<T, S>::stride(N) * sizeof(T);
+  return (size_t)(block / group_size<S>()) * TriLayout<T, S>::stride(N) * sizeof(T);
 }
 
 // elements of an s x s block per lane when the group stages it
 template <int S>
-DEM_HHD constexpr int tri_per_lane() { return (S * S + BOX_G - 1) / BOX_G; }
+DEM_HHD constexpr int tri_per_lane() {
+  return (S * S + group_size<S>() - 1) / group_size<S>();
+}
 
-// this lane's elements ln, ln + 16, ... of U_j into registers u
+// this lane's elements ln, ln + G, ... of U_j into registers u
 template <typename T, int S, typename L>
 DEM_HD void tri_fetch_u(const L& io, int j, int ln, T* u) {
   DEM_UNROLL
   for (int q = 0; q < tri_per_lane<S>(); ++q) {
-    const int e = ln + q * BOX_G;
+    const int e = ln + q * group_size<S>();
     if (e < S * S) u[q] = io.u(j, e / S, e % S);
   }
 }
@@ -189,7 +189,7 @@ template <typename T, int S>
 DEM_HD void tri_stage_u(const T* u, T* Ub, int ln) {
   DEM_UNROLL
   for (int q = 0; q < tri_per_lane<S>(); ++q) {
-    const int e = ln + q * BOX_G;
+    const int e = ln + q * group_size<S>();
     if (e < S * S) Ub[e] = u[q];
   }
 }
@@ -202,9 +202,10 @@ DEM_HD void tri_stage_u(const T* u, T* Ub, int ln) {
 template <typename T, int S, typename L>
 DEM_HD void tridiag_solve_group(const L& io, int N) {
   using Lay = TriLayout<T, S>;
-  const int ln = box_lane();
-  const unsigned mask = ((int)threadIdx.x % 32) < BOX_G ? 0x0000ffffu : 0xffff0000u;
-  T* sm = reinterpret_cast<T*>(dem_box_smem) + (size_t)box_slot() * Lay::stride(N);
+  constexpr int G = group_size<S>();
+  const int ln = box_lane<G>();
+  const unsigned mask = group_mask<G>();
+  T* sm = reinterpret_cast<T*>(dem_box_smem) + (size_t)box_slot<G>() * Lay::stride(N);
   // row `row` of S_j^{-1}
   auto C = [sm](int j, int row, int col) -> T& { return sm[j * S * S + row * S + col]; };
   T* W = sm + Lay::w(N);

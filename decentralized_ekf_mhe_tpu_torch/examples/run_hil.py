@@ -17,14 +17,20 @@ MHE tick, whose window solve is one launch of the block-tridiagonal kernel at
 B=1 (``use_pallas=True``; the box-ADMM kernel with a box).
 
 Run:  python -m decentralized_ekf_mhe_tpu_torch.examples.run_hil
-          [--ticks 2000] [--block 20] [--no-native] [--cpu]
+          [--ticks 2000] [--block 20] [--no-native] [--bench] [--cpu]
 
 Prints the sustained per-tick latency series (p50/p99) of the FULL EKF+MHE
 cycle against the reference's 5 ms budget, plus a tick-at-a-time comparison
 (``DecentralizedEstimator``, the standard layout, one call per tick). The
 fence after each block is a host read of its result. The estimator is the
-reference bench's Go1 configuration (``tools/roofline.bench_params``, N=20)
-with the default ``EKFParams``.
+one the reference's ``examples/run_hil.py`` streams: ``hil_params`` (Go1,
+four legs, the velocity form, N=20, the swing noise 1e7, every other standard
+deviation at its default) with the default ``EKFParams``, its window solves in
+plain PyTorch as the reference runs them there without Pallas. ``--bench``
+streams the reference bench's Go1
+configuration (``tools/roofline.bench_params``) with every window solve a
+launch of the hand-written kernel (``use_pallas=True``), the cycle whose
+latency ``chip_smoke.py`` measures.
 """
 
 from __future__ import annotations
@@ -118,9 +124,19 @@ class NumpyFeeder:
         return out, n
 
 
-def stream(log, params, ekf_params, block, dtype, device, use_native=True):
-    """Stream ``log`` through a ``PipelineEstimator(use_pallas=True)`` in
-    blocks of ``block`` ticks fed by the native ``BlockFeeder``
+def hil_params():
+    """The estimator of the reference's ``examples/run_hil.py``: Go1 with
+    four legs in the velocity form at 200 Hz, N=20, the swing noise 1e7, the
+    other standard deviations at their defaults."""
+    from decentralized_ekf_mhe_tpu_torch.config import EstimatorParams
+
+    return EstimatorParams(num_legs=4, leg_odom_type=0, rate=200, N=20,
+                           foot_swing_std=[1e7] * 3)
+
+
+def stream(log, params, ekf_params, block, dtype, device, use_native=True, use_pallas=True):
+    """Stream ``log`` through a ``PipelineEstimator(use_pallas=use_pallas)``
+    in blocks of ``block`` ticks fed by the native ``BlockFeeder``
     (``use_native``) or the numpy feeder: tick 0 initializes, then
     (T-1)//block blocks run, the first one untimed. Each block's latency runs from fetching it to a host read of its
     result. Returns {"x", "v", "q": tensors of every tick streamed (tick 0
@@ -139,7 +155,8 @@ def stream(log, params, ekf_params, block, dtype, device, use_native=True):
     feeder = (native.BlockFeeder(rows[1:], block) if use_native
               else NumpyFeeder(rows[1:], block))
 
-    est = PipelineEstimator(params, ekf_params, dtype=dtype, use_pallas=True, device=device)
+    est = PipelineEstimator(params, ekf_params, dtype=dtype, use_pallas=use_pallas,
+                            device=device)
     est.initialize(eb.gyro[0], eb.accel[0], eb.valid[0], log.accel_b[0], log.omega_b[0],
                    log.p_foot[0], log.J_foot[0], log.dq[0], log.contact[0],
                    ekf_vo_active=eb.vo_active[0], ekf_vo_q=eb.vo_q[0],
@@ -188,6 +205,8 @@ def main(argv=None):
                     help="ticks per block (0.1 s at 200 Hz)")
     ap.add_argument("--no-native", action="store_true",
                     help="use the numpy feeder even if the C++ lib is built")
+    ap.add_argument("--bench", action="store_true",
+                    help="the reference bench's Go1 estimator, its window solves on the kernel")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
 
@@ -200,13 +219,16 @@ def main(argv=None):
 
     device = "cpu" if args.cpu else "cuda"
     where = "cpu" if args.cpu else torch.cuda.get_device_name(0)
-    p = bench_params()
+    p = bench_params() if args.bench else hil_params()
     log = synth.generate(synth.SynthConfig(T=args.ticks, seed=0))
     use_native = native.available() and not args.no_native
     print(f"streaming {args.ticks} FULL EKF+MHE cycles in blocks of "
           f"{args.block} via {'native BlockFeeder' if use_native else 'numpy feeder'} "
-          f"on {where}", file=sys.stderr)
-    out = stream(log, p, EKFParams(), args.block, torch.float32, device, use_native)
+          f"on {where} ({'the bench' if args.bench else 'the reference example'}'s "
+          "estimator)",
+          file=sys.stderr)
+    out = stream(log, p, EKFParams(), args.block, torch.float32, device, use_native,
+                 use_pallas=args.bench)
     lat_ms = out["latency_ms"]
     done = out["x"].shape[0]
     print(f"sustained per-tick latency over {done} FULL cycles (EKF "

@@ -12,7 +12,8 @@ and each model shape of ``MHE_SHAPES`` has one library per variant group of
 tail on either clock; and the stage ablation, a library per variant and type,
 ``libmhe_go1_abl_f32.so`` and ``_f64``, ``_abl_pi_*``, ``_abl_chol_*``,
 ``_abl_pi_chol_*``, ``_abl_box_*`` and ``_abl_pi_box_*`` (``MHE_ABL_GROUPS``);
-likewise ``cassie`` and ``pogox``), so a fleet builds only what it launches;
+likewise ``cassie`` and ``pogox``, and ``go1feet`` without the stage ablation,
+``ABL_SHAPES``), so a fleet builds only what it launches;
 likewise ``csrc/tridiag.cu`` and
 ``csrc/admm.cu`` are one library per state size (``libtridiag_s9.so``,
 ``libadmm_s15.so``, ...). ``load`` builds a library at its first use, all its
@@ -46,11 +47,14 @@ NVCC_FLAGS = [
 
 # The model shapes the MHE tick is instantiated for: tag -> (s, m, L,
 # leg_odom_type). Go1 (the fleet of the reference's bench), Cassie (foot
-# positions as states) and PogoX (one leg).
+# positions as states), PogoX (one leg) and Go1 with its foot positions as
+# states (s = 9 + 3 L = 21: a warp per instance, csrc/admm_group.cuh's
+# group_size).
 MHE_SHAPES = {
     "go1": (9, 12, 4, 0),
     "cassie": (15, 6, 2, 1),
     "pogox": (9, 3, 1, 0),
+    "go1feet": (21, 12, 4, 1),
 }
 # The tick's variant groups, one library each per shape (mhe_<tag>,
 # mhe_<tag>_pi, mhe_<tag>_chol): group -> the (per-lane clock, constrained,
@@ -73,6 +77,9 @@ MHE_GROUPS = {
 # (TAIL_FREE_STAGES); the constrained tick has no solve stage (its window
 # solve is the ADMM, which the reference's stage sum never reaches).
 ABLATE_STAGES = ("ingest", "marg", "build", "assembly", "solve")
+# the shapes whose stage ablation is built; at s=21 it is still to port
+# (ROADMAP.md §2, "K2e at s=21")
+ABL_SHAPES = ("go1", "cassie", "pogox")
 TAIL_FREE_STAGES = ("assembly", "solve")
 MHE_ABL_GROUPS = {
     "abl": ((0, 0, 0), ABLATE_STAGES),
@@ -90,7 +97,7 @@ def _unroll(S):
     return ("-DDEM_MAX_UNROLL=256",) if S > 12 else ()
 
 
-SOLVE_SIZES = (9, 15)   # state sizes of the tridiagonal solve and the box-ADMM
+SOLVE_SIZES = (9, 15, 21)   # state sizes of the tridiagonal solve and the box-ADMM
 
 
 def solve_library(source, S):
@@ -162,7 +169,7 @@ UNITS = {
     **{mhe_library(*shape, group): _mhe_units(tag, group)
        for tag, shape in MHE_SHAPES.items() for group in MHE_GROUPS},
     **{f"mhe_{tag}_{group}_{typ}": _mhe_abl_units(tag, group, typ)
-       for tag in MHE_SHAPES for group in MHE_ABL_GROUPS for typ in REALS},
+       for tag in ABL_SHAPES for group in MHE_ABL_GROUPS for typ in REALS},
     **{f"admm_s{S}": (("admm", (f"-DDEM_ADMM_S={S}",) + _unroll(S)),) for S in SOLVE_SIZES},
 }
 LIBRARIES = tuple(UNITS)

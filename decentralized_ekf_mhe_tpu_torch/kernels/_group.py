@@ -1,11 +1,14 @@
 """The launch geometry of the kernels that run a group of threads per instance.
 
-The constrained MHE tick (``mhe_replay_kernel``), the whole-window box-ADMM
+The MHE tick (``mhe_replay_kernel``), the whole-window box-ADMM
 (``admm_kernel``, K4) and the block-tridiagonal solve (``tridiag_kernel``, K5)
-each run ``BOX_G`` = 16 threads per instance: ``block // BOX_G`` instances per
+each run ``group_size(s)`` threads per instance — 16 below s=16 (two
+instances per warp), a whole warp of 32 from s=16 to s=31 (Go1 with its foot
+positions as states, s=21) — so ``block // group_size(s)`` instances per
 block, each with its own slice of the block's dynamic shared memory, whose
 size the CUDA side computes from the same layout (``BoxLayout::stride`` of
-``csrc/admm_group.cuh``, ``TriLayout::stride`` of ``csrc/tridiag.cuh``). The
+``csrc/admm_group.cuh``, ``TriLayout::stride`` of ``csrc/tridiag.cuh``,
+``TickLayout::stride`` of ``csrc/mhe_body.cuh``). The
 orientation-EKF stage (``ekf_kernel``, K1) runs ``EKF_G`` = 4 threads per
 instance, one warp per block, with the history ring per instance and the
 staged input stream per block in shared memory (``EkfDims`` of
@@ -20,11 +23,27 @@ import functools
 from typing import NamedTuple
 
 
-BOX_G = 16          # threads per instance (csrc/admm_group.cuh's BOX_G)
-# threads per block unless the caller names ``block``: eight instances, the
-# fastest of 2, 4, 5 and 8 at Go1's and Cassie's shapes in float32 in the sweep
-# of tools/roofline.py --box-layouts on the card (PERF.md §5), or as many as
-# fit a block's shared memory where eight do not (float64)
+# the largest state size a group runs: a warp's 32 lanes, lane r row r
+MAX_GROUP_STATES = 31
+
+
+def group_size(s):
+    """Threads per instance of the group kernels at state size ``s``, as
+    ``group_size<S>()`` of ``csrc/admm_group.cuh`` decides: 16 below s=16, 32
+    (a warp) from s=16 to s=31. Raises ``ValueError`` for s >= 32, which no
+    group runs."""
+    if not 1 <= s <= MAX_GROUP_STATES:
+        raise ValueError(f"s={s}: a group of threads per instance runs 1..{MAX_GROUP_STATES} "
+                         "states (lane r owns row r of a warp)")
+    return 16 if s < 16 else 32
+
+
+# threads per block unless the caller names ``block``: eight instances of 16
+# threads, the fastest of 2, 4, 5 and 8 at Go1's and Cassie's shapes in
+# float32 in the sweep of tools/roofline.py --box-layouts on the card (PERF.md
+# §5), or as many as fit a block's shared memory where eight do not (float64);
+# on a warp per instance the same eight instances, 256 threads, as far as
+# they fit
 BLOCK_BOX = 128
 # what one block may use of an SM's shared memory, and what an SM has for its
 # blocks, each of which reserves 1 KB more (H100: 227 KB and 228 KB)
@@ -39,30 +58,35 @@ def check_block(block):
     return block
 
 
-def instance_bytes(scalars, dtype):
+def instance_bytes(scalars, dtype, G=16):
     """Bytes of one instance's shared memory of ``scalars`` elements of
-    ``dtype``, padded to 16 mod 32 four-byte words (so that the two groups of
-    a warp use different banks)."""
+    ``dtype`` on a group of ``G`` threads (``group_stride`` of
+    ``csrc/admm_group.cuh``): padded to 16 mod 32 four-byte words on a group
+    of 16 (so that the two groups of a warp use different banks), rounded up
+    to 16 bytes on a warp per instance."""
     words = scalars * dtype.itemsize // 4
+    if G == 32:
+        return -(-words // 4) * 16
     return (words + (16 - words % 32) % 32) * 4
 
 
-def group_launch(scalars, dtype, block, what, default=BLOCK_BOX):
+def group_launch(scalars, dtype, block, what, default=BLOCK_BOX, G=16):
     """(instances per block, threads per block, shared bytes of a block,
     instances per SM as far as shared memory, threads and blocks allow) of a
-    launch of ``block`` threads (None: ``default``, capped to the instances
-    whose shared memory fits a block), ``BOX_G`` per instance, each instance
-    with ``scalars`` of shared memory (``instance_bytes``). Raises
-    ``ValueError`` for a block that is no multiple of ``BOX_G`` in 16..1024 or
-    whose shared memory exceeds what a block may use."""
-    one = instance_bytes(scalars, dtype)
+    launch of ``block`` threads (None: the instances of ``default`` threads of
+    groups of 16, capped to the instances whose shared memory fits a block),
+    ``G`` per instance, each instance with
+    ``scalars`` of shared memory (``instance_bytes``). Raises ``ValueError``
+    for a block that is no multiple of ``G`` in G..1024 or whose shared memory
+    exceeds what a block may use."""
+    one = instance_bytes(scalars, dtype, G)
     if block is None:
-        block = min(default, BOX_G * (SHARED_PER_BLOCK // one))
+        block = G * min(default // 16, SHARED_PER_BLOCK // one)
     block = check_block(block)
-    if block % BOX_G or block < BOX_G:
+    if block % G or block < G:
         raise ValueError(f"block: {block} threads per block is not a multiple of "
-                         f"{BOX_G}, the {what}'s threads per instance")
-    ipb = block // BOX_G
+                         f"{G}, the {what}'s threads per instance")
+    ipb = block // G
     shared = ipb * one
     if shared > SHARED_PER_BLOCK:
         raise ValueError(
@@ -89,7 +113,7 @@ def card_figures(out, last=None):
 def box_u_shared(s):
     """Whether the box-ADMM keeps U_j in shared memory (layout (b)) at state
     size s, as ``csrc/admm_group.cuh``'s ``box_u_shared`` decides: at s=9; at
-    s=15 it reads U_j from global memory (layout (a))."""
+    s=15 and s=21 it reads U_j from global memory (layout (a))."""
     return s <= 9
 
 
@@ -116,17 +140,17 @@ def box_geometry(s, dtype, block=None, N=20, what="constrained tick"):
     tick's window solve, or K4 ``admm_solve``) at state size ``s``, element
     type ``dtype``, ``block`` threads per block (default ``BLOCK_BOX``,
     capped to the instances whose shared memory fits a block) and ``N``
-    slots: ``BOX_G`` threads per instance, so ``block // BOX_G`` instances per
-    block, each with ``box_shared_scalars`` padded to 16 mod 32 four-byte
-    words (``BoxLayout::stride``); U_j sits in shared memory where
-    ``box_u_shared(s)``. Raises ``ValueError`` when ``block`` is not a
-    multiple of ``BOX_G`` in 16..1024, when s > ``BOX_G``, or when the block's
-    shared memory exceeds what a block may use (232,448 bytes)."""
-    if s > BOX_G:
-        raise ValueError(f"s={s}: the {what} runs at most {BOX_G} states")
+    slots: ``group_size(s)`` threads per instance, so ``block //
+    group_size(s)`` instances per block, each with ``box_shared_scalars``
+    padded as ``instance_bytes`` pads (``BoxLayout::stride``); U_j sits in
+    shared memory where ``box_u_shared(s)``. Raises ``ValueError`` when
+    ``block`` is not a multiple of the group in G..1024, for s >= 32
+    (``group_size``), or when the block's shared memory exceeds what a block
+    may use (232,448 bytes)."""
+    G = group_size(s)
     u_shared = box_u_shared(s)
     ipb, block, shared, per_sm = group_launch(
-        box_shared_scalars(s, N, u_shared), dtype, block, f"{what} (s={s}, N={N})")
+        box_shared_scalars(s, N, u_shared), dtype, block, f"{what} (s={s}, N={N})", G=G)
     return BoxGeometry(ipb, block, shared, u_shared, per_sm)
 
 
@@ -152,10 +176,9 @@ def tridiag_geometry(s, dtype, block=None, N=20):
     size ``s``, element type ``dtype``, ``block`` threads per block (default
     ``BLOCK_BOX``, capped to the instances whose shared memory fits a block)
     and ``N`` slots. Raises ``ValueError`` as ``box_geometry`` does."""
-    if s > BOX_G:
-        raise ValueError(f"s={s}: the tridiagonal solve runs at most {BOX_G} states")
     ipb, block, shared, per_sm = group_launch(
-        tridiag_shared_scalars(s, N), dtype, block, f"tridiagonal solve (s={s}, N={N})")
+        tridiag_shared_scalars(s, N), dtype, block, f"tridiagonal solve (s={s}, N={N})",
+        G=group_size(s))
     return TridiagGeometry(ipb, block, shared, per_sm)
 
 

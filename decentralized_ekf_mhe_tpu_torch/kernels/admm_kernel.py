@@ -5,8 +5,8 @@ Replaces the reference's TPU kernel ``pallas/admm_kernel.py``
 ``csrc/admm.cu``, whose body is ``admm_solve_group`` of
 ``csrc/admm_group.cuh``: the constrained ``mhe_tick`` kernel's window solve
 (``admm_box_solve_group``, the port of ``pallas/admm_core.py::admm_box_solve``)
-with its warm starts read in slot order. A group of ``BOX_G`` = 16 CUDA threads
-per instance runs the ρ-epoch factorizations, the α-relaxed projection
+with its warm starts read in slot order. A group of ``_group.group_size(s)``
+CUDA threads per instance (16 below s=16, a warp from s=16) runs the ρ-epoch factorizations, the α-relaxed projection
 iterations, the converged-freeze, the adaptive-ρ updates and the active-set
 polish on operands in the instance-minor lanes layout; lane i owns row i of
 every block.
@@ -25,9 +25,9 @@ TPU wrapper's pad to a lane tile does not carry over: the ragged edge is
 masked in the kernel.
 
 ADMM settings are runtime values, so every budget shares one binary; only the
-state size is a template parameter: s=9 (Go1, PogoX) and s=15 (Cassie, whose
-foot-position states usually carry ±inf bounds: they pass the clip unchanged
-and the polish never pins them).
+state size is a template parameter: s=9 (Go1, PogoX), s=15 (Cassie) and s=21
+(Go1 with its foot positions as states; the foot-position states usually carry
+±inf bounds: they pass the clip unchanged and the polish never pins them).
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
 launches = 0     # incremented where the CUDA kernel is launched, nowhere else
 # launches of any kernel that runs the box-ADMM solve (K3, admm_box_solve_group
-# of csrc/admm_group.cuh on 16 threads per instance): this module's admm_solve
-# and the constrained mhe_tick (kernels/mhe_replay_kernel)
+# of csrc/admm_group.cuh on a group of threads per instance): this module's
+# admm_solve and the constrained mhe_tick (kernels/mhe_replay_kernel)
 launches_core = 0
 timer = _build.KernelTimer()   # times the kernel call alone
 

@@ -2,8 +2,9 @@
 
 Replaces the reference's TPU mega-kernel ``pallas/mhe_replay_kernel.py``
 (``replay`` → ``_replay_chunk`` → ``_make_kernel``) with ``csrc/mhe_body.cuh``
-(C entry points in ``csrc/mhe.cu``): one CUDA thread, or a group of 16, per
-instance loops over the ticks handed to it, each tick being VO ingestion +
+(C entry points in ``csrc/mhe.cu``): a group of CUDA threads per instance
+(16 below s=16, a warp of 32 at s=21: ``group_size``) loops over the ticks
+handed to it, each tick being VO ingestion +
 Bezier carry, arrival-cost marginalization, ring shift + assembly of the two
 changed slots, the incremental ``Dslot/Ub/routb`` cache update, and the masked
 normal equations with a streaming forward block-Thomas sweep.
@@ -17,8 +18,9 @@ window state per instance stay in global memory in the instance-minor layout
 slot. What bounds it: operations, and in practice the serial dependency chain
 of one instance with B/32 warps in flight (and at s=15 the s×s temporaries
 spilling to local memory). So the unconstrained tick, with either tail at
-every shape (``tick_group``), runs ``BOX_G`` = 16 threads per instance
-instead: lane 0 ingests the VO, the 3×3 blocks of the two changed slots are
+every shape (``tick_group``), runs ``group_size(s)`` threads per instance
+instead (16 below s=16; from s=16 a whole warp, since lane r owns row r and
+the Cholesky tail needs a spare lane s): lane 0 ingests the VO, the 3×3 blocks of the two changed slots are
 built on lane 0 or (the velocity form: Go1, PogoX) one lane per leg, the group
 the marginalization, the shift with its cache update and the streaming sweep, each
 lane a row of every s×s block (with the Cholesky tail: a column of L⁻¹U_prev,
@@ -32,7 +34,7 @@ of the same kernel runs (the TPU kernel with ``admm_ks`` set): the assembly
 loop writes the whole masked window system to per-launch scratch in global
 memory instead of streaming the Thomas sweep, the box-ADMM solves it, and the
 warm-start iterates ``z_adm``/``y_adm`` ride two more ring-indexed state
-tensors. That kernel runs ``BOX_G`` = 16 threads per instance
+tensors. That kernel runs ``group_size(s)`` threads per instance
 (``csrc/admm_group.cuh``): lane 0 of each group runs the tick's one-thread
 statements up to the assembled system, then the group solves the window with
 the factorization chain, the iterates and the sweep vectors in shared memory
@@ -62,12 +64,13 @@ the ADMM.
 Every model shape the reference runs has its own instantiations, in one
 library per variant group, each built at its first use (``_build.MHE_SHAPES``,
 ``_build.MHE_GROUPS``): Go1 (s=9, m=12, L=4, leg_odom_type=0), Cassie (15, 6,
-2, 1: foot positions as states) and PogoX (9, 3, 1, 0), each with the shared
-camera clock, a clock per lane, and the Cholesky tail on either clock.
+2, 1: foot positions as states), PogoX (9, 3, 1, 0) and Go1 with its foot
+positions as states ("go1feet", 21, 12, 4, 1), each with the shared camera
+clock, a clock per lane, and the Cholesky tail on either clock.
 
 The stage ablation (``ablate=``, the TPU kernel's ``ablate``; a timing
-diagnostic that ``tools/roofline.py --ablate`` drives) runs the tick with one
-stage skipped — "ingest", "marg", "build", "assembly" or "solve"
+diagnostic that ``tools/roofline.py --ablate`` drives; at Go1's, Cassie's and
+PogoX's shapes, ``_build.ABL_SHAPES``) runs the tick with one stage skipped — "ingest", "marg", "build", "assembly" or "solve"
 (``csrc/mhe_body.cuh``, ``ABL``) — so that the time it saves is that stage's
 share; its output is wrong by construction. It composes with everything the
 tick does, as the TPU kernel's does: every shape, either clock, either tail,
@@ -100,13 +103,14 @@ from decentralized_ekf_mhe_tpu_torch.kernels.admm_kernel import ADMMCoreStatic
 from decentralized_ekf_mhe_tpu_torch.ops import admm, bezier, lanes, mhe_lanes
 from decentralized_ekf_mhe_tpu_torch.utils.precision import resolve_device
 
-# the constrained tick's group (BOX_G threads per instance), its default
-# block and what a block and an SM may hold of shared memory: kernels/_group.py
-BOX_G, BLOCK_BOX = _group.BOX_G, _group.BLOCK_BOX
+# the groups' threads per instance at a state size, the constrained tick's
+# default block and what a block and an SM may hold of shared memory:
+# kernels/_group.py
+group_size, BLOCK_BOX = _group.group_size, _group.BLOCK_BOX
 SHARED_PER_BLOCK, SHARED_PER_SM = _group.SHARED_PER_BLOCK, _group.SHARED_PER_SM
-# the unconstrained tick where ``tick_group`` holds (the Gauss-Jordan tail at
-# every shape, the Cholesky tail above s=9) runs BOX_G threads per instance
-# too; its threads per block unless the caller names ``block``
+# the unconstrained tick runs group_size(s) threads per instance too; its
+# threads per block unless the caller names ``block``: eight instances of 16
+# (or, on a warp per instance, eight of 32 as far as they fit)
 BLOCK_TICK = 128
 MK_SOLVES = ("gj", "chol")     # the tails of the window solve
 ABLATE_STAGES = _build.ABLATE_STAGES
@@ -210,12 +214,18 @@ def kernel_library(s, m, L, lot, per_lane_clock, chol=False, ablate="", constrai
     kernels ignore the tail), or with stage ``ablate`` skipped (of the
     constrained tick if ``constrained``; a library per type, float64 if
     ``double``); raises ``NotImplementedError`` for a shape outside
-    ``_build.MHE_SHAPES``, which the CUDA build does not instantiate."""
+    ``_build.MHE_SHAPES``, which the CUDA build does not instantiate, and for
+    the stage ablation at a shape outside ``_build.ABL_SHAPES``."""
     lib = _build.mhe_library(s, m, L, lot)
     if lib is None:
         raise NotImplementedError(
             f"mhe_tick: no CUDA instantiation for s={s}, m={m}, L={L}, "
             f"leg_odom_type={lot} (shapes: {sorted(_build.MHE_SHAPES)})")
+    if ablate and lib[len("mhe_"):] not in _build.ABL_SHAPES:
+        raise NotImplementedError(
+            f"mhe_tick ablate={ablate!r}: the stage ablation (K2e) is not built at s={s}, "
+            f"m={m}, L={L}, leg_odom_type={lot} (shapes: {list(_build.ABL_SHAPES)}); see "
+            "ROADMAP.md §2, 'K2e at s=21'")
     if ablate:
         variant = ablate_variant(constrained, per_lane_clock, "chol" if chol else "gj", ablate)
         group = "abl" + ("_" + variant if variant else "")
@@ -235,7 +245,8 @@ def check_ablate(c, ablate, per_lane_clock, mk_solve):
     "solve" stage with box consts, which the reference does not define (its
     constrained loop collects the window for the ADMM before the stage's sum,
     which it then never sets: the TPU kernel fails to trace there);
-    ``NotImplementedError`` for a shape without an instantiation.
+    ``NotImplementedError`` for a shape without an instantiation (the stage
+    ablation at s=21 among them).
     ``ablate=""`` runs the whole tick."""
     if not ablate:
         return
@@ -255,7 +266,7 @@ box_geometry = _group.box_geometry      # the constrained tick's launch
 
 def tick_group(s, mk_solve="gj"):
     """Whether the unconstrained tick with the tail ``mk_solve`` runs a group
-    of ``BOX_G`` threads per instance at state size ``s``: with either tail
+    of ``group_size(s)`` threads per instance at state size ``s``: with either tail
     (and its stage ablation) at every shape; only the constrained tick's
     prelude stays on one thread."""
     check_mk_solve(mk_solve)
@@ -282,15 +293,17 @@ def tick_geometry(s, m, dtype, block=None, mk_solve="gj"):
     """The launch geometry of the unconstrained tick with the tail
     ``mk_solve`` where it runs on a group (``tick_group``) at state size
     ``s``, ``m`` measurements, element type ``dtype`` and ``block`` threads
-    per block (default ``BLOCK_TICK``): ``BOX_G`` threads per instance, so
-    ``block // BOX_G`` instances per block, each with ``tick_shared_scalars``
-    padded to 16 mod 32 four-byte words. Raises ``ValueError`` for a tail
-    that does not exist, for a block that is no multiple of ``BOX_G`` in
-    16..1024, or for more shared memory than a block may use."""
+    per block (default: the instances of ``BLOCK_TICK`` threads of groups of
+    16, as far as they fit a block): ``group_size(s)`` threads per instance,
+    so ``block // group_size(s)`` instances per block, each with
+    ``tick_shared_scalars`` padded as ``_group.instance_bytes`` pads. Raises
+    ``ValueError`` for a tail that does not exist, for a block that is no
+    multiple of the group in G..1024, for s >= 32 (``group_size``), or for
+    more shared memory than a block may use."""
     check_mk_solve(mk_solve)
-    return TickGeometry(*_group.group_launch(tick_shared_scalars(s, m), dtype,
-                                       BLOCK_TICK if block is None else block,
-                                       f"unconstrained tick (s={s}, m={m})"))
+    return TickGeometry(*_group.group_launch(tick_shared_scalars(s, m), dtype, block,
+                                             f"unconstrained tick (s={s}, m={m})",
+                                             BLOCK_TICK, G=group_size(s)))
 
 
 def _occupancy(c, dtype, constrained, per_lane_clock, block, chol=False):
@@ -680,9 +693,9 @@ def replay_ticks(c, ks: KernelState, data_l, vo, vo_inc, device="cuda", nvcc_fla
     or "chol" (see the module docstring); the box kernels do not depend on
     it, nor does the plain version but for the stage ablation. ``ablate``
     skips one stage of the tick (see the module docstring; "" runs it all).
-    ``block`` is the launch's threads per block, a multiple of ``BOX_G``
-    whose shared memory fits (default ``BLOCK_TICK``, with box consts
-    ``BLOCK_BOX``; see ``tick_geometry`` and ``box_geometry``, which raise
+    ``block`` is the launch's threads per block, a multiple of
+    ``group_size(s)`` whose shared memory fits (default ``BLOCK_TICK``, with
+    box consts ``BLOCK_BOX``; see ``tick_geometry`` and ``box_geometry``, which raise
     ``ValueError`` otherwise, on the CPU as on the card); the plain version
     does not depend on it.
     """

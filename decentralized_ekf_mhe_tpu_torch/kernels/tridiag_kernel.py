@@ -2,7 +2,8 @@
 
 Replaces the reference's TPU kernel ``pallas/tridiag_kernel.py``
 (``solve_lanes`` → ``_kernel``) with ``csrc/tridiag.cu``: a group of
-``BOX_G`` = 16 CUDA threads per instance runs the forward block-Thomas sweep
+``_group.group_size(s)`` CUDA threads per instance (16 below s=16, a warp from
+s=16) runs the forward block-Thomas sweep
 with a row-parallel pivot-free Gauss-Jordan inverse per slot and the backward
 sweep, lane i a row of every block (``csrc/tridiag.cuh``). The TPU kernel's
 lane-tile padding does not carry over: the ragged edge is masked in the
@@ -20,7 +21,8 @@ refuses raises with its CUDA error).
 
 On the lanes fleet path this kernel runs once per replay: the tick-0 init
 solve of ``mhe_replay_kernel.replay``. The state size is a template
-parameter: s=9 (Go1, PogoX) and s=15 (Cassie).
+parameter: s=9 (Go1, PogoX), s=15 (Cassie) and s=21 (Go1 with its foot
+positions as states, a warp per instance; ``_build.SOLVE_SIZES``).
 
 ``solve_batched`` is the reference's standard-layout route
 (``pallas/tridiag_kernel.py`` ``solve_batched``): the drop-in for

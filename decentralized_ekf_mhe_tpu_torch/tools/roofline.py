@@ -10,7 +10,8 @@ never reach a tensor core). Operations and bytes come from
 
     python -m decentralized_ekf_mhe_tpu_torch.tools.roofline [--ablate] [--sweep]
         [--trace [--trace-out FILE]] [--constrained-sweep]
-        [--model go1|cassie_bench|pogox_bench] [--rate TICKS_PER_S] [--B 1024] [--T 200]
+        [--model go1|cassie_bench|pogox_bench|go1feet] [--rate TICKS_PER_S] [--B 1024]
+        [--T 200]
         [--device cuda]
 
 Modes (each prints a table to stderr and one JSON line to stdout):
@@ -28,9 +29,9 @@ Modes (each prints a table to stderr and one JSON line to stdout):
 * ``--sweep`` (``sweep``): the kernel's threads per block (32, 64, 128, 256)
   against the fleet size (1024, 4096, 16384) — the port has no chunk to sweep
   (one launch replays the whole log), so the block is its launch knob.
-  The unconstrained tick runs 16 threads per instance, so every block is a
-  multiple of 16. ``--model cassie_bench`` (``pogox_bench``) sweeps Cassie's
-  (PogoX's) tick.
+  The unconstrained tick runs 16 threads per instance (32 at s=21), so every
+  block is a multiple of that. ``--model cassie_bench`` (``pogox_bench``,
+  ``go1feet``) sweeps Cassie's (PogoX's, Go1's with its feet as states) tick.
 * ``--trace`` (``trace_capture``): a ``torch.profiler`` capture of the Go1
   pipeline runner (EKF kernel, K5 at tick 0, the tick kernel): device time by
   kernel, the device's busy and idle share, the host time per launch; where
@@ -45,8 +46,10 @@ The fleet is the reference bench's headline one (``bench.py``'s Go1
 parameters and perturbation: per-lane IMU/encoder noise, per-lane VO
 translation, one shared camera clock), drawn here with an explicit
 ``torch.Generator``; "cassie_bench" is Cassie's shape at the bench's settings
-(two legs, foot positions as states, its log of seed 2, ``bench.py:455-460``)
-and "pogox_bench" PogoX's (one leg, the velocity form, its log of seed 2).
+(two legs, foot positions as states, its log of seed 2, ``bench.py:455-460``),
+"pogox_bench" PogoX's (one leg, the velocity form, its log of seed 2) and
+"go1feet" Go1's estimator with its foot positions as states (four legs, s=21,
+on Go1's log; the stage ablation is not built at that shape).
 Every entry point defaults to ``device="cuda"``; with ``device="cpu"`` the
 wrappers take their plain versions and the times are the host's, which the
 results label as such (control flow only: no device figure comes from a CPU
@@ -91,9 +94,12 @@ def bench_params() -> EstimatorParams:
     )
 
 
-MODELS = ("go1", "cassie_bench", "pogox_bench")
-# the bench's legged shapes (bench.py:455-460): model -> (legs, leg_odom_type)
-LEGGED = {"cassie_bench": (2, 1), "pogox_bench": (1, 0)}
+MODELS = ("go1", "cassie_bench", "pogox_bench", "go1feet")
+# the bench's legged shapes (bench.py:455-460) and Go1 with its foot positions
+# as states (s=21): model -> (legs, leg_odom_type)
+LEGGED = {"cassie_bench": (2, 1), "pogox_bench": (1, 0), "go1feet": (4, 1)}
+# the models on Go1's synthetic log (seed 0); the others run on seed 2's
+GO1_LOG = ("go1", "go1feet")
 
 
 def bench_fleet(B, T, device="cuda", dtype=F32, seed=0, model="go1"):
@@ -102,7 +108,8 @@ def bench_fleet(B, T, device="cuda", dtype=F32, seed=0, model="go1"):
     EKF blocks with per-lane VO quaternions, per-lane VO translation on the
     shared camera clock — from one ``torch.Generator`` seeded with ``seed``;
     ``model="cassie_bench"`` (``"pogox_bench"``): Cassie's (PogoX's) shape at
-    the bench's settings on its own log. Returns (params, data (T,B,...), EKF
+    the bench's settings on its own log; ``"go1feet"``: the bench's Go1 with
+    its foot positions as states on Go1's log. Returns (params, data (T,B,...), EKF
     blocks, VOData)."""
     device = resolve_device(device)
     if model not in MODELS:
@@ -110,7 +117,7 @@ def bench_fleet(B, T, device="cuda", dtype=F32, seed=0, model="go1"):
     p = bench_params()
     if model in LEGGED:
         p.num_legs, p.leg_odom_type = LEGGED[model]
-    log = synth.generate(synth.SynthConfig(T=T, seed=0 if model == "go1" else 2,
+    log = synth.generate(synth.SynthConfig(T=T, seed=0 if model in GO1_LOG else 2,
                                            num_legs=p.num_legs))
     g = torch.Generator(device=device).manual_seed(seed)
     data = estimator.tickdata_from_log(log, dtype=dtype, device=device)

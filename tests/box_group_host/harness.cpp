@@ -1,4 +1,5 @@
-// The group solves on the host, each instance's 16 lanes as threads, against
+// The group solves on the host, each instance's G lanes as threads (16, or a
+// warp's 32 from s=16: group_size), against
 // their one-thread versions, on systems that the tests write from the plain
 // path (tests/test_torch_box_group.py, tests/test_torch_solve_group.py):
 //  - the box-ADMM: admm_box_solve_group (csrc/admm_group.cuh) as the
@@ -16,6 +17,8 @@
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -pthread -I<csrc> harness.cpp -o harness
 //   ./harness case.bin ...   (exit 0: every case bit for bit)
+// With -DDEM_HARNESS_S=<s> only that state size is built (a quicker compile
+// for a test of one size).
 #include "prelude.h"
 #include "tridiag.cuh"
 #include <cstdio>
@@ -94,10 +97,11 @@ static int run(const Case& c, const char* tag) {
   // the group, one instance at a time
   auto z2 = cv<T>(c.z0), y2 = cv<T>(c.y0);
   std::vector<T> x2(N * S * B);
-  std::barrier<> bar(BOX_G); g_bar = &bar;
+  constexpr int G = group_size<S>();
+  std::barrier<> bar(G); g_bar = &bar;
   for (int b = 0; b < B; ++b) {
     std::vector<std::thread> th;
-    for (int l = 0; l < BOX_G; ++l)
+    for (int l = 0; l < G; ++l)
       th.emplace_back([&, l] {
         threadIdx.x = l;
         if (c.k4) {   // K4's kernel body
@@ -139,9 +143,10 @@ static int run(const Case& c, const char* tag) {
   for (auto v : x1) xmax = std::fmax(xmax, std::fabs((double)v));
   std::string counts;
   for (int b = 0; b < B; ++b) counts += (b ? "," : "") + std::to_string(it1[b]);
-  printf("%s %s %s s=%d USH=%d: x %d z %d y %d iters %d differ; iters %d..%d [%s], max|x|=%g\n",
+  printf("%s %s %s s=%d USH=%d: x %d z %d y %d iters %d differ; iters %d..%d [%s], "
+         "max|x|=%g; G=%d\n",
          tag, c.k4 ? "k4" : "tick", sizeof(T) == 8 ? "f64" : "f32", S, (int)USH, nx, nz, ny,
-         ni, imin, imax, counts.c_str(), xmax);
+         ni, imin, imax, counts.c_str(), xmax, group_size<S>());
   return bad + ni;
 }
 
@@ -163,10 +168,11 @@ static int run_tridiag(const Case& c, const char* tag) {
   const int axes[] = {4, 4, 3, 2};
   for (int a = 0, k = 0; a < 4; ++a)
     for (int i = 0; i < axes[a]; ++i) dst[a][i] = c.strides[k++];
-  std::barrier<> bar(BOX_G); g_bar = &bar;
+  constexpr int G = group_size<S>();
+  std::barrier<> bar(G); g_bar = &bar;
   for (int b = 0; b < B; ++b) {
     std::vector<std::thread> th;
-    for (int l = 0; l < BOX_G; ++l)
+    for (int l = 0; l < G; ++l)
       th.emplace_back([&, l] {
         threadIdx.x = l;
         if (c.standard)
@@ -192,8 +198,9 @@ static int run_tridiag(const Case& c, const char* tag) {
       }
   double xmax = 0;
   for (auto v : x1) xmax = std::fmax(xmax, std::fabs((double)v));
-  printf("%s k5 %s %s s=%d: x %d differ; max|x|=%g\n", tag,
-         c.standard ? "standard" : "lanes", sizeof(T) == 8 ? "f64" : "f32", S, n, xmax);
+  printf("%s k5 %s %s s=%d: x %d differ; max|x|=%g; G=%d\n", tag,
+         c.standard ? "standard" : "lanes", sizeof(T) == 8 ? "f64" : "f32", S, n, xmax,
+         group_size<S>());
   return n;
 }
 
@@ -207,9 +214,20 @@ int main(int argc, char** argv) {
   int fails = 0;
   for (int i = 1; i < argc; ++i) {
     Case c = read_case(argv[i]);
-    if (c.s == 9) fails += run_case<9>(c, argv[i]);
-    else if (c.s == 15) fails += run_case<15>(c, argv[i]);
-    else { fprintf(stderr, "%s: s=%d\n", argv[i], c.s); return 2; }
+    if (false) {
+#if !defined(DEM_HARNESS_S) || DEM_HARNESS_S == 9
+    } else if (c.s == 9) { fails += run_case<9>(c, argv[i]);
+#endif
+#if !defined(DEM_HARNESS_S) || DEM_HARNESS_S == 15
+    } else if (c.s == 15) { fails += run_case<15>(c, argv[i]);
+#endif
+#if !defined(DEM_HARNESS_S) || DEM_HARNESS_S == 21
+    } else if (c.s == 21) { fails += run_case<21>(c, argv[i]);
+#endif
+    } else {
+      fprintf(stderr, "%s: s=%d\n", argv[i], c.s);
+      return 2;
+    }
   }
   printf(fails ? "FAIL\n" : "ALL BIT-IDENTICAL\n");
   return fails != 0;

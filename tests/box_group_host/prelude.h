@@ -1,7 +1,8 @@
 // Host emulation of the few CUDA constructs that csrc/admm.cuh,
-// csrc/admm_group.cuh and csrc/ekf.cuh use: one instance's group of 16 lanes
-// runs as 16 std::threads, __syncwarp is a std::barrier of 16, and
-// __shfl_xor_sync goes through a slot per lane between two barriers. The EKF
+// csrc/admm_group.cuh and csrc/ekf.cuh use: one instance's group of G lanes
+// (group_size: 16, or 32 from s=16) runs as G std::threads, __syncwarp is a
+// std::barrier of G, and __shfl_xor_sync goes through a slot per lane of its
+// width between two barriers. The EKF
 // harness runs a whole block as threads: its barrier spans the block, for
 // __syncwarp and __syncthreads alike, and __shfl_sync goes through a slot per
 // thread of the block behind one barrier.
@@ -22,10 +23,10 @@ inline thread_local Dim3 threadIdx;
 inline std::barrier<>* g_bar = nullptr;
 inline void __syncwarp(unsigned) { g_bar->arrive_and_wait(); }
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
-inline double g_slots[16];
+inline double g_slots[32];
 template <typename T>
-T __shfl_xor_sync(unsigned, T v, int o, int) {
-  const int l = threadIdx.x % 16;
+T __shfl_xor_sync(unsigned, T v, int o, int width) {
+  const int l = threadIdx.x % width;
   g_slots[l] = (double)v;
   g_bar->arrive_and_wait();
   T r = (T)g_slots[l ^ o];

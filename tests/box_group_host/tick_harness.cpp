@@ -1,8 +1,9 @@
 // The unconstrained MHE tick on the host: mhe_body (csrc/mhe_body.cuh) on a
-// group of BOX_G lanes per instance (GRP; each instance's 16 lanes as
-// std::threads, prelude.h's barrier for __syncwarp) against the one-thread
-// body, at the shape the case names — Go1 (9, 12, 4, 0), PogoX (9, 3, 1, 0)
-// or Cassie (15, 6, 2, 1: foot positions as states) — with the Gauss-Jordan
+// group of group_size<S>() lanes per instance (GRP; each instance's 16 lanes,
+// or 32 from s=16, as std::threads, prelude.h's barrier for __syncwarp)
+// against the one-thread body, at the shape the case names — Go1 (9, 12, 4,
+// 0), PogoX (9, 3, 1, 0), Cassie (15, 6, 2, 1: foot positions as states) or
+// Go1 with its foot positions as states (21, 12, 4, 1) — with the Gauss-Jordan
 // or the Cholesky tail (CHOL), on window states and tick inputs that
 // tests/test_torch_tick_group.py writes from the plain path. Each case runs in
 // float64 and float32; x, the 18 window-state tensors and the Bezier schedule
@@ -14,6 +15,8 @@
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -pthread -I<csrc> tick_harness.cpp -o tick_harness
 //   ./tick_harness case.bin out.bin ...   (exit 0: every case bit for bit)
+// With -DDEM_HARNESS_S=<s> only the shapes of that state size are built (a
+// quicker compile for a test of one size).
 //
 // out.bin: the group's float64 x (Tn,s,B), then its 18 state tensors and
 // Bezier times, for the test to hold against the plain version.
@@ -115,11 +118,12 @@ static Out<T> run(const Case& cs) {
     for (int b = 0; b < B; ++b)
       mhe_body<T, S, M, L, LOT, false, PI, CHOL>(p, c, nullptr, N, B, Tn, cs.t0, b);
   } else {
-    std::barrier<> bar(BOX_G);
+    constexpr int G = group_size<S>();
+    std::barrier<> bar(G);
     g_bar = &bar;
     for (int b = 0; b < B; ++b) {   // one instance at a time: its shared memory is slot 0
       std::vector<std::thread> th;
-      for (int l = 0; l < BOX_G; ++l)
+      for (int l = 0; l < G; ++l)
         th.emplace_back([&, l] {
           threadIdx.x = l;
           mhe_body<T, S, M, L, LOT, false, PI, CHOL, ABL, true>(p, c, nullptr, N, B, Tn, cs.t0,
@@ -162,9 +166,9 @@ static int check(const Case& cs, const char* tag, FILE* out) {
   for (size_t k = 0; k < one.count.size(); ++k) nb += one.count[k] != grp.count[k];
   double xmax = 0;
   for (auto v : one.x) xmax = std::fmax(xmax, std::fabs((double)v));
-  printf("%s s=%d m=%d %s %s %s: x %d state %d schedule %d differ; max|x|=%g\n", tag, S, M,
-         sizeof(T) == 8 ? "f64" : "f32", PI ? "per-lane" : "shared", CHOL ? "chol" : "gj", nx,
-         ns, nb, xmax);
+  printf("%s s=%d m=%d G=%d %s %s %s: x %d state %d schedule %d differ; max|x|=%g\n", tag, S,
+         M, group_size<S>(), sizeof(T) == 8 ? "f64" : "f32", PI ? "per-lane" : "shared",
+         CHOL ? "chol" : "gj", nx, ns, nb, xmax);
   if (out) write_out(out, grp);
   return nx + ns + nb;
 }
@@ -240,10 +244,21 @@ int main(int argc, char** argv) {
     auto is = [&](int s, int m, int l, int lot) {
       return shape[0] == s && shape[1] == m && shape[2] == l && shape[3] == lot;
     };
-    if (is(9, 12, 4, 0)) fails += run_case<9, 12, 4, 0>(argv[a], f, cs, out);
-    else if (is(9, 3, 1, 0)) fails += run_case<9, 3, 1, 0>(argv[a], f, cs, out);
-    else if (is(15, 6, 2, 1)) fails += run_case<15, 6, 2, 1>(argv[a], f, cs, out);
-    else { fprintf(stderr, "%s: no instantiation for this shape\n", argv[a]); return 2; }
+    if (false) {
+#if !defined(DEM_HARNESS_S) || DEM_HARNESS_S == 9
+    } else if (is(9, 12, 4, 0)) { fails += run_case<9, 12, 4, 0>(argv[a], f, cs, out);
+    } else if (is(9, 3, 1, 0)) { fails += run_case<9, 3, 1, 0>(argv[a], f, cs, out);
+#endif
+#if !defined(DEM_HARNESS_S) || DEM_HARNESS_S == 15
+    } else if (is(15, 6, 2, 1)) { fails += run_case<15, 6, 2, 1>(argv[a], f, cs, out);
+#endif
+#if !defined(DEM_HARNESS_S) || DEM_HARNESS_S == 21
+    } else if (is(21, 12, 4, 1)) { fails += run_case<21, 12, 4, 1>(argv[a], f, cs, out);
+#endif
+    } else {
+      fprintf(stderr, "%s: no instantiation for this shape\n", argv[a]);
+      return 2;
+    }
     fclose(out);
   }
   printf(fails ? "FAIL\n" : "ALL BIT-IDENTICAL\n");

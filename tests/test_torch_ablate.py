@@ -204,7 +204,8 @@ def test_ablation_library():
     ``_abl_box_<type>`` and ``_abl_pi_box_<type>`` (the constrained tick,
     every stage but "solve"), <type> f32 or f64, each unit with its variant's
     defines and the stage's index in ``DEM_MHE_ABL`` (the order of
-    ``ABLATE_STAGES``); 144 units in all. The Cholesky tick's tail-free
+    ``ABLATE_STAGES``); 144 units in all, at the shapes of
+    ``_build.ABL_SHAPES``. The Cholesky tick's tail-free
     stages take the Gauss-Jordan units of their clock. Every unit of the other
     libraries keeps its defines."""
     assert mrk.ABLATE_STAGES == STAGES and _build.TAIL_FREE_STAGES == ("assembly", "solve")
@@ -213,7 +214,9 @@ def test_ablation_library():
             "box": ((0, 1, 0), STAGES[:4]), "pi_box": ((1, 1, 0), STAGES[:4])}
     assert set(want) == set(mrk.ABLATE_VARIANTS)
     n = 0
-    for tag, shape in _build.MHE_SHAPES.items():
+    assert _build.ABL_SHAPES == ("go1", "cassie", "pogox")   # none at s=21 (go1feet)
+    for tag in _build.ABL_SHAPES:
+        shape = _build.MHE_SHAPES[tag]
         for variant, ((pi, con, chol), stages) in want.items():
             group = "abl" + ("_" + variant if variant else "")
             sfx = "_" + variant if variant else ""

@@ -49,9 +49,9 @@ def test_box_geometry(s, dtype):
     assert g.u_shared == (s == 9)
     per = _layout_bytes(s, 20, item, g.u_shared)
     # BLOCK_BOX threads, or as many instances as fit a block
-    ipb = min(mrk.BLOCK_BOX // mrk.BOX_G, mrk.SHARED_PER_BLOCK // per)
-    assert mrk.BOX_G >= s and g.instances_per_block == ipb
-    assert g.threads_per_block == ipb * mrk.BOX_G
+    ipb = min(mrk.BLOCK_BOX // mrk.group_size(s), mrk.SHARED_PER_BLOCK // per)
+    assert mrk.group_size(s) == 16 > s and g.instances_per_block == ipb
+    assert g.threads_per_block == ipb * mrk.group_size(s)
     assert g.shared_bytes == ipb * per <= mrk.SHARED_PER_BLOCK
     assert per % 128 == 64
     if dtype == torch.float32:
@@ -70,7 +70,7 @@ def test_box_geometry_refuses_what_a_block_cannot_hold():
     with pytest.raises(ValueError, match="shared memory"):
         mrk.box_geometry(15, torch.float32, 160)
     with pytest.raises(ValueError, match="states"):
-        mrk.box_geometry(17, torch.float32)
+        mrk.box_geometry(32, torch.float32)
 
 
 def test_constrained_wrapper_takes_the_plain_version_on_the_cpu():
@@ -135,9 +135,10 @@ def _write_case(path, D, U, r, ub, z0, y0, static, zbase):
             f.write(a.contiguous().double().numpy().tobytes())
 
 
-def _cases(model, tmp, B=3, T=26):
+def _cases(model, tmp, B=3, T=26, N=None):
     """Window systems of the bench's constrained fleet at ``model``'s shape
-    (float64, the plain path): after 6 ticks and with the window full, each
+    (float64, the plain path; window N, default the bench's 20, which T - 1
+    ticks fill): after 6 ticks and with the window full, each
     under the production settings (fixed rho, 20 iterations, polish), with
     adaptive rho, a loose tolerance (some windows stop after 10 iterations)
     and no polish, with no convergence check, and from a cold start; a
@@ -145,6 +146,7 @@ def _cases(model, tmp, B=3, T=26):
     from decentralized_ekf_mhe_tpu_torch.tools import roofline
 
     p, data_b, _, vo = roofline.bench_fleet(B, T, device="cpu", dtype=F64, model=model)
+    p.N = N or p.N
     s = p.dim_state
     p.osqp.abs_tol = p.osqp.relative_tol = 1e-6
     p.osqp.rho, p.osqp.adapt_rho, p.osqp.polish = 5000.0, False, True

@@ -347,11 +347,11 @@ def test_library_map_has_every_variant_group_at_every_shape():
     with pytest.raises(NotImplementedError):
         mrk.kernel_library(12, 6, 1, 1, False)
     assert _build.mhe_library(12, 6, 1, 1) is None
-    # each s=15 unit keeps its long loops rolled; no s=9 unit does
+    # each s=15 and s=21 unit keeps its long loops rolled; no s=9 unit does
     for lib, units in _build.UNITS.items():
         for _, defs in units:
-            s15 = any(d in ("-DDEM_MHE_S=15", "-DDEM_ADMM_S=15", "-DDEM_TRIDIAG_S=15")
-                      for d in defs)
+            s15 = any(d in (f"-DDEM_MHE_S={s}", f"-DDEM_ADMM_S={s}", f"-DDEM_TRIDIAG_S={s}")
+                      for d in defs for s in (15, 21))
             assert ("-DDEM_MAX_UNROLL=256" in defs) == s15, (lib, defs)
 
 

@@ -108,7 +108,7 @@ def test_solve_geometry_refuses_what_a_block_cannot_hold():
             with pytest.raises(ValueError):
                 fn(9, torch.float32, block)
         with pytest.raises(ValueError, match="states"):
-            fn(17, torch.float32)
+            fn(32, torch.float32)
 
 
 # ------------------------------------------------- the wrappers on the CPU
@@ -183,15 +183,18 @@ def _run(exe, paths):
 _windows_cache = {}
 
 
-def _windows(model, B=5, T=26):
+def _windows(model, B=5, T=26, N=None):
     """(consts, early state, late state) of the bench's constrained fleet at
-    ``model``'s shape, float64, the plain path: after 6 ticks (the window's
-    leading slots dead) and with the window full; per-lane bounds on the
-    velocity states."""
-    if model not in _windows_cache:
+    ``model``'s shape, float64, the plain path (window N, default the
+    bench's 20, which T - 1 ticks fill): after 6 ticks (the window's leading
+    slots dead) and with the window full; per-lane bounds on the velocity
+    states."""
+    key = (model, B, T, N)
+    if key not in _windows_cache:
         from decentralized_ekf_mhe_tpu_torch.tools import roofline
 
         p, data_b, _, vo = roofline.bench_fleet(B, T, device="cpu", dtype=F64, model=model)
+        p.N = N or p.N
         s = p.dim_state
         p.osqp.abs_tol = p.osqp.relative_tol = 1e-6
         p.osqp.rho, p.osqp.adapt_rho, p.osqp.polish = 5000.0, False, True
@@ -205,8 +208,8 @@ def _windows(model, B=5, T=26):
             _, ksT = mrk.replay_ticks(c, ks, estimator.TickData(*map(cut, d)),
                                       estimator.VOData(*map(cut, v)), cut(i), device="cpu")
             states.append(mrk.mhe_state_from_kernel(ksT, c))
-        _windows_cache[model] = (c, ub, *states)
-    return _windows_cache[model]
+        _windows_cache[key] = (c, ub, *states)
+    return _windows_cache[key]
 
 
 def _write_admm(path, D, U, r, lb, ub, z0, y0, static):
@@ -250,14 +253,14 @@ def _write_tridiag(path, D, U, r, valid=None, storage="bn"):
                 f.write(a.numpy().tobytes())
 
 
-def _k4_cases(model, tmp):
+def _k4_cases(model, tmp, **window):
     """K4's cases at ``model``'s shape: the full late window with the ring's
     warm starts under the production settings (fixed rho, polish) and per-lane
     bounds; with adaptive rho and a loose tolerance (instances stop at
     different epochs); a budget that ends inside an epoch without the check;
     the early window (dead leading slots, masked as the wrapper masks it)
-    from a cold start; and a ragged B of 3."""
-    c, ub, st_e, st_l = _windows(model)
+    from a cold start; and a ragged B of 3. ``window``: ``_windows``' sizes."""
+    c, ub, st_e, st_l = _windows(model, **window)
     s = c.dim_state
     fixed = ADMMCoreStatic.from_settings(c.admm, c.N, s)
     adapt = ADMMCoreStatic.from_settings(
@@ -301,13 +304,14 @@ def test_k4_group_entry_equals_one_thread_solve_on_the_host(model, harness, tmp_
     assert [v for k, v in counts.items() if k.endswith("_no_check_7.bin")][0] == ("7", "7")
 
 
-def _k5_cases(model, tmp):
+def _k5_cases(model, tmp, **window):
     """K5's cases at ``model``'s shape: the lanes layout on the masked early
     (dead leading slots) and late windows; the standard layout, unmasked,
     with a per-lane warm-up mask (lane b's first b slots dead) on the late
     window and the early window's own mask; a ragged B of 3; the late window
-    read through the strides of a lanes-layout storage."""
-    c, _, st_e, st_l = _windows(model)
+    read through the strides of a lanes-layout storage. ``window``:
+    ``_windows``' sizes."""
+    c, _, st_e, st_l = _windows(model, **window)
     paths = []
     for tag, st in (("early", st_e), ("late", st_l)):
         D, U, r = mhe_lanes._masked_system(c, st)

@@ -1,6 +1,7 @@
 """The unconstrained tick on a group of threads per instance.
 
-The unconstrained tick runs ``BOX_G`` = 16 threads per instance with either
+The unconstrained tick runs ``group_size(s)`` = 16 threads per instance (at
+s < 16; ``tests/test_torch_go1feet.py`` covers the warp of s=21) with either
 tail (K2, K2b; K2d, K2d-PI) at every shape (Go1, PogoX, Cassie):
 ``tick_geometry`` gives the
 launch (threads and instances per block, dynamic shared bytes), and the
@@ -68,14 +69,15 @@ def test_tick_geometry(dtype):
     item = torch.empty((), dtype=dtype).element_size()
     per = _layout_bytes(15, 6, item)
     assert per % 128 == 64 and per == {4: 5568, 8: 11072}[item]
-    assert 15 * 16 // 2 + 15 <= max(15 * 15, 6 * 6) and 15 < mrk.BOX_G   # a spare lane
+    # a spare lane
+    assert 15 * 16 // 2 + 15 <= max(15 * 15, 6 * 6) and 15 < mrk.group_size(15) == 16
     with pytest.raises(ValueError, match="mk_solve"):
         mrk.tick_occupancy(None, dtype, mk_solve="cholesky")
     with pytest.raises(ValueError, match="mk_solve"):
         mrk.tick_group(9, "cholesky")
     assert mrk.tick_group(15) and mrk.tick_group(9)
     assert mrk.tick_group(15, "chol") and mrk.tick_group(9, "chol")
-    assert 9 * 10 // 2 + 9 <= 9 * 9 and 9 < mrk.BOX_G
+    assert 9 * 10 // 2 + 9 <= 9 * 9 and 9 < mrk.group_size(9) == 16
     for m, want in ((12, {4: 3776, 8: 7616}), (3, {4: 2240, 8: 4288})):   # Go1, PogoX
         g = mrk.tick_geometry(9, m, dtype)
         assert _layout_bytes(9, m, item) == want[item] and want[item] % 128 == 64
@@ -86,7 +88,7 @@ def test_tick_geometry(dtype):
             mrk.tick_geometry(9, m, dtype, 40)
     g = mrk.tick_geometry(15, 6, dtype)
     assert g.threads_per_block == mrk.BLOCK_TICK
-    assert g.instances_per_block == mrk.BLOCK_TICK // mrk.BOX_G
+    assert g.instances_per_block == mrk.BLOCK_TICK // mrk.group_size(15)
     assert g.shared_bytes == g.instances_per_block * per
     assert 132 * g.instances_per_sm >= 1024
     for block in (16, 32, 64, 128, 256):
@@ -102,14 +104,16 @@ def test_tick_geometry(dtype):
             mrk.tick_geometry(9, m, dtype, 40, mk_solve="chol")
 
 
-def _fleet(per_lane, B=B_HOST, T=T_HOST, model="cassie_bench"):
+def _fleet(per_lane, B=B_HOST, T=T_HOST, model="cassie_bench", N=None):
     """Consts and replay_ticks' inputs of the bench's fleet of ``model``
-    ("go1", "pogox_bench", "cassie_bench"; float64, the plain path's tick-0
-    state): on its shared camera clock, or with lane b on a clock of a frame
-    every 3 + b % 3 ticks, 1 + b % 2 ticks late, and the last lane VO-free."""
+    ("go1", "pogox_bench", "cassie_bench", "go1feet"; float64, the plain
+    path's tick-0 state; window N, default the bench's 20): on its shared
+    camera clock, or with lane b on a clock of a frame every 3 + b % 3 ticks,
+    1 + b % 2 ticks late, and the last lane VO-free."""
     from decentralized_ekf_mhe_tpu_torch.tools import roofline
 
     p, data_b, _, vo = roofline.bench_fleet(B, T, device="cpu", dtype=F64, model=model)
+    p.N = N or p.N
     c = mhe.make_consts(p, F64, device="cpu")
     if per_lane:
         vos = [estimator.vodata_from_log(synth.generate(synth.SynthConfig(
